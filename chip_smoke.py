@@ -8,8 +8,8 @@ non-zero without printing a result:
 
 1. The card: `torch.cuda.get_device_name()` and nvidia-smi's name and power
    limit.
-2. Build the CUDA placement kernel from `nomad_tpu_torch/kernels/csrc`
-   (nvcc, into `build/`), and print the build seconds.
+2. Build the CUDA kernels from `nomad_tpu_torch/kernels/csrc` (one nvcc
+   per source, all at once, into `build/`), and print the build seconds.
 3. Kernel against plain, at full width: the 10,000-node / 100,000-alloc
    synthetic cluster (N = 16384 rows), one program per case (binpack,
    spread algorithm, constraints, all-infeasible, affinity, spread targets,
@@ -25,7 +25,26 @@ non-zero without printing a result:
    distinct_property, GPU asks). All 80 allocs must be placed, the kernel's
    launch count must equal the number of selects, and every select's
    kernel output must equal the plain version on the same CUDA inputs.
-5. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
+5. The chain, wave and row-scatter kernels against their plain versions at
+   full width (N = 16384): a chain of B = 8 programs of the phase-3 mix
+   through the device program table, explain on and off; a wave of L = 3
+   datacenter-pinned lanes of P = 4 programs, and a built stale-footprint
+   wave whose lanes overlap (collisions > 0, equal in both); the table's
+   insert into a fresh table against `index_copy_`. Times each kernel, its
+   plain version and (for the insert) `index_copy_`, with each bound.
+6. The server path: a port `Server` (eval_batch 16) on the card over a
+   second copy of the cluster, ingested as `bench.py` does. After a
+   warm-up, three bursts of 64 service jobs of count 10 (half pinned to
+   one datacenter, so drains yield waves) are registered, one burst at a
+   time. Every eval must complete with all 640 allocs of its burst placed,
+   distinct_hosts respected and no partial plan; the chain, wave and
+   insert kernels must have launched; every chain/wave launch is held
+   against its plain version on the same CUDA tensors afterwards, and its
+   inputs must be unchanged (the view re-uploads whole, so nothing a
+   dispatch read is written again). Prints per burst evals/sec, eval
+   latency (register → complete), dispatch and wave counts, the per-eval
+   phase means of the eval tracer and the garbage collections.
+7. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
 """
 from __future__ import annotations
 
@@ -39,6 +58,8 @@ import time
 
 SEED = 20261017
 N_NODES, N_ALLOCS = 10_000, 100_000
+#: bursts of 64 evals through the server (phase 6), for the spread
+BURSTS = 3
 TOL = 1e-6
 #: published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and fp32
 #: operations/s outside the tensor cores
@@ -99,18 +120,39 @@ def _bound(cluster, p, m: int):
     """Least time the card could take for one program, and what bounds
     it: each input the function needs read once, each output written
     once, over HBM bandwidth; against the fp32 operations it does."""
+    return _bound_of([_bound_parts(cluster, p, m)], cluster)
+
+
+def _bound_of(parts, cluster, extra_out: int = 0):
+    """Combine per-program (view bytes, program bytes, output bytes,
+    operations): the view is read once however many programs read it;
+    `extra_out` adds outputs written once per dispatch (a carry)."""
+    view = max(v for v, _p, _o, _ops in parts)
+    bytes_ = view + sum(p + o for _v, p, o, _ops in parts) + extra_out
+    ops = sum(x[3] for x in parts)
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _bound_parts(cluster, p, m: int, own_carry: bool = True):
+    """One program's share: (view bytes, program bytes, output bytes,
+    operations). `own_carry` counts new_used and final_scores0 as its
+    outputs (K1); a chain program writes only its per-step outputs."""
     n, r = cluster.capacity.shape
     c, a = p.key_idx.shape[0], p.aff_key_idx.shape[0]
     s, q = p.spread_key_idx.shape[0], p.dp_key_idx.shape[0]
     words = len({int(x) >> 5 for x in p.res_ports.tolist() if x >= 0})
     attr_b = cluster.attrs.element_size()
-    bytes_in = (n * r * 4 * 2            # capacity, used
-                + n * (1 + 4)            # node_ok, dyn_free
-                + n * (c + a + s + q) * attr_b   # referenced attr columns
-                + n * words * 4          # referenced port words
-                + (n if p.extra_mask.shape[0] == n else 0)
-                + sum(t.numel() * t.element_size() for t in p))
-    bytes_out = n * r * 4 + n * 4 + m * 12   # new_used, final0, per step
+    view_in = (n * r * 4 * 2             # capacity, used
+               + n * (1 + 4)             # node_ok, dyn_free
+               + n * (c + a + s + q) * attr_b   # referenced attr columns
+               + n * words * 4)          # referenced port words
+    prog_in = ((n if p.extra_mask.shape[0] == n else 0)
+               + sum(t.numel() * t.element_size() for t in p))
+    bytes_out = m * 12 + 4                   # per step, nodes_feasible
+    if own_carry:
+        bytes_out += n * r * 4 + n * 4       # new_used, final0
     ops_row_step = 2 * r + 40 + 12 * s + 4 * q + p.penalty_idx.shape[1]
     ops = (n * m * ops_row_step
            + n * (c + a + s + q + p.delta_idx.shape[0] * r
@@ -118,9 +160,452 @@ def _bound(cluster, p, m: int):
                   + p.cand_idx.shape[0]
                   + p.res_ports.shape[0] * (p.pclr_idx.shape[0]
                                             + p.pset_idx.shape[0])))
-    t_bytes = (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return view_in, prog_in, bytes_out, ops
+
+
+def _compare_flat(want, got, what: str, explain: bool) -> float:
+    """Flat chain/wave outputs (sel, score, feasible, fit[, explain
+    leaves][, collisions]) and carries: integer leaves equal, float
+    leaves within TOL; returns the max abs error."""
+    import torch
+
+    from nomad_tpu_torch.kernels.placement import PlacementExplain
+
+    floats = {1}
+    if explain:
+        names = PlacementExplain._fields
+        floats |= {4 + names.index("topk_score"),
+                   4 + names.index("topk_parts")}
+    (w_out, w_carry), (g_out, g_carry) = want, got
+    if len(w_out) != len(g_out):
+        raise AssertionError(f"{what}: {len(w_out)} vs {len(g_out)} outputs")
+    err = 0.0
+    for i, (a, b) in enumerate(zip(w_out, g_out)):
+        a, b = a.cpu(), b.cpu()
+        if a.shape != b.shape:
+            raise AssertionError(f"{what}: output {i} shape {a.shape} vs "
+                                 f"{b.shape}")
+        if i in floats:
+            d = float((a.float() - b.float()).abs().max()) if a.numel() else 0.
+            if not d <= TOL:
+                raise AssertionError(f"{what}: output {i} differs by {d}")
+            err = max(err, d)
+        elif not torch.equal(a.to(b.dtype), b):
+            raise AssertionError(f"{what}: output {i} differs")
+    for name, a, b in zip(("used", "dyn_free"), w_carry, g_carry):
+        d = float((a.float() - b.float()).abs().max().cpu())
+        if not d <= TOL:
+            raise AssertionError(f"{what}: carry {name} differs by {d}")
+        err = max(err, d)
+    return err
+
+
+def _table_transport(torch, progs, dev):
+    """Program-table transport of `progs` on `dev` (a fresh table: its
+    commit inserts every row through the row-scatter kernel)."""
+    from nomad_tpu_torch.convert import tensor_from_numpy
+    from nomad_tpu_torch.lib.transfer import default_ledger
+    from nomad_tpu_torch.server.program_table import DeviceProgramTable
+
+    table = DeviceProgramTable(device=dev)
+    prep = table.prepare(progs)
+    if prep is None:
+        raise AssertionError("programs exceed the table's ceilings")
+    ti, tf, tu, _nb, _count = table.commit(prep, default_ledger())
+    dyn = tuple(tensor_from_numpy(d, torch.device(dev))
+                for d in (prep.dyn_i, prep.dyn_f, prep.dyn_u))
+    return prep, (ti, tf, tu), dyn
+
+
+def _chain_bound(kp, arrays, prep, tables, dyn, n_lanes=1):
+    """Bound of one chain or wave dispatch: the view read once, every
+    program's static and dynamic fields, per-step outputs, and the
+    final carry written once."""
+    n, r = arrays.capacity.shape
+    batch = kp._assemble_table_batch(*tables, kp.host_rows(prep.rows)
+                                     .reshape(-1), *(d.reshape(
+                                         -1, d.shape[-1]) for d in dyn),
+                                     prep.sspec, prep.dspec)
+    parts = [_bound_parts(arrays, kp._program(batch, b), prep.m,
+                          own_carry=False)
+             for b in range(batch.n_place.shape[0])]
+    return _bound_of(parts, arrays, extra_out=n * r * 4 + n * 4
+                     + (4 if n_lanes > 1 else 0))
+
+
+def _phase5_kernels(torch, kp, kr, cases, nodes, rng):
+    """K4, K5 and K8 against their plain versions at full width, timed."""
+    from nomad_tpu_torch.synth import synth_service_job
+
+    out = {"err": {"chain": 0.0, "wave": 0.0, "insert": 0.0}}
+    mix = ("binpack", "constraint", "affinity", "spread_targets",
+           "distinct_hosts", "distinct_property", "ports", "delta_penalty")
+    progs = []
+    for name in mix:
+        stack, j, n_place, plan, _rows = cases[name]
+        progs.append(stack.compile_tg(j, j.task_groups[0], n_place, plan)[0])
+    arrays = cases["binpack"][0].device_arrays()
+
+    # K8: a fresh table's insert, then the same scatter against index_copy_
+    before = kr.launch_count()
+    prep, tables, dyn = _table_transport(torch, progs, "cuda")
+    if kr.launch_count() != before + 3:
+        raise AssertionError("the table insert did not launch the kernel")
+    idx = torch.as_tensor(kp.host_rows(prep.rows)[:len(mix)],
+                          dtype=torch.int32, device="cuda")
+    srcs = [t[idx.long()].clone() for t in tables]
+    for t, src in zip(tables, srcs):
+        want = kr.row_scatter_plain(torch.zeros_like(t), idx, src)
+        got = kr.row_scatter_cuda(torch.zeros_like(t), idx, src)
+        torch.cuda.synchronize()
+        if not torch.equal(want, got) or not torch.equal(got[idx.long()],
+                                                         src):
+            raise AssertionError(f"row scatter differs ({t.dtype})")
+    dsts = [torch.zeros_like(t) for t in tables]
+    idx64 = idx.long()
+
+    def insert_kernel():
+        for d, src in zip(dsts, srcs):
+            kr.row_scatter_cuda(d, idx, src)
+
+    def insert_plain():
+        for d, src in zip(dsts, srcs):
+            kr.row_scatter_plain(d, idx, src)
+
+    def insert_library():
+        for d, src in zip(dsts, srcs):
+            d.index_copy_(0, idx64, src)
+
+    ins_bytes = sum(2 * s_.numel() * s_.element_size() for s_ in srcs) \
+        + 3 * idx.numel() * 4
+    out["insert"] = dict(
+        ms=_time_ms(insert_kernel, 200), plain_ms=_time_ms(insert_plain, 200),
+        bound_ms=ins_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=_time_ms(insert_library, 200))
+    print(f"insert (8 rows into the i32/f32/u8 tables, row bytes "
+          f"{[t.shape[1] * t.element_size() for t in tables]}): kernel "
+          f"{out['insert']['ms']:.4f} ms, plain {out['insert']['plain_ms']:.4f}"
+          f" ms, index_copy_ {out['insert']['library_ms']:.4f} ms, bound "
+          f"{out['insert']['bound_ms']:.6f} ms (bytes)")
+
+    # K4: the chain of the 8 programs, explain off and on
+    args = (arrays, *tables, prep.rows, *dyn, prep.sspec, prep.dspec, prep.m)
+    for explain in (False, True):
+        got = kp.place_table_chain_cuda(*args, explain=explain)
+        want = kp.place_table_chain_plain(*args, explain=explain)
+        torch.cuda.synchronize()
+        out["err"]["chain"] = max(out["err"]["chain"], _compare_flat(
+            want, got, f"chain/explain={explain}", explain))
+    placed = int((got[0][0][:len(mix)] >= 0).sum())
+    ms_off = _time_ms(lambda: kp.place_table_chain_cuda(*args), 20)
+    ms_on = _time_ms(lambda: kp.place_table_chain_cuda(*args, explain=True),
+                     20)
+    plain_on = _time_ms(
+        lambda: kp.place_table_chain_plain(*args, explain=True), 2)
+    bound_ms, bound_by = _chain_bound(kp, arrays, prep, tables, dyn)
+    out["chain"] = dict(ms=ms_on, plain_ms=plain_on, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=None)
+    print(f"chain==plain B={len(mix)} M={prep.m} placed(step 0)={placed}: "
+          f"kernel {ms_on:.4f} ms (explain off {ms_off:.4f} ms), plain "
+          f"{plain_on:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+
+    # K5: three datacenter-pinned lanes of four programs
+    stack = cases["binpack"][0]
+    lanes, per_lane = 3, 4
+    pinned = []
+    for lane in range(lanes):
+        for k in range(per_lane):
+            j = synth_service_job(
+                rng, count=10, datacenter=f"dc{lane + 1}",
+                with_affinity=k % 2 == 0, with_spread=k == 1,
+                distinct_hosts=k == 3)
+            pinned.append(stack.compile_tg(j, j.task_groups[0], 10, None)[0])
+    prep, tables, dyn = _table_transport(torch, pinned, "cuda")
+    wargs = (arrays, *tables, prep.rows.reshape(lanes, per_lane),
+             *(d.reshape(lanes, per_lane, -1) for d in dyn), prep.sspec,
+             prep.dspec, prep.m)
+    for explain in (False, True):
+        got = kp.place_table_wave_cuda(*wargs, explain=explain)
+        want = kp.place_table_wave_plain(*wargs, explain=explain)
+        torch.cuda.synchronize()
+        out["err"]["wave"] = max(out["err"]["wave"], _compare_flat(
+            want, got, f"wave/explain={explain}", explain))
+        if int(got[0][-1]) != 0:
+            raise AssertionError("disjoint lanes reported collisions")
+    chain = kp.place_table_chain_cuda(arrays, *tables, prep.rows, *dyn,
+                                      prep.sspec, prep.dspec, prep.m, True)
+    for a, b in list(zip(chain[0], got[0][:-1])) + list(zip(chain[1],
+                                                             got[1])):
+        if not torch.equal(a, b):
+            raise AssertionError("disjoint wave differs from the chain")
+    w_ms = _time_ms(lambda: kp.place_table_wave_cuda(*wargs, explain=True),
+                    20)
+    w_plain = _time_ms(
+        lambda: kp.place_table_wave_plain(*wargs, explain=True), 2)
+    c_ms = _time_ms(lambda: kp.place_table_chain_cuda(
+        arrays, *tables, prep.rows, *dyn, prep.sspec, prep.dspec, prep.m,
+        True), 20)
+    bound_ms, bound_by = _chain_bound(kp, arrays, prep, tables, dyn, lanes)
+    out["wave"] = dict(ms=w_ms, plain_ms=w_plain, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=None)
+    print(f"wave==plain L={lanes} P={per_lane} M={prep.m}, disjoint lanes "
+          f"== chain of the same 12 programs: wave {w_ms:.4f} ms, chain "
+          f"{c_ms:.4f} ms, plain wave {w_plain:.4f} ms, bound "
+          f"{bound_ms:.6f} ms ({bound_by})")
+
+    # a stale footprint: two unpinned lanes that pick the same nodes
+    stale = []
+    for _ in range(2):
+        j = synth_service_job(rng, count=10)
+        stale.append(stack.compile_tg(j, j.task_groups[0], 10, None)[0])
+    stale = stale + stale   # lane 1 repeats lane 0: the same rows change
+    prep, tables, dyn = _table_transport(torch, stale, "cuda")
+    sargs = (arrays, *tables, prep.rows.reshape(2, 2),
+             *(d.reshape(2, 2, -1) for d in dyn), prep.sspec, prep.dspec,
+             prep.m)
+    got = kp.place_table_wave_cuda(*sargs, explain=True)
+    want = kp.place_table_wave_plain(*sargs, explain=True)
+    torch.cuda.synchronize()
+    out["err"]["wave"] = max(out["err"]["wave"], _compare_flat(
+        want, got, "stale wave", True))
+    coll = int(got[0][-1])
+    if coll <= 0 or coll != int(want[0][-1]):
+        raise AssertionError(f"stale wave collisions {coll} vs "
+                             f"{int(want[0][-1])}")
+    print(f"stale-footprint wave: {coll} collision rows, equal to plain")
+    out["max_err"] = max(out["err"].values())
+    return out
+
+
+def _mean(xs) -> float:
+    return sum(xs) / len(xs) if xs else 0.0
+
+
+def _snapshot(torch, args):
+    """Device copies of every tensor a launch read (async clones on the
+    launching stream), to show later that none was written again."""
+    snap = []
+    for a in args:
+        for t in (a if isinstance(a, tuple) else (a,)):
+            if isinstance(t, torch.Tensor):
+                snap.append((t, t.clone()))
+    return snap
+
+
+def _phase6_server(torch, kp, kr, rng, device=None):
+    """The batched server path on the card (`device` None) at the
+    BASELINE size."""
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.synth import (synth_alloc, synth_node,
+                                       synth_service_job)
+
+    out = {"err": {"chain": 0.0, "wave": 0.0}}
+    srng = random.Random(SEED + 1)
+    t0 = time.perf_counter()
+    s = Server(ServerConfig(num_schedulers=1, heartbeat_ttl=3600.0,
+                            eval_batch=16), device=device)
+    if device is None and s.device.type != "cuda":
+        raise AssertionError(f"Server default device is {s.device}")
+    try:
+        # started before the ingest: `start()` arms one TTL timer thread
+        # per node already in the state (heartbeat.py), 10,000 threads
+        # here; nodes upserted afterwards, as bench.py upserts them, arm
+        # none (their TTL of an hour would never fire in this run anyway)
+        s.start()
+        nodes = []
+        for i in range(N_NODES):
+            node = synth_node(srng, i)
+            nodes.append(node)
+            s.state.upsert_node(node)
+        filler = [synth_service_job(srng)
+                  for _ in range(max(N_ALLOCS // 200, 1))]
+        for j in filler:
+            s.state.upsert_job(j)
+        for i in range(N_ALLOCS):
+            s.state.upsert_alloc(synth_alloc(
+                srng, nodes[srng.randrange(N_NODES)],
+                filler[i % len(filler)]))
+        print(f"server: ingested {N_NODES} nodes / {N_ALLOCS} allocs in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        def feed(n):
+            # the bench.py e2e mix: half the jobs pinned to one
+            # datacenter. The pinned half registers first: a drain of
+            # pinned jobs partitions into disjoint conflict groups and
+            # dispatches a wave, while an unpinned job's footprint is
+            # every node and merges its whole drain into one chain.
+            order = sorted(range(n), key=lambda i: i % 2 == 0)
+            jobs = [synth_service_job(
+                srng, count=10, with_affinity=i % 2 == 0,
+                with_spread=i % 3 == 0, distinct_hosts=i % 5 == 0,
+                with_devices=i % 4 == 0,
+                datacenter=f"dc{1 + (i // 2) % 3}" if i % 2 == 1 else None)
+                for i in order]
+            return jobs, [i % 5 == 0 for i in order]
+
+        def run(jobs):
+            evs = [s.job_register(j) for j in jobs]
+            done = []
+            for ev in evs:
+                got = s.wait_for_eval(ev.id, statuses=(
+                    "complete", "failed", "blocked", "cancelled"),
+                    timeout=600.0)
+                if got is None or got.status != "complete":
+                    raise AssertionError(f"eval {ev.id}: {got}")
+                done.append(got)
+            return evs, done
+
+        t0 = time.perf_counter()
+        warm, _dh = feed(16)
+        run(warm)
+        print(f"server: warm-up of {len(warm)} evals in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        records = []
+        names = ("place_table_chain", "place_table_wave",
+                 "place_packed_chain", "place_task_group")
+        real = {name: getattr(kp, name) for name in names}
+
+        def recorder(name):
+            fn = real[name]
+
+            def rec(*args, **kw):
+                snap = _snapshot(torch, args)
+                res = fn(*args, **kw)
+                records.append((name, args, kw, snap, res))
+                return res
+            return rec
+
+        gc_pauses, gc_start = [], []
+
+        def on_gc(phase, info):
+            if phase == "start":
+                gc_start.append(time.perf_counter())
+            elif gc_start:
+                gc_pauses.append((info["generation"],
+                                  time.perf_counter() - gc_start.pop()))
+
+        kp.reset_launch_count()
+        kp.reset_chain_launch_counts()
+        kr.reset_launch_count()
+        for name in names:
+            setattr(kp, name, recorder(name))
+        gc.callbacks.append(on_gc)
+        try:
+            for burst in range(BURSTS):
+                _server_burst(s, feed, run, gc_pauses, burst)
+            if s.device.type == "cuda":
+                torch.cuda.synchronize()
+        finally:
+            for name in names:
+                setattr(kp, name, real[name])
+            gc.callbacks.remove(on_gc)
+        launches = {"chain": kp.chain_launch_count(),
+                    "wave": kp.wave_launch_count(),
+                    "insert": kr.launch_count(),
+                    "single": kp.launch_count()}
+        out["launches"] = launches
+        for k in ("chain", "wave", "insert"):
+            if launches[k] == 0:
+                raise AssertionError(f"the {k} kernel never launched on the "
+                                     f"server path: {launches}")
+
+        # every recorded launch against its plain version, inputs intact
+        kinds = {"place_table_chain": "chain", "place_table_wave": "wave",
+                 "place_packed_chain": "chain"}
+        for i, (name, args, kw, snap, res) in enumerate(records):
+            for t, copy in snap:
+                if not torch.equal(t, copy):
+                    raise AssertionError(f"launch {i} ({name}): an input "
+                                         "was written after the launch")
+            if name == "place_task_group":
+                want = kp.place_task_group_plain(*args, **kw)
+                out["err"]["single"] = max(out["err"].get("single", 0.0),
+                                           _compare(want, res,
+                                                    f"server launch {i}"))
+                continue
+            want = getattr(kp, name + "_plain")(*args, **kw)
+            if name == "place_packed_chain":
+                want, res = (want, ()), (res, ())
+            err = _compare_flat(want, res, f"server launch {i} ({name})",
+                                kw.get("explain", False))
+            out["err"][kinds[name]] = max(out["err"][kinds[name]], err)
+        lanes = s.metrics.histogram("wave.lanes").summary()
+        print(f"server: {BURSTS} bursts; lanes per wave over the run: mean "
+              f"{lanes['mean']:.2f}, max {lanes['max']:.0f}; "
+              f"launches {launches}; "
+              f"{len(records)} chain/wave launches recorded, all equal to "
+              "plain with their inputs unchanged")
+    finally:
+        s.shutdown()
+    out["max_err"] = max(out["err"].values())
+    return out
+
+
+def _server_burst(s, feed, run, gc_pauses, burst):
+    """One burst of 64 evals through a started Server: checks every
+    placement and prints throughput, latency, dispatch, per-phase and
+    garbage-collection numbers of the burst."""
+    jobs, dh = feed(64)
+    c0 = s.metrics.counters()
+    seq0 = s.timeline.last_index()
+    p0 = dict(s.planner.stats)
+    n_gc = len(gc_pauses)
+    evs, done = run(jobs)
+    c1 = s.metrics.counters()
+    p1 = dict(s.planner.stats)
+
+    # every eval complete, every alloc placed, distinct_hosts held
+    placed = 0
+    for j, want_dh in zip(jobs, dh):
+        allocs = s.state.allocs_by_job("default", j.id)
+        placed += len(allocs)
+        if len(allocs) != 10:
+            raise AssertionError(f"job {j.id}: {len(allocs)}/10 placed")
+        if want_dh and len({a.node_id for a in allocs}) != 10:
+            raise AssertionError(f"job {j.id}: distinct_hosts violated")
+    partial = p1.get("partial", 0) - p0.get("partial", 0)
+    if partial != 0:
+        raise AssertionError(f"{partial} partial plans in the burst")
+
+    lat = sorted(d.modify_time - e.create_time for e, d in zip(evs, done))
+    span = max(d.modify_time for d in done) - min(e.create_time
+                                                  for e in evs)
+    q = lambda f: lat[min(int(f * len(lat)), len(lat) - 1)]  # noqa: E731
+    # dispatch records are committed at launch, so every dispatch of the
+    # burst is in the timeline once its evals have completed
+    _i, recs = s.timeline.records_after(seq0)
+    progs = sum(r["programs"] for r in recs)
+    waves = c1.get("wave.dispatches", 0) - c0.get("wave.dispatches", 0)
+    wprogs = c1.get("wave.programs", 0) - c0.get("wave.programs", 0)
+    coll = c1.get("wave.collisions", 0) - c0.get("wave.collisions", 0)
+    ker = [r["kernel_ms"] for r in recs if r["kernel_ms"] is not None]
+    host = [r["host_ms"] for r in recs if r["host_ms"] is not None]
+    phases = {}
+    for e in evs:
+        for sp in (s.tracer.get(e.id) or {}).get("spans", []):
+            phases[sp["phase"]] = phases.get(sp["phase"], 0.0) \
+                + sp["duration_ms"]
+    gcs = {}
+    for g, t in gc_pauses[n_gc:]:
+        gcs.setdefault(g, []).append(t)
+    tag = f"server burst {burst}:"
+    print(f"{tag} {len(jobs)} evals, {placed} allocs placed, partial "
+          f"{partial}; {len(jobs) / span:.2f} evals/s ({span:.3f} s); eval "
+          f"latency p50 {q(0.5) * 1e3:.1f} ms, p99 {q(0.99) * 1e3:.1f} ms, "
+          f"max {lat[-1] * 1e3:.1f} ms")
+    print(f"{tag} {len(recs)} dispatches, {progs} programs "
+          f"({progs / max(len(recs), 1):.2f} per dispatch), {waves} waves "
+          f"of {wprogs} programs, {coll} collision rows; per dispatch "
+          f"(host clock) pack+upload+view {_mean(host):.2f} ms, launch→"
+          f"outputs on the host {_mean(ker):.2f} ms, dispatches covered "
+          f"{sum(ker) / 1e3 / span:.3f} of the span")
+    print(f"{tag} per-eval phase means (ms): " + ", ".join(
+        f"{k} {v / len(evs):.2f}" for k, v in sorted(phases.items())))
+    print(f"{tag} garbage collections: " + (", ".join(
+        f"gen {g}: {len(ts)}, total {sum(ts) * 1e3:.1f} ms, max "
+        f"{max(ts) * 1e3:.1f} ms" for g, ts in sorted(gcs.items()))
+        or "none"))
 
 
 def main() -> int:
@@ -135,6 +620,7 @@ def main() -> int:
     from nomad_tpu_torch.convert import params_from_numpy
     from nomad_tpu_torch.kernels import _build
     from nomad_tpu_torch.kernels import placement as kp
+    from nomad_tpu_torch.kernels import rows as kr
     from nomad_tpu_torch.parallel.pad import pad_params
     from nomad_tpu_torch.scheduler import stack as stack_mod
     from nomad_tpu_torch.scheduler.harness import Harness
@@ -157,13 +643,18 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
+    _build.build_all(("placement", "chain", "rows"))
     kp.build_kernel()
-    secs, log = _build.BUILD_INFO["placement"]
-    print(f"build: placement.cu in {secs:.2f} s "
-          f"(load {time.perf_counter() - t0:.2f} s)")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print("  ptxas:", line.strip())
+    kp.build_chain_kernel()
+    kr.build_kernel()
+    print(f"build: placement.cu, chain.cu, rows.cu in parallel, "
+          f"{time.perf_counter() - t0:.2f} s in all")
+    for name in ("placement", "chain", "rows"):
+        secs, log = _build.BUILD_INFO[name]
+        print(f"  {name}.cu: nvcc {secs:.2f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print("    ptxas:", line.strip())
 
     # ---- 3. kernel against plain at full width ----
     t0 = time.perf_counter()
@@ -365,18 +856,52 @@ def main() -> int:
             f"{max(ts) * 1e3:.1f} ms" for g, ts in sorted(gcs.items()))
             or "none"))
 
+    k1_launches = launches
+
+    # ---- 5. chain, wave and insert kernels against plain ----
+    k5 = _phase5_kernels(torch, kp, kr, cases, nodes, rng)
+    max_err = max(max_err, k5["max_err"])
+
+    # ---- 6. the server path ----
+    server = _phase6_server(torch, kp, kr, rng)
+    max_err = max(max_err, server["max_err"])
+
     print(json.dumps({"kernels": [{
         "name": "place_task_group",
         "route": "cuda",
         "source": "nomad_tpu_torch/kernels/csrc/placement.cu",
         "replaces": "nomad_tpu/kernels/placement.py:345",
-        "launches": launches,
+        "launches": k1_launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+    }, {
+        "name": "place_table_chain",
+        "route": "cuda",
+        "source": "nomad_tpu_torch/kernels/csrc/chain.cu",
+        "replaces": "nomad_tpu/kernels/placement.py:754",
+        "launches": server["launches"]["chain"],
+        "max_abs_err": max(k5["err"]["chain"], server["err"]["chain"]),
+        **k5["chain"],
+    }, {
+        "name": "place_table_wave",
+        "route": "cuda",
+        "source": "nomad_tpu_torch/kernels/csrc/chain.cu",
+        "replaces": "nomad_tpu/kernels/placement.py:878",
+        "launches": server["launches"]["wave"],
+        "max_abs_err": max(k5["err"]["wave"], server["err"]["wave"]),
+        **k5["wave"],
+    }, {
+        "name": "program_table_insert",
+        "route": "cuda",
+        "source": "nomad_tpu_torch/kernels/csrc/rows.cu",
+        "replaces": "nomad_tpu/server/program_table.py:99",
+        "launches": server["launches"]["insert"],
+        "max_abs_err": k5["err"]["insert"],
+        **k5["insert"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

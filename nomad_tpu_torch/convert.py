@@ -65,3 +65,17 @@ def params_from_numpy(d: Any, device: DeviceLike = None) -> TGParams:
     return TGParams(**{
         name: tensor_from_numpy(d[name], dev, _NP_TYPES[dt])
         for name, dt in PARAM_TYPES.items()})
+
+
+def to_device_async(a: Any, device: torch.device,
+                    dtype: Any = None) -> torch.Tensor:
+    """`tensor_from_numpy` for the dispatch path: on a card the bytes go
+    through pinned host memory and the copy is enqueued on the current
+    stream without waiting for the device (the caching host allocator
+    keeps the pinned block until the copy has run)."""
+    if device.type != "cuda":
+        return tensor_from_numpy(a, device, dtype)
+    a = np.require(a, dtype=dtype, requirements=("C", "W"))
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a).pin_memory().to(device, non_blocking=True)

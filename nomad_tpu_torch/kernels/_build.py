@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each `csrc/<name>.cu` has a plain C interface and no PyTorch headers; it
-is compiled with nvcc into `build/lib<name>-<hash>.so` at the repository
+Each `csrc/<name>.cu` has a plain C interface and no PyTorch headers (it
+may include the shared `csrc/*.cuh`); it is compiled with nvcc into `build/lib<name>-<hash>.so` at the repository
 root at first use and loaded with ctypes. The file name carries a hash of
 the source and flags, so an edited source builds anew and a stale library
 is never loaded. Raises when nvcc is missing or the build fails.
@@ -25,7 +25,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-fmad=false", "-Xptxas", "-v")
 
-_LOCK = threading.Lock()
+_LOCKS_GUARD = threading.Lock()
+#: one lock per library: a library builds once, different ones in parallel
+_LOCKS: dict = {}
 
 #: name → (seconds the build took, 0.0 when cached; nvcc's output)
 BUILD_INFO: dict = {}
@@ -43,7 +45,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The build's path; its hash covers the source, every shared header
+    of csrc/ and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        src += hdr.read_bytes()
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
@@ -51,7 +57,9 @@ def library_path(name: str) -> Path:
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu unless this exact build exists."""
     out = library_path(name)
-    with _LOCK:
+    with _LOCKS_GUARD:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if out.exists():
             BUILD_INFO.setdefault(name, (0.0, ""))
             return out
@@ -70,3 +78,23 @@ def build(name: str) -> Path:
 
 def load_library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build(name)))
+
+
+def build_all(names) -> None:
+    """Build the named libraries at once, one nvcc process each; raises
+    the first failure after all have ended."""
+    errors = []
+
+    def one(name):
+        try:
+            build(name)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(n,)) for n in names]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]

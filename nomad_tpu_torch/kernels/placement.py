@@ -24,6 +24,11 @@ Two implementations compute the same function:
 `place_task_group` dispatches on the device of `cluster.used`: CPU → plain,
 CUDA → the kernel (or raise). There is no fallback between the two.
 
+The batched server path runs programs in chains and waves (K4, K5):
+`place_table_chain`, `place_table_wave`, `place_task_group_chain` and
+`place_packed_chain`, each with a plain version and a CUDA route
+(`csrc/chain.cu`, which shares K1's device code, `csrc/place_core.cuh`).
+
 Types at the boundary: `attrs` is int16 (int32 when a key's vocabulary
 outgrows int16), `ports_used` is int32 holding the bits of the reference's
 u32 bitmap (torch's uint32 lacks shifts on the CPU), and bool tensors are
@@ -594,6 +599,77 @@ def build_kernel() -> None:
     _LAUNCHER.lib()
 
 
+def _program_dims(shapes: dict, m: int, explain: bool, n: int) -> dict:
+    """PlaceArgs' integer dims of one program from its field shapes (no
+    leading program axis)."""
+    c, v = shapes["lut"]
+    return dict(
+        c=c, v=v, a=shapes["aff_lut"][0], av=shapes["aff_lut"][1], m=m,
+        pn=shapes["penalty_idx"][1], e=shapes["extra_mask"][0],
+        j=shapes["jc_idx"][0], j2=shapes["jtc_idx"][0],
+        d=shapes["delta_idx"][0], l=shapes["cand_idx"][0],
+        p=shapes["dp_key_idx"][0], dv=shapes["dp_counts0"][1],
+        pp=shapes["res_ports"][0], pc=shapes["pclr_idx"][0],
+        ps=shapes["pset_idx"][0], s=shapes["spread_key_idx"][0],
+        sv=shapes["spread_desired"][1], cw=max((c + 31) // 32, 1),
+        explain=int(explain), topk=min(EXPLAIN_TOPK, n))
+
+
+def _set_cluster(a: _PlaceArgs, cluster: ClusterArrays) -> None:
+    for name, t in cluster._asdict().items():
+        setattr(a, name, t.data_ptr())
+    a.n, a.r = cluster.capacity.shape
+    a.k_cols = cluster.attrs.shape[1]
+    a.port_words = cluster.ports_used.shape[1]
+    a.attrs_i32 = int(cluster.attrs.dtype == torch.int32)
+
+
+def _set_ptrs(a: _PlaceArgs, ptrs: dict) -> None:
+    for name, ptr in ptrs.items():
+        if name not in _ARG_FIELDS:
+            raise KeyError(f"PlaceArgs has no field {name!r}")
+        setattr(a, name, ptr)
+
+
+def _scratch_shapes(dims: dict, n: int, r: int, explain: bool) -> dict:
+    """Per-program scratch and outputs of the kernels: name → (shape,
+    dtype). The `lane` group is per lane of a chain (the carry-dependent
+    working set), the rest per program."""
+    u8, f32, i32 = torch.uint8, torch.float32, torch.int32
+    m, c, k = dims["m"], dims["c"], dims["topk"]
+    prog = dict(
+        feas=(n, u8), flags=(n, u8), cfail=((n, dims["cw"]), i32),
+        aff=(n, f32), res_free=(n, u8), job_cnt=(n, f32),
+        tg_cnt=(n, f32), splaced=(n, f32),
+        stok=((n, max(dims["s"], 1)), i32),
+        dtok=((n, max(dims["p"], 1)), i32),
+        sel_idx=(m, i32), sel_score=(m, f32), nodes_feasible=((), i32),
+        nodes_fit=(m, i32), final0=(n, f32))
+    if explain:
+        prog.update(
+            ex_static=(3, i32), filt_constraint=(max(c, 1), i32),
+            filt_distinct=(m, i32), filt_dp=(m, i32), exh_dim=((m, r), i32),
+            exh_dyn=(m, i32), exh_res=(m, i32), topk_idx=((m, k), i32),
+            topk_score=((m, k), f32), topk_parts=((m, k, 5), f32))
+    lane = dict(dyn=(n, f32), mbuf=(n, f32), okbuf=(n, u8),
+                parts=((n, 5) if explain else 1, f32))
+    return {"prog": prog, "lane": lane}
+
+
+def _explain_out(ex: dict, c: int) -> PlacementExplain:
+    """PlacementExplain over the kernels' explain buffers (a leading
+    program axis, if any, is kept)."""
+    st = ex["ex_static"]
+    return PlacementExplain(
+        nodes_evaluated=st[..., 0], filt_constraint=ex["filt_constraint"][
+            ..., :c],
+        filt_lut=st[..., 1], filt_extra=st[..., 2],
+        filt_distinct=ex["filt_distinct"], filt_dp=ex["filt_dp"],
+        exh_dim=ex["exh_dim"], exh_dyn_ports=ex["exh_dyn"],
+        exh_res_ports=ex["exh_res"], topk_idx=ex["topk_idx"],
+        topk_score=ex["topk_score"], topk_parts=ex["topk_parts"])
+
+
 def place_task_group_cuda(cluster: ClusterArrays, p: TGParams,
                           max_allocs: int,
                           explain: bool = False) -> PlacementResult:
@@ -608,60 +684,20 @@ def place_task_group_cuda(cluster: ClusterArrays, p: TGParams,
     p = TGParams(*(t.contiguous() for t in p))
     dev = cluster.used.device
     n, r = cluster.capacity.shape
-    m = max_allocs
-    c, v = p.lut.shape
-    s_n = p.spread_key_idx.shape[0]
-    p_n = p.dp_key_idx.shape[0]
-    cw = max((c + 31) // 32, 1)
-    k = min(EXPLAIN_TOPK, n)
-
-    def empty(shape, dt):
-        return torch.empty(shape, dtype=dt, device=dev)
-
-    u8, f32, i32 = torch.uint8, torch.float32, torch.int32
-    scratch = dict(
-        feas=empty(n, u8), flags=empty(n, u8), cfail=empty((n, cw), i32),
-        aff=empty(n, f32), res_free=empty(n, u8), dyn=empty(n, f32),
-        job_cnt=empty(n, f32), tg_cnt=empty(n, f32), splaced=empty(n, f32),
-        stok=empty((n, max(s_n, 1)), i32), dtok=empty((n, max(p_n, 1)), i32),
-        mbuf=empty(n, f32), okbuf=empty(n, u8),
-        parts=empty((n, 5) if explain else 1, f32))
-    out = dict(
-        new_used=empty((n, r), f32), sel_idx=empty(m, i32),
-        sel_score=empty(m, f32), nodes_feasible=empty((), i32),
-        nodes_fit=empty(m, i32), final0=empty(n, f32))
-    ex = dict(
-        ex_static=empty(3, i32), filt_constraint=empty(max(c, 1), i32),
-        filt_distinct=empty(m, i32), filt_dp=empty(m, i32),
-        exh_dim=empty((m, r), i32), exh_dyn=empty(m, i32),
-        exh_res=empty(m, i32), topk_idx=empty((m, k), i32),
-        topk_score=empty((m, k), f32), topk_parts=empty((m, k, 5), f32)
-    ) if explain else {}
+    dims = _program_dims({f: tuple(t.shape) for f, t in p._asdict().items()},
+                         max_allocs, explain, n)
+    shapes = _scratch_shapes(dims, n, r, explain)
+    bufs = {name: torch.empty(shape, dtype=dt, device=dev)
+            for group in shapes.values()
+            for name, (shape, dt) in group.items()}
+    bufs["new_used"] = torch.empty((n, r), dtype=torch.float32, device=dev)
 
     a = _PlaceArgs()
-    for name, t in list(cluster._asdict().items()) + list(
-            p._asdict().items()) + list(scratch.items()) + list(
-            out.items()) + list(ex.items()):
-        if name not in _ARG_FIELDS:
-            raise KeyError(f"PlaceArgs has no field {name!r}")
-        setattr(a, name, t.data_ptr())
-    a.n, a.r = n, r
-    a.k_cols = cluster.attrs.shape[1]
-    a.port_words = cluster.ports_used.shape[1]
-    a.attrs_i32 = int(cluster.attrs.dtype == torch.int32)
-    a.c, a.v = c, v
-    a.a, a.av = p.aff_lut.shape[0], p.aff_lut.shape[1]
-    a.m, a.pn = m, p.penalty_idx.shape[1]
-    a.e = p.extra_mask.shape[0]
-    a.j, a.j2 = p.jc_idx.shape[0], p.jtc_idx.shape[0]
-    a.d = p.delta_idx.shape[0]
-    a.l = p.cand_idx.shape[0]
-    a.p, a.dv = p_n, p.dp_counts0.shape[1]
-    a.pp = p.res_ports.shape[0]
-    a.pc, a.ps = p.pclr_idx.shape[0], p.pset_idx.shape[0]
-    a.s, a.sv = s_n, p.spread_desired.shape[1]
-    a.cw = cw
-    a.explain, a.topk = int(explain), k
+    _set_cluster(a, cluster)
+    _set_ptrs(a, {f: t.data_ptr() for f, t in p._asdict().items()})
+    _set_ptrs(a, {f: t.data_ptr() for f, t in bufs.items()})
+    for name, val in dims.items():
+        setattr(a, name, val)
 
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.nomad_place_task_group(ctypes.byref(a), stream)
@@ -670,21 +706,11 @@ def place_task_group_cuda(cluster: ClusterArrays, p: TGParams,
                            + lib.nomad_cuda_error_string(err).decode())
     _LAUNCHER.launches += 1
 
-    explain_out = None
-    if explain:
-        st = ex["ex_static"]
-        explain_out = PlacementExplain(
-            nodes_evaluated=st[0], filt_constraint=ex["filt_constraint"][:c],
-            filt_lut=st[1], filt_extra=st[2],
-            filt_distinct=ex["filt_distinct"], filt_dp=ex["filt_dp"],
-            exh_dim=ex["exh_dim"], exh_dyn_ports=ex["exh_dyn"],
-            exh_res_ports=ex["exh_res"], topk_idx=ex["topk_idx"],
-            topk_score=ex["topk_score"], topk_parts=ex["topk_parts"])
     return PlacementResult(
-        sel_idx=out["sel_idx"], sel_score=out["sel_score"],
-        new_used=out["new_used"], nodes_feasible=out["nodes_feasible"],
-        nodes_fit=out["nodes_fit"], final_scores0=out["final0"],
-        explain=explain_out)
+        sel_idx=bufs["sel_idx"], sel_score=bufs["sel_score"],
+        new_used=bufs["new_used"], nodes_feasible=bufs["nodes_feasible"],
+        nodes_fit=bufs["nodes_fit"], final_scores0=bufs["final0"],
+        explain=_explain_out(bufs, dims["c"]) if explain else None)
 
 
 def place_task_group(cluster: ClusterArrays, p: TGParams, max_allocs: int,
@@ -697,6 +723,462 @@ def place_task_group(cluster: ClusterArrays, p: TGParams, max_allocs: int,
     if kind == "cuda":
         return place_task_group_cuda(cluster, p, max_allocs, explain)
     raise ValueError(f"no placement implementation for device {kind!r}")
+
+
+# ---- chains and waves of programs (K4, K5) ------------------------------------
+# The batched server path runs programs in CHAINS: program b places against
+# the (used, dyn_free) carry that programs 0..b-1 left, so a batch of evals
+# never over-commits a node. A WAVE runs L such chains (lanes) side by side
+# and folds their carries row by row. Programs arrive in three layouts:
+#   - a stacked TGParams ([B, ...] fields): `place_task_group_chain`;
+#   - field-major packed buffers (`pack_params` of a stacked batch):
+#     `place_packed_chain`, the coordinator's fallback transport;
+#   - rows of the device program table (static halves) plus per-program
+#     dynamic rows: `place_table_chain` and `place_table_wave`.
+# Each has a plain PyTorch version (a Python loop over
+# `place_task_group_plain` with the carry update and fold written in torch)
+# and a CUDA route (`csrc/chain.cu`), chosen by the device of cluster.used.
+
+
+def _field_views(bufs: dict, spec) -> dict:
+    """{name: tensor} from class buffers [..., L] and a row spec (name,
+    class, offset, shape): static column slices, u8 read as bool."""
+    out = {}
+    for name, cls, off, shape in spec:
+        size = int(np.prod(shape)) if shape else 1
+        seg = bufs[cls][..., off:off + size]
+        a = seg.reshape(tuple(seg.shape[:-1]) + tuple(shape))
+        out[name] = (a != 0) if cls == "u" else a
+    return out
+
+
+def host_rows(rows) -> np.ndarray:
+    """Table row indices on the host (a CUDA tensor is copied back)."""
+    if isinstance(rows, torch.Tensor):
+        rows = rows.cpu().numpy()
+    return np.asarray(rows, dtype=np.int64)
+
+
+def _assemble_table_batch(ti, tf, tu, rows, di, df, du, sspec, dspec
+                          ) -> TGParams:
+    """Batched TGParams from table rows and dynamic rows: the static
+    half gathered by row (`rows` i64[B]), both halves unpacked."""
+    idx = torch.as_tensor(host_rows(rows), device=ti.device)
+    fields = _field_views({"i": ti[idx], "f": tf[idx], "u": tu[idx]}, sspec)
+    fields.update(_field_views({"i": di, "f": df, "u": du}, dspec))
+    return TGParams(**fields)
+
+
+def _unpack_params(i32buf, f32buf, u8buf, spec) -> TGParams:
+    """TGParams from field-major packed buffers (`pack_params`)."""
+    fields = {}
+    bufs = {"i": i32buf, "f": f32buf, "u": u8buf}
+    for name, cls, off, shape in spec:
+        size = int(np.prod(shape)) if shape else 1
+        a = bufs[cls][off:off + size].reshape(tuple(shape))
+        fields[name] = (a != 0) if cls == "u" else a
+    return TGParams(**fields)
+
+
+def _program(batch: TGParams, b: int) -> TGParams:
+    return TGParams(*(t[b] for t in batch))
+
+
+def _stack_results(results) -> PlacementResult:
+    ex = None
+    if results[0].explain is not None:
+        ex = PlacementExplain(*(torch.stack(leaf) for leaf in
+                                zip(*(r.explain for r in results))))
+    return PlacementResult(*(torch.stack(f) for f in
+                             zip(*(r[:6] for r in results))), explain=ex)
+
+
+def _chain_with_carry(cluster: ClusterArrays, batch: TGParams,
+                      max_allocs: int, explain: bool = False):
+    """Plain chain over the leading program axis of `batch`; returns the
+    per-program results (stacked) and the final (used, dyn_free) carry.
+    The dyn_free carry update is `dyn - placed * n_dyn` in f32, with
+    `placed` the count of this program's selections on each row."""
+    n = cluster.used.shape[0]
+    used, dyn = cluster.used, cluster.dyn_free
+    results = []
+    for b in range(batch.n_place.shape[0]):
+        p = _program(batch, b)
+        r = place_task_group_plain(cluster._replace(used=used, dyn_free=dyn),
+                                   p, max_allocs, explain)
+        sel = r.sel_idx.long()
+        placed = torch.zeros(n, dtype=torch.float32, device=dyn.device)
+        placed = placed.index_add_(0, sel.clamp(min=0),
+                                   (sel >= 0).float())
+        used, dyn = r.new_used, dyn - placed * p.n_dyn
+        results.append(r)
+    return _stack_results(results), (used, dyn)
+
+
+def _flat_outputs(r: PlacementResult, explain: bool) -> tuple:
+    base = (r.sel_idx, r.sel_score, r.nodes_feasible, r.nodes_fit)
+    return base + tuple(r.explain) if explain else base
+
+
+def place_task_group_chain_plain(cluster, batch, max_allocs, explain=False):
+    return _chain_with_carry(cluster, batch, max_allocs, explain)[0]
+
+
+def place_packed_chain_plain(cluster, i32buf, f32buf, u8buf, spec,
+                             max_allocs, explain=False):
+    batch = _unpack_params(i32buf, f32buf, u8buf, spec)
+    return _flat_outputs(place_task_group_chain_plain(
+        cluster, batch, max_allocs, explain), explain)
+
+
+def place_table_chain_plain(cluster, ti, tf, tu, rows, di, df, du, sspec,
+                            dspec, max_allocs, explain=False):
+    batch = _assemble_table_batch(ti, tf, tu, rows, di, df, du, sspec, dspec)
+    r, carry = _chain_with_carry(cluster, batch, max_allocs, explain)
+    return _flat_outputs(r, explain), carry
+
+
+def place_table_wave_plain(cluster, ti, tf, tu, rows, di, df, du, sspec,
+                           dspec, max_allocs, explain=False):
+    """L lane chains (rows i64[L, P], dynamic rows [L, P, Ld]) and the
+    fold: a row's final (used, dyn_free) is copied bitwise from the
+    highest-numbered lane that changed it (else the view's), and rows
+    changed by more than one lane are counted (the last output, i32)."""
+    rows = host_rows(rows)
+    outs, used_l, dyn_l = [], [], []
+    for lane in range(rows.shape[0]):
+        batch = _assemble_table_batch(ti, tf, tu, rows[lane], di[lane],
+                                      df[lane], du[lane], sspec, dspec)
+        r, (u, d) = _chain_with_carry(cluster, batch, max_allocs, explain)
+        outs.append(_flat_outputs(r, explain))
+        used_l.append(u)
+        dyn_l.append(d)
+    used0, dyn0 = cluster.used, cluster.dyn_free
+    used_l, dyn_l = torch.stack(used_l), torch.stack(dyn_l)
+    changed = torch.any(used_l != used0[None], dim=-1) | (dyn_l != dyn0[None])
+    collisions = (changed.to(torch.int32).sum(dim=0) > 1).sum().to(
+        torch.int32)
+    used_f, dyn_f = used0, dyn0
+    for lane in range(rows.shape[0]):
+        m = changed[lane]
+        used_f = torch.where(m[:, None], used_l[lane], used_f)
+        dyn_f = torch.where(m, dyn_l[lane], dyn_f)
+    flat = tuple(torch.cat(leaf) for leaf in zip(*outs))
+    return flat + (collisions,), (used_f, dyn_f)
+
+
+class _ChainLaneArgs(ctypes.Structure):
+    """Mirror of `LaneArgs` in csrc/chain.cu."""
+
+    _fields_ = [("used0", _VOID), ("dyn0", _VOID), ("n", _INT), ("r", _INT),
+                ("used_l", _VOID), ("dyn_l", _VOID), ("used_snap", _VOID),
+                ("used_f", _VOID), ("dyn_f", _VOID), ("collisions", _VOID)]
+
+
+class _ChainLauncher:
+    """The chain/wave library (csrc/chain.cu), built at first use, and
+    the launch counts of K4 (chains) and K5 (waves)."""
+
+    def __init__(self):
+        self.launches = {"chain": 0, "wave": 0}
+        self._lib = None
+
+    def lib(self):
+        if self._lib is None:
+            from ._build import load_library
+
+            lib = load_library("chain")
+            for fn in ("nomad_chain_args_size", "nomad_chain_lane_args_size"):
+                getattr(lib, fn).restype = ctypes.c_size_t
+                getattr(lib, fn).argtypes = []
+            lib.nomad_place_lanes.restype = ctypes.c_int
+            lib.nomad_place_lanes.argtypes = [
+                ctypes.POINTER(_PlaceArgs), _VOID, _INT, _INT,
+                ctypes.POINTER(_ChainLaneArgs), _INT, _VOID]
+            lib.nomad_chain_error_string.restype = ctypes.c_char_p
+            lib.nomad_chain_error_string.argtypes = [ctypes.c_int]
+            if (lib.nomad_chain_args_size() != ctypes.sizeof(_PlaceArgs)
+                    or lib.nomad_chain_lane_args_size()
+                    != ctypes.sizeof(_ChainLaneArgs)):
+                raise RuntimeError(
+                    "chain library's argument layout differs from the "
+                    "wrapper's (rebuild csrc/chain.cu)")
+            self._lib = lib
+        return self._lib
+
+
+_CHAIN = _ChainLauncher()
+
+
+def chain_launch_count() -> int:
+    """K4 dispatches (chains of programs) since the last reset."""
+    return _CHAIN.launches["chain"]
+
+
+def wave_launch_count() -> int:
+    """K5 dispatches (waves of lane chains) since the last reset."""
+    return _CHAIN.launches["wave"]
+
+
+def reset_chain_launch_counts() -> None:
+    _CHAIN.launches = {"chain": 0, "wave": 0}
+
+
+def build_chain_kernel() -> None:
+    """Build (or load the cached build of) the chain/wave library now."""
+    _CHAIN.lib()
+
+
+_ESIZE = {"i": 4, "f": 4, "u": 1}
+
+
+def _check_cluster(cluster: ClusterArrays) -> None:
+    dev = cluster.used.device
+    if dev.type != "cuda":
+        raise ValueError("the chain kernels need CUDA tensors")
+    for name, t in cluster._asdict().items():
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"cluster.{name} must be contiguous on {dev}")
+    for name, dt in _CLUSTER_TYPES.items():
+        if getattr(cluster, name).dtype != dt:
+            raise TypeError(f"cluster.{name} must be {dt}")
+    if cluster.attrs.dtype not in (torch.int16, torch.int32):
+        raise TypeError("cluster.attrs must be int16 or int32")
+
+
+def _check_class_buf(name, t, cls, dev):
+    want = {"i": torch.int32, "f": torch.float32, "u": torch.uint8}[cls]
+    if t.device != dev or t.dtype != want or not t.is_contiguous():
+        raise TypeError(f"{name} must be contiguous {want} on {dev}")
+
+
+def _launch_lanes(cluster: ClusterArrays, shapes: dict, ptr_of, lanes: int,
+                  per_lane: int, max_allocs: int, explain: bool, fold: bool,
+                  snapshots: bool = False):
+    """Enqueue one dispatch of `lanes` chains of `per_lane` programs on
+    the current stream. `shapes` maps each TGParams field to its
+    per-program shape; `ptr_of(k, field)` gives program k's (lane-major)
+    device pointer for that field. Returns the per-program buffers
+    (leading axis lanes·per_lane) and the lane carries."""
+    from ..convert import to_device_async
+    from ..lib.transfer import default_ledger
+
+    lib = _CHAIN.lib()
+    dev = cluster.used.device
+    n, r = cluster.capacity.shape
+    b = lanes * per_lane
+    if shapes["penalty_idx"][0] != max_allocs \
+            or shapes["preferred_idx"][0] != max_allocs:
+        raise ValueError("penalty/preferred rows must equal max_allocs")
+    if shapes["extra_mask"][0] not in (1, n) or shapes["ask"] != (r,):
+        raise ValueError("program shapes disagree with the cluster")
+    dims = _program_dims(shapes, max_allocs, explain, n)
+    groups = _scratch_shapes(dims, n, r, explain)
+
+    def alloc(count, shape, dt):
+        shape = shape if isinstance(shape, tuple) else (shape,)
+        return torch.empty((count,) + shape, dtype=dt, device=dev)
+
+    prog = {k: alloc(b, sh, dt) for k, (sh, dt) in groups["prog"].items()}
+    lane = {k: alloc(lanes, sh, dt) for k, (sh, dt) in groups["lane"].items()}
+    used_l = alloc(lanes, (n, r), torch.float32)
+    dyn_l = alloc(lanes, n, torch.float32)
+    snap = alloc(b, (n, r), torch.float32) if snapshots else None
+
+    args = (_PlaceArgs * b)()
+    for k in range(b):
+        a = args[k]
+        _set_cluster(a, cluster)
+        _set_ptrs(a, {f: ptr_of(k, f) for f in TGParams._fields})
+        _set_ptrs(a, {name: t[k].data_ptr() for name, t in prog.items()})
+        _set_ptrs(a, {name: t[k // per_lane].data_ptr()
+                      for name, t in lane.items()})
+        a.new_used = used_l[k // per_lane].data_ptr()
+        for name, val in dims.items():
+            setattr(a, name, val)
+    raw = np.frombuffer(args, dtype=np.uint8)
+    with default_ledger().timed("kernels.place_args", raw.nbytes):
+        dev_args = to_device_async(raw, dev)
+
+    la = _ChainLaneArgs()
+    la.used0, la.dyn0 = cluster.used.data_ptr(), cluster.dyn_free.data_ptr()
+    la.n, la.r = n, r
+    la.used_l, la.dyn_l = used_l.data_ptr(), dyn_l.data_ptr()
+    la.used_snap = snap.data_ptr() if snap is not None else None
+    out_f = None
+    if fold:
+        out_f = (torch.empty((n, r), dtype=torch.float32, device=dev),
+                 torch.empty(n, dtype=torch.float32, device=dev),
+                 torch.zeros(1, dtype=torch.int32, device=dev))
+        la.used_f, la.dyn_f, la.collisions = (t.data_ptr() for t in out_f)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.nomad_place_lanes(ctypes.byref(args[0]), dev_args.data_ptr(),
+                                lanes, per_lane, ctypes.byref(la), int(fold),
+                                stream)
+    if err != 0:
+        raise RuntimeError("chain kernel launch failed: "
+                           + lib.nomad_chain_error_string(err).decode())
+    _CHAIN.launches["wave" if fold else "chain"] += 1
+    # dev_args and the scratch may be freed now: the caching allocator
+    # hands their memory only to work queued after this launch on the
+    # same stream
+    base = (prog["sel_idx"], prog["sel_score"], prog["nodes_feasible"],
+            prog["nodes_fit"])
+    ex = _explain_out(prog, dims["c"]) if explain else None
+    return base, ex, (used_l, dyn_l), out_f, (prog["final0"], snap)
+
+
+def _table_source(ti, tf, tu, rows, di, df, du, sspec, dspec, b):
+    """(shapes, ptr_of) for table programs: static fields point into
+    their table row, dynamic fields into their program's dynamic row."""
+    dev = ti.device
+    tables = {"i": ti, "f": tf, "u": tu}
+    dyn = {"i": di.reshape(b, -1), "f": df.reshape(b, -1),
+           "u": du.reshape(b, -1)}
+    for cls in "ifu":
+        _check_class_buf(f"table[{cls}]", tables[cls], cls, dev)
+        _check_class_buf(f"dyn[{cls}]", dyn[cls], cls, dev)
+    rows = host_rows(rows).reshape(-1)
+    if rows.shape[0] != b or (rows < 0).any() or (rows >= ti.shape[0]).any():
+        raise ValueError("table rows out of range or of the wrong count")
+    where = {}
+    for spec, src in ((sspec, "table"), (dspec, "dyn")):
+        for name, cls, off, shape in spec:
+            where[name] = (src, cls, off, tuple(shape))
+
+    def ptr_of(k, name):
+        src, cls, off, _shape = where[name]
+        if src == "table":
+            t, row = tables[cls], int(rows[k])
+        else:
+            t, row = dyn[cls], k
+        return t.data_ptr() + (row * t.shape[1] + off) * _ESIZE[cls]
+
+    return {name: w[3] for name, w in where.items()}, ptr_of
+
+
+def place_table_chain_cuda(cluster, ti, tf, tu, rows, di, df, du, sspec,
+                           dspec, max_allocs, explain=False):
+    _check_cluster(cluster)
+    b = int(host_rows(rows).size)
+    shapes, ptr_of = _table_source(ti, tf, tu, rows, di, df, du, sspec,
+                                   dspec, b)
+    base, ex, (used_l, dyn_l), _f, _s = _launch_lanes(
+        cluster, shapes, ptr_of, 1, b, max_allocs, explain, fold=False)
+    out = base + tuple(ex) if explain else base
+    return out, (used_l[0], dyn_l[0])
+
+
+def place_table_wave_cuda(cluster, ti, tf, tu, rows, di, df, du, sspec,
+                          dspec, max_allocs, explain=False):
+    _check_cluster(cluster)
+    lanes, per_lane = host_rows(rows).shape
+    shapes, ptr_of = _table_source(ti, tf, tu, rows, di, df, du, sspec,
+                                   dspec, lanes * per_lane)
+    base, ex, _lanes, (used_f, dyn_f, coll), _s = _launch_lanes(
+        cluster, shapes, ptr_of, lanes, per_lane, max_allocs, explain,
+        fold=True)
+    out = base + tuple(ex) if explain else base
+    return out + (coll.reshape(()),), (used_f, dyn_f)
+
+
+def place_task_group_chain_cuda(cluster, batch, max_allocs, explain=False):
+    _check_cluster(cluster)
+    batch = TGParams(*(t.contiguous() for t in batch))
+    b = batch.n_place.shape[0]
+    for name, dt in PARAM_TYPES.items():
+        t = getattr(batch, name)
+        if t.device != cluster.used.device or t.dtype != dt \
+                or t.shape[0] != b:
+            raise TypeError(f"batch.{name} must be {dt}[{b}, ...] on the "
+                            "cluster's device")
+    fields = batch._asdict()
+
+    def ptr_of(k, name):
+        t = fields[name]
+        return t.data_ptr() + k * t.stride(0) * t.element_size()
+
+    shapes = {name: tuple(t.shape[1:]) for name, t in fields.items()}
+    base, ex, _lanes, _f, (final0, snap) = _launch_lanes(
+        cluster, shapes, ptr_of, 1, b, max_allocs, explain, fold=False,
+        snapshots=True)
+    return PlacementResult(sel_idx=base[0], sel_score=base[1],
+                           new_used=snap, nodes_feasible=base[2],
+                           nodes_fit=base[3], final_scores0=final0,
+                           explain=ex)
+
+
+def place_packed_chain_cuda(cluster, i32buf, f32buf, u8buf, spec,
+                            max_allocs, explain=False):
+    _check_cluster(cluster)
+    bufs = {"i": i32buf, "f": f32buf, "u": u8buf}
+    for cls in "ifu":
+        _check_class_buf(f"packed[{cls}]", bufs[cls], cls,
+                         cluster.used.device)
+    where = {name: (cls, off, tuple(shape)) for name, cls, off, shape in spec}
+    b = where["n_place"][2][0]
+    shapes = {name: w[2][1:] for name, w in where.items()}
+
+    def ptr_of(k, name):
+        cls, off, shape = where[name]
+        size = int(np.prod(shape[1:])) if len(shape) > 1 else 1
+        return bufs[cls].data_ptr() + (off + k * size) * _ESIZE[cls]
+
+    base, ex, _lanes, _f, _s = _launch_lanes(
+        cluster, shapes, ptr_of, 1, b, max_allocs, explain, fold=False)
+    return base + tuple(ex) if explain else base
+
+
+def _route(cluster, plain, cuda):
+    kind = cluster.used.device.type
+    if kind == "cpu":
+        return plain
+    if kind == "cuda":
+        return cuda
+    raise ValueError(f"no chain implementation for device {kind!r}")
+
+
+def place_task_group_chain(cluster: ClusterArrays, batch: TGParams,
+                           max_allocs: int,
+                           explain: bool = False) -> PlacementResult:
+    """Chained placement of a stacked batch ([B, ...] fields): program b
+    sees programs 0..b-1's placements; new_used is the carry after each
+    program. Plain on CPU tensors, the chain kernel on CUDA tensors."""
+    return _route(cluster, place_task_group_chain_plain,
+                  place_task_group_chain_cuda)(cluster, batch, max_allocs,
+                                               explain)
+
+
+def place_packed_chain(cluster, i32buf, f32buf, u8buf, spec, max_allocs,
+                       explain=False):
+    """Chained placement over field-major packed buffers; returns
+    (sel_idx, sel_score, nodes_feasible, nodes_fit[, explain leaves])."""
+    return _route(cluster, place_packed_chain_plain,
+                  place_packed_chain_cuda)(cluster, i32buf, f32buf, u8buf,
+                                           spec, max_allocs, explain)
+
+
+def place_table_chain(cluster, ti, tf, tu, rows, di, df, du, sspec, dspec,
+                      max_allocs, explain=False):
+    """Chained placement of table programs: `rows` (host indices, [B])
+    pick each program's static row of the class tables (ti, tf, tu);
+    di/df/du [B, Ld*] are the dynamic rows. Returns (flat outputs, the
+    final (used, dyn_free) carry)."""
+    return _route(cluster, place_table_chain_plain,
+                  place_table_chain_cuda)(cluster, ti, tf, tu, rows, di, df,
+                                          du, sspec, dspec, max_allocs,
+                                          explain)
+
+
+def place_table_wave(cluster, ti, tf, tu, rows, di, df, du, sspec, dspec,
+                     max_allocs, explain=False):
+    """L lanes of table chains in parallel (`rows` host [L, P], dynamic
+    rows [L, P, Ld*]). Returns (flat outputs [L·P, ...] lane-major plus
+    the collision count last, the folded (used, dyn_free) carry)."""
+    return _route(cluster, place_table_wave_plain,
+                  place_table_wave_cuda)(cluster, ti, tf, tu, rows, di, df,
+                                         du, sspec, dspec, max_allocs,
+                                         explain)
 
 
 # ---- program packing (host numpy) --------------------------------------------

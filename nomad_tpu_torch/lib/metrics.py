@@ -1,4 +1,4 @@
-"""Telemetry — the metrics registry (the go-metrics analog).
+"""Telemetry — metrics registry + sinks (the go-metrics analog).
 
 Behavioral reference: `command/agent/command.go:952-1012` setupTelemetry
 (armon/go-metrics with inmem + statsd/statsite sinks) and go-metrics'
@@ -10,15 +10,22 @@ Behavioral reference: `command/agent/command.go:952-1012` setupTelemetry
   through a registry instead of ad-hoc unlocked dicts; histograms carry
   p50/p95/p99 over a bounded sample window like go-metrics'
   `AggregateSample` + quantile math.
-
-The push sinks (statsd emitter) and the loop error streak come with the
-server slice.
+- `StatsdSink` / `TelemetryEmitter` — the push side: a background
+  emitter flattens the metrics tree to `gauge` lines and ships them
+  over UDP statsd (`nomad.<path>:<value>|g`) at an interval.
+- `ErrorStreak` — the sanctioned thread-loop failure sink: counts every
+  swallowed exception in a registry counter and logs the FIRST failure
+  of a streak at WARNING (the rest at DEBUG), so a permanently wedged
+  loop leaves a visible trace without spamming a line per tick
+  (task_runner._template_watch precedent; burns NLT03 findings).
 """
 from __future__ import annotations
 
+import logging
 import math
+import socket
 import threading
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
 
 
 def escape_label_value(value: str) -> str:
@@ -298,3 +305,102 @@ def default_registry() -> MetricsRegistry:
     client-side manager loops. Server-owned subsystems use the server's
     own registry so multi-server tests don't cross-count."""
     return _default_registry
+
+
+class ErrorStreak:
+    """Registry error counter + first-of-streak WARNING log for thread
+    loops that must survive failures (the task_runner watcher pattern).
+
+    `record()` in the `except`; `ok()` on any success to re-arm the
+    WARNING for the next streak."""
+
+    def __init__(self, name: str, registry: Optional[MetricsRegistry] = None,
+                 logger: Optional[logging.Logger] = None) -> None:
+        self.name = name
+        self._counter = (registry or default_registry()).counter(
+            f"loop_errors.{name}")
+        self._log = logger or logging.getLogger("nomad_tpu.loops")
+        self._lock = threading.Lock()
+        self._streak = 0
+
+    def record(self, exc: BaseException, what: str = "") -> None:
+        self._counter.inc()
+        with self._lock:
+            self._streak += 1
+            first = self._streak == 1
+        (self._log.warning if first else self._log.debug)(
+            "%s: %s failed: %s: %s", self.name, what or "loop pass",
+            type(exc).__name__, exc)
+        if first:
+            # first-of-streak → flight event: a wedged loop becomes part
+            # of the operator-debug narrative, not just a counter.
+            # Lazy import — flight.py imports this module for its
+            # registry mirror.
+            from .flight import default_flight
+
+            try:
+                default_flight().record(
+                    "error.streak", key=self.name, severity="warn",
+                    detail={"what": what or "loop pass",
+                            "error": f"{type(exc).__name__}: {exc}"})
+            except Exception:  # noqa: BLE001 — telemetry must not kill
+                pass
+
+    def ok(self) -> None:
+        with self._lock:
+            self._streak = 0
+
+    @property
+    def count(self) -> int:
+        return int(self._counter.value)
+
+
+class StatsdSink:
+    """UDP statsd gauge emitter (go-metrics statsd sink)."""
+
+    def __init__(self, addr: str) -> None:
+        host, _, port = addr.partition(":")
+        self.addr = (host, int(port or 8125))
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+
+    def emit(self, gauges: Dict[str, float]) -> None:
+        lines = [f"{k}:{v:g}|g" for k, v in sorted(gauges.items())]
+        payload = "\n".join(lines).encode()
+        try:
+            self._sock.sendto(payload, self.addr)
+        except OSError:
+            pass  # telemetry is best-effort
+
+    def close(self) -> None:
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+
+
+class TelemetryEmitter:
+    """Periodic collector→sink pump (setupTelemetry's inmem fanout)."""
+
+    def __init__(self, collect: Callable[[], Dict], sink: StatsdSink,
+                 interval: float = 10.0) -> None:
+        self.collect = collect
+        self.sink = sink
+        self.interval = interval
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._run,
+                                        name="telemetry", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self.sink.close()
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval):
+            try:
+                self.sink.emit(flatten(self.collect()))
+            except Exception:  # noqa: BLE001 — telemetry must not kill
+                pass

@@ -10,8 +10,10 @@ reference's per-alloc stack.Select loop disappears. Plan-relative state
 (stops, earlier groups' placements) rides into the kernel as sparse deltas
 (PlanContext).
 
-This slice runs without a select coordinator (`select_coordinator` stays
-None) and without the preemption retry (ROADMAP A7).
+On the server's batched path the worker sets `select_coordinator` and
+`select_order`, and the stack parks each program at the coordinator
+(`server/select_batch.py`). The preemption retry is not ported yet
+(ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -99,9 +101,11 @@ class GenericScheduler:
         self.failed_tg_allocs: Dict[str, AllocMetric] = {}
         self.queued_allocs: Dict[str, int] = {}
         self.follow_up_evals: List[Evaluation] = []
-        #: the server path's batch transport will set this to fuse this
-        #: eval's placement runs with its batch-mates'; None here
+        #: set by the worker's batch path (server/select_batch.py) to
+        #: fuse this eval's placement runs with its batch-mates'
         self.select_coordinator = None
+        #: this eval's position in the drained batch (the chain order)
+        self.select_order = 0
 
     # ---- entry point ----
 
@@ -178,6 +182,8 @@ class GenericScheduler:
         self.stack = TorchStack(self.cluster,
                                 algorithm=config.scheduler_algorithm,
                                 device=self.device)
+        self.stack.coordinator = self.select_coordinator
+        self.stack.coordinator_order = self.select_order
         self.preemption_enabled = (
             config.preemption_batch_enabled if self.batch
             else config.preemption_service_enabled

@@ -8,10 +8,14 @@ affinity/spread programs compile to LUTs once (numpy, a copy of the
 reference's compile half), and one kernel run places *all* allocs of the
 group, full-width over the node axis.
 
-This slice keeps the solo `select` path: no select coordinator, and the
-device view re-uploads a whole tensor group when its key changes (the
-row-delta refresh, view leases, carry adoption and speculation are later
-work; the delta path only saves bytes, so placements are identical).
+`select` runs solo (one kernel run per task group) or, on the server's
+batched path, parks its program at the select coordinator
+(`server/select_batch.py`), which fuses the batch into chain and wave
+dispatches. The device view re-uploads a whole tensor group when its key
+changes, so a view a dispatch read is never written afterwards; view
+leases are bookkeeping only (the row-delta refresh, carry adoption and
+speculation are later work; the delta path only saves bytes, so
+placements are identical).
 """
 from __future__ import annotations
 
@@ -94,6 +98,29 @@ _DEV_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 _DEV_CACHE_LOCK = threading.Lock()
 
 
+def _leased(ent: dict, token) -> ClusterArrays:
+    """The entry's view, leased to `token` (if any); call under
+    _DEV_CACHE_LOCK."""
+    if token is not None:
+        from ..lib.hbm import default_hbm
+
+        ent.setdefault("leases", set()).add(token)
+        default_hbm().lease(token)
+    return ent["arrays"]
+
+
+def release_view(cluster, token) -> None:
+    """End the view lease a dispatch took with
+    `device_arrays(lease_token=token)` (idempotent: a failed launch
+    releases defensively)."""
+    from ..lib.hbm import default_hbm
+
+    with _DEV_CACHE_LOCK:
+        for ent in _DEV_CACHE.get(cluster, {}).values():
+            ent.setdefault("leases", set()).discard(token)
+    default_hbm().release_lease(token)
+
+
 class TorchStack:
     """Compiles placement programs and drives the placement kernel."""
 
@@ -110,10 +137,17 @@ class TorchStack:
         # the LUT compile entirely. LRU: hits are refreshed.
         self._prog_cache: "OrderedDict[tuple, dict]" = OrderedDict()
         self._prog_cache_max = 1024
+        #: the server's batched path sets these (scheduler/generic.py):
+        #: `select` then parks at the coordinator instead of running solo
+        self.coordinator = None
+        self.coordinator_order = 0
+        #: the dispatch token of the last coordinated select (the carry
+        #: binding the reference stamps on its plan)
+        self.carry_token = None
 
     # ---- device snapshot management ----
 
-    def device_arrays(self) -> ClusterArrays:
+    def device_arrays(self, lease_token=None) -> ClusterArrays:
         """Device copy of the cluster tensors, cached per cluster object
         and device. Three groups, each re-uploaded whole when its key
         changes: the static tensors (capacity, attrs) on `node_version`,
@@ -121,7 +155,12 @@ class TorchStack:
         `ports_version`; the hot tensors (used, node_ok, dyn_free) on the
         cluster `version`. Keys are captured before anything is read, so
         a mutation racing the refresh leaves the entry stale, never
-        current with old data."""
+        current with old data. A refresh allocates new tensors and never
+        writes the ones it replaces.
+
+        `lease_token` registers a view lease atomically with the resolve
+        (released by `release_view`); with whole-group re-uploads a lease
+        is bookkeeping only."""
         reg = default_registry()
         cl = self.cluster
         dev = self.device
@@ -137,7 +176,7 @@ class TorchStack:
             if ent is not None and ent["version"] == version \
                     and ent["static_key"] == static_key \
                     and ent["ports_key"] == ports_key:
-                return ent["arrays"]
+                return _leased(ent, lease_token)
             if ent is not None and ent["static_key"] == static_key:
                 capacity, attrs = ent["arrays"].capacity, ent["arrays"].attrs
             else:
@@ -168,8 +207,9 @@ class TorchStack:
                                    node_ok=node_ok, attrs=attrs,
                                    ports_used=ports_used, dyn_free=dyn_free)
             per_dev[dev] = {"version": version, "static_key": static_key,
-                            "ports_key": ports_key, "arrays": arrays}
-            return arrays
+                            "ports_key": ports_key, "arrays": arrays,
+                            "leases": (ent or {}).get("leases", set())}
+            return _leased(per_dev[dev], lease_token)
 
     # ---- program compilation ----
 
@@ -740,20 +780,34 @@ class TorchStack:
         want_ex = self.explain if explain is None else explain
         params, m = self.compile_tg(job, tg, n_place, plan, volumes=volumes,
                                     sampled_rows=sampled_rows)
-        arrays = self.device_arrays()
-        # bucket-pad the program (parallel/pad.py, the same inert padding
-        # the batched transports use) so its shapes repeat across jobs
-        (params,), _ = pad_params([params])
-        result = place_task_group(arrays, _to_device(params, self.device),
-                                  m, explain=want_ex)
-        sel = result.sel_idx.cpu().numpy()
-        scores = result.sel_score.cpu().numpy()
-        n_feas = int(result.nodes_feasible)
-        n_fit = result.nodes_fit.cpu().numpy()
         ex_np = None
-        if result.explain is not None:
-            ex_np = PlacementExplain(
-                *(x.cpu().numpy() for x in result.explain))
+        if self.coordinator is not None:
+            # batched path: park the raw program; the coordinator pads,
+            # stacks and runs one chain (or wave) for the whole eval
+            # batch, in broker-drain order. The device view is resolved
+            # by the coordinator at dispatch time, not here: the previous
+            # batch's plans commit between this park and the dispatch.
+            (sel, scores, n_feas, n_fit, ex_np,
+             self.carry_token) = self.coordinator.select(
+                self.device_arrays, params, n_place,
+                order=self.coordinator_order, explain=want_ex)
+            result = None
+        else:
+            arrays = self.device_arrays()
+            # bucket-pad the program (parallel/pad.py, the same inert
+            # padding the batched transports use) so its shapes repeat
+            # across jobs
+            (params,), _ = pad_params([params])
+            result = place_task_group(arrays,
+                                      _to_device(params, self.device),
+                                      m, explain=want_ex)
+            sel = result.sel_idx.cpu().numpy()
+            scores = result.sel_score.cpu().numpy()
+            n_feas = int(result.nodes_feasible)
+            n_fit = result.nodes_fit.cpu().numpy()
+            if result.explain is not None:
+                ex_np = PlacementExplain(
+                    *(x.cpu().numpy() for x in result.explain))
         snap_rows = self.cluster.node_of_row
         node_ids: List[Optional[str]] = []
         out_scores: List[float] = []

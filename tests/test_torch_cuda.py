@@ -85,3 +85,187 @@ def test_kernel_matches_plain(kind, algorithm, cuda_device):
             want = kp.place_task_group_plain(arrays, p, m, explain)
             torch.cuda.synchronize()
             _assert_same(want, got)
+
+
+# ---- the chain, wave and row-scatter kernels (K4, K5, K8) -------------------
+
+
+def _assert_flat(want, got, explain):
+    """Flat chain/wave outputs: integer leaves equal, float leaves (the
+    scores, top-K scores and parts) within ATOL."""
+    floats = {1}
+    if explain:
+        names = kp.PlacementExplain._fields
+        floats |= {4 + names.index("topk_score"),
+                   4 + names.index("topk_parts")}
+    assert len(want) == len(got)
+    for i, (a, b) in enumerate(zip(want, got)):
+        a, b = a.cpu(), b.cpu()
+        assert a.shape == b.shape, (i, a.shape, b.shape)
+        if i in floats:
+            torch.testing.assert_close(b, a, rtol=0, atol=ATOL, msg=str(i))
+        else:
+            assert torch.equal(a.to(b.dtype), b), i
+
+
+def _assert_carry(want, got):
+    for a, b in zip(want, got):
+        torch.testing.assert_close(b.cpu(), a.cpu(), rtol=0, atol=ATOL)
+
+
+def _table_dispatch(cuda_device, dcs=None, n_prog=5):
+    """A seeded cluster, mixed programs (one with plan deltas, one inert
+    pad) and their program-table transport on the card; the table's
+    commit runs the row-scatter kernel."""
+    from nomad_tpu_torch.convert import tensor_from_numpy
+    from nomad_tpu_torch.kernels import rows as kr
+    from nomad_tpu_torch.lib.transfer import default_ledger
+    from nomad_tpu_torch.server.program_table import DeviceProgramTable
+    from nomad_tpu_torch.server.select_batch import _inert_program
+
+    state, nodes = build_synthetic_state(300, 3000, seed=3)
+    rng = random.Random(4)
+    stack = TorchStack(state.cluster, device=cuda_device)
+    kinds = sorted(_KINDS)
+    filler = list(state._allocs.values())[:5]
+    progs = []
+    for i in range(n_prog):
+        kw = dict(_KINDS[kinds[i % len(kinds)]])
+        if dcs is not None:
+            kw["datacenter"] = dcs[i % len(dcs)]
+        job = synth_service_job(rng, count=4, **kw)
+        plan = PlanContext(stopped_allocs=filler) if i == 1 else None
+        progs.append(stack.compile_tg(job, job.task_groups[0], 4, plan)[0])
+    progs.append(_inert_program(progs[0]))
+    table = DeviceProgramTable(device=cuda_device)
+    prep = table.prepare(progs)
+    before = kr.launch_count()
+    ti, tf, tu, _nb, _count = table.commit(prep, default_ledger())
+    assert kr.launch_count() == before + 3
+    dyn = [tensor_from_numpy(d, cuda_device)
+           for d in (prep.dyn_i, prep.dyn_f, prep.dyn_u)]
+    return stack.device_arrays(), prep, (ti, tf, tu), dyn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("explain", [False, True], ids=["plain", "explain"])
+def test_chain_kernel_matches_plain(explain, cuda_device):
+    arrays, prep, tables, dyn = _table_dispatch(cuda_device)
+    args = (arrays, *tables, prep.rows, *dyn, prep.sspec, prep.dspec,
+            prep.m)
+    before = kp.chain_launch_count()
+    got, got_carry = kp.place_table_chain(*args, explain=explain)
+    assert kp.chain_launch_count() == before + 1
+    want, want_carry = kp.place_table_chain_plain(*args, explain=explain)
+    torch.cuda.synchronize()
+    _assert_flat(want, got, explain)
+    _assert_carry(want_carry, got_carry)
+    assert (got[0][-1] == -1).all(), "the inert pad placed"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("explain", [False, True], ids=["plain", "explain"])
+def test_wave_kernel_matches_plain(explain, cuda_device):
+    arrays, prep, tables, dyn = _table_dispatch(cuda_device, n_prog=5)
+    # three lanes of two programs; lanes 0 and 1 overlap (both
+    # unpinned), so the fold has collisions to count
+    rows = prep.rows.reshape(3, 2)
+    dyn = [d.reshape(3, 2, -1) for d in dyn]
+    args = (arrays, *tables, rows, *dyn, prep.sspec, prep.dspec, prep.m)
+    before = kp.wave_launch_count()
+    got, got_carry = kp.place_table_wave(*args, explain=explain)
+    assert kp.wave_launch_count() == before + 1
+    want, want_carry = kp.place_table_wave_plain(*args, explain=explain)
+    torch.cuda.synchronize()
+    _assert_flat(want, got, explain)
+    _assert_carry(want_carry, got_carry)
+    assert got_carry[0].data_ptr() != arrays.used.data_ptr()
+
+
+@pytest.mark.cuda
+def test_packed_and_stacked_chains_match_plain(cuda_device):
+    from nomad_tpu_torch.convert import params_from_numpy, tensor_from_numpy
+    from nomad_tpu_torch.parallel.pad import stack_params
+
+    state, _nodes = build_synthetic_state(300, 3000, seed=5)
+    rng = random.Random(6)
+    stack = TorchStack(state.cluster, device=cuda_device)
+    progs = [stack.compile_tg(j, j.task_groups[0], 3, None)[0] for j in (
+        synth_service_job(rng, count=3, **_KINDS[k]) for k in sorted(_KINDS))]
+    batched, m = stack_params(progs)
+    arrays = stack.device_arrays()
+    ibuf, fbuf, ubuf, spec = kp.pack_params(batched)
+    bufs = [tensor_from_numpy(b, cuda_device) for b in (ibuf, fbuf, ubuf)]
+    got = kp.place_packed_chain(arrays, *bufs, spec, m, True)
+    want = kp.place_packed_chain_plain(arrays, *bufs, spec, m, True)
+    torch.cuda.synchronize()
+    _assert_flat(want, got, True)
+    p = params_from_numpy(batched, cuda_device)
+    got = kp.place_task_group_chain(arrays, p, m)
+    want = kp.place_task_group_chain_plain(arrays, p, m)
+    torch.cuda.synchronize()
+    _assert_same(want, got)
+
+
+@pytest.mark.cuda
+def test_row_scatter_matches_index_copy(cuda_device):
+    from nomad_tpu_torch.kernels import rows as kr
+
+    gen = torch.Generator().manual_seed(7)
+    for dt, width in ((torch.int32, 37), (torch.float32, 64),
+                      (torch.uint8, 13), (torch.uint8, 64)):
+        table = torch.randint(0, 100, (40, width), generator=gen).to(dt)
+        src = torch.randint(0, 100, (6, width), generator=gen).to(dt)
+        idx = torch.tensor([3, 0, 39, 17, 8, 22], dtype=torch.int32)
+        want = kr.row_scatter_plain(table.clone(), idx, src)
+        got = kr.row_scatter(table.to(cuda_device), idx.to(cuda_device),
+                             src.to(cuda_device))
+        torch.cuda.synchronize()
+        assert torch.equal(want, got.cpu()), (dt, width)
+
+
+def _server_placements(eval_batch, cuda_device):
+    """Placements {(job index, alloc index): node name} of one port
+    Server run on the card over a seeded 300-node feed with half the jobs
+    pinned to one datacenter (so batched drains dispatch waves)."""
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.synth import synth_node
+
+    rng = random.Random(9)
+    s = Server(ServerConfig(num_schedulers=1, heartbeat_ttl=3600.0,
+                            eval_batch=eval_batch), device=cuda_device)
+    try:
+        for i in range(300):
+            s.state.upsert_node(synth_node(rng, i))
+        jobs = [synth_service_job(
+            rng, count=3, with_affinity=i % 2 == 0, distinct_hosts=i % 3 == 0,
+            datacenter=f"dc{1 + i % 3}" if i < 12 else None)
+            for i in range(24)]
+        evs = [s.job_register(j) for j in jobs]
+        s.start()
+        for ev in evs:
+            got = s.wait_for_eval(ev.id, statuses=(
+                "complete", "failed", "blocked", "cancelled"), timeout=120)
+            assert got is not None and got.status == "complete", got
+        names = {nid: nd.name for nid, nd in s.state._nodes.items()}
+        return {(ji, a.name.rsplit("[", 1)[1]): names[a.node_id]
+                for ji, j in enumerate(jobs)
+                for a in s.state.allocs_by_job("default", j.id)}, \
+            s.metrics.counters().get("wave.dispatches", 0)
+    finally:
+        s.shutdown()
+
+
+@pytest.mark.cuda
+def test_server_batched_equals_sequential_on_the_card(cuda_device,
+                                                      monkeypatch):
+    """The server path on the card: eval_batch=1 runs each select alone
+    (K1), eval_batch=8 fuses them into chains and waves (K4, K5, with
+    table inserts through K8). Both place every alloc on the same node."""
+    monkeypatch.delenv("NOMAD_TPU_EVAL_BATCH", raising=False)
+    before = (kp.chain_launch_count(), kp.wave_launch_count())
+    seq, _w = _server_placements(1, cuda_device)
+    bat, waves = _server_placements(8, cuda_device)
+    assert len(seq) == 72 and seq == bat
+    assert kp.chain_launch_count() > before[0] or waves > 0
+    assert kp.wave_launch_count() > before[1] and waves > 0

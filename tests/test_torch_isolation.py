@@ -3,7 +3,8 @@
 - An AST scan of `nomad_tpu_torch/**` and `chip_smoke.py` finds no import
   of `jax` or of `nomad_tpu` / `nomad_tpu.*`.
 - With JAX made unimportable, a fresh interpreter imports the port and
-  processes one eval on 16 nodes with device="cpu".
+  processes one eval on 16 nodes with device="cpu", and a port `Server`
+  schedules a batch of evals through the coordinator there.
 - Every entry point defaults to the card and raises without one.
 """
 import ast
@@ -84,11 +85,53 @@ def test_port_runs_an_eval_without_jax():
     assert proc.stdout.strip().endswith("ok")
 
 
+_NO_JAX_SERVER = r"""
+import random, sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+from nomad_tpu_torch.server import Server, ServerConfig
+from nomad_tpu_torch.synth import synth_node, synth_service_job
+
+rng = random.Random(5)
+s = Server(ServerConfig(num_schedulers=1, heartbeat_ttl=3600.0,
+                        eval_batch=4), device="cpu")
+try:
+    for i in range(16):
+        s.state.upsert_node(synth_node(rng, i))
+    jobs = [synth_service_job(rng, count=2) for _ in range(4)]
+    evs = [s.job_register(j) for j in jobs]
+    s.start()
+    for ev in evs:
+        got = s.wait_for_eval(ev.id, statuses=("complete", "failed"),
+                              timeout=60)
+        assert got is not None and got.status == "complete", got
+    assert sum(len(s.state.allocs_by_job("default", j.id))
+               for j in jobs) == 8
+finally:
+    s.shutdown()
+assert not any(m.split(".")[0] in ("jax", "nomad_tpu")
+               for m, mod in sys.modules.items() if mod is not None), \
+    sorted(m for m in sys.modules if m.startswith(("jax", "nomad_tpu.")))
+print("ok")
+"""
+
+
+def test_port_server_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX_SERVER], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
 def _entry_points():
     from nomad_tpu_torch.convert import cluster_from_numpy, params_from_numpy
     from nomad_tpu_torch.scheduler.generic import GenericScheduler
     from nomad_tpu_torch.scheduler.harness import Harness, InMemState
     from nomad_tpu_torch.scheduler.stack import TorchStack
+    from nomad_tpu_torch.server import Server
+    from nomad_tpu_torch.server.program_table import DeviceProgramTable
     from nomad_tpu_torch.tensor.cluster import ClusterTensors
 
     cl = ClusterTensors()
@@ -103,12 +146,15 @@ def _entry_points():
         "TorchStack": lambda: TorchStack(cl),
         "cluster_from_numpy": lambda: cluster_from_numpy(view),
         "params_from_numpy": lambda: params_from_numpy({}),
+        "Server": lambda: Server(),
+        "DeviceProgramTable": lambda: DeviceProgramTable(),
     }
 
 
 @pytest.mark.parametrize("name", ["Harness", "GenericScheduler",
                                   "TorchStack", "cluster_from_numpy",
-                                  "params_from_numpy"])
+                                  "params_from_numpy", "Server",
+                                  "DeviceProgramTable"])
 def test_entry_points_default_to_cuda_and_raise_without_it(
         name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -1,0 +1,255 @@
+"""The port's batched server path: `Server(device="cpu")`.
+
+Broker → worker → select coordinator → program table → chain and wave
+transports (their plain versions on CPU tensors) → plan apply. Twins of
+the reference's server cases in `tests/test_select_batch.py` and
+`tests/test_drain.py`, run on the port:
+
+- a batched server (eval_batch=8) places exactly what a sequential one
+  (eval_batch=1) does, and the batch path engaged;
+- a contended batch does not over-commit a node;
+- a poisoned eval does not sink its batch;
+- the 2000-node dc-pinned feed dispatches at least one wave, places what
+  the sequential run places, and keeps plan-apply partials flat.
+
+And the port against the reference: one seeded feed through both
+packages' `Server`s at eval_batch=1 places alloc by alloc on the same
+nodes. The reference runs with speculation and chain-carry adoption off
+(`NOMAD_TPU_SPECULATE=0`, `NOMAD_TPU_SPEC_CHAIN_ADOPT=0`, set for its
+run only): the port has neither yet, and both only change transport,
+never placements. Port-batched == port-sequential == reference-sequential
+then holds the batched path to the reference.
+"""
+import random
+import time
+
+import pytest
+
+from nomad_tpu.structs.codec import to_wire
+from nomad_tpu.synth import synth_node, synth_service_job
+from torch_chain_cases import one_torch_thread  # noqa: F401
+
+from nomad_tpu_torch import mock
+from nomad_tpu_torch.structs.codec import from_wire
+
+FINAL = ("complete", "failed", "blocked", "cancelled")
+
+
+def _port(obj):
+    return from_wire(to_wire(obj))
+
+
+def _feed(seed, n_nodes, jobs_fn):
+    """Seeded nodes and jobs from the reference's generator (both
+    packages get the same objects: the port's over the wire)."""
+    rng = random.Random(seed)
+    nodes = [synth_node(rng, i) for i in range(n_nodes)]
+    return nodes, jobs_fn(rng)
+
+
+def _run(server_mod, eval_batch, nodes, jobs, timeout=120.0, port=True,
+         **server_kw):
+    """One server run; returns ({(job idx, alloc index): node name},
+    planner stats, worker batch stats, registry counters)."""
+    cfg = server_mod.ServerConfig(num_schedulers=1, heartbeat_ttl=3600.0,
+                                  eval_batch=eval_batch)
+    s = server_mod.Server(cfg, **server_kw)
+    conv = _port if port else (lambda o: o)
+    try:
+        for n in nodes:
+            s.state.upsert_node(conv(n))
+        jobs = [conv(j) for j in jobs]
+        # register BEFORE starting the workers: the first drain then sees
+        # a deep queue and the batch path engages
+        evs = [s.job_register(j) for j in jobs]
+        s.start()
+        for ev in evs:
+            got = s.wait_for_eval(ev.id, statuses=FINAL, timeout=timeout)
+            assert got is not None and got.status == "complete", got
+        names = {nid: nd.name for nid, nd in s.state._nodes.items()}
+        placements = {}
+        for ji, j in enumerate(jobs):
+            for a in s.state.allocs_by_job("default", j.id):
+                placements[(ji, a.name.rsplit("[", 1)[1])] = \
+                    names.get(a.node_id, a.node_id)
+        deadline = time.time() + 10.0
+        while eval_batch > 1 and time.time() < deadline \
+                and not s.workers[0].batch_stats.get("evals"):
+            time.sleep(0.05)   # finish_batch writes its counters last
+        return (placements, dict(s.planner.stats),
+                dict(s.workers[0].batch_stats), s.metrics.counters())
+    finally:
+        s.shutdown()
+
+
+def _port_run(eval_batch, nodes, jobs, monkeypatch, **kw):
+    from nomad_tpu_torch import server as tsrv
+
+    monkeypatch.delenv("NOMAD_TPU_EVAL_BATCH", raising=False)
+    return _run(tsrv, eval_batch, nodes, jobs, device="cpu", **kw)
+
+
+def _jobs_of_count(n_jobs, count):
+    return lambda rng: [synth_service_job(rng, count=count)
+                        for _ in range(n_jobs)]
+
+
+def test_batched_equals_sequential(monkeypatch):
+    nodes, jobs = _feed(7, 32, _jobs_of_count(12, 2))
+    seq, _st, _w, _c = _port_run(1, nodes, jobs, monkeypatch)
+    bat, bat_stats, wstats, _c = _port_run(8, nodes, jobs, monkeypatch)
+    assert seq and set(seq) == set(bat)
+    diffs = {k for k in seq if seq[k] != bat[k]}
+    assert not diffs, f"{len(diffs)} placements differ: {sorted(diffs)[:5]}"
+    assert wstats.get("batched", 0) > 0, wstats
+    assert bat_stats.get("partial", 0) == 0
+
+
+def test_contended_batch_does_not_overcommit(monkeypatch):
+    from nomad_tpu_torch.server import Server, ServerConfig
+
+    monkeypatch.delenv("NOMAD_TPU_EVAL_BATCH", raising=False)
+    s = Server(ServerConfig(num_schedulers=1, heartbeat_ttl=3600.0,
+                            eval_batch=8), device="cpu")
+    try:
+        for i in range(6):
+            n = mock.node()
+            n.id = f"n-{i}"
+            n.node_resources.cpu = 1000
+            n.node_resources.memory_mb = 1024
+            s.state.upsert_node(n)
+        jobs = []
+        for i in range(6):
+            j = mock.job()
+            j.id = f"contend-{i}"
+            j.task_groups[0].count = 1
+            j.task_groups[0].tasks[0].resources.cpu = 700
+            j.task_groups[0].tasks[0].resources.memory_mb = 128
+            j.task_groups[0].networks = []
+            jobs.append(j)
+        evs = [s.job_register(j) for j in jobs]
+        s.start()
+        for ev in evs:
+            got = s.wait_for_eval(ev.id, statuses=FINAL, timeout=60.0)
+            assert got is not None and got.status == "complete", got
+        used = [a.node_id for j in jobs
+                for a in s.state.allocs_by_job("default", j.id)]
+        assert len(used) == 6 and len(set(used)) == 6, used
+        assert s.planner.stats.get("partial", 0) == 0
+    finally:
+        s.shutdown()
+
+
+def test_poisoned_eval_does_not_sink_its_batch(monkeypatch):
+    import nomad_tpu_torch.server.worker as worker_mod
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.synth import synth_node as port_node
+    from nomad_tpu_torch.synth import synth_service_job as port_job
+
+    real = worker_mod.GenericScheduler
+    poison = set()
+
+    class Exploding(real):
+        def process(self, eval):
+            if eval.job_id in poison:
+                raise RuntimeError("poisoned eval (test)")
+            return real.process(self, eval)
+
+    monkeypatch.setattr(worker_mod, "GenericScheduler", Exploding)
+    monkeypatch.delenv("NOMAD_TPU_EVAL_BATCH", raising=False)
+    # pin the drain hold window so the 8-eval rendezvous forms
+    monkeypatch.setenv("NOMAD_TPU_DRAIN_WINDOW_MS", "300")
+    rng = random.Random(11)
+    s = Server(ServerConfig(num_schedulers=1, heartbeat_ttl=3600.0,
+                            eval_batch=8), device="cpu")
+    try:
+        for i in range(16):
+            s.state.upsert_node(port_node(rng, i))
+        jobs = [port_job(rng, count=2) for _ in range(8)]
+        poison.add(jobs[3].id)
+        evs = [s.job_register(j) for j in jobs]
+        s.start()
+        for i, ev in enumerate(evs):
+            if i == 3:
+                continue
+            got = s.wait_for_eval(ev.id, statuses=FINAL, timeout=60.0)
+            assert got is not None and got.status == "complete", (i, got)
+        for i, j in enumerate(jobs):
+            want = 0 if i == 3 else 2
+            assert len(s.state.allocs_by_job("default", j.id)) == want
+        deadline = time.time() + 30.0
+        while time.time() < deadline \
+                and s.broker._dequeues.get(evs[3].id, 0) < 2:
+            time.sleep(0.05)
+        assert s.broker._dequeues.get(evs[3].id, 0) >= 2
+        got = s.state.eval_by_id(evs[3].id)
+        assert got is None or got.status != "complete"
+        deadline = time.time() + 10.0
+        while time.time() < deadline \
+                and not s.workers[0].batch_stats.get("batched", 0):
+            time.sleep(0.05)
+        assert s.workers[0].batch_stats.get("batched", 0) > 0
+    finally:
+        s.shutdown()
+
+
+def _pinned_jobs(rng):
+    return [synth_service_job(rng, count=2, datacenter=f"dc{1 + i % 3}")
+            for i in range(9)]
+
+
+def test_wave_parity_2000_nodes(monkeypatch):
+    nodes, jobs = _feed(17, 2000, _pinned_jobs)
+    seq, seq_stats, _w, seq_c = _port_run(1, nodes, jobs, monkeypatch,
+                                          timeout=300.0)
+    bat, bat_stats, _w, bat_c = _port_run(64, nodes, jobs, monkeypatch,
+                                          timeout=300.0)
+    assert seq_c.get("wave.dispatches", 0) == 0
+    assert bat_c.get("wave.dispatches", 0) >= 1, "no wave was dispatched"
+    assert seq and set(seq) == set(bat)
+    diffs = {k: (seq[k], bat[k]) for k in seq if seq[k] != bat[k]}
+    assert not diffs, sorted(diffs.items())[:4]
+    assert bat_stats.get("partial", 0) == seq_stats.get("partial", 0)
+    assert bat_stats.get("rejected_nodes", 0) == \
+        seq_stats.get("rejected_nodes", 0)
+
+
+def _mixed_jobs(rng):
+    kinds = [dict(with_affinity=True), dict(with_spread=True),
+             dict(distinct_hosts=True), dict(distinct_property=True),
+             dict(), dict(datacenter="dc2")]
+    return [synth_service_job(rng, count=3, **kinds[i % len(kinds)])
+            for i in range(10)]
+
+
+def test_port_places_like_the_reference(monkeypatch):
+    from nomad_tpu import server as jsrv
+
+    nodes, jobs = _feed(23, 48, _mixed_jobs)
+    port_seq, port_stats, _w, _c = _port_run(1, nodes, jobs, monkeypatch)
+    port_bat, _st, wstats, _c = _port_run(8, nodes, jobs, monkeypatch)
+    with monkeypatch.context() as m:
+        m.setenv("NOMAD_TPU_SPECULATE", "0")
+        m.setenv("NOMAD_TPU_SPEC_CHAIN_ADOPT", "0")
+        m.delenv("NOMAD_TPU_EVAL_BATCH", raising=False)
+        ref, ref_stats, _w, _c = _run(jsrv, 1, nodes, jobs, port=False)
+    assert ref and set(ref) == set(port_seq) == set(port_bat)
+    diffs = {k: (ref[k], port_seq[k], port_bat[k]) for k in ref
+             if not ref[k] == port_seq[k] == port_bat[k]}
+    assert not diffs, sorted(diffs.items())[:4]
+    assert wstats.get("batched", 0) > 0
+    assert ref_stats.get("partial", 0) == port_stats.get("partial", 0)
+
+
+@pytest.mark.parametrize("typ", ["system"])
+def test_unported_scheduler_raises(typ):
+    from nomad_tpu_torch.server import ServerConfig
+    from nomad_tpu_torch.server.worker import Worker
+
+    class _Srv:
+        device = "cpu"
+        config = ServerConfig()
+
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        Worker(_Srv())._make_scheduler(
+            type("E", (), {"type": typ})(), None, None)
