@@ -24,7 +24,8 @@ non-zero without printing a result:
    8 service evals of count 10 (affinity, spread, distinct_hosts,
    distinct_property, GPU asks). All 80 allocs must be placed, the kernel's
    launch count must equal the number of selects, and every select's
-   kernel output must equal the plain version on the same CUDA inputs.
+   kernel output must equal the plain version on the CUDA inputs it read
+   (a copy taken at the launch: later refreshes write the view in place).
 5. The chain, wave and row-scatter kernels against their plain versions at
    full width (N = 16384): a chain of B = 8 programs of the phase-3 mix
    through the device program table, explain on and off; a wave of L = 3
@@ -32,34 +33,63 @@ non-zero without printing a result:
    wave whose lanes overlap (collisions > 0, equal in both); the table's
    insert into a fresh table against `index_copy_`. Times each kernel, its
    plain version and (for the insert) `index_copy_`, with each bound.
-6. The server path: a port `Server` (eval_batch 16) on the card over a
-   second copy of the cluster, ingested as `bench.py` does. After a
-   warm-up, three bursts of 64 service jobs of count 10 (half pinned to
-   one datacenter, so drains yield waves) are registered, one burst at a
-   time. Every eval must complete with all 640 allocs of its burst placed,
-   distinct_hosts respected and no partial plan; the chain, wave and
-   insert kernels must have launched; every chain/wave launch is held
-   against its plain version on the same CUDA tensors afterwards, and its
-   inputs must be unchanged (the view re-uploads whole, so nothing a
-   dispatch read is written again). Prints per burst evals/sec, eval
-   latency (register → complete), dispatch and wave counts, the per-eval
-   phase means of the eval tracer and the garbage collections.
-7. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
+6. The server path at the server's defaults (speculative dispatch, chain
+   adoption and the row-delta view on): a port `Server` (eval_batch 16)
+   on the card over a second copy of the cluster, ingested as `bench.py`
+   does, plus 64 running services holding a reserved and a dynamic port.
+   After a warm-up, three bursts of 64 service jobs of count 10 (half
+   pinned to one datacenter, so drains yield waves) are registered, one
+   burst at a time; between bursts four port-holding services finish and
+   one node re-registers. Every eval must complete with all 640 allocs of
+   its burst placed, distinct_hosts respected and no partial plan; the
+   chain, wave, insert and view row-delta (K7) kernels must have launched;
+   every chain/wave launch is held against its plain version on the inputs
+   it read (a copy taken at the launch), and the view it read must be
+   unchanged when its lease is released. After each burst, once quiet,
+   the refreshed device view must equal a cold upload bitwise. Prints per
+   burst evals/sec, eval latency (register → complete), dispatch and wave
+   counts, the per-eval phase means of the eval tracer, the `view.*` and
+   `spec.*` counters, the transfer bytes by ledger site and the garbage
+   collections.
+7. The slice at full width, on the phase-3 cluster (N = 16384): (a) rounds
+   of randomized churn (placements and stops holding ports, a node
+   re-registration, a node removal) refreshed through K7, each K7 call
+   equal to its plain version on a copy of what it writes and the view
+   equal to a cold upload, bitwise; K7's three parts timed against their
+   plain versions and `index_copy_` at 64 hot rows, 8 port rows and 64
+   port words, beside the whole-group uploads they replace; (b) three
+   speculative rounds of datacenter-pinned programs against a sequential
+   twin cluster (a deep copy): equal node choices, bit-equal scores, every
+   launch certified; (c) the refresh after the chain's plans commit books
+   0 bytes at the hot, static and port full-upload and hot-delta sites
+   and adopts the chain carry, equal to a cold upload; a foreign commit in
+   one datacenter between launch and certification rolls back that lane
+   only; (d) a refresh under a held lease writes copies and leaves the
+   leased tensors unchanged.
+8. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
 """
 from __future__ import annotations
 
+import copy
 import gc
 import json
 import random
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import uuid
 
 SEED = 20261017
 N_NODES, N_ALLOCS = 10_000, 100_000
 #: bursts of 64 evals through the server (phase 6), for the spread
 BURSTS = 3
+#: phase 7: churn rounds refreshed through K7; speculative rounds of the
+#: chain; allocs per program of those rounds
+CHURN_ROUNDS = 4
+SPEC_ROUNDS = 3
+SPEC_COUNT = 10
 TOL = 1e-6
 #: published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and fp32
 #: operations/s outside the tensor cores
@@ -381,20 +411,27 @@ def _mean(xs) -> float:
     return sum(xs) / len(xs) if xs else 0.0
 
 
-def _snapshot(torch, args):
-    """Device copies of every tensor a launch read (async clones on the
-    launching stream), to show later that none was written again."""
-    snap = []
-    for a in args:
-        for t in (a if isinstance(a, tuple) else (a,)):
-            if isinstance(t, torch.Tensor):
-                snap.append((t, t.clone()))
-    return snap
+def _snap(torch, x):
+    """A device copy of every tensor in `x` (nested tuples and named
+    tuples kept), cloned on the current stream: taken right after a
+    launch it holds what the launch wrote, taken before it what the
+    launch reads."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        out = [_snap(torch, y) for y in x]
+        return type(x)(*out) if hasattr(x, "_fields") else tuple(out)
+    return x
 
 
 def _phase6_server(torch, kp, kr, rng, device=None):
     """The batched server path on the card (`device` None) at the
-    BASELINE size."""
+    BASELINE size, at the server's defaults (speculation, chain adoption
+    and the row-delta view on)."""
+    from nomad_tpu_torch.lib.metrics import default_registry
+    from nomad_tpu_torch.lib.transfer import default_ledger
+    from nomad_tpu_torch.scheduler import stack as stack_mod
+    from nomad_tpu_torch.scheduler.stack import TorchStack
     from nomad_tpu_torch.server import Server, ServerConfig
     from nomad_tpu_torch.synth import (synth_alloc, synth_node,
                                        synth_service_job)
@@ -425,7 +462,18 @@ def _phase6_server(torch, kp, kr, rng, device=None):
             s.state.upsert_alloc(synth_alloc(
                 srng, nodes[srng.randrange(N_NODES)],
                 filler[i % len(filler)]))
-        print(f"server: ingested {N_NODES} nodes / {N_ALLOCS} allocs in "
+        # running services holding a reserved and a dynamic port: the
+        # client stops a few between bursts (below)
+        holders = []
+        for k in range(64):
+            node = nodes[srng.randrange(N_NODES)]
+            a = _port_alloc(node.id, filler[0].id, (100, 64, 10),
+                            [_ports_net(node, 8080, 20000 + k)])
+            a.job = filler[0]
+            s.state.upsert_alloc(a)
+            holders.append(a)
+        cl = s.state.cluster
+        print(f"server: ingested {N_NODES} nodes / {N_ALLOCS + 64} allocs in "
               f"{time.perf_counter() - t0:.1f} s")
 
         def feed(n):
@@ -455,26 +503,67 @@ def _phase6_server(torch, kp, kr, rng, device=None):
                 done.append(got)
             return evs, done
 
+        def churn(burst):
+            # between bursts, what clients report meanwhile: four
+            # port-holding services finish, one node re-registers
+            for _ in range(4):
+                a = copy.copy(holders.pop(srng.randrange(len(holders))))
+                a.client_status = "complete"
+                s.state.upsert_alloc(a)
+            node = copy.copy(nodes[srng.randrange(N_NODES)])
+            node.meta = dict(node.meta or {}, burst=str(burst))
+            s.state.upsert_node(node)
+
         t0 = time.perf_counter()
         warm, _dh = feed(16)
         run(warm)
         print(f"server: warm-up of {len(warm)} evals in "
               f"{time.perf_counter() - t0:.1f} s")
 
-        records = []
+        records, leased, views, released_bad = [], {}, {}, []
         names = ("place_table_chain", "place_table_wave",
                  "place_packed_chain", "place_task_group")
         real = {name: getattr(kp, name) for name in names}
+        real_da = TorchStack.device_arrays
+        real_scv = stack_mod.spec_chain_view
+        real_rel = stack_mod.release_view
 
         def recorder(name):
             fn = real[name]
 
             def rec(*args, **kw):
-                snap = _snapshot(torch, args)
+                snap = _snap(torch, args)
+                views[id(args[0])] = (args[0], snap[0])
                 res = fn(*args, **kw)
-                records.append((name, args, kw, snap, res))
+                # the outputs as the launch wrote them: an adopted carry
+                # becomes the view's tensor, which later refreshes write
+                records.append((name, snap, kw, _snap(torch, res)))
                 return res
             return rec
+
+        def device_arrays(self, lease_token=None):
+            arrays = real_da(self, lease_token=lease_token)
+            if lease_token is not None:
+                leased[lease_token] = arrays
+            return arrays
+
+        def spec_chain_view(cluster, lease_token, device=None):
+            arrays = real_scv(cluster, lease_token, device)
+            if arrays is not None:
+                leased[lease_token] = arrays
+            return arrays
+
+        def release_view(cluster, token):
+            # the view a launch read must be what it was at the launch
+            # until its lease ends (a refresh meanwhile writes copies)
+            arrays = leased.pop(token, None)
+            held = views.get(id(arrays)) if arrays is not None else None
+            if held is not None and held[0] is arrays:
+                for f in arrays._fields:
+                    if not torch.equal(getattr(arrays, f),
+                                       getattr(held[1], f)):
+                        released_bad.append((token, f))
+            real_rel(cluster, token)
 
         gc_pauses, gc_start = [], []
 
@@ -485,39 +574,60 @@ def _phase6_server(torch, kp, kr, rng, device=None):
                 gc_pauses.append((info["generation"],
                                   time.perf_counter() - gc_start.pop()))
 
+        # the view the bursts start from: quiet, refreshed, equal to cold
+        _cold_equal(torch, TorchStack(cl, device=s.device).device_arrays(),
+                    cl, "after the warm-up")
         kp.reset_launch_count()
         kp.reset_chain_launch_counts()
         kr.reset_launch_count()
+        kr.reset_delta_launch_counts()
+        k7 = dict.fromkeys(kr.DELTA_PARTS, 0)
         for name in names:
             setattr(kp, name, recorder(name))
+        TorchStack.device_arrays = device_arrays
+        stack_mod.spec_chain_view = spec_chain_view
+        stack_mod.release_view = release_view
         gc.callbacks.append(on_gc)
         try:
             for burst in range(BURSTS):
+                if burst:
+                    churn(burst)
+                k7_0 = kr.delta_launch_counts()
                 _server_burst(s, feed, run, gc_pauses, burst)
-            if s.device.type == "cuda":
-                torch.cuda.synchronize()
+                for part, n in kr.delta_launch_counts().items():
+                    k7[part] += n - k7_0[part]
+                # quiet: the cached view, refreshed, equals a cold upload
+                if s.device.type == "cuda":
+                    torch.cuda.synchronize()
+                _cold_equal(torch, TorchStack(
+                    cl, device=s.device).device_arrays(), cl,
+                    f"after burst {burst}")
         finally:
             for name in names:
                 setattr(kp, name, real[name])
+            TorchStack.device_arrays = real_da
+            stack_mod.spec_chain_view = real_scv
+            stack_mod.release_view = real_rel
             gc.callbacks.remove(on_gc)
         launches = {"chain": kp.chain_launch_count(),
                     "wave": kp.wave_launch_count(),
                     "insert": kr.launch_count(),
-                    "single": kp.launch_count()}
+                    "single": kp.launch_count(),
+                    "k7": sum(k7.values()), "k7_parts": k7}
         out["launches"] = launches
-        for k in ("chain", "wave", "insert"):
+        for k in ("chain", "wave", "insert", "k7"):
             if launches[k] == 0:
                 raise AssertionError(f"the {k} kernel never launched on the "
                                      f"server path: {launches}")
+        if released_bad:
+            raise AssertionError(f"leased views written before their "
+                                 f"release: {released_bad[:4]}")
 
-        # every recorded launch against its plain version, inputs intact
+        # every recorded launch against its plain version on the inputs
+        # it read (the snapshot taken at the launch)
         kinds = {"place_table_chain": "chain", "place_table_wave": "wave",
                  "place_packed_chain": "chain"}
-        for i, (name, args, kw, snap, res) in enumerate(records):
-            for t, copy in snap:
-                if not torch.equal(t, copy):
-                    raise AssertionError(f"launch {i} ({name}): an input "
-                                         "was written after the launch")
+        for i, (name, args, kw, res) in enumerate(records):
             if name == "place_task_group":
                 want = kp.place_task_group_plain(*args, **kw)
                 out["err"]["single"] = max(out["err"].get("single", 0.0),
@@ -535,7 +645,8 @@ def _phase6_server(torch, kp, kr, rng, device=None):
               f"{lanes['mean']:.2f}, max {lanes['max']:.0f}; "
               f"launches {launches}; "
               f"{len(records)} chain/wave launches recorded, all equal to "
-              "plain with their inputs unchanged")
+              "plain on the inputs they read, every leased view unchanged "
+              "until its release")
     finally:
         s.shutdown()
     out["max_err"] = max(out["err"].values())
@@ -544,15 +655,23 @@ def _phase6_server(torch, kp, kr, rng, device=None):
 
 def _server_burst(s, feed, run, gc_pauses, burst):
     """One burst of 64 evals through a started Server: checks every
-    placement and prints throughput, latency, dispatch, per-phase and
-    garbage-collection numbers of the burst."""
+    placement and prints throughput, latency, dispatch, per-phase,
+    view/speculation/transfer and garbage-collection numbers of the
+    burst."""
+    from nomad_tpu_torch.lib.metrics import default_registry
+    from nomad_tpu_torch.lib.transfer import default_ledger
+
     jobs, dh = feed(64)
     c0 = s.metrics.counters()
+    v0 = default_registry().counters(prefix="view.")
+    led0 = default_ledger().snapshot()
     seq0 = s.timeline.last_index()
     p0 = dict(s.planner.stats)
     n_gc = len(gc_pauses)
     evs, done = run(jobs)
     c1 = s.metrics.counters()
+    v1 = default_registry().counters(prefix="view.")
+    led1 = default_ledger().snapshot()
     p1 = dict(s.planner.stats)
 
     # every eval complete, every alloc placed, distinct_hosts held
@@ -606,6 +725,438 @@ def _server_burst(s, feed, run, gc_pauses, burst):
         f"gen {g}: {len(ts)}, total {sum(ts) * 1e3:.1f} ms, max "
         f"{max(ts) * 1e3:.1f} ms" for g, ts in sorted(gcs.items()))
         or "none"))
+    view = {k: v1.get(k, 0) - v0.get(k, 0) for k in sorted(v1)
+            if v1.get(k, 0) != v0.get(k, 0)}
+    spec = {k[5:]: c1.get(k, 0) - c0.get(k, 0) for k in sorted(c1)
+            if k.startswith("spec.") and c1.get(k, 0) != c0.get(k, 0)}
+    moved = {}
+    for site, row in sorted(led1.items()):
+        d = row["bytes"] - led0.get(site, {}).get("bytes", 0)
+        if d:
+            moved[site] = d
+    print(f"{tag} view counters {view}")
+    print(f"{tag} spec counters {spec}")
+    print(f"{tag} transfer bytes by site {moved}")
+
+
+def _cold_equal(torch, arrays, cl, what: str) -> None:
+    """The device view equals a cold upload of the host cluster, bitwise
+    (every tensor cast as the full upload casts it)."""
+    import numpy as np
+
+    from nomad_tpu_torch.convert import tensor_from_numpy
+
+    dev = arrays.used.device
+    attr_dt = np.int16 if cl.vocab.max_vocab < 32000 else np.int32
+    cold = {"capacity": (cl.capacity, np.float32),
+            "used": (cl.used, np.float32), "node_ok": (cl.node_ok, np.bool_),
+            "attrs": (cl.attrs, attr_dt), "ports_used": (cl.ports_used, None),
+            "dyn_free": (cl.dyn_free, np.float32)}
+    for f, (a, dt) in cold.items():
+        want = tensor_from_numpy(a, dev, dt)
+        got = getattr(arrays, f)
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"{what}: the view's {f} differs from a "
+                                 "cold upload")
+
+
+def _port_alloc(node_id, job_id, ask, networks=()):
+    """A running alloc of `ask` (cpu, memory, disk) on `node_id`."""
+    from nomad_tpu_torch.mock import alloc_resources
+    from nomad_tpu_torch.structs import Allocation
+
+    return Allocation(
+        id=uuid.uuid4().hex, namespace="default", job_id=job_id,
+        task_group="web", node_id=node_id,
+        allocated_resources=alloc_resources(
+            cpu=int(ask[0]), memory_mb=int(ask[1]), disk_mb=int(ask[2]),
+            networks=list(networks)),
+        desired_status="run", client_status="running")
+
+
+def _ports_net(node, reserved: int, dynamic: int):
+    from nomad_tpu_torch.structs import NetworkResource, Port
+
+    return NetworkResource(ip=node.node_resources.networks[0].ip, mbits=1,
+                           reserved_ports=[Port("http", reserved)],
+                           dynamic_ports=[Port("rpc", dynamic)])
+
+
+def _park(cl, jobs, coord, n_place, device=None):
+    """One scheduler thread per job, parked at `coord` (its run() not
+    yet driven); returns (threads, {i: (node ids, scores, ask, dispatch
+    token)})."""
+    from nomad_tpu_torch.scheduler.stack import TorchStack
+
+    results = {}
+
+    def one(i, job):
+        stack = TorchStack(cl, device=device)
+        stack.coordinator = coord
+        stack.coordinator_order = i
+        try:
+            r = stack.select(job, job.task_groups[0], n_place, None)
+            results[i] = (r.node_ids, r.scores, r.ask, r.carry_token)
+        finally:
+            coord.thread_done()
+
+    threads = []
+    for i, j in enumerate(jobs):
+        coord.add_thread()
+        t = threading.Thread(target=one, args=(i, j), daemon=True)
+        threads.append(t)
+        t.start()
+    deadline = time.time() + 60.0
+    while time.time() < deadline:
+        with coord._cv:
+            if coord._parked and len(coord._parked) >= coord._live:
+                return threads, results
+        time.sleep(0.002)
+    raise AssertionError("schedulers never parked")
+
+
+def _drive(coord, threads) -> None:
+    coord.run()
+    for t in threads:
+        t.join(120.0)
+
+
+def _commit(cl, results, ids, foreign=None) -> None:
+    """Commit each eval's placements as the plan applier does (usage ==
+    the compiled ask), one window per eval stamped with its dispatch
+    token; then a foreign alloc on node `foreign`, if given."""
+    for i, eid in enumerate(ids):
+        node_ids, _scores, ask, token = results[i]
+        v_lo = cl.version
+        for nid in node_ids:
+            if nid is not None:
+                cl.upsert_alloc(_port_alloc(nid, f"job-{eid}", ask))
+        cl.mark_plan_window(eid, v_lo, cl.version, clean=True, exact=True,
+                            token=token)
+    if foreign is not None:
+        cl.upsert_alloc(_port_alloc(foreign, "foreign", (123, 64, 10)))
+
+
+def _dc_mask(cl, dc):
+    import numpy as np
+
+    m = np.zeros(cl.n_cap, dtype=bool)
+    for nid, row in cl.row_of.items():
+        if cl.nodes[nid].datacenter == dc:
+            m[row] = True
+    return m
+
+
+def _k7_churn(torch, kr, cl, nodes, rng, out, device=None) -> None:
+    """(a) Rounds of randomized churn refreshed through K7, each part
+    held against its plain version on the same inputs (a clone of the
+    tensors it writes), and the view against a cold upload."""
+    from nomad_tpu_torch.scheduler import stack as stack_mod
+    from nomad_tpu_torch.scheduler.stack import TorchStack
+
+    stack = TorchStack(cl, device=device)
+    _cold_equal(torch, stack.device_arrays(), cl, "before the churn")
+    calls = dict.fromkeys(kr.DELTA_PARTS, 0)
+    n_dst = {"hot_rows": 3, "port_rows": 1, "port_words": 1}
+    real = {p: getattr(stack_mod, f"{p}_update") for p in kr.DELTA_PARTS}
+    plain = {p: getattr(kr, f"{p}_update_plain") for p in kr.DELTA_PARTS}
+
+    def checked(part):
+        def run(*args):
+            k = n_dst[part]
+            want = [t.clone() for t in args[:k]]
+            plain[part](*want, *args[k:])
+            real[part](*args)
+            for a, b in zip(want, args[:k]):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K7 {part} differs from its "
+                                         "plain version")
+            calls[part] += 1
+            for a, b in zip(want, args[:k]):
+                out["k7_err"] = max(out.get("k7_err", 0.0), float(
+                    (a.double() - b.double()).abs().max()) if a.numel()
+                    else 0.0)
+        return run
+
+    for part in kr.DELTA_PARTS:
+        setattr(stack_mod, f"{part}_update", checked(part))
+    live, removed = [], set()
+    try:
+        for rnd in range(CHURN_ROUNDS):
+            for k in range(16):      # placements holding two ports each
+                node = nodes[rng.randrange(len(nodes))]
+                if node.id in removed:
+                    continue
+                port = 9000 + rnd * 16 + k
+                a = _port_alloc(node.id, f"churn-{rnd}", (100, 64, 10),
+                                [_ports_net(node, port, port + 12000)])
+                cl.upsert_alloc(a)
+                live.append(a)
+            for _ in range(8):       # stops release usage and ports
+                a = live.pop(rng.randrange(len(live)))
+                a.client_status = "complete"
+                cl.upsert_alloc(a)
+            node = nodes[rng.randrange(len(nodes))]
+            if node.id not in removed:   # a re-registration
+                node.meta = dict(node.meta or {}, churn=str(rnd))
+                cl.upsert_node(node)
+            held = {a.node_id for a in live}
+            victim = next(n for n in nodes
+                          if n.id not in removed and n.id not in held)
+            cl.remove_node(victim.id)
+            removed.add(victim.id)
+            _cold_equal(torch, stack.device_arrays(), cl,
+                        f"churn round {rnd}")
+    finally:
+        for part in kr.DELTA_PARTS:
+            setattr(stack_mod, f"{part}_update", real[part])
+    if not all(calls.values()):
+        raise AssertionError(f"a K7 part never ran in the churn: {calls}")
+    out["churn_calls"] = calls
+    print(f"slice (a): {CHURN_ROUNDS} churn rounds (16 placements with a "
+          "reserved and a dynamic port, 8 stops, a node re-registration, "
+          f"a node removal each): K7 calls {calls}, each equal to its plain "
+          "version and the view equal to a cold upload, bitwise")
+
+
+def _k7_timing(torch, kr, cl, out) -> None:
+    """K7's three parts against their plain versions and index_copy_ at
+    a hot delta of 64 rows, 8 port rows and 64 port words, on copies of
+    the view; and the whole-group uploads the delta replaces."""
+    import numpy as np
+
+    from nomad_tpu_torch.convert import tensor_from_numpy
+    from nomad_tpu_torch.scheduler.stack import TorchStack
+
+    v = TorchStack(cl).device_arrays()
+    dev = v.used.device
+    used, ok, dyn, ports = (v.used.clone(), v.node_ok.clone(),
+                            v.dyn_free.clone(), v.ports_used.clone())
+    n, r = used.shape
+    w = ports.shape[1]
+    g = torch.Generator().manual_seed(SEED)
+    pick = torch.randperm(n, generator=g)
+    hidx = pick[:64].to(torch.int32).to(dev)
+    pidx = pick[64:72].to(torch.int32).to(dev)
+    widx = pick[72:136].to(torch.int32).to(dev)
+    words = torch.randint(0, w, (64,), generator=g,
+                          dtype=torch.int32).to(dev)
+    uv, ov, dv = (used[hidx.long()].clone() + 1, ~ok[hidx.long()],
+                  dyn[hidx.long()].clone() - 1)
+    pv = ports[pidx.long()].clone() ^ 1
+    wv = ports[widx.long(), words.long()].clone() ^ 1
+    flat = (widx.long() * w + words.long())
+    h64, p64 = hidx.long(), pidx.long()
+    parts = {
+        "hot_rows": (
+            lambda: kr.hot_rows_update_cuda(used, ok, dyn, hidx, uv, ov, dv),
+            lambda: kr.hot_rows_update_plain(used, ok, dyn, hidx, uv, ov,
+                                             dv),
+            lambda: (used.index_copy_(0, h64, uv), ok.index_copy_(0, h64, ov),
+                     dyn.index_copy_(0, h64, dv)),
+            64 * (4 + 4 * r + 1 + 4) + 64 * (4 * r + 1 + 4)),
+        "port_rows": (
+            lambda: kr.port_rows_update_cuda(ports, pidx, pv),
+            lambda: kr.port_rows_update_plain(ports, pidx, pv),
+            lambda: ports.index_copy_(0, p64, pv),
+            8 * (4 + 4 * w) + 8 * 4 * w),
+        "port_words": (
+            lambda: kr.port_words_update_cuda(ports, widx, words, wv),
+            lambda: kr.port_words_update_plain(ports, widx, words, wv),
+            lambda: ports.view(-1).index_copy_(0, flat, wv),
+            64 * 12 + 64 * 4),
+    }
+    timing = {}
+    for name, (kern, pl, lib, nbytes) in parts.items():
+        timing[name] = dict(ms=_time_ms(kern, 200), plain_ms=_time_ms(pl, 200),
+                            library_ms=_time_ms(lib, 200),
+                            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    ports_np = np.ascontiguousarray(cl.ports_used)
+    hot = (cl.used, cl.node_ok, cl.dyn_free)
+    full_ports = _time_ms(lambda: tensor_from_numpy(ports_np, dev), 5)
+    full_hot = _time_ms(lambda: [tensor_from_numpy(a, dev, dt) for a, dt in
+                                 zip(hot, (np.float32, np.bool_,
+                                           np.float32))], 5)
+    out["k7"] = dict(
+        ms=sum(t["ms"] for t in timing.values()),
+        plain_ms=sum(t["plain_ms"] for t in timing.values()),
+        bound_ms=sum(t["bound_ms"] for t in timing.values()),
+        bound_by="bytes",
+        library_ms=sum(t["library_ms"] for t in timing.values()))
+    out["k7_parts"] = timing
+    hot_nb = cl.used.size * 4 + cl.node_ok.nbytes + cl.dyn_free.nbytes
+    for name, t in timing.items():
+        print(f"slice K7 {name}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, index_copy_ {t['library_ms']:.4f} ms,"
+              f" bound {t['bound_ms']:.7f} ms (bytes)")
+    print(f"slice K7 refresh (64 hot rows, 8 port rows, 64 port words): "
+          f"kernels {out['k7']['ms']:.4f} ms against the whole-group "
+          f"uploads it replaces: port bitmap {ports_np.nbytes / 2**20:.0f} "
+          f"MiB {full_ports:.4f} ms, hot group {hot_nb / 2**20:.2f} MiB "
+          f"{full_hot:.4f} ms")
+
+
+def _spec_twin(torch, cl_a, cl_b, rng, out, device=None) -> None:
+    """(b)-(d): SPEC_ROUNDS speculative rounds of datacenter-pinned
+    programs on `cl_a` against the same rounds dispatched sequentially
+    on `cl_b`; the refresh after the certified chain adopts its carry;
+    a foreign commit rolls back only its lane; a leased view survives a
+    refresh under churn."""
+    import numpy as np
+
+    from nomad_tpu_torch.lib.metrics import MetricsRegistry, default_registry
+    from nomad_tpu_torch.lib.transfer import default_ledger
+    from nomad_tpu_torch.scheduler import stack as stack_mod
+    from nomad_tpu_torch.scheduler.stack import TorchStack
+    from nomad_tpu_torch.server.select_batch import SelectCoordinator
+    from nomad_tpu_torch.synth import synth_service_job
+
+    dcs = ("dc1", "dc2", "dc3")
+    masks = {id(cl): {i: _dc_mask(cl, dcs[i // 2]) for i in range(6)}
+             for cl in (cl_a, cl_b)}
+
+    def coord(cl, ids, reg=None):
+        c = SelectCoordinator(registry=reg)
+        c.trace_ids = dict(enumerate(ids))
+        c.group_ids = {i: i // 2 for i in range(6)}    # 3 lanes of 2
+        c.footprints = dict(masks[id(cl)])
+        return c
+
+    def real_round(cl, jobs, ids):
+        c = coord(cl, ids)
+        threads, res = _park(cl, jobs, c, SPEC_COUNT, device)
+        _drive(c, threads)
+        return res
+
+    def spec_round(cl, jobs, ids, reg, prev, prev_ids, foreign=None):
+        c = coord(cl, ids, reg)
+        threads, res = _park(cl, jobs, c, SPEC_COUNT, device)
+        if not c.try_spec_launch(cl):
+            raise AssertionError(f"{ids[0]}: speculation never launched")
+        _commit(cl, prev, prev_ids, foreign)
+        _drive(c, threads)
+        return res
+
+    def same(ra, rb, what):
+        for i in ra:
+            sa = np.asarray(ra[i][1], dtype=np.float32).view(np.uint32)
+            sb = np.asarray(rb[i][1], dtype=np.float32).view(np.uint32)
+            if ra[i][0] != rb[i][0] or not np.array_equal(sa, sb):
+                raise AssertionError(f"{what}: program {i} differs between "
+                                     "the speculative and sequential runs")
+            if sum(x is not None for x in ra[i][0]) != SPEC_COUNT:
+                raise AssertionError(f"{what}: program {i} under-placed")
+
+    def jobs_of():
+        return [synth_service_job(rng, count=SPEC_COUNT,
+                                  datacenter=dcs[i // 2]) for i in range(6)]
+
+    reg = MetricsRegistry()
+    ids = [f"r0-{i}" for i in range(6)]
+    jobs = jobs_of()
+    prev_a, prev_b = real_round(cl_a, jobs, ids), real_round(cl_b, jobs, ids)
+    same(prev_a, prev_b, "round 0")
+    for n in range(1, SPEC_ROUNDS + 1):
+        rids, jobs = [f"r{n}-{i}" for i in range(6)], jobs_of()
+        res_a = spec_round(cl_a, jobs, rids, reg, prev_a, ids)
+        _commit(cl_b, prev_b, ids)
+        res_b = real_round(cl_b, jobs, rids)
+        same(res_a, res_b, f"round {n}")
+        prev_a, prev_b, ids = res_a, res_b, rids
+    c = reg.counters()
+    if (c.get("spec.launches") != SPEC_ROUNDS
+            or c.get("spec.certified") != SPEC_ROUNDS
+            or c.get("spec.rolled_back", 0)):
+        raise AssertionError(f"the chain did not certify clean: {c}")
+    print(f"slice (b): {SPEC_ROUNDS} speculative rounds of 6 dc-pinned "
+          f"programs (3 lanes of 2, count {SPEC_COUNT}) bit-identical to the "
+          f"sequential twin; spec counters {c}")
+
+    # (c) the refresh after the certified chain's plans commit adopts it
+    _commit(cl_a, prev_a, ids)
+    _commit(cl_b, prev_b, ids)
+    sites = ("stack.hot_full", "stack.hot_delta", "stack.static_full",
+             "stack.ports_full")
+    led0 = default_ledger().snapshot()
+    v0 = default_registry().counters(prefix="view.")
+    view = TorchStack(cl_a, device=device).device_arrays()
+    led1 = default_ledger().snapshot()
+    v1 = default_registry().counters(prefix="view.")
+    moved = {s: led1.get(s, {}).get("bytes", 0) - led0.get(s, {}).get(
+        "bytes", 0) for s in sites}
+    adopts = v1.get("chain_adopts", 0) - v0.get("chain_adopts", 0)
+    rows = v1.get("chain_rows", 0) - v0.get("chain_rows", 0)
+    if any(moved.values()) or adopts < 1:
+        raise AssertionError(f"chain adoption: bytes {moved}, adopts "
+                             f"{adopts}")
+    _cold_equal(torch, view, cl_a, "the adopted view")
+    out["adoption"] = dict(bytes=moved, chain_adopts=adopts, chain_rows=rows)
+    print(f"slice (c): refresh after the certified chain: bytes {moved}, "
+          f"view.chain_adopts +{adopts}, view.chain_rows +{rows}; the "
+          "adopted view equals a cold upload")
+
+    # a foreign commit in dc1 between launch and certification
+    reg2 = MetricsRegistry()
+    ids1, jobs1 = [f"f1-{i}" for i in range(6)], jobs_of()
+    r1a, r1b = real_round(cl_a, jobs1, ids1), real_round(cl_b, jobs1, ids1)
+    same(r1a, r1b, "conflict round 1")
+    dc1 = next(nid for nid in sorted(cl_a.row_of)
+               if cl_a.nodes[nid].datacenter == "dc1")
+    ids2, jobs2 = [f"f2-{i}" for i in range(6)], jobs_of()
+    r2a = spec_round(cl_a, jobs2, ids2, reg2, r1a, ids1, foreign=dc1)
+    _commit(cl_b, r1b, ids1, foreign=dc1)
+    r2b = real_round(cl_b, jobs2, ids2)
+    same(r2a, r2b, "conflict round 2")
+    c2 = reg2.counters()
+    if c2.get("spec.rolled_back") != 1 \
+            or c2.get("spec.redispatch_programs") != 2:
+        raise AssertionError(f"the conflict did not roll back exactly the "
+                             f"dc1 lane: {c2}")
+    out["conflict"] = c2
+    print(f"slice (b): a foreign commit in dc1 rolled back the dc1 lane "
+          f"only ({c2.get('spec.redispatch_programs')} of 6 programs "
+          "re-dispatched), and the result equals the sequential twin")
+
+    # (d) the copy slot: a refresh under a held lease
+    stack = TorchStack(cl_a, device=device)
+    held = stack.device_arrays(lease_token="chip-smoke-held")
+    snap = {f: getattr(held, f).clone() for f in held._fields}
+    slots0 = default_registry().counters(prefix="view.").get("copy_slots", 0)
+    nodes = [cl_a.nodes[nid] for nid in sorted(cl_a.row_of)[:8]]
+    for k, node in enumerate(nodes):
+        cl_a.upsert_alloc(_port_alloc(node.id, "slot", (100, 64, 10),
+                                      [_ports_net(node, 9500 + k,
+                                                  22000 + k)]))
+    fresh = stack.device_arrays()
+    slots = default_registry().counters(prefix="view.").get(
+        "copy_slots", 0) - slots0
+    for f, t in snap.items():
+        if not torch.equal(getattr(held, f), t):
+            raise AssertionError(f"copy slot: the leased {f} was written")
+    stack_mod.release_view(cl_a, "chip-smoke-held")
+    if slots != 1:
+        raise AssertionError(f"view.copy_slots moved by {slots}")
+    _cold_equal(torch, fresh, cl_a, "the refresh under a lease")
+    print("slice (d): a refresh under a held lease wrote copies "
+          "(view.copy_slots +1), the leased tensors unchanged, the new "
+          "view equal to a cold upload")
+
+
+def _phase7_slice(torch, kr, cl, nodes, rng, device=None):
+    """The slice at full width (the 10,000-node / 100,000-alloc cluster,
+    N = 16384): K7 under churn and timed; speculation against a
+    sequential twin; chain adoption; a forced conflict; the copy slot.
+    `device="cpu"` rehearses the control flow on the plain versions
+    (nothing is timed)."""
+    out = {}
+    t0 = time.perf_counter()
+    _k7_churn(torch, kr, cl, nodes, rng, out, device)
+    if device is None:
+        _k7_timing(torch, kr, cl, out)
+    twin = copy.deepcopy(cl)
+    _spec_twin(torch, cl, twin, rng, out, device)
+    print(f"slice: phase 7 took {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -779,8 +1330,11 @@ def main() -> int:
     real_place = stack_mod.place_task_group
 
     def recording_place(cluster, params, max_allocs, explain=False):
+        # the inputs as the launch read them: later evals' refreshes
+        # write the cached view in place once this select's lease ends
+        snap = _snap(torch, (cluster, params))
         res = real_place(cluster, params, max_allocs, explain=explain)
-        calls.append((cluster, params, max_allocs, explain, res))
+        calls.append((*snap, max_allocs, explain, res))
         return res
 
     h = Harness(state)
@@ -866,6 +1420,9 @@ def main() -> int:
     server = _phase6_server(torch, kp, kr, rng)
     max_err = max(max_err, server["max_err"])
 
+    # ---- 7. the slice at full width ----
+    slice_ = _phase7_slice(torch, kr, cl, nodes, rng)
+
     print(json.dumps({"kernels": [{
         "name": "place_task_group",
         "route": "cuda",
@@ -902,6 +1459,14 @@ def main() -> int:
         "launches": server["launches"]["insert"],
         "max_abs_err": k5["err"]["insert"],
         **k5["insert"],
+    }, {
+        "name": "view_row_delta",
+        "route": "cuda",
+        "source": "nomad_tpu_torch/kernels/csrc/rows.cu",
+        "replaces": "nomad_tpu/scheduler/stack.py:115",
+        "launches": server["launches"]["k7"],
+        "max_abs_err": slice_["k7_err"],
+        **slice_["k7"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

@@ -20,6 +20,7 @@ from __future__ import annotations
 import time
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 
 from ..utils import fast_uuid
 from ..structs import (
@@ -172,6 +173,10 @@ class GenericScheduler:
         self.queued_allocs = {}
         self.follow_up_evals = []
         self.plan = ev.make_plan(self.job)
+        # optimistic carry-exact certification (device-resident plan
+        # deltas): only fused-coordinator dispatches produce a device
+        # carry, and any post-kernel divergence below revokes it
+        self.plan.carry_exact = self.select_coordinator is not None
         self.failed_tg_allocs = {}
         if not self.batch:
             self.deployment = self.state.latest_deployment_by_job(
@@ -269,6 +274,11 @@ class GenericScheduler:
             )
 
         dep_id = self.deployment.id if self.deployment is not None else ""
+        if results.inplace_update or results.attribute_updates:
+            # in-place/attribute updates replace a live alloc's usage at
+            # commit — host mutations on rows the kernel carry cannot
+            # model (it only chains placements + plan-relative stops)
+            self.plan.carry_exact = False
         for update in results.inplace_update:
             if update.deployment_id != dep_id:
                 update.deployment_id = dep_id
@@ -420,6 +430,11 @@ class GenericScheduler:
             volumes = resolve_volume_asks(self.state, self.job.namespace, tg)
             result = self.stack.select(self.job, tg, len(entries), plan_ctx,
                                        volumes=volumes)
+            # bind the plan to the dispatch whose carry contains these
+            # placements (multi-group plans: the LAST dispatch's carry
+            # is the one a later refresh can adopt — earlier groups ride
+            # it as plan-relative deltas, which always overlay)
+            self.plan.carry_token = result.carry_token
             if result.explain is not None:
                 self._record_explain_metrics(result.explain)
 
@@ -468,6 +483,10 @@ class GenericScheduler:
                     # selected node: the reference would have ranked it out
                     # (rank.go:256-267) and moved to the next candidate —
                     # retry selection with the node excluded, then fail.
+                    # Either way the kernel's predicted placement row
+                    # never commits — the dispatch carry is no longer a
+                    # faithful post-commit view of this plan.
+                    self.plan.carry_exact = False
                     node_id, node, score, alloc_res, net_err = \
                         self._reselect_excluding(
                             tg, (p, prev, _dest), {node_id}, net_err)
@@ -504,8 +523,33 @@ class GenericScheduler:
                     ds = self.deployment.task_groups.get(tg.name)
                     if ds is not None:
                         ds.placed_canaries.append(alloc.id)
+                if self.plan.carry_exact:
+                    self._certify_carry_exact(alloc, result.ask)
                 self.plan.append_alloc(alloc)
         return None
+
+    def _certify_carry_exact(self, alloc, ask) -> None:
+        """Device-resident plan deltas: a placement may ride the
+        dispatch's on-device carry only if what commits is EXACTLY what
+        the kernel added — usage row bit-equal (as f32) to the compiled
+        ask vector, and integral below the f32-exact bound so the
+        chain's f32 accumulation cannot round differently from the host
+        store's f64. Any mismatch revokes the whole plan's
+        certification; the view then re-uploads its rows from host
+        (slower, never wrong)."""
+        if ask is None:
+            self.plan.carry_exact = False
+            return
+        try:
+            usage = self.cluster.usage_row(alloc)
+        except Exception:  # noqa: BLE001 — odd shape: host path decides
+            self.plan.carry_exact = False
+            return
+        if (usage.shape != ask.shape
+                or not np.array_equal(usage.astype(np.float32), ask)
+                or not np.all(usage == np.floor(usage))
+                or np.any(np.abs(usage) >= 2 ** 24)):
+            self.plan.carry_exact = False
 
     def _plan_context_for(
         self, tg: TaskGroup,

@@ -11,14 +11,23 @@ group, full-width over the node axis.
 `select` runs solo (one kernel run per task group) or, on the server's
 batched path, parks its program at the select coordinator
 (`server/select_batch.py`), which fuses the batch into chain and wave
-dispatches. The device view re-uploads a whole tensor group when its key
-changes, so a view a dispatch read is never written afterwards; view
-leases are bookkeeping only (the row-delta refresh, carry adoption and
-speculation are later work; the delta path only saves bytes, so
-placements are identical).
+dispatches. The device view is cached per (cluster, device) and refreshed
+from the cluster's delta log by the row-delta kernels (`kernels/rows.py`,
+K7), adopting a dispatch's (or a certified speculation chain's) device
+carry where it can prove it equal to the committed host state.
+
+Writes in place are safe by construction: every caller that launches
+against a view holds a lease on it from the resolve until its outputs are
+back on the host (the coordinator's dispatches, speculative ones through
+`spec_chain_view`, and the solo `select`), and a refresh that finds any
+lease writes into copies instead (the copy slot). PyTorch has no buffer
+donation, so an unleased holder would otherwise see its tensors change
+silently; with the rule above there is none.
 """
 from __future__ import annotations
 
+import itertools
+import os
 import threading
 import weakref
 from collections import OrderedDict
@@ -28,17 +37,19 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..convert import params_from_numpy, tensor_from_numpy
+from ..convert import params_from_numpy, tensor_from_numpy, to_device_async
 from ..device import DeviceLike, resolve_device
 from ..kernels.placement import (EXPLAIN_SCORE_NAMES, ClusterArrays,
                                  PlacementExplain, PlacementResult, TGParams,
                                  place_task_group)
+from ..kernels.rows import (hot_rows_update, port_rows_update,
+                            port_words_update)
 from ..lib.metrics import default_registry
 from ..parallel.pad import pad_params
 from ..structs import Allocation, Job, TaskGroup
 from ..structs.job import (CONSTRAINT_DISTINCT_HOSTS,
                            CONSTRAINT_DISTINCT_PROPERTY)
-from ..tensor.cluster import R_TOTAL, ClusterTensors
+from ..tensor.cluster import DELTA_LOG_LEN, R_TOTAL, ClusterTensors
 from ..tensor.constraints import (
     CompiledAffinities,
     CompiledConstraints,
@@ -80,8 +91,14 @@ class SelectResult:
     #: host-shaped attribution (see TorchStack._explain_host) — None when
     #: the run emitted no explain outputs
     explain: Optional[dict] = None
-    #: the compiled ask vector (f32[R]) this selection placed against
+    #: the compiled ask vector (f32[R]) this selection placed against —
+    #: the scheduler compares each committed placement's usage row to it
+    #: to certify the plan carry-exact (device-resident plan deltas)
     ask: Optional[np.ndarray] = None
+    #: fused-dispatch token (table path only): the scheduler stamps it
+    #: on its plan (carry_token) so the commit window binds to the
+    #: dispatch whose carry actually contains these placements
+    carry_token: Optional[int] = None
 
 
 #: base resource-dimension display names, column order of the cluster
@@ -91,11 +108,36 @@ class SelectResult:
 #: diagnostics aggregate on them.
 DIMENSION_NAMES = ("cpu", "memory", "disk", "network")
 
-#: cluster object → {device: last upload}, each tensor group keyed by its
+#: process-unique dispatch tokens: view-lease keys AND the carry/plan
+#: binding (structs.Plan.carry_token ↔ the carry notes below). One
+#: counter for the coordinator's dispatches and the solo select's
+#: leases, so no two holders share a token.
+_DISPATCH_TOKENS = itertools.count(1)
+
+#: cluster object → {device: last upload}, keyed per tensor group by
 #: sub-version (see TorchStack.device_arrays); weak so dead clusters free
 #: their device memory
 _DEV_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 _DEV_CACHE_LOCK = threading.Lock()
+
+
+def _dev_key(device) -> torch.device:
+    """Cache key of a device: `cuda` and `cuda:<current>` name one card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _entry(cluster, device=None) -> Optional[dict]:
+    """The cache entry of `cluster` on `device` (None: its only entry);
+    call under _DEV_CACHE_LOCK."""
+    per_dev = _DEV_CACHE.get(cluster)
+    if not per_dev:
+        return None
+    if device is None:
+        return next(iter(per_dev.values())) if len(per_dev) == 1 else None
+    return per_dev.get(_dev_key(device))
 
 
 def _leased(ent: dict, token) -> ClusterArrays:
@@ -105,20 +147,551 @@ def _leased(ent: dict, token) -> ClusterArrays:
         from ..lib.hbm import default_hbm
 
         ent.setdefault("leases", set()).add(token)
-        default_hbm().lease(token)
+        default_hbm().lease(token, "stack.view")
     return ent["arrays"]
 
 
+# ---- device-view delta refresh ---------------------------------------------
+# The control plane's hot loop mutates a handful of node rows per plan
+# apply; ports_used alone is u32[N, 2048] (128 MiB at 16K rows), so a
+# whole-tensor re-upload per version bump dwarfs the placement kernel.
+# The delta path ships only the rows the cluster's bounded delta log
+# names and writes them with the row-delta kernels (kernels/rows.py, K7):
+# in place on the cached tensors when no lease is held, else into copies
+# (the copy slot — a leased view's tensors are never written).
+
+
+def _delta_rows_host(rows, *arrays):
+    """Sorted delta row indices (i32) and their CURRENT host values."""
+    idx = np.fromiter(sorted(rows), dtype=np.int32, count=len(rows))
+    return (idx,) + tuple(a[idx] for a in arrays)
+
+
+def _u32_bits(a: np.ndarray) -> np.ndarray:
+    """u32 port words as the int32 holding the same bits (the device
+    bitmap's type, convert.tensor_from_numpy)."""
+    a = np.ascontiguousarray(a)
+    return a.view(np.int32) if a.dtype == np.uint32 else a
+
+
+# ---- view leases + dispatch carry (device-resident plan deltas) ------------
+# The SelectCoordinator's fused dispatch produces, besides its fetchable
+# outputs, the chain's final (used, dyn_free) carry — the post-placement
+# cluster view, already ON DEVICE. Once the batch's plans commit, the
+# next refresh can ADOPT that carry instead of re-uploading the rows the
+# plans just touched: zero host→device traffic for kernel-committed
+# placements. The adoption proof obligations live in device_arrays; the
+# coordinator only notes the carry here.
+#
+# Leases implement the copy-slot half: a dispatch leases the view it
+# launched against (registered ATOMICALLY with the resolve via
+# device_arrays(lease_token=), keyed by the dispatch token) and releases
+# once its outputs are on the host. A refresh that finds live leases must
+# not write the leased tensors — it writes into copies instead.
+
+
 def release_view(cluster, token) -> None:
-    """End the view lease a dispatch took with
-    `device_arrays(lease_token=token)` (idempotent: a failed launch
-    releases defensively)."""
+    """End the view lease a caller took with
+    `device_arrays(lease_token=token)` or `spec_chain_view` (idempotent:
+    a failed launch releases defensively)."""
     from ..lib.hbm import default_hbm
 
     with _DEV_CACHE_LOCK:
-        for ent in _DEV_CACHE.get(cluster, {}).values():
+        for ent in (_DEV_CACHE.get(cluster) or {}).values():
             ent.setdefault("leases", set()).discard(token)
+    # residency ledger: the lease's owner-token lifetime ends here
     default_hbm().release_lease(token)
+
+
+def note_dispatch_carry(cluster, token, base_arrays, evals, stop_rows,
+                        used, dyn_free) -> None:
+    """Attach a dispatch's device-resident carry to the view cache entry
+    of the device it ran on. `base_arrays` is the exact ClusterArrays the
+    chain consumed — adoption later requires the cached entry to STILL be
+    that object (identity, not version: any interleaved refresh rebuilds
+    the namedtuple and auto-invalidates the carry). `evals` are the eval
+    ids chained (order-aligned with the dispatch); `stop_rows` the node
+    rows the programs' plan-relative deltas touch (stops/preempts/in-plan
+    placements) — their host commits adjust dyn_free/ports in ways the
+    carry deliberately does not model, so they always re-upload."""
+    with _DEV_CACHE_LOCK:
+        ent = _entry(cluster, base_arrays.used.device)
+        if ent is None or ent.get("arrays") is not base_arrays:
+            return
+        ent["carry"] = {
+            "token": token, "base_arrays": base_arrays,
+            "evals": set(evals), "stop_rows": set(stop_rows),
+            "used": used, "dyn_free": dyn_free, "predicted": None,
+        }
+
+
+def carry_predicted(cluster, token, predicted: Dict[str, set]) -> None:
+    """Second half of the carry note, filled when the dispatch's outputs
+    land host-side (the first _BatchOut resolver): per-eval node rows
+    the kernel actually selected. Until this arrives the carry is not
+    adoptable — an unresolved dispatch has unprovable placements.
+
+    The speculative-dispatch chain (below) holds its own carry records
+    keyed by the same tokens; the fill reaches whichever bookkeeping
+    still knows the token — a refresh may have popped the cache note
+    while the chain still needs the prediction for certification."""
+    with _DEV_CACHE_LOCK:
+        for ent in (_DEV_CACHE.get(cluster) or {}).values():
+            c = ent.get("carry")
+            if c is not None and c["token"] == token:
+                c["predicted"] = predicted
+        with _SPEC_LOCK:
+            chain = _SPEC_CHAINS.get(cluster)
+            if chain is not None:
+                rec = chain["expect"].get(token)
+                if rec is None and chain["head"] is not None \
+                        and chain["head"]["token"] == token:
+                    rec = chain["head"]
+                if rec is not None:
+                    rec["predicted"] = predicted
+
+
+# ---- speculative dispatch chain --------------------------------------------
+# The SelectCoordinator can launch dispatch k+1 against the PREDICTED
+# post-commit view while dispatch k's plans are still committing: the
+# predicted view is the base view with (used, dyn_free) swapped for the
+# predecessor's device-resident chain carry — a pure tensor recombination,
+# zero transfer. Every launch goes to the device's default stream, so
+# kernel k+1 queues right behind kernel k, whose carry it reads (the
+# stream order takes the place of XLA's data dependency). The chain
+# records, per cluster, WHAT the speculative view assumed (which dispatch
+# tokens' carries it folded in, their per-eval predicted placement rows,
+# their stop rows) and accumulates a STALE-ROW set: every row where the
+# chained view may diverge from the committed host truth. Certification
+# (select_batch.SelectCoordinator._certify_spec) then keeps a program's
+# speculative result only when its node footprint avoids every stale row
+# — which makes the result bit-identical to what a sequential dispatch
+# against the committed view would have produced (the same superset
+# argument the wave-lane partition rests on).
+#
+# The chain belongs to one device (`chain["device"]`, the device of the
+# cache entry it seeded from): its base and carries are that entry's.
+#
+# Lock order: _DEV_CACHE_LOCK → _SPEC_LOCK. _SPEC_LOCK is otherwise a
+# leaf (the plan-window observer takes it under the store's mutation
+# lock and calls nothing further).
+
+#: cluster → chain state dict; weak so dead clusters free their carries
+_SPEC_CHAINS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_SPEC_LOCK = threading.Lock()
+
+
+def _spec_carry_rec(token, evals, stop_rows, used, dyn_free,
+                    predicted=None) -> dict:
+    return {"token": token, "evals": set(evals),
+            "stops": {int(r) for r in stop_rows},
+            "used": used, "dyn_free": dyn_free, "predicted": predicted}
+
+
+def spec_chain_view(cluster, lease_token,
+                    device=None) -> Optional[ClusterArrays]:
+    """Predicted post-commit view for a speculative dispatch on `device`
+    (None: the cluster's only cached device), or None when nothing is
+    predictable (no carry note, an interleaved refresh, a node-set
+    change). The view is the chain head's (used, dyn_free) carry over the
+    chain base's static/ports tensors. `lease_token` is registered on the
+    cached entry ATOMICALLY with the read, so a concurrent refresh writes
+    into a fresh copy instead of the tensors the speculative kernel reads.
+
+    Does NOT advance the chain: a caller that aborts after this (table
+    residency miss, caps flush race) only has to release the lease."""
+    from ..lib.hbm import default_hbm
+
+    with _DEV_CACHE_LOCK:
+        ent = _entry(cluster, device)
+        if ent is None:
+            return None
+        arrays = ent["arrays"]
+        with _SPEC_LOCK:
+            chain = _SPEC_CHAINS.get(cluster)
+            if chain is not None and (
+                    chain["base_arrays"] is not arrays
+                    or chain["static_key"] != ent["static_key"]
+                    or chain["node_version"] != cluster.node_version):
+                # a real refresh (or node churn) interleaved: the chain's
+                # base is gone — certification could no longer prove
+                # anything against it
+                _spec_reset_locked(cluster, chain)
+                chain = None
+            if chain is None:
+                # seed from the live carry note of the last REAL
+                # dispatch (note_dispatch_carry guarantees base
+                # identity at write; any refresh since rebuilt arrays
+                # and was caught above)
+                c = ent.get("carry")
+                if c is None or c["base_arrays"] is not arrays:
+                    return None
+                chain = {
+                    "device": _dev_key(arrays.used.device),
+                    "base_arrays": arrays,
+                    "static_key": ent["static_key"],
+                    "node_version": cluster.node_version,
+                    "checked_version": ent["version"],
+                    "checked_ports": ent["ports_version"],
+                    "stale": set(),
+                    "proven": set(),
+                    "expect": {},
+                    "windows": [],
+                    "last_rejected": set(),
+                    "head": _spec_carry_rec(
+                        c["token"], c["evals"], c["stop_rows"],
+                        c["used"], c["dyn_free"],
+                        predicted=c["predicted"]),
+                }
+                _SPEC_CHAINS[cluster] = chain
+                _install_window_observer(cluster)
+            head = chain["head"]
+            if head is None:
+                return None
+        ent.setdefault("leases", set()).add(lease_token)
+        default_hbm().lease(lease_token, "stack.view")
+        return ClusterArrays(
+            capacity=arrays.capacity,
+            used=head["used"],
+            node_ok=arrays.node_ok,
+            attrs=arrays.attrs,
+            ports_used=arrays.ports_used,
+            dyn_free=head["dyn_free"],
+        )
+
+
+def spec_chain_advance(cluster, token, evals, stop_rows, used,
+                       dyn_free) -> None:
+    """A speculative dispatch launched successfully against the chain
+    view: fold the previous head into the EXPECTED set (its plans are
+    now committing — certification will match their commit windows) and
+    install the new dispatch's carry as the head. The folded head's
+    stop rows go stale immediately: the chain view bakes their
+    plan-relative delta subtraction into `used` but deliberately does
+    not model their port credits (the same reason adoption always
+    overlays them)."""
+    with _SPEC_LOCK:
+        chain = _SPEC_CHAINS.get(cluster)
+        if chain is None:
+            return
+        head = chain["head"]
+        if head is not None:
+            chain["expect"][head["token"]] = head
+            chain["stale"].update(head["stops"])
+        chain["head"] = _spec_carry_rec(token, evals, stop_rows, used,
+                                        dyn_free)
+
+
+def spec_chain_certify(cluster) -> Optional[frozenset]:
+    """Fold every commit since the last certification into the chain's
+    stale-row set and return it (cumulative). Returns None when the
+    chain cannot prove anything — an interleaved refresh, node churn,
+    a delta-log window miss, or an expected dispatch whose outputs
+    never resolved — in which case the caller must roll back every
+    speculative result and reset the chain.
+
+    Soundness: stale is a SUPERSET of the rows where the chain view may
+    diverge from the committed host state. A row change is non-stale
+    only when it happened inside a clean+exact plan window of an
+    EXPECTED dispatch token, for an eval that dispatch chained, on a
+    row that dispatch predicted (its kernel placement) — exactly the
+    changes whose post-commit values the chain carry already holds
+    bit-identically (structs.Plan.carry_exact). Everything else —
+    foreign mutations, partial commits, retry plans under other
+    tokens, phantom placements of uncommitted evals, any port-bitmap
+    mutation (never modeled by the carry) — goes stale and stays
+    stale for the life of the chain.
+
+    Multi-token coverage (chain-carry adoption): besides the stale
+    SUPERSET, certification accumulates the complement — `proven`, the
+    rows every certified window vouched for (clean+exact commit of an
+    expected token, predicted placement row). Across a chain of k
+    dispatches under k commit windows those are exactly the rows whose
+    values the folded HEAD carry holds bit-identically, which is what
+    lets `spec_chain_publish_carry` hand the carry to the view cache
+    for zero-transfer adoption (`TorchStack.device_arrays`)."""
+    cl = cluster
+    wrap = None
+    result = None
+    with _DEV_CACHE_LOCK:
+        with _SPEC_LOCK:
+            chain = _SPEC_CHAINS.get(cl)
+            if chain is None:
+                return None
+            ent = _entry(cl, chain["device"])
+            arrays = ent["arrays"] if ent is not None else None
+            static_key = ent["static_key"] if ent is not None else None
+            if (arrays is not chain["base_arrays"]
+                    or static_key != chain["static_key"]
+                    or cl.node_version != chain["node_version"]):
+                return None
+            # version-chain discipline (the device_arrays contract):
+            # capture the version BEFORE reading the logs and advance
+            # checked_* only to the CAPTURED values. Mutators append
+            # their log entry before bumping, so every entry describing
+            # a version ≤ the capture is in the copy below; a mutation
+            # landing mid-certify has ver > v_now and is examined next
+            # time — never silently skipped.
+            v_now = cl.version
+            p_now = cl.ports_version
+            hot = cl.hot_entries_since(chain["checked_version"], cl.n_cap)
+            ports = (cl.port_words_since(chain["checked_ports"], cl.n_cap)
+                     if hot is not None else None)
+            if hot is None or ports is None:
+                # a delta-log ring wrap ate the interval's evidence:
+                # unprovable, but NOT silently — note the details here
+                # (under the locks, where the cursors are stable) and
+                # emit the counter + flight event after release
+                wrap = {
+                    "log": "hot" if hot is None else "ports",
+                    "checked_version": int(chain["checked_version"]
+                                           if hot is None
+                                           else chain["checked_ports"]),
+                    "version_now": int(v_now if hot is None else p_now),
+                    "log_len": int(getattr(cl, "delta_log_len", 0) or 0),
+                }
+            else:
+                result = _certify_interval_locked(
+                    cl, chain, hot, ports, v_now, p_now)
+    if wrap is not None:
+        _chain_wrap_unprovable(cl, wrap)
+        return None
+    return result
+
+
+def _certify_interval_locked(cl, chain, hot, ports, v_now, p_now):
+    """Certification interval fold (both locks held, delta-log reads
+    already resolved — see spec_chain_certify for the soundness
+    argument). Returns the cumulative stale frozenset."""
+    hot = [(ver, rows) for ver, rows in hot if ver <= v_now]
+    # windows: observer-captured ∪ ring — the observer survives
+    # ring wrap, the ring covers windows marked before the
+    # observer was installed
+    seen = set()
+    windows = []
+    for w in (chain["windows"]
+              + cl.plan_windows_since(chain["checked_version"])):
+        k = (w[0], w[1], w[2], w[4])
+        if k not in seen:
+            seen.add(k)
+            windows.append(w)
+    chain["windows"] = []
+    expect = chain["expect"]
+    stale = chain["stale"]
+    proven = chain.setdefault("proven", set())
+    # optimistic-rejection diagnostics: the rows whose
+    # placements verification dropped this interval — surfaced
+    # in the spec.rollback flight detail (their staleness is
+    # already covered by the predicted-uncovered rule)
+    chain["last_rejected"] = {
+        int(r) for w in windows if w[5] for r in w[5]}
+    covered = set()   # (eval_id, token) committed clean+exact
+    for _lo, _hi, eid, ok, tok, _rej in windows:
+        if ok and tok in expect and eid in expect[tok]["evals"]:
+            covered.add((eid, tok))
+    allowed_rows: Dict[int, set] = {}
+    for tok, rec in expect.items():
+        pred = rec["predicted"]
+        if pred is None:
+            # expected dispatch never resolved its outputs: its
+            # placements are unprovable
+            return None
+        rows_ok = set(rec["stops"])
+        for eid, rows in pred.items():
+            if rows and (eid, tok) not in covered:
+                # phantom placements: the carry baked them in,
+                # no clean+exact commit vouches for them
+                stale.update(rows)
+            else:
+                rows_ok.update(rows)
+        allowed_rows[tok] = rows_ok
+    for ver, rows in hot:
+        w = None
+        for v_lo, v_hi, eid, ok, tok, _rej in windows:
+            if v_lo < ver <= v_hi:
+                w = (eid, ok, tok)
+                break
+        if w is None:
+            stale.update(rows)      # foreign mutation
+            continue
+        eid, ok, tok = w
+        if not (ok and tok in expect and (eid, tok) in covered):
+            stale.update(rows)      # partial/inexact/other-token
+            continue
+        # the window's clean+exact commit vouches for its predicted
+        # placement rows bit-identically — the PROVEN complement the
+        # published chain carry adopts; anything else in the entry
+        # (stops already went stale on fold) diverges
+        for r in rows:
+            if r in allowed_rows[tok]:
+                proven.add(int(r))
+            else:
+                stale.add(r)
+    # the carry never models the port bitmap: every touched
+    # port row diverges from the chain view's base ports
+    # (entries past the p_now capture are examined again next
+    # certify — stale is a set, re-adding is idempotent)
+    stale.update(int(r) for r in ports)
+    chain["checked_version"] = v_now
+    chain["checked_ports"] = p_now
+    # expected tokens are single-shot: their plans all committed
+    # before this certification ran (the worker finishes batch k
+    # before it certifies batch k+1), so their windows were in
+    # THIS interval and must not be re-judged against the next
+    chain["expect"] = {}
+    return frozenset(stale)
+
+
+def _chain_wrap_unprovable(cluster, detail: dict) -> None:
+    """A delta-log ring wrap mid-chain lost the certification evidence
+    for the interval. Count it and leave an actionable trace: the fix is
+    sizing `NOMAD_TPU_DELTA_LOG` above the per-interval mutation volume.
+    Called OUTSIDE the cache/spec locks (flight sinks may fan out)."""
+    default_registry().inc("spec.chain_unprovable_wrap")
+    try:
+        from ..lib.flight import default_flight
+
+        default_flight().record(
+            "spec.rollback",
+            key="chain-wrap:%s" % detail.get("log"),
+            severity="warn",
+            detail=dict(
+                detail,
+                reason="delta_log_wrap",
+                finding=(
+                    "speculation chain unprovable: the %s delta-log ring "
+                    "wrapped past the chain's certification cursor "
+                    "(checked %d, now %d, ring %d entries) — every "
+                    "speculative result rolls back. Raise "
+                    "NOMAD_TPU_DELTA_LOG (default %d) above the mutation "
+                    "volume of one commit interval, or certify more "
+                    "often." % (detail.get("log"),
+                                detail.get("checked_version", -1),
+                                detail.get("version_now", -1),
+                                detail.get("log_len", 0),
+                                DELTA_LOG_LEN)),
+            ))
+    except Exception:  # noqa: BLE001 — telemetry only
+        pass
+
+
+def chain_adopt_enabled() -> bool:
+    """Chain-carry adoption default: ON (a certified-clean chain's HEAD
+    carry IS the post-commit view for the rows it proved — adopting it
+    is a tensor swap, zero transfer); NOMAD_TPU_SPEC_CHAIN_ADOPT=0 opts
+    out."""
+    return os.environ.get("NOMAD_TPU_SPEC_CHAIN_ADOPT", "1") \
+        .strip().lower() not in ("0", "off", "false")
+
+
+def spec_chain_publish_carry(cluster) -> bool:
+    """Hand the chain's certified HEAD carry to the view cache as an
+    adoptable CHAIN carry — called by the coordinator on every CLEAN
+    certification (select_batch._certify_spec), never on rollback.
+
+    The published record extends the single-dispatch carry note with
+    the chain's accumulated certification evidence: `adopt_rows` (the
+    proven complement — every row some clean+exact window of an
+    expected token vouched for), `stale` (the cumulative superset of
+    divergence, always overlaid), and `proven_version` (the certify
+    cursor — mutations PAST it are judged at adoption time against the
+    head token's own windows, because the head's plans commit after
+    the certify that published it). A refresh landing mid-chain or
+    post-chain then pays only the genuinely-foreign delta
+    (device_arrays._chain_carry_overlay), never a full resync of
+    spec-committed rows.
+
+    Overwrites any previous publication (each clean certify supersedes
+    the last); survives spec_chain_reset — the evidence is already
+    certified, the chain object is not needed to use it. Returns True
+    when a carry was published."""
+    if not chain_adopt_enabled():
+        return False
+    with _DEV_CACHE_LOCK:
+        with _SPEC_LOCK:
+            chain = _SPEC_CHAINS.get(cluster)
+            if chain is None or chain["head"] is None:
+                return False
+            ent = _entry(cluster, chain["device"])
+            if ent is None:
+                return False
+            if (ent.get("arrays") is not chain["base_arrays"]
+                    or ent["static_key"] != chain["static_key"]
+                    or cluster.node_version != chain["node_version"]):
+                return False
+            head = chain["head"]
+            ent["carry"] = {
+                "chain": True,
+                "token": head["token"],
+                "base_arrays": chain["base_arrays"],
+                "evals": set(head["evals"]),
+                "stop_rows": set(head["stops"]),
+                "used": head["used"],
+                "dyn_free": head["dyn_free"],
+                # may still be None here — carry_predicted fills it by
+                # token match when the head's outputs land host-side
+                "predicted": head["predicted"],
+                "proven_version": chain["checked_version"],
+                "stale": set(chain["stale"]),
+                "adopt_rows": set(chain.get("proven", ())),
+            }
+            return True
+
+
+def spec_chain_reset(cluster) -> None:
+    """Drop the chain (rollback, refresh, shutdown): carries are
+    released with their last reference, the window observer detaches."""
+    with _SPEC_LOCK:
+        chain = _SPEC_CHAINS.get(cluster)
+        if chain is not None:
+            _spec_reset_locked(cluster, chain)
+
+
+def spec_chain_head_token(cluster) -> Optional[int]:
+    """Token of the chain's current head carry (None when no chain) —
+    test/introspection surface."""
+    with _SPEC_LOCK:
+        chain = _SPEC_CHAINS.get(cluster)
+        head = chain["head"] if chain is not None else None
+        return head["token"] if head is not None else None
+
+
+def spec_chain_last_rejected(cluster) -> frozenset:
+    """Node rows whose placements optimistic verification dropped in
+    the last certified interval (plan_apply's rejected_rows) — the
+    rollback flight detail names the rows that caused the conflict."""
+    with _SPEC_LOCK:
+        chain = _SPEC_CHAINS.get(cluster)
+        if chain is None:
+            return frozenset()
+        return frozenset(chain.get("last_rejected") or ())
+
+
+def _spec_reset_locked(cluster, chain) -> None:
+    chain["head"] = None
+    chain["expect"] = {}
+    chain["windows"] = []
+    _SPEC_CHAINS.pop(cluster, None)
+    if getattr(cluster, "plan_window_observer", None) is not None:
+        cluster.plan_window_observer = None
+
+
+def _install_window_observer(cluster) -> None:
+    """Commit-window → certification callback (tensor/cluster.py):
+    windows reach the chain as they are marked, under the commit lock,
+    so certification never depends on the bounded ring retaining them."""
+    ref = weakref.ref(cluster)
+
+    def _obs(rec):
+        cl = ref()
+        if cl is None:
+            return
+        with _SPEC_LOCK:
+            chain = _SPEC_CHAINS.get(cl)
+            if chain is not None:
+                chain["windows"].append(rec)
+
+    cluster.plan_window_observer = _obs
 
 
 class TorchStack:
@@ -141,75 +714,442 @@ class TorchStack:
         #: `select` then parks at the coordinator instead of running solo
         self.coordinator = None
         self.coordinator_order = 0
-        #: the dispatch token of the last coordinated select (the carry
-        #: binding the reference stamps on its plan)
-        self.carry_token = None
 
     # ---- device snapshot management ----
 
     def device_arrays(self, lease_token=None) -> ClusterArrays:
         """Device copy of the cluster tensors, cached per cluster object
-        and device. Three groups, each re-uploaded whole when its key
-        changes: the static tensors (capacity, attrs) on `node_version`,
-        the row caps and the attrs dtype; the port bitmap on
-        `ports_version`; the hot tensors (used, node_ok, dyn_free) on the
-        cluster `version`. Keys are captured before anything is read, so
-        a mutation racing the refresh leaves the entry stale, never
-        current with old data. A refresh allocates new tensors and never
-        writes the ones it replaces.
+        and device, keyed per tensor group by sub-versions and refreshed
+        INCREMENTALLY from the cluster's bounded delta log.
 
-        `lease_token` registers a view lease atomically with the resolve
-        (released by `release_view`); with whole-group re-uploads a lease
-        is bookkeeping only."""
+        `lease_token` (a dispatch's token) registers a view lease
+        ATOMICALLY with the resolve, under the cache lock — a lease taken
+        after returning would leave a window where a concurrent refresh
+        writes the tensors this caller is about to launch against.
+
+        Static tensors (capacity, attrs) re-upload only when nodes/attrs
+        change (node_version, the row caps, the attrs dtype); the hot
+        tensors (used/node_ok/dyn_free) and the port bitmap ship as ROW
+        DELTAS when the cached entry's version sits inside the delta-log
+        window (tensor/cluster.py hot_entries_since/port_words_since),
+        written by the row-delta kernels (K7) — with window misses,
+        row-bucket growth, or deltas of more than n_cap // 4 rows falling
+        back to a full upload. Delta values are cast exactly as the full
+        upload casts them, so the view is bit-identical to a cold upload.
+
+        Concurrency contract (version-chain): all version keys are
+        captured BEFORE the delta rows are read or anything is uploaded,
+        and mutators append to the delta log BEFORE bumping the version
+        they describe — so a mutation racing this refresh either ships
+        with it or leaves the stored entry stale (its captured version
+        predates the bump), and the NEXT refresh re-applies those rows
+        from the log. A concurrent mutation can delay convergence by one
+        refresh, never silently corrupt the cached view.
+
+        Writes: in place on the cached tensors when the entry holds no
+        lease; with any lease held, into copies (the copy slot,
+        `view.copy_slots`), so a leased view's tensors are never written.
+        All writes go to the device's current stream, behind every launch
+        already queued there; pinned staging buffers of the delta values
+        stay alive until their copies ran (PyTorch's caching host
+        allocator records the stream use)."""
+        from ..lib.hbm import default_hbm
+        from ..lib.transfer import default_ledger
+
         reg = default_registry()
+        led = default_ledger()
+        hbm = default_hbm()
         cl = self.cluster
-        dev = self.device
+        dev = _dev_key(self.device)
+
+        def up(a, dtype=None):
+            return tensor_from_numpy(a, dev, dtype)
+
+        def stage(a):
+            return to_device_async(np.ascontiguousarray(a), dev)
+
         with _DEV_CACHE_LOCK:
+            # capture ALL keys BEFORE reading delta rows or uploading: a
+            # concurrent mutation mid-refresh must make the stored entry
+            # look stale (next caller re-applies), never current with
+            # old data
             version = cl.version
-            # vocab tokens are small ints: int16 halves the attrs tensor
-            # (int32 once any key's vocabulary approaches the i16 range)
+            ports_version = cl.ports_version
+            # attrs compaction: vocab tokens are small ints — int16
+            # halves the second-largest static tensor (int32 once any
+            # key's vocabulary approaches the i16 range); the dtype rides
+            # the static key so the flip is a clean re-upload
             attr_dt = np.int16 if cl.vocab.max_vocab < 32000 else np.int32
             static_key = (cl.node_version, cl.n_cap, cl.k_cap, attr_dt)
-            ports_key = (cl.ports_version, cl.n_cap)
+            ports_key = (ports_version, cl.n_cap)
             per_dev = _DEV_CACHE.setdefault(cl, {})
             ent = per_dev.get(dev)
             if ent is not None and ent["version"] == version \
                     and ent["static_key"] == static_key \
                     and ent["ports_key"] == ports_key:
                 return _leased(ent, lease_token)
+            #: live view leases (launches in flight against the cached
+            #: tensors): with any held, updates must COPY into a second
+            #: slot instead of writing in place. The set object is shared
+            #: with device_arrays(lease_token=)/release_view and carries
+            #: forward across refreshes.
+            leases = ent.get("leases") if ent is not None else None
+            if leases is None:
+                leases = set()
+            in_place = not leases
+            if not in_place:
+                reg.inc("view.copy_slots")
+            carry = ent.pop("carry", None) if ent is not None else None
             if ent is not None and ent["static_key"] == static_key:
-                capacity, attrs = ent["arrays"].capacity, ent["arrays"].attrs
+                capacity, attrs = ent["capacity"], ent["attrs"]
             else:
-                capacity = tensor_from_numpy(cl.capacity, dev, np.float32)
-                attrs = tensor_from_numpy(cl.attrs, dev, attr_dt)
-                reg.inc("view.upload_bytes",
-                        cl.capacity.nbytes + cl.attrs.size
-                        * np.dtype(attr_dt).itemsize)
-            if (ent is not None and ent["version"] == version
-                    and ent["arrays"].used.shape[0] == cl.n_cap):
-                used, node_ok, dyn_free = (ent["arrays"].used,
-                                           ent["arrays"].node_ok,
-                                           ent["arrays"].dyn_free)
+                nb = (cl.capacity.nbytes
+                      + cl.attrs.size * np.dtype(attr_dt).itemsize)
+                with led.timed("stack.static_full", nb, count=2):
+                    capacity = up(cl.capacity, np.float32)
+                    attrs = up(cl.attrs, attr_dt)
+                reg.inc("view.upload_bytes", nb)
+            # delta eligibility: the same row bucket — a grown n_cap
+            # changes every tensor's shape, not expressible as row writes
+            can_delta = ent is not None and ent["n_cap"] == cl.n_cap
+            limit = max(8, cl.n_cap // 4)
+            prev = ent["arrays"] if ent is not None else None
+
+            did_delta = False
+            hot_entries = (cl.hot_entries_since(ent["version"], limit)
+                           if can_delta else None)
+            hot_rows = None
+            if hot_entries is not None:
+                hot_rows = set()
+                for _ver, rs in hot_entries:
+                    hot_rows.update(rs)
+            skip: set = set()
+            overlay: Optional[set] = None
+            adopted = False
+            if (carry is not None and carry.get("chain")
+                    and not chain_adopt_enabled()):
+                # opt-out mid-life (publish is gated too, but a carry
+                # published before the flip may still be pending):
+                # plain refresh, no adopt/reject accounting
+                carry = None
+            if carry is not None and carry.get("chain"):
+                # certified speculation-chain HEAD carry
+                # (spec_chain_publish_carry): its own evidence replaces
+                # the small-limit hot_entries read — a long chain's row
+                # set routinely exceeds it, and the proof lives in the
+                # chain's certify cursor + the head token's windows
+                res = (self._chain_carry_overlay(cl, ent, carry, prev)
+                       if can_delta else None)
+                if res is not None:
+                    skip, overlay = res
+                    adopted = True
+                    reg.inc("view.chain_adopts")
+                    reg.inc("view.chain_rows", len(skip))
+                    # the bytes a post-chain refresh would otherwise
+                    # re-upload for the spec-committed rows: one delta
+                    # row (idx + used + node_ok + dyn_free) per skip
+                    row_nb = (4 + cl.used.shape[-1] * 4
+                              + cl.node_ok.dtype.itemsize
+                              + cl.dyn_free.nbytes
+                              // max(cl.dyn_free.shape[0], 1))
+                    reg.inc("spec.resync_bytes_saved",
+                            row_nb * len(skip))
+                else:
+                    reg.inc("view.chain_rejects")
+                    carry = None
+            if not adopted and carry is not None and hot_rows:
+                skip = self._carry_skip_rows(cl, ent, carry, prev,
+                                             hot_entries)
+                adopted = skip is not None
+                if not adopted:
+                    skip = set()
+                    reg.inc("view.carry_rejects")
+            elif not adopted and carry is not None:
+                reg.inc("view.carry_rejects")
+            if adopted:
+                # D2D plan delta: the dispatch's own chain carry IS the
+                # post-commit view for the rows its plans placed — adopt
+                # it wholesale (a tensor swap, zero transfer) and
+                # overlay only the rows something ELSE touched from
+                # host. node_ok never changes via plan commits, so the
+                # previous tensor rides along. stop_rows ALWAYS overlay,
+                # even when unchanged host-side: the carry baked every
+                # program's plan-relative delta subtraction into used0,
+                # and a plan that never committed would otherwise leave
+                # a phantom release on rows no hot entry names.
+                used, dyn_free = carry["used"], carry["dyn_free"]
+                node_ok = prev.node_ok
+                if overlay is None:
+                    overlay = (hot_rows - skip) | {
+                        r for r in carry["stop_rows"] if r < cl.n_cap}
+                    reg.inc("view.carry_adopts")
+                    reg.inc("view.carry_rows", len(skip))
+                if overlay:
+                    used, node_ok, dyn_free = self._apply_hot_rows(
+                        cl, (used, node_ok, dyn_free), overlay, in_place,
+                        stage, led)
+                    did_delta = True
+                    reg.inc("view.delta_rows", len(overlay))
+            elif hot_rows is not None:
+                if hot_rows:
+                    used, node_ok, dyn_free = self._apply_hot_rows(
+                        cl, (prev.used, prev.node_ok, prev.dyn_free),
+                        hot_rows, in_place, stage, led)
+                    did_delta = True
+                    reg.inc("view.delta_rows", len(hot_rows))
+                else:
+                    # version bumped without touching hot rows (job
+                    # index churn, vocab growth): the tensors are current
+                    used, node_ok, dyn_free = (prev.used, prev.node_ok,
+                                               prev.dyn_free)
             else:
-                used = tensor_from_numpy(cl.used, dev, np.float32)
-                node_ok = tensor_from_numpy(cl.node_ok, dev, np.bool_)
-                dyn_free = tensor_from_numpy(cl.dyn_free, dev, np.float32)
+                nb = (cl.used.size * 4 + cl.node_ok.nbytes
+                      + cl.dyn_free.nbytes)
+                with led.timed("stack.hot_full", nb, count=3):
+                    used = up(cl.used, np.float32)
+                    node_ok = up(cl.node_ok, np.bool_)
+                    dyn_free = up(cl.dyn_free, np.float32)
                 reg.inc("view.full_uploads")
-                reg.inc("view.upload_bytes", cl.used.size * 4
-                        + cl.node_ok.nbytes + cl.dyn_free.nbytes)
+                reg.inc("view.upload_bytes", nb)
+
             if ent is not None and ent["ports_key"] == ports_key:
-                ports_used = ent["arrays"].ports_used
+                ports_used = ent["ports_used"]
             else:
-                ports_used = tensor_from_numpy(cl.ports_used, dev)
-                reg.inc("view.ports_full_uploads")
-                reg.inc("view.upload_bytes", cl.ports_used.nbytes)
-            arrays = ClusterArrays(capacity=capacity, used=used,
-                                   node_ok=node_ok, attrs=attrs,
-                                   ports_used=ports_used, dyn_free=dyn_free)
-            per_dev[dev] = {"version": version, "static_key": static_key,
-                            "ports_key": ports_key, "arrays": arrays,
-                            "leases": (ent or {}).get("leases", set())}
+                port_words = (cl.port_words_since(ent["ports_version"],
+                                                  limit)
+                              if can_delta else None)
+                if port_words:
+                    ports_used = self._apply_port_words(
+                        cl, ent["ports_used"], port_words, in_place, stage,
+                        led, reg)
+                    did_delta = True
+                elif port_words is not None:
+                    ports_used = ent["ports_used"]
+                else:
+                    nb = cl.ports_used.nbytes
+                    with led.timed("stack.ports_full", nb):
+                        ports_used = up(cl.ports_used)
+                    reg.inc("view.ports_full_uploads")
+                    reg.inc("view.upload_bytes", nb)
+            if did_delta:
+                # one event per refresh that applied any row delta (hot
+                # and/or ports) — pure port flips must not read as "no
+                # delta activity"
+                reg.inc("view.delta_uploads")
+            st = cl.delta_stats()
+            reg.set_gauge("view.hot_log_len", st["hot_log_len"])
+            reg.set_gauge("view.ports_log_len", st["ports_log_len"])
+
+            arrays = ClusterArrays(
+                capacity=capacity,
+                used=used,
+                node_ok=node_ok,
+                attrs=attrs,
+                ports_used=ports_used,
+                dyn_free=dyn_free,
+            )
+            # residency ledger: book the refreshed view slots by site
+            # class. Tensors carried forward are already booked (no-op);
+            # an adopted carry RE-SITES from select_batch.carry to the
+            # view (the swap moves ownership, not bytes); replaced
+            # tensors auto-release once their last reference (an
+            # in-flight launch's lease, a copy slot's source) drops.
+            hbm.track_cluster("stack.view", arrays, cl.n_cap)
+            per_dev[dev] = {
+                "version": version, "arrays": arrays,
+                "static_key": static_key, "capacity": capacity,
+                "attrs": attrs, "ports_key": ports_key,
+                "ports_version": ports_version,
+                "ports_used": ports_used,
+                "n_cap": cl.n_cap,
+                "leases": leases, "carry": None,
+            }
+            # a chain anchored to the REPLACED arrays of this device can
+            # never certify or publish again (the object-identity guard
+            # fails), so it is dead weight that pins a full generation
+            # of hot tensors — retire it with the rebuild. Its published
+            # carry was snapshotted into the old entry and already
+            # consumed (or rejected) above; in-flight dispatches observe
+            # the same None-certify → rollback they would have anyway.
+            with _SPEC_LOCK:
+                chain = _SPEC_CHAINS.get(cl)
+                if (chain is not None and chain["device"] == dev
+                        and chain["base_arrays"] is not arrays):
+                    _spec_reset_locked(cl, chain)
             return _leased(per_dev[dev], lease_token)
+
+    @staticmethod
+    def _apply_hot_rows(cl, bufs, rows, in_place, stage, led):
+        """Write the CURRENT host values of `rows` into the hot tensors
+        `bufs` = (used, node_ok, dyn_free) — into copies unless
+        `in_place` — with one K7 hot-row launch; returns the tensors."""
+        idx, uvals, ovals, dvals = _delta_rows_host(
+            rows, cl.used, cl.node_ok, cl.dyn_free)
+        if not in_place:
+            bufs = tuple(b.clone() for b in bufs)
+        nb = idx.nbytes + uvals.size * 4 + ovals.nbytes + dvals.nbytes
+        with led.timed("stack.hot_delta", nb, count=4):
+            args = (stage(idx), stage(uvals.astype(np.float32)),
+                    stage(ovals.astype(np.bool_)),
+                    stage(dvals.astype(np.float32)))
+            hot_rows_update(*bufs, *args)
+        default_registry().inc("view.upload_bytes", nb)
+        return bufs
+
+    @staticmethod
+    def _carry_skip_rows(cl, ent, carry, prev, hot_entries):
+        """Decide whether a dispatch carry is adoptable and which rows
+        it covers. Returns the SKIP row set (rows whose device values
+        the carry already holds — no upload needed), or None to reject.
+
+        Proof obligations, all host-side and cheap:
+        - the cached entry still holds the exact arrays the chain
+          consumed (object identity — any interleaved refresh rebuilt
+          the namedtuple and invalidates);
+        - the dispatch's outputs have landed (predicted rows known);
+        - every chained eval that predicted placements committed its
+          plan CLEAN (full commit) and EXACT (scheduler certified
+          usage == kernel ask, integral), and that plan's carry_token
+          matches THIS dispatch — a later retry plan of the same eval
+          (different dispatch, or no dispatch at all) can never vouch
+          for this carry's placements. Otherwise a placement the carry
+          contains might never have committed (phantom usage on a row
+          no overlay would ever fix), so the whole carry is dropped;
+        - a row only skips if EVERY change to it came from a covered
+          plan window, it was a predicted placement row, and no
+          program's plan-relative deltas (stops/preempts — their port
+          credits adjust dyn_free in ways the chain carry deliberately
+          does not model) touched it. Everything else overlays from
+          host, which is always authoritative."""
+        if carry["base_arrays"] is not prev:
+            return None
+        predicted = carry["predicted"]
+        if predicted is None:
+            return None
+        windows = cl.plan_windows_since(ent["version"])
+        token = carry["token"]
+        covered_evals = {w[2] for w in windows
+                         if w[3] and w[4] == token
+                         and w[2] in carry["evals"]}
+        for eid, rows in predicted.items():
+            if rows and eid not in covered_evals:
+                return None
+        covered_rows: set = set()
+        uncovered_rows: set = set()
+        for ver, rs in hot_entries:
+            cov = False
+            for v_lo, v_hi, eid, ok, w_tok, _rej in windows:
+                if v_lo < ver <= v_hi:
+                    cov = (ok and w_tok == token
+                           and eid in covered_evals)
+                    break
+            (covered_rows if cov else uncovered_rows).update(rs)
+        pred_rows: set = set()
+        for rows in predicted.values():
+            pred_rows.update(rows)
+        return ((covered_rows & pred_rows) - uncovered_rows
+                - carry["stop_rows"])
+
+    @staticmethod
+    def _chain_carry_overlay(cl, ent, carry, prev):
+        """Decide whether a certified CHAIN carry
+        (spec_chain_publish_carry) is adoptable and split the rows into
+        (skip, overlay), or return None to reject outright.
+
+        Evidence layout: rows changed in [entry version,
+        proven_version] were classified by chain certification into
+        `adopt_rows` (proven: clean+exact window of an expected token,
+        predicted placement row — the carry holds their committed
+        values bit-identically) or `stale` (everything else); rows
+        changed PAST proven_version (the head's own commits land after
+        the certify that published the carry, and anything foreign can
+        land too) are judged HERE against the head token's windows with
+        exactly the single-dispatch `_carry_skip_rows` rules. The
+        overlay — host-authoritative rewrite — is the union of stale,
+        the head's stop rows, the unproven tail, and any head
+        prediction no clean window vouches for (a refresh landing
+        mid-chain: the in-flight dispatch's placements are phantoms
+        until their windows commit — overlaying them keeps the proven
+        prefix adoptable instead of rejecting the whole carry).
+        Everything in neither set is unchanged since the entry's
+        upload, and the carry equals the base there by construction."""
+        if carry["base_arrays"] is not prev:
+            return None
+        predicted = carry["predicted"]
+        if predicted is None:
+            # head outputs never landed: its placement rows are unknown
+            # — nothing bounds the phantom set, reject
+            return None
+        tail = cl.hot_entries_since(carry["proven_version"], cl.n_cap)
+        if tail is None:
+            return None
+        windows = cl.plan_windows_since(carry["proven_version"])
+        token = carry["token"]
+        covered_evals = {w[2] for w in windows
+                         if w[3] and w[4] == token
+                         and w[2] in carry["evals"]}
+        phantom: set = set()
+        for eid, rows in predicted.items():
+            if rows and eid not in covered_evals:
+                phantom.update(rows)
+        covered_rows: set = set()
+        uncovered_rows: set = set()
+        for ver, rs in tail:
+            cov = False
+            for v_lo, v_hi, eid, ok, w_tok, _rej in windows:
+                if v_lo < ver <= v_hi:
+                    cov = (ok and w_tok == token
+                           and eid in covered_evals)
+                    break
+            (covered_rows if cov else uncovered_rows).update(rs)
+        pred_rows: set = set()
+        for rows in predicted.values():
+            pred_rows.update(rows)
+        tail_skip = ((covered_rows & pred_rows) - uncovered_rows
+                     - carry["stop_rows"])
+        n = cl.n_cap
+        overlay = {r for r in carry["stale"] if r < n}
+        overlay.update(r for r in carry["stop_rows"] if r < n)
+        overlay.update(r for r in uncovered_rows if r < n)
+        overlay.update(r for r in phantom if r < n)
+        skip = ((carry["adopt_rows"] | tail_skip) - overlay)
+        return skip, overlay
+
+    @staticmethod
+    def _apply_port_words(cl, ports_buf, port_words, in_place, stage, led,
+                          reg):
+        """Apply a word-granular port delta: whole-row writes for
+        rebuilt rows (node upsert/remove), single-u32 writes for port
+        flips — the steady-state case ships 4-byte words instead of
+        8 KiB rows (`stack.ports_word_delta`). Into a copy of the bitmap
+        unless `in_place`."""
+        full_rows = sorted(r for r, ws in port_words.items()
+                           if ws is None)
+        word_items = sorted((r, w) for r, ws in port_words.items()
+                            if ws is not None for w in ws)
+        if not in_place:
+            ports_buf = ports_buf.clone()
+        if full_rows:
+            pidx, pvals = _delta_rows_host(full_rows, cl.ports_used)
+            nb = pidx.nbytes + pvals.nbytes
+            with led.timed("stack.ports_delta", nb, count=2):
+                port_rows_update(ports_buf, stage(pidx),
+                                 stage(_u32_bits(pvals)))
+            reg.inc("view.delta_rows", len(full_rows))
+            reg.inc("view.upload_bytes", nb)
+        if word_items:
+            rows_a = np.fromiter((r for r, _ in word_items),
+                                 dtype=np.int32, count=len(word_items))
+            words_a = np.fromiter((w for _, w in word_items),
+                                  dtype=np.int32, count=len(word_items))
+            vals_a = cl.ports_used[rows_a, words_a]
+            nb = rows_a.nbytes + words_a.nbytes + vals_a.nbytes
+            with led.timed("stack.ports_word_delta", nb, count=3):
+                port_words_update(ports_buf, stage(rows_a), stage(words_a),
+                                  stage(_u32_bits(vals_a)))
+            reg.inc("view.ports_words", len(word_items))
+            reg.inc("view.upload_bytes", nb)
+        return ports_buf
 
     # ---- program compilation ----
 
@@ -788,26 +1728,34 @@ class TorchStack:
             # by the coordinator at dispatch time, not here: the previous
             # batch's plans commit between this park and the dispatch.
             (sel, scores, n_feas, n_fit, ex_np,
-             self.carry_token) = self.coordinator.select(
+             carry_token) = self.coordinator.select(
                 self.device_arrays, params, n_place,
                 order=self.coordinator_order, explain=want_ex)
             result = None
         else:
-            arrays = self.device_arrays()
-            # bucket-pad the program (parallel/pad.py, the same inert
-            # padding the batched transports use) so its shapes repeat
-            # across jobs
-            (params,), _ = pad_params([params])
-            result = place_task_group(arrays,
-                                      _to_device(params, self.device),
-                                      m, explain=want_ex)
-            sel = result.sel_idx.cpu().numpy()
-            scores = result.sel_score.cpu().numpy()
-            n_feas = int(result.nodes_feasible)
-            n_fit = result.nodes_fit.cpu().numpy()
-            if result.explain is not None:
-                ex_np = PlacementExplain(
-                    *(x.cpu().numpy() for x in result.explain))
+            carry_token = None
+            # the solo run leases the view it launches against until its
+            # outputs are on the host, like every dispatch: a refresh in
+            # between writes copies, never these tensors
+            token = next(_DISPATCH_TOKENS)
+            try:
+                arrays = self.device_arrays(lease_token=token)
+                # bucket-pad the program (parallel/pad.py, the same inert
+                # padding the batched transports use) so its shapes
+                # repeat across jobs
+                (params,), _ = pad_params([params])
+                result = place_task_group(arrays,
+                                          _to_device(params, self.device),
+                                          m, explain=want_ex)
+                sel = result.sel_idx.cpu().numpy()
+                scores = result.sel_score.cpu().numpy()
+                n_feas = int(result.nodes_feasible)
+                n_fit = result.nodes_fit.cpu().numpy()
+                if result.explain is not None:
+                    ex_np = PlacementExplain(
+                        *(x.cpu().numpy() for x in result.explain))
+            finally:
+                release_view(self.cluster, token)
         snap_rows = self.cluster.node_of_row
         node_ids: List[Optional[str]] = []
         out_scores: List[float] = []
@@ -828,6 +1776,7 @@ class TorchStack:
             raw=result,
             explain=explain_host,
             ask=np.asarray(params.ask, dtype=np.float32),
+            carry_token=carry_token,
         )
 
     def _dimension_names(self) -> List[str]:

@@ -220,8 +220,16 @@ class Worker:
                     started = self.start_batch(batch, group_of=group_of)
                     batch = None
                 if inflight is not None:
-                    # (the reference wires batch k+1's coordinator as
-                    # batch k's speculation successor here — ROADMAP A6)
+                    if started is not None:
+                        # speculative dispatch: when batch k's fused
+                        # dispatch launches inside finish_batch below,
+                        # it offers batch k+1 a speculative launch
+                        # against its predicted carry — k+1's kernel
+                        # queues behind k's on the device while k's
+                        # plans commit; k+1's coordinator certifies at
+                        # the top of its own finish_batch, after every
+                        # k plan committed
+                        inflight[0].successor = started[0]
                     self.finish_batch(*inflight)
                     inflight = None
                 if started is not None:
@@ -372,15 +380,29 @@ class Worker:
                                   timeline=getattr(self.server,
                                                    "timeline", None),
                                   registry=self.metrics)
-        # (the reference also reads each eval's footprint mask here for
-        # speculative certification when speculation is on and no device
-        # mesh is active; the port has no mesh yet (ROADMAP A9) and no
-        # speculation (ROADMAP A6), so no mask is read)
+        # per-program footprint masks for speculative certification
+        # (select_batch._certify_spec): the same estimator the broker
+        # partitions with, re-read at batch start so the mask reflects
+        # this batch's state. None (no estimator / nothing cheap bounds
+        # the eval) conflicts with every stale row — sound, never fast.
+        # Skipped entirely when speculation can never run (the hard
+        # opt-out): masks nobody reads are pure batch-start latency. (The
+        # reference also skips them under an active device mesh; the
+        # port has no mesh yet, ROADMAP A9.)
+        from .select_batch import spec_enabled
+
+        fp_fn = (getattr(self.server, "_eval_footprint", None)
+                 if spec_enabled() else None)
         futs = []
         for order, (ev, tok) in enumerate(items):
             coord.trace_ids[order] = ev.id
             if group_of is not None:
                 coord.group_ids[order] = group_of[order]
+            if fp_fn is not None:
+                try:
+                    coord.footprints[order] = fp_fn(ev)
+                except Exception:  # noqa: BLE001 — estimate only
+                    coord.footprints[order] = None
             coord.add_thread()
             try:
                 futs.append(pool.submit(

@@ -17,6 +17,7 @@ scatters in the kernel instead).
 """
 from __future__ import annotations
 
+import os
 from collections import deque
 from dataclasses import dataclass
 from typing import Deque, Dict, List, Optional, Set, Tuple
@@ -49,6 +50,22 @@ DYN_PORT_SPAN = MAX_DYNAMIC_PORT - MIN_DYNAMIC_PORT + 1
 DELTA_LOG_LEN = 1024
 
 
+def _delta_log_len() -> int:
+    """Per-cluster delta-log ring length: `NOMAD_TPU_DELTA_LOG`
+    overrides DELTA_LOG_LEN (default 1024), read once at cluster
+    construction. Size it above the mutation volume of one commit
+    interval: a plain cache that lags past a wrap merely pays a full
+    upload, but a wrap MID-SPECULATION-CHAIN destroys the certification
+    evidence for the interval — every speculative result rolls back
+    (`spec.chain_unprovable_wrap`, scheduler/stack.py)."""
+    raw = os.environ.get("NOMAD_TPU_DELTA_LOG", "").strip()
+    try:
+        val = int(raw) if raw else DELTA_LOG_LEN
+    except ValueError:
+        return DELTA_LOG_LEN
+    return max(8, val)
+
+
 def _bucket(n: int, lo: int = 64) -> int:
     b = lo
     while b < n:
@@ -77,9 +94,10 @@ class ClusterTensors:
         self.vocab = AttrVocab()
         self.n_cap = n_cap
         self.k_cap = k_cap
-        #: delta-log ring bound; the port's stack re-uploads whole
-        #: tensors, so the log only feeds the row-delta path to come
-        self.delta_log_len = DELTA_LOG_LEN
+        #: delta-log ring bound (NOMAD_TPU_DELTA_LOG, default
+        #: DELTA_LOG_LEN) — pinned per instance so a mid-life env flip
+        #: can't shrink a ring out from under its readers' floors
+        self.delta_log_len = _delta_log_len()
         self.capacity = np.zeros((n_cap, R_TOTAL), dtype=np.float32)
         # float64: `used` is a long-lived INCREMENTAL accumulator (+=
         # on place, -= on release); float32 rounding residue from alloc

@@ -224,6 +224,63 @@ def test_row_scatter_matches_index_copy(cuda_device):
         assert torch.equal(want, got.cpu()), (dt, width)
 
 
+_N_CAP, _R, _W = 16384, 8, 2048
+
+
+def _delta_idx(gen, k, n):
+    """k distinct rows of n (the view cache never passes duplicates)."""
+    return torch.randperm(n, generator=gen)[:k].to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 1, _N_CAP // 4], ids=["empty", "one",
+                                                        "quarter"])
+def test_view_delta_kernels_match_index_copy(k, cuda_device):
+    """K7's three parts against their plain versions at the view's full
+    shape (N = 16384, R = 8, W = 2048 words), bitwise: an empty delta,
+    one row and the n_cap // 4 rows past which the view uploads whole."""
+    from nomad_tpu_torch.kernels import rows as kr
+
+    gen = torch.Generator().manual_seed(11 + k)
+    used = torch.rand(_N_CAP, _R, generator=gen) * 1000
+    node_ok = torch.rand(_N_CAP, generator=gen) < 0.5
+    dyn = torch.rand(_N_CAP, generator=gen) * 100
+    idx = _delta_idx(gen, k, _N_CAP)
+    uv = torch.rand(k, _R, generator=gen) * 1000
+    ov = torch.rand(k, generator=gen) < 0.5
+    dv = torch.rand(k, generator=gen) * 100
+    want = kr.hot_rows_update_plain(used.clone(), node_ok.clone(),
+                                    dyn.clone(), idx, uv, ov, dv)
+    on = [t.to(cuda_device) for t in (used, node_ok, dyn, idx, uv, ov, dv)]
+    n0 = kr.delta_launch_counts()["hot_rows"]
+    got = kr.hot_rows_update(*on)
+    torch.cuda.synchronize()
+    assert kr.delta_launch_counts()["hot_rows"] == n0 + (1 if k else 0)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b.cpu())
+
+    ports = torch.randint(-2 ** 31, 2 ** 31 - 1, (_N_CAP, _W),
+                          generator=gen, dtype=torch.int32)
+    prow = _delta_idx(gen, min(k, 64), _N_CAP)
+    pvals = torch.randint(-2 ** 31, 2 ** 31 - 1, (prow.shape[0], _W),
+                          generator=gen, dtype=torch.int32)
+    want = kr.port_rows_update_plain(ports.clone(), prow, pvals)
+    got = kr.port_rows_update(ports.to(cuda_device), prow.to(cuda_device),
+                              pvals.to(cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(want, got.cpu())
+
+    wrows = _delta_idx(gen, k, _N_CAP)       # distinct (row, word) pairs
+    words = torch.randint(0, _W, (k,), generator=gen, dtype=torch.int32)
+    wvals = torch.randint(-2 ** 31, 2 ** 31 - 1, (k,), generator=gen,
+                          dtype=torch.int32)
+    want = kr.port_words_update_plain(ports.clone(), wrows, words, wvals)
+    got = kr.port_words_update(ports.to(cuda_device), wrows.to(cuda_device),
+                               words.to(cuda_device), wvals.to(cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(want, got.cpu())
+
+
 def _server_placements(eval_batch, cuda_device):
     """Placements {(job index, alloc index): node name} of one port
     Server run on the card over a seeded 300-node feed with half the jobs

@@ -27,13 +27,13 @@ REWRITTEN = {
     "scheduler/__init__.py": "no system or preemption scheduler yet",
     "scheduler/generic.py": "device=, TorchStack, no preemption retry",
     "scheduler/harness.py": "device=, no system scheduler",
-    "scheduler/stack.py": "TorchStack: whole-group view uploads",
+    "scheduler/stack.py": "TorchStack: per-device view cache, K7, leases",
     "server/broker.py": "comments naming the reference's issues",
     "server/plan_apply.py": "comments naming the reference's issues",
     "server/program_table.py": "torch tables, the row-scatter insert",
-    "server/select_batch.py": "CUDA-event outputs, no speculation",
+    "server/select_batch.py": "CUDA-event outputs, leased fallbacks",
     "server/server.py": "device=, no device mesh",
-    "server/worker.py": "no mesh, no speculation, no system scheduler",
+    "server/worker.py": "no mesh, no system scheduler",
     "structs/alloc.py": "comments naming the reference's issues",
     "structs/codec.py": "registry of the port's own classes",
     "structs/evaluation.py": "comments naming the reference's issues",
@@ -41,7 +41,7 @@ REWRITTEN = {
     "structs/network.py": "only the pure-Python first-fit",
     "structs/plan.py": "comments naming the reference's issues",
     "synth.py": "a comment naming the reference's issues",
-    "tensor/cluster.py": "no delta-log length knob",
+    "tensor/cluster.py": "a comment naming the reference's issues",
 }
 
 

@@ -13,12 +13,14 @@ the reference's server cases in `tests/test_select_batch.py` and
   the sequential run places, and keeps plan-apply partials flat.
 
 And the port against the reference: one seeded feed through both
-packages' `Server`s at eval_batch=1 places alloc by alloc on the same
-nodes. The reference runs with speculation and chain-carry adoption off
-(`NOMAD_TPU_SPECULATE=0`, `NOMAD_TPU_SPEC_CHAIN_ADOPT=0`, set for its
-run only): the port has neither yet, and both only change transport,
-never placements. Port-batched == port-sequential == reference-sequential
-then holds the batched path to the reference.
+packages' `Server`s places alloc by alloc on the same nodes — with
+speculation and chain-carry adoption switched off in both
+(`NOMAD_TPU_SPECULATE=0`, `NOMAD_TPU_SPEC_CHAIN_ADOPT=0`), and with both
+servers at their defaults (both on). Port-batched == port-sequential ==
+reference-sequential then holds the batched path to the reference. The
+plans themselves carry the same certification: for the same evals the
+port's `Plan.carry_exact` and `carry_token` (by its dispatch's position)
+equal the reference's.
 """
 import random
 import time
@@ -222,15 +224,13 @@ def _mixed_jobs(rng):
             for i in range(10)]
 
 
-def test_port_places_like_the_reference(monkeypatch):
+def _versus_reference(monkeypatch):
     from nomad_tpu import server as jsrv
 
     nodes, jobs = _feed(23, 48, _mixed_jobs)
     port_seq, port_stats, _w, _c = _port_run(1, nodes, jobs, monkeypatch)
-    port_bat, _st, wstats, _c = _port_run(8, nodes, jobs, monkeypatch)
+    port_bat, _st, wstats, port_c = _port_run(8, nodes, jobs, monkeypatch)
     with monkeypatch.context() as m:
-        m.setenv("NOMAD_TPU_SPECULATE", "0")
-        m.setenv("NOMAD_TPU_SPEC_CHAIN_ADOPT", "0")
         m.delenv("NOMAD_TPU_EVAL_BATCH", raising=False)
         ref, ref_stats, _w, _c = _run(jsrv, 1, nodes, jobs, port=False)
     assert ref and set(ref) == set(port_seq) == set(port_bat)
@@ -239,6 +239,93 @@ def test_port_places_like_the_reference(monkeypatch):
     assert not diffs, sorted(diffs.items())[:4]
     assert wstats.get("batched", 0) > 0
     assert ref_stats.get("partial", 0) == port_stats.get("partial", 0)
+    return port_c
+
+
+def test_port_places_like_the_reference(monkeypatch):
+    """Both servers with speculation and chain adoption switched off."""
+    monkeypatch.setenv("NOMAD_TPU_SPECULATE", "0")
+    monkeypatch.setenv("NOMAD_TPU_SPEC_CHAIN_ADOPT", "0")
+    port_c = _versus_reference(monkeypatch)
+    assert not port_c.get("spec.launches", 0)
+
+
+def test_port_places_like_the_reference_at_defaults(monkeypatch):
+    """Both servers at their defaults: speculation, chain adoption and
+    the row-delta view on."""
+    monkeypatch.delenv("NOMAD_TPU_SPECULATE", raising=False)
+    monkeypatch.delenv("NOMAD_TPU_SPEC_CHAIN_ADOPT", raising=False)
+    _versus_reference(monkeypatch)
+
+
+def _plan_certification(server_mod, plan_apply, conv, monkeypatch, **kw):
+    """[(carry_exact, token rank)] per eval of one server run: a job
+    placed alone, then 16 evals pre-enqueued in two batches of 8 — the
+    first an update of that job (in-place updates: not carry-exact), the
+    rest new jobs. A token's rank is its position among the run's
+    dispatch tokens (tokens are process-wide counters)."""
+    import copy
+
+    monkeypatch.delenv("NOMAD_TPU_EVAL_BATCH", raising=False)
+    monkeypatch.setenv("NOMAD_TPU_DRAIN_WINDOW_MS", "50")
+    seen = {}
+    real = plan_apply.PlanApplier.apply
+
+    def apply(self, plan):
+        seen.setdefault(plan.eval_id, []).append(
+            (plan.carry_exact, plan.carry_token))
+        return real(self, plan)
+
+    monkeypatch.setattr(plan_apply.PlanApplier, "apply", apply)
+    rng = random.Random(5)
+    s = server_mod.Server(server_mod.ServerConfig(
+        num_schedulers=1, heartbeat_ttl=3600.0, eval_batch=8), **kw)
+    try:
+        for i in range(40):
+            s.state.upsert_node(conv(synth_node(rng, i)))
+        base = synth_service_job(rng, count=2)
+        s.start()
+        ev = s.job_register(conv(base))
+        got = s.wait_for_eval(ev.id, statuses=FINAL, timeout=60.0)
+        assert got is not None and got.status == "complete", got
+        s.broker.set_enabled(False)
+        update = copy.deepcopy(base)
+        update.task_groups[0].count = 3
+        jobs = [update] + [synth_service_job(rng, count=2,
+                                             with_devices=i % 3 == 0)
+                           for i in range(15)]
+        evs = [s.job_register(conv(j)) for j in jobs]
+        s.broker.set_enabled(True)
+        s._restore_evals()
+        for e in evs:
+            got = s.wait_for_eval(e.id, statuses=FINAL, timeout=120.0)
+            assert got is not None and got.status == "complete", got
+        plans = [seen[e.id] for e in evs]
+    finally:
+        s.shutdown()
+    rank = {t: i for i, t in enumerate(sorted(
+        {tok for ps in plans for _x, tok in ps if tok is not None}))}
+    return [[(x, rank.get(tok)) for x, tok in ps] for ps in plans]
+
+
+def test_plans_carry_the_references_certification(monkeypatch):
+    """The same evals give plans with the reference's `carry_exact` and
+    `carry_token` (by its dispatch's position): certified where the
+    fused dispatch's carry holds the placements, revoked for the
+    in-place update."""
+    from nomad_tpu import server as jsrv
+    from nomad_tpu.server import plan_apply as jpa
+    from nomad_tpu_torch import server as tsrv
+    from nomad_tpu_torch.server import plan_apply as tpa
+
+    with monkeypatch.context() as m:
+        ref = _plan_certification(jsrv, jpa, lambda o: o, m)
+    with monkeypatch.context() as m:
+        got = _plan_certification(tsrv, tpa, _port, m, device="cpu")
+    assert got == ref
+    assert ref[0] == [(False, 0)]
+    assert all(ps == [(True, 0)] for ps in ref[1:8])
+    assert all(ps == [(True, 1)] for ps in ref[8:])
 
 
 @pytest.mark.parametrize("typ", ["system"])

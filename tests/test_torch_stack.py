@@ -57,20 +57,33 @@ def test_compile_tg_matches_reference(name):
 
 
 def test_view_reuploads_only_the_changed_group():
+    """Each tensor group refreshes only when its key moves, and then by
+    the rows the delta log names: written into the cached tensors (no
+    lease is held), bit-equal to the host."""
     case = tc.build("plan_delta_ports")
     port = tc.port_case(case)
     cl = port.cluster
     stack = TorchStack(cl, device="cpu")
     v1 = stack.device_arrays()
     assert stack.device_arrays() is v1          # unchanged: cached
-    cl.version += 1                             # hot tensors only
+    cl.version += 1                             # a bump naming no row
     v2 = stack.device_arrays()
-    assert v2.capacity is v1.capacity and v2.attrs is v1.attrs
-    assert v2.ports_used is v1.ports_used
-    assert v2.used is not v1.used
-    cl.ports_version += 1                       # the port bitmap
+    assert all(getattr(v2, f) is getattr(v1, f) for f in v1._fields)
+    row = next(iter(cl.row_of.values()))
+    cl._log_hot(row)                            # hot tensors only
+    cl.used[row, 0] += 7
+    cl.version += 1
     v3 = stack.device_arrays()
-    assert v3.ports_used is not v2.ports_used and v3.used is v2.used
-    cl.node_version += 1                        # the static group
+    assert v3.used is v2.used and v3.capacity is v2.capacity
+    assert v3.ports_used is v2.ports_used
+    assert float(v3.used[row, 0]) == np.float32(cl.used[row, 0])
+    cl._log_ports(row, word=3)                  # the port bitmap
+    cl.ports_used[row, 3] ^= np.uint32(1)
+    cl.ports_version += 1
     v4 = stack.device_arrays()
-    assert v4.capacity is not v3.capacity and v4.ports_used is v3.ports_used
+    assert v4.ports_used is v3.ports_used and v4.used is v3.used
+    assert int(v4.ports_used[row, 3]) == \
+        int(cl.ports_used[row:row + 1, 3].view(np.int32)[0])
+    cl.node_version += 1                        # the static group
+    v5 = stack.device_arrays()
+    assert v5.capacity is not v4.capacity and v5.ports_used is v4.ports_used
