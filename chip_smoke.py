@@ -66,7 +66,30 @@ non-zero without printing a result:
    one datacenter between launch and certification rolls back that lane
    only; (d) a refresh under a held lease writes copies and leaves the
    leased tensors unchanged.
-8. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
+8. The system scheduler (K2) and preemption (K3) at full width, N = 16384:
+   (a) on a synthetic BASELINE state of its own (config 4 mutates the
+   cluster; every node is given at least one filler alloc), K2 on the
+   leased device view against its plain version, both masks equal, for
+   `synth_system_job`'s program and a variant with plan deltas and a
+   reserved plus a dynamic port ask; (b) K3 against its plain version on
+   the candidate table the retry's host code builds from the filler
+   allocs for a priority-100 ask one cpu above any node's free room, and
+   on one of all-equal priorities with pads: indices, k, order and
+   feasible equal, scores within 1e-6; K2, K3, their plain versions, the
+   table build and the four-tensor upload timed; (c) BASELINE config 4:
+   two `synth_system_job` evals through the port's `Harness`, with
+   `bench.py` `bench_system`'s checks (the placed node set equals a
+   scalar recomputation; every preemption-backed placement is on a
+   feasible-but-full node, evicts only lower-priority allocs and fits
+   afterwards); evals/s, placements/s, preemption placements, K2
+   launches and the host time per eval. (d) runs on phase 6's server
+   after its bursts (so it prints before phase 7): a system job's eval
+   completes through the worker's system route (K2 launched, no nack);
+   then, with service preemption on, a priority-100 service job whose ask
+   fits no node without eviction is placed by evicting lower-priority
+   allocs (K3 launched), its plan applied, `carry_exact` False, the node
+   fitting afterwards.
+9. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
 """
 from __future__ import annotations
 
@@ -159,7 +182,12 @@ def _bound_of(parts, cluster, extra_out: int = 0):
     `extra_out` adds outputs written once per dispatch (a carry)."""
     view = max(v for v, _p, _o, _ops in parts)
     bytes_ = view + sum(p + o for _v, p, o, _ops in parts) + extra_out
-    ops = sum(x[3] for x in parts)
+    return _bound_ms(bytes_, sum(x[3] for x in parts))
+
+
+def _bound_ms(bytes_: float, ops: float):
+    """Least time for `bytes_` moved once and `ops` fp32 operations on
+    the card, and which of the two bounds it."""
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -424,10 +452,11 @@ def _snap(torch, x):
     return x
 
 
-def _phase6_server(torch, kp, kr, rng, device=None):
+def _phase6_server(torch, kp, kr, rng, device=None, then=None):
     """The batched server path on the card (`device` None) at the
     BASELINE size, at the server's defaults (speculation, chain adoption
-    and the row-delta view on)."""
+    and the row-delta view on). `then(server)`, if given, runs on the
+    started server after the bursts, before it shuts down."""
     from nomad_tpu_torch.lib.metrics import default_registry
     from nomad_tpu_torch.lib.transfer import default_ledger
     from nomad_tpu_torch.scheduler import stack as stack_mod
@@ -647,6 +676,8 @@ def _phase6_server(torch, kp, kr, rng, device=None):
               f"{len(records)} chain/wave launches recorded, all equal to "
               "plain on the inputs they read, every leased view unchanged "
               "until its release")
+        if then is not None:
+            out["then"] = then(s)
     finally:
         s.shutdown()
     out["max_err"] = max(out["err"].values())
@@ -1159,6 +1190,501 @@ def _phase7_slice(torch, kr, cl, nodes, rng, device=None):
     return out
 
 
+# ---- phase 8: the system scheduler (K2) and preemption (K3) -------------------
+
+#: evals of BASELINE config 4 through the Harness (phase 8 (c))
+SYSTEM_EVALS = 2
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _k2_bound(arrays, p):
+    """K2 reads capacity, used, node_ok, dyn_free, the referenced
+    attribute columns and port words and the program's fields, and
+    writes two bool[N]."""
+    n, r = arrays.capacity.shape
+    c, d = p.key_idx.shape[0], p.delta_idx.shape[0]
+    pp, pc, ps = (p.res_ports.shape[0], p.pclr_idx.shape[0],
+                  p.pset_idx.shape[0])
+    words = len({int(x) >> 5 for x in p.res_ports.tolist() if x >= 0})
+    bytes_ = (n * r * 4 * 2 + n * (1 + 4) + n * c * arrays.attrs.element_size()
+              + n * words * 4 + 2 * n
+              + _nbytes(p.ask, p.key_idx, p.lut, p.extra_mask, p.delta_idx,
+                        p.delta_res, p.res_ports, p.n_dyn, p.pclr_idx,
+                        p.pclr_port, p.pset_idx, p.pset_port))
+    ops = n * (c + 2 * r + d * (r + 1) + pp * (pc + ps + 2) + 2 * (pc + ps))
+    return _bound_ms(bytes_, ops)
+
+
+def _k3_walk(torch, kpre, arrays, p, cand, order):
+    """Candidate slots K3's prefix walk must read on this data: up to the
+    first fitting prefix, or up to the first ineligible slot where none
+    fits (summed over rows)."""
+    prio_s = torch.gather(cand.prio, 1, order.long())
+    elig = torch.cumprod((prio_s < kpre.INF_PRIO).int(), dim=1).bool()
+    r = arrays.capacity.shape[1]
+    usage_s = torch.gather(cand.usage, 1,
+                           order.long()[:, :, None].expand(-1, -1, r))
+    util = (arrays.used[:, None, :] - torch.cumsum(usage_s, dim=1)) \
+        + p.ask[None, None, :]
+    fits = torch.all(util <= arrays.capacity[:, None, :], dim=2) & elig
+    first = torch.argmax(fits.int(), dim=1) + 1
+    walked = torch.where(fits.any(dim=1), first, elig.sum(dim=1))
+    return int(walked.sum())
+
+
+def _k3_bound(torch, kpre, arrays, p, cand, order):
+    """K3 reads every row's priorities (the rank sort), the usage rows its
+    walk reaches, capacity, used, node_ok, the referenced attribute
+    columns; writes order, feasible, scores and the three scalars. Its
+    operations: A² rank compares a row, R per walked slot."""
+    n, a = cand.prio.shape
+    r = arrays.capacity.shape[1]
+    walked = _k3_walk(torch, kpre, arrays, p, cand, order)
+    cols = p.key_idx.shape[0] + p.dp_key_idx.shape[0]
+    bytes_ = (n * a * 4 + walked * r * 4 + n * r * 4 * 2 + n
+              + n * cols * arrays.attrs.element_size()
+              + n * a * 4 + n + n * 4 + 12
+              + _nbytes(p.ask, p.key_idx, p.lut, p.extra_mask, p.jc_idx,
+                        p.jc_val, p.dp_key_idx, p.dp_counts0))
+    ops = n * a * a * 2 + walked * (r * 3 + 1) + n * (cols + 20)
+    return _bound_ms(bytes_, ops), walked
+
+
+def _fill_empty_nodes(state, nodes, rng) -> int:
+    """One priority-50 filler alloc on every node that runs none, so an
+    ask larger than any node's free room needs an eviction everywhere (a
+    node without allocs would take it without one)."""
+    from nomad_tpu_torch.synth import synth_alloc
+
+    filler = next(a.job for a in state._allocs.values()
+                  if a.job is not None and a.job.priority == 50)
+    added = 0
+    for node in nodes:
+        if not any(not a.terminal_status()
+                   for a in state.allocs_by_node(node.id)):
+            state.upsert_alloc(synth_alloc(rng, node, filler))
+            added += 1
+    return added
+
+
+def _preempt_job(rng, cl):
+    """A priority-100 service job of one alloc whose cpu ask is one more
+    than the most free cpu of any node: it fits on no node without an
+    eviction, and on the large nodes after one."""
+    import numpy as np
+
+    from nomad_tpu_torch.synth import synth_service_job
+
+    live = np.asarray(cl.node_ok[:cl.n_cap], dtype=bool)
+    free = cl.capacity[:cl.n_cap, 0] - cl.used[:cl.n_cap, 0]
+    ask = int(free[live].max()) + 1
+    if ask > int(cl.capacity[:cl.n_cap, 0][live].max()):
+        raise AssertionError(f"an ask of {ask} cpu fits no node at all")
+    job = synth_service_job(rng, count=1)
+    job.priority = 100
+    res = job.task_groups[0].tasks[0].resources
+    res.cpu, res.memory_mb = ask, 1024
+    return job
+
+
+def _system_program_variants(stack, state, nodes, rng):
+    """(label, program) of `synth_system_job`, as the system scheduler
+    compiles it (one alloc per ready node), and a variant with plan deltas
+    (stopped filler allocs) and a reserved plus a dynamic port ask with
+    released and consumed ports."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.scheduler.stack import PlanContext
+    from nomad_tpu_torch.structs import NetworkResource, Port
+    from nomad_tpu_torch.synth import synth_system_job
+
+    job = synth_system_job(rng)
+    tg = job.task_groups[0]
+    yield "system job", stack.compile_tg(job, tg, len(nodes))[0]
+    tg.tasks[0].resources.networks = [NetworkResource(
+        mbits=1, reserved_ports=[Port("http", 8080)],
+        dynamic_ports=[Port("rpc", 0)])]
+    stopped = []
+    for k, a in enumerate(list(state._allocs.values())[:16]):
+        a = copy.copy(a)
+        a.allocated_resources = mock.alloc_resources(
+            cpu=200, memory_mb=128, networks=[NetworkResource(
+                ip="10.0.0.1", mbits=1, reserved_ports=[Port("http", 8080)],
+                dynamic_ports=[Port("rpc", 20000 + k)])])
+        stopped.append(a)
+    plan = PlanContext(stopped_allocs=stopped)
+    for node in nodes[100:108]:
+        pa = mock.alloc(job=job, node_id=node.id, task_group=tg.name)
+        pa.allocated_resources = mock.alloc_resources(
+            cpu=500, memory_mb=256, networks=[NetworkResource(
+                ip=node.node_resources.networks[0].ip, mbits=1,
+                reserved_ports=[Port("http", 8080)],
+                dynamic_ports=[Port("rpc", 20003)])])
+        plan.placed.append((node.id, tg.name, stack.cluster.usage_row(pa)))
+        plan.placed_allocs.append(pa)
+    yield "deltas + ports", stack.compile_tg(job, tg, len(nodes), plan)[0]
+
+
+def _k2_against_plain(torch, kp, state, nodes, rng, out, device):
+    """(a): K2 on the leased view against its plain version; timed."""
+    from nomad_tpu_torch.convert import params_from_numpy
+    from nomad_tpu_torch.scheduler import stack as stack_mod
+
+    cl = state.cluster
+    stack = stack_mod.TorchStack(cl, device=device)
+    dev = stack.device
+    for label, params in _system_program_variants(stack, state, nodes, rng):
+        token = next(stack_mod._DISPATCH_TOKENS)
+        try:
+            arrays = stack.device_arrays(lease_token=token)
+            p = params_from_numpy(params, dev)
+            got = _snap(torch, kp.system_feasibility(arrays, p))
+            want = kp.system_feasibility_plain(arrays, p)
+            for name, g, w in zip(("feasible", "fits"), got, want):
+                if g.dtype != torch.bool or not torch.equal(g.cpu(),
+                                                            w.cpu()):
+                    raise AssertionError(f"K2 {label}: {name} differs")
+                out["k2_err"] = max(out.get("k2_err", 0.0), float(
+                    (g.cpu().float() - w.cpu().float()).abs().max()))
+            n_feas, n_fit = int(got[0].sum()), int(got[1].sum())
+            if not 0 < n_fit < n_feas:
+                raise AssertionError(f"K2 {label}: {n_fit} of {n_feas}")
+            line = (f"phase 8 (a) K2==plain {label}: feasible {n_feas}, "
+                    f"fits {n_fit}")
+            if dev.type == "cuda":
+                ms = _time_ms(lambda: kp.system_feasibility_cuda(arrays, p),
+                              200)
+                plain_ms = _time_ms(
+                    lambda: kp.system_feasibility_plain(arrays, p), 50)
+                bound_ms, bound_by = _k2_bound(arrays, p)
+                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                         f"bound {bound_ms:.7f} ms ({bound_by})")
+                if label == "system job":
+                    out["k2"] = dict(ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by,
+                                     library_ms=None)
+            print(line)
+        finally:
+            stack_mod.release_view(cl, token)
+
+
+def _k3_against_plain(torch, kpre, state, rng, out, device):
+    """(b): K3 on a candidate table the retry's own host code builds from
+    the filler allocs, and on one of all-equal priorities with pads,
+    against its plain version; K3, the plain version, the table build and
+    the four-tensor upload timed."""
+    import numpy as np
+
+    from nomad_tpu_torch.convert import (candidates_from_numpy,
+                                         params_from_numpy)
+    from nomad_tpu_torch.device import resolve_device
+    from nomad_tpu_torch.scheduler.preemption import (candidate_table,
+                                                      ranked_cluster)
+    from nomad_tpu_torch.scheduler.stack import TorchStack
+    from nomad_tpu_torch.structs import Plan
+
+    cl = state.cluster
+    dev = resolve_device(device)
+    job = _preempt_job(rng, cl)
+    params, _m = TorchStack(cl, device=dev).compile_tg(
+        job, job.task_groups[0], 1)
+    builds, uploads = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        table = candidate_table(state, cl, job, Plan())
+        builds.append(time.perf_counter() - t0)
+    for _ in range(5):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arrays = ranked_cluster(cl, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        uploads.append(time.perf_counter() - t0)
+    prio, usage = table
+    n, a = prio.shape
+    gen = np.random.default_rng(SEED)
+    equal = np.where(prio < kpre.INF_PRIO, 50.0, kpre.INF_PRIO).astype(
+        np.float32)
+    equal[gen.random(prio.shape) < 0.1] = kpre.INF_PRIO   # pads between
+    p = params_from_numpy(params, dev)
+    err = 0.0
+    for label, tab in (("filler allocs", (prio, usage)),
+                       ("equal priorities + pads", (equal, usage))):
+        cand = candidates_from_numpy(*tab, dev)
+        got = _snap(torch, kpre.preempt_rank(arrays, p, cand))
+        want = kpre.preempt_rank_plain(arrays, p, cand)
+        for f in ("best_row", "best_k", "order", "feasible"):
+            g, w = getattr(got, f).cpu(), getattr(want, f).cpu()
+            if g.shape != w.shape or not torch.equal(g, w.to(g.dtype)):
+                raise AssertionError(f"K3 {label}: {f} differs")
+        for f in ("scores", "best_score"):
+            d = float((getattr(got, f).cpu() - getattr(want, f).cpu())
+                      .abs().max())
+            if not d <= TOL:
+                raise AssertionError(f"K3 {label}: {f} differs by {d}")
+            err = max(err, d)
+        best = int(got.best_row)
+        if best < 0:
+            raise AssertionError(f"K3 {label}: no node admits the ask")
+        line = (f"phase 8 (b) K3==plain {label}: A={a}, feasible "
+                f"{int(got.feasible.sum())}, best row {best} "
+                f"(cpu {float(arrays.capacity[best, 0]):.0f}), k "
+                f"{int(got.best_k)}, score {float(got.best_score):.6f}")
+        if dev.type == "cuda":
+            ms = _time_ms(lambda: kpre.preempt_rank_cuda(arrays, p, cand),
+                          200)
+            plain_ms = _time_ms(
+                lambda: kpre.preempt_rank_plain(arrays, p, cand), 20)
+            (bound_ms, bound_by), walked = _k3_bound(
+                torch, kpre, arrays, p, cand, got.order)
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                     f"{bound_ms:.7f} ms ({bound_by}; {walked} slots "
+                     "walked)")
+            if label == "filler allocs":
+                out["k3"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, library_ms=None)
+        print(line)
+    out["k3_err"] = err
+    print(f"phase 8 (b) host: candidate table (proposed_allocs over "
+          f"{len(cl.row_of)} nodes) " + " ".join(
+              f"{t * 1e3:.1f}" for t in builds) + " ms; four-tensor upload "
+          f"({_nbytes(*(t for t in arrays if t is not None)) / 2**20:.2f} "
+          "MiB) " + " ".join(f"{t * 1e3:.3f}" for t in uploads) + " ms")
+
+
+def _config4(torch, kp, kpre, state, nodes, rng, out, device):
+    """(c): BASELINE config 4 through the port's Harness, with the checks
+    of `bench.py` `bench_system`: the placed node set (without victims)
+    equals a scalar recomputation, and every preemption-backed placement
+    is on a feasible-but-full node, names only lower-priority victims and
+    fits after the eviction."""
+    from nomad_tpu_torch.mock import alloc_resources
+    from nomad_tpu_torch.scheduler import system as system_mod
+    from nomad_tpu_torch.scheduler.harness import Harness
+    from nomad_tpu_torch.scheduler.oracle import driver_ok, meets_constraints
+    from nomad_tpu_torch.structs import Allocation, Evaluation, allocs_fit
+    from nomad_tpu_torch.synth import synth_system_job
+
+    h = Harness(state, device=device)
+    if device is None and h.device.type != "cuda":
+        raise AssertionError(f"Harness default device is {h.device}")
+    cuda = h.device.type == "cuda"
+    walls, k2_walls, compute = [], [], []
+    real_k2 = kp.system_feasibility
+    real_cp = system_mod.SystemScheduler._compute_placements
+
+    def timed_k2(*a, **kw):
+        t0 = time.perf_counter()
+        res = real_k2(*a, **kw)
+        if cuda:
+            torch.cuda.synchronize()
+        k2_walls.append(time.perf_counter() - t0)
+        return res
+
+    def timed_cp(self, place):
+        t0 = time.perf_counter()
+        try:
+            return real_cp(self, place)
+        finally:
+            compute.append(time.perf_counter() - t0)
+
+    placements = preempt_placements = 0
+    kp.reset_system_launch_count()
+    kpre.reset_launch_count()
+    kp.system_feasibility = timed_k2
+    system_mod.SystemScheduler._compute_placements = timed_cp
+    try:
+        for i in range(SYSTEM_EVALS):
+            job = synth_system_job(rng)
+            tg = job.task_groups[0]
+            ask = job.combined_task_resources(tg)
+            feasible, fit = set(), set()
+            for n in nodes:
+                if not n.ready() or n.datacenter not in job.datacenters:
+                    continue
+                if not all(driver_ok(n, t.driver) for t in tg.tasks):
+                    continue
+                if not meets_constraints(n, list(job.constraints)
+                                         + list(tg.constraints)):
+                    continue
+                feasible.add(n.id)
+                probe = Allocation(
+                    id="probe", job_id=job.id, job=job, task_group=tg.name,
+                    node_id=n.id, allocated_resources=alloc_resources(
+                        cpu=ask.cpu, memory_mb=ask.memory_mb,
+                        disk_mb=ask.disk_mb),
+                    desired_status="run", client_status="pending")
+                if allocs_fit(n, state.allocs_by_node(n.id) + [probe])[0]:
+                    fit.add(n.id)
+            state.upsert_job(job)
+            n_plans = len(h.plans)
+            t0 = time.perf_counter()
+            h.process(Evaluation(id=uuid.uuid4().hex, namespace="default",
+                                 job_id=job.id, type="system",
+                                 priority=job.priority,
+                                 triggered_by="job-register",
+                                 status="pending"))
+            walls.append(time.perf_counter() - t0)
+            if h.evals[-1].status != "complete":
+                raise AssertionError(f"system eval {i}: {h.evals[-1].status}")
+            if len(h.plans) == n_plans:
+                raise AssertionError(f"system eval {i} placed nothing")
+            plan = h.plans[-1]
+            got = [a for allocs in plan.node_allocation.values()
+                   for a in allocs]
+            plain = {a.node_id for a in got if not a.preempted_allocations}
+            if plain != fit:
+                raise AssertionError(
+                    f"system eval {i}: {len(plain)} plain placements, "
+                    f"{len(fit)} nodes fit; {len(plain ^ fit)} differ")
+            by_id = {n.id: n for n in nodes}
+            for a in got:
+                if not a.preempted_allocations:
+                    continue
+                vids = set(a.preempted_allocations)
+                victims = [v for vs in plan.node_preemptions.values()
+                           for v in vs if v.id in vids]
+                node = by_id.get(a.node_id)
+                if not (a.node_id in feasible - fit and victims
+                        and len(victims) == len(vids) and node is not None
+                        and all((v.job.priority if v.job else 50)
+                                < job.priority for v in victims)
+                        and allocs_fit(node,
+                                       state.allocs_by_node(a.node_id))[0]):
+                    raise AssertionError(
+                        f"system eval {i}: invalid preemption on "
+                        f"{a.node_id}")
+                preempt_placements += 1
+            placements += len(got)
+    finally:
+        kp.system_feasibility = real_k2
+        system_mod.SystemScheduler._compute_placements = real_cp
+    k2, k3 = kp.system_launch_count(), kpre.launch_count()
+    if cuda and k2 != SYSTEM_EVALS:
+        raise AssertionError(f"{k2} K2 launches for {SYSTEM_EVALS} evals")
+    if preempt_placements == 0:
+        raise AssertionError("config 4 made no preemption placement")
+    out["k2_launches_c"] = k2
+    span = sum(walls)
+    print(f"phase 8 (c) config 4: {SYSTEM_EVALS} system evals in "
+          f"{span:.2f} s = {SYSTEM_EVALS / span:.3f} evals/s; {placements} "
+          f"placements = {placements / span:.0f}/s; preemption placements "
+          f"{preempt_placements}, all valid; node sets equal the scalar "
+          f"recomputation; K2 launches {k2}, K3 launches {k3}")
+    print("phase 8 (c) host per eval (s): wall " + " ".join(
+        f"{w:.3f}" for w in walls) + "; compile + K2 + per-node decode "
+        + " ".join(f"{c:.3f}" for c in compute) + "; K2 call with outputs "
+        "on the host (ms) " + " ".join(f"{k * 1e3:.3f}" for k in k2_walls))
+
+
+def _phase8_system(torch, kp, kpre, device=None):
+    """Phase 8 (a)–(c) on a synthetic state of its own (config 4 mutates
+    the cluster): the BASELINE cluster at full width, N = 16384.
+    `device="cpu"` rehearses the control flow on the plain versions
+    (nothing is timed)."""
+    from nomad_tpu_torch.synth import build_synthetic_state
+
+    out = {}
+    t0 = time.perf_counter()
+    state, nodes = build_synthetic_state(N_NODES, N_ALLOCS, seed=SEED + 2)
+    rng = random.Random(SEED + 2)
+    added = _fill_empty_nodes(state, nodes, rng)
+    print(f"phase 8: synthetic {N_NODES} nodes, {N_ALLOCS} allocs (+{added} "
+          f"on nodes that had none), n_cap {state.cluster.n_cap}, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    _k2_against_plain(torch, kp, state, nodes, rng, out, device)
+    _k3_against_plain(torch, kpre, state, rng, out, device)
+    _config4(torch, kp, kpre, state, nodes, rng, out, device)
+    print(f"phase 8 (a)-(c) took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _phase8_server(torch, kp, kpre, s, rng):
+    """(d): on a started Server at full width, a system job's eval
+    completes through the worker's system route (K2 launched, no nack);
+    then, with service preemption on, a priority-100 service job whose
+    ask fits no node without eviction places by evicting lower-priority
+    allocs (K3 launched), its plan applied and marked inexact for carry
+    adoption, and the node fits afterwards."""
+    from nomad_tpu_torch.scheduler.util import SchedulerConfiguration
+    from nomad_tpu_torch.structs import allocs_fit
+    from nomad_tpu_torch.synth import synth_system_job
+
+    final = ("complete", "failed", "blocked", "cancelled")
+    cuda = s.device.type == "cuda"
+    nacks, plans = [], []
+    real_nack, real_apply = s.broker.nack, s.planner.apply
+
+    def nack(eval_id, token):
+        nacks.append(eval_id)
+        return real_nack(eval_id, token)
+
+    def apply(plan):
+        plans.append(plan)
+        return real_apply(plan)
+
+    s.broker.nack, s.planner.apply = nack, apply
+    try:
+        kp.reset_system_launch_count()
+        job = synth_system_job(rng)
+        t0 = time.perf_counter()
+        ev = s.job_register(job)
+        got = s.wait_for_eval(ev.id, statuses=final, timeout=600.0)
+        sys_s = time.perf_counter() - t0
+        if got is None or got.status != "complete":
+            raise AssertionError(f"system eval through the server: {got}")
+        k2 = kp.system_launch_count()
+        n_sys = len(s.state.allocs_by_job("default", job.id))
+        if (cuda and k2 < 1) or nacks or n_sys == 0:
+            raise AssertionError(f"system eval: K2 launches {k2}, nacks "
+                                 f"{nacks}, {n_sys} allocs")
+        print(f"phase 8 (d) server: system eval complete in {sys_s:.2f} s, "
+              f"{n_sys} allocs, K2 launches {k2}, nacks 0")
+
+        added = _fill_empty_nodes(s.state, list(s.state.nodes()), rng)
+        s.state.set_scheduler_config(
+            SchedulerConfiguration(preemption_service_enabled=True))
+        kpre.reset_launch_count()
+        pj = _preempt_job(rng, s.state.cluster)
+        plans.clear()
+        t0 = time.perf_counter()
+        ev = s.job_register(pj)
+        got = s.wait_for_eval(ev.id, statuses=final, timeout=600.0)
+        pre_s = time.perf_counter() - t0
+        if got is None or got.status != "complete":
+            raise AssertionError(f"preemption eval through the server: {got}")
+        k3 = kpre.launch_count()
+        allocs = s.state.allocs_by_job("default", pj.id)
+        if (cuda and k3 < 1) or nacks or len(allocs) != 1 \
+                or not allocs[0].preempted_allocations:
+            raise AssertionError(f"preemption eval: K3 launches {k3}, "
+                                 f"nacks {nacks}, allocs {allocs}")
+        a = allocs[0]
+        plan = next(p for p in plans for v in p.node_allocation.values()
+                    for x in v if x.id == a.id)
+        victims = [s.state.alloc_by_id(v) for v in a.preempted_allocations]
+        node = s.state.node_by_id(a.node_id)
+        if not all(v is not None and v.desired_status == "evict"
+                   and v.job.priority < pj.priority for v in victims):
+            raise AssertionError("victims not evicted or not lower priority")
+        if not allocs_fit(node, s.state.allocs_by_node(node.id))[0]:
+            raise AssertionError("the node does not fit after the eviction")
+        if plan.carry_exact is not False:
+            raise AssertionError(f"plan carry_exact {plan.carry_exact}")
+        print(f"phase 8 (d) server: preemption eval complete in {pre_s:.2f} "
+              f"s (+{added} filler allocs on empty nodes first; ask cpu "
+              f"{pj.task_groups[0].tasks[0].resources.cpu}): placed on "
+              f"{node.name} evicting {len(victims)} lower-priority allocs, "
+              f"the node fits after, plan carry_exact False; K3 launches "
+              f"{k3}, nacks 0")
+        return {"k2_launches_d": k2, "k3_launches_d": k3}
+    finally:
+        s.broker.nack, s.planner.apply = real_nack, real_apply
+
+
 def main() -> int:
     import torch
 
@@ -1171,6 +1697,7 @@ def main() -> int:
     from nomad_tpu_torch.convert import params_from_numpy
     from nomad_tpu_torch.kernels import _build
     from nomad_tpu_torch.kernels import placement as kp
+    from nomad_tpu_torch.kernels import preemption as kpre
     from nomad_tpu_torch.kernels import rows as kr
     from nomad_tpu_torch.parallel.pad import pad_params
     from nomad_tpu_torch.scheduler import stack as stack_mod
@@ -1194,13 +1721,16 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    _build.build_all(("placement", "chain", "rows"))
+    sources = ("placement", "chain", "rows", "system", "preempt")
+    _build.build_all(sources)
     kp.build_kernel()
     kp.build_chain_kernel()
+    kp.build_system_kernel()
+    kpre.build_kernel()
     kr.build_kernel()
-    print(f"build: placement.cu, chain.cu, rows.cu in parallel, "
+    print(f"build: {', '.join(f'{n}.cu' for n in sources)} in parallel, "
           f"{time.perf_counter() - t0:.2f} s in all")
-    for name in ("placement", "chain", "rows"):
+    for name in sources:
         secs, log = _build.BUILD_INFO[name]
         print(f"  {name}.cu: nvcc {secs:.2f} s")
         for line in log.splitlines():
@@ -1416,12 +1946,19 @@ def main() -> int:
     k5 = _phase5_kernels(torch, kp, kr, cases, nodes, rng)
     max_err = max(max_err, k5["max_err"])
 
-    # ---- 6. the server path ----
-    server = _phase6_server(torch, kp, kr, rng)
+    # ---- 6. the server path, then 8 (d) on the same server ----
+    server = _phase6_server(
+        torch, kp, kr, rng,
+        then=lambda s: _phase8_server(torch, kp, kpre, s,
+                                      random.Random(SEED + 3)))
     max_err = max(max_err, server["max_err"])
+    served = server["then"]
 
     # ---- 7. the slice at full width ----
     slice_ = _phase7_slice(torch, kr, cl, nodes, rng)
+
+    # ---- 8. the system scheduler and preemption at full width ----
+    sys8 = _phase8_system(torch, kp, kpre)
 
     print(json.dumps({"kernels": [{
         "name": "place_task_group",
@@ -1467,6 +2004,22 @@ def main() -> int:
         "launches": server["launches"]["k7"],
         "max_abs_err": slice_["k7_err"],
         **slice_["k7"],
+    }, {
+        "name": "system_feasibility",
+        "route": "cuda",
+        "source": "nomad_tpu_torch/kernels/csrc/system.cu",
+        "replaces": "nomad_tpu/kernels/placement.py:957",
+        "launches": sys8["k2_launches_c"] + served["k2_launches_d"],
+        "max_abs_err": sys8["k2_err"],
+        **sys8["k2"],
+    }, {
+        "name": "preempt_rank",
+        "route": "cuda",
+        "source": "nomad_tpu_torch/kernels/csrc/preempt.cu",
+        "replaces": "nomad_tpu/kernels/preemption.py:62",
+        "launches": served["k3_launches_d"],
+        "max_abs_err": sys8["k3_err"],
+        **sys8["k3"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

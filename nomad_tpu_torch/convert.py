@@ -3,7 +3,8 @@
 - `cluster_from_numpy` / `params_from_numpy` turn numpy arrays (the host
   cluster view and compiled programs, from this package's stack or from
   the reference package's `ClusterArrays`/`TGParams` as numpy) into the
-  port's tensors on an explicit device.
+  port's tensors on an explicit device; `candidates_from_numpy` does the
+  same for a preemption candidate table.
 - Objects (jobs, nodes, allocs, evals) cross through the wire format:
   `structs.codec.from_wire(tree)` rebuilds them from any `to_wire` tree
   of the same struct names.
@@ -17,6 +18,7 @@ import torch
 
 from .device import DeviceLike, resolve_device
 from .kernels.placement import PARAM_TYPES, ClusterArrays, TGParams
+from .kernels.preemption import PreemptionCandidates
 
 _NP_TYPES = {torch.float32: np.float32, torch.int32: np.int32,
              torch.bool: np.bool_}
@@ -65,6 +67,16 @@ def params_from_numpy(d: Any, device: DeviceLike = None) -> TGParams:
     return TGParams(**{
         name: tensor_from_numpy(d[name], dev, _NP_TYPES[dt])
         for name, dt in PARAM_TYPES.items()})
+
+
+def candidates_from_numpy(prio: Any, usage: Any,
+                          device: DeviceLike = None) -> PreemptionCandidates:
+    """numpy candidate table (prio f32[N, A], usage f32[N, A, R]) →
+    PreemptionCandidates on `device`."""
+    dev = resolve_device(device)
+    return PreemptionCandidates(
+        prio=tensor_from_numpy(prio, dev, np.float32),
+        usage=tensor_from_numpy(usage, dev, np.float32))
 
 
 def to_device_async(a: Any, device: torch.device,

@@ -2,8 +2,9 @@
 // the argument block of one placement program (`PlaceArgs`), the per-row
 // static pass, the block-wide argmax and the M-step scan of one program.
 // `placement.cu` (K1, one program) and `chain.cu` (K4/K5, chains of
-// programs in lanes) include it. What each computes, and what bounds it,
-// is told in those two files.
+// programs in lanes) include it, and `system.cu` (K2) and `preempt.cu`
+// (K3) reuse its per-row helpers. What each computes, and what bounds
+// it, is told in those files.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -85,6 +86,54 @@ __device__ __forceinline__ int norm_tok(int tok, int v) {
   return tok < 0 ? v - 1 : min(tok, v - 1);
 }
 
+// Every constraint LUT row accepts row n's token (K2 and K3; the static
+// pass below also records which rows fail, for the explain counters).
+__device__ __forceinline__ bool lut_row_ok(const PlaceArgs& A, int n) {
+  for (int c = 0; c < A.c; ++c) {
+    int t = norm_tok(attr_at(A, n, A.key_idx[c]), A.v);
+    if (!A.lut[(size_t)c * A.v + t]) return false;
+  }
+  return true;
+}
+
+// Reserved ports of row n: every static ask free, plan releases read
+// free, plan placements read taken.
+__device__ __forceinline__ bool ports_free_row(const PlaceArgs& A, int n) {
+  bool free_all = true;
+  for (int i = 0; i < A.pp; ++i) {
+    int port = A.res_ports[i];
+    if (port < 0) continue;
+    uint32_t word = A.ports_used[(size_t)n * A.port_words + (port >> 5)];
+    bool taken = ((word >> (port & 31)) & 1u) != 0;
+    for (int q = 0; q < A.pc; ++q)
+      if (A.pclr_idx[q] == n && A.pclr_port[q] == port) { taken = false; break; }
+    for (int q = 0; q < A.ps; ++q)
+      if (A.pset_idx[q] == n && A.pset_port[q] == port) { taken = true; break; }
+    if (taken) free_all = false;
+  }
+  return free_all;
+}
+
+// used0[n, r] = used − Σ_d delta_res[d, r] over the row's deltas (summed
+// first, in delta order, then subtracted once).
+__device__ __forceinline__ float used0_at(const PlaceArgs& A, int n, int r) {
+  float u = A.used[(size_t)n * A.r + r];
+  if (A.d == 0) return u;
+  float dsum = 0.0f;
+  for (int i = 0; i < A.d; ++i)
+    if (A.delta_idx[i] == n) dsum = dsum + A.delta_res[(size_t)i * A.r + r];
+  return u - dsum;
+}
+
+// fit_scores' shared term: 10^free_cpu + 10^free_ram at utilization
+// (u0, u1) of capacity (c0, c1), as exp2f(x·log2 10).
+__device__ __forceinline__ float fit_total(float u0, float u1, float c0,
+                                           float c1) {
+  float free_cpu = 1.0f - u0 / fmaxf(c0, 1.0f);
+  float free_ram = 1.0f - u1 / fmaxf(c1, 1.0f);
+  return exp2f(free_cpu * LOG2_10) + exp2f(free_ram * LOG2_10);
+}
+
 // The carry-free parts of the static pass for row n: constraint LUT rows,
 // node_ok / extra_mask / sampled-candidate membership, affinity, the
 // spread and distinct_property tokens, the job/tg counts and the
@@ -141,21 +190,7 @@ __device__ __forceinline__ void static_row(const PlaceArgs& A, int n) {
   A.tg_cnt[n] = jtc;
   A.splaced[n] = 0.0f;
 
-  // reserved ports: every static ask free, plan releases read free,
-  // plan placements read taken
-  bool free_all = true;
-  for (int i = 0; i < A.pp; ++i) {
-    int port = A.res_ports[i];
-    if (port < 0) continue;
-    uint32_t word = A.ports_used[(size_t)n * A.port_words + (port >> 5)];
-    bool taken = ((word >> (port & 31)) & 1u) != 0;
-    for (int q = 0; q < A.pc; ++q)
-      if (A.pclr_idx[q] == n && A.pclr_port[q] == port) { taken = false; break; }
-    for (int q = 0; q < A.ps; ++q)
-      if (A.pset_idx[q] == n && A.pset_port[q] == port) { taken = true; break; }
-    if (taken) free_all = false;
-  }
-  A.res_free[n] = free_all;
+  A.res_free[n] = ports_free_row(A, n);
 }
 
 // Free dynamic ports of row n from `dyn` (the view's or a chain's carry):
@@ -184,14 +219,8 @@ __device__ __forceinline__ float adjusted_dyn(const PlaceArgs& A, int n,
 // The carry-dependent parts for row n: used0 = used − Σ_d delta_res over
 // the row's deltas (written to new_used), and the adjusted dyn_free.
 __device__ __forceinline__ void static_row_carry(const PlaceArgs& A, int n) {
-  // used0 = used − Σ_d delta_res[d] over this row's deltas
-  for (int r = 0; r < A.r; ++r) {
-    float dsum = 0.0f;
-    for (int i = 0; i < A.d; ++i)
-      if (A.delta_idx[i] == n) dsum = dsum + A.delta_res[(size_t)i * A.r + r];
-    float u = A.used[(size_t)n * A.r + r];
-    A.new_used[(size_t)n * A.r + r] = A.d > 0 ? u - dsum : u;
-  }
+  for (int r = 0; r < A.r; ++r)
+    A.new_used[(size_t)n * A.r + r] = used0_at(A, n, r);
   A.dyn[n] = adjusted_dyn(A, n, A.dyn_free[n]);
 }
 
@@ -425,10 +454,8 @@ __device__ __forceinline__ void scan_program(const PlaceArgs& A,
       }
 
       // fused score (rank.go semantics)
-      float u0 = used[0] + ask0, u1 = used[1] + ask1;
-      float free_cpu = 1.0f - u0 / fmaxf(cap[0], 1.0f);
-      float free_ram = 1.0f - u1 / fmaxf(cap[1], 1.0f);
-      float total = exp2f(free_cpu * LOG2_10) + exp2f(free_ram * LOG2_10);
+      float total = fit_total(used[0] + ask0, used[1] + ask1, cap[0],
+                              cap[1]);
       float fit = algorithm == 1
           ? fminf(fmaxf(total - 2.0f, 0.0f), 18.0f) * INV_18
           : fminf(fmaxf(20.0f - total, 0.0f), 18.0f) * INV_18;

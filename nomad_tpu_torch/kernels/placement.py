@@ -28,6 +28,8 @@ The batched server path runs programs in chains and waves (K4, K5):
 `place_table_chain`, `place_table_wave`, `place_task_group_chain` and
 `place_packed_chain`, each with a plain version and a CUDA route
 (`csrc/chain.cu`, which shares K1's device code, `csrc/place_core.cuh`).
+The system scheduler's masks (K2) are `system_feasibility`, its plain
+version beside it and the kernel in `csrc/system.cu`.
 
 Types at the boundary: `attrs` is int16 (int32 when a key's vocabulary
 outgrows int16), `ports_used` is int32 holding the bits of the reference's
@@ -616,11 +618,14 @@ def _program_dims(shapes: dict, m: int, explain: bool, n: int) -> dict:
 
 
 def _set_cluster(a: _PlaceArgs, cluster: ClusterArrays) -> None:
+    """The cluster fields; a None field (one a kernel does not read, as
+    K3 reads no port bitmap) becomes a null pointer."""
     for name, t in cluster._asdict().items():
-        setattr(a, name, t.data_ptr())
+        setattr(a, name, None if t is None else t.data_ptr())
     a.n, a.r = cluster.capacity.shape
     a.k_cols = cluster.attrs.shape[1]
-    a.port_words = cluster.ports_used.shape[1]
+    a.port_words = (0 if cluster.ports_used is None
+                    else cluster.ports_used.shape[1])
     a.attrs_i32 = int(cluster.attrs.dtype == torch.int32)
 
 
@@ -723,6 +728,137 @@ def place_task_group(cluster: ClusterArrays, p: TGParams, max_allocs: int,
     if kind == "cuda":
         return place_task_group_cuda(cluster, p, max_allocs, explain)
     raise ValueError(f"no placement implementation for device {kind!r}")
+
+
+# ---- system-scheduler masks (K2) ---------------------------------------------
+
+
+def constraint_mask(cluster: ClusterArrays, p: TGParams) -> torch.Tensor:
+    """bool[N]: node_ok & extra_mask & every constraint LUT row (the
+    static mask K2 and K3 start from; no sampled-candidate set)."""
+    feas = cluster.node_ok & p.extra_mask
+    if p.lut.shape[0]:
+        feas = feas & torch.all(_lookup(p.lut, _tokens(
+            cluster.attrs, p.key_idx, p.lut.shape[1])), dim=1)
+    return feas
+
+
+def system_feasibility_plain(cluster: ClusterArrays, p: TGParams):
+    """(constraint-feasible, feasible-and-fits) bool[N] per node row, in
+    plain PyTorch: the reference's `system_feasibility`
+    (`nomad_tpu/kernels/placement.py:957`, system_sched.go:268 — per-node
+    feasibility and fit, no ranking across nodes). The gap between the two
+    masks is the system scheduler's preemption candidate set."""
+    n = cluster.capacity.shape[0]
+    feas = constraint_mask(cluster, p)
+    used = cluster.used
+    if p.delta_idx.shape[0]:
+        used = used - _scatter(p.delta_idx, p.delta_res, n)
+    util = used + p.ask[None, :]
+    fits = torch.all(util <= cluster.capacity, dim=1)
+    fits = fits & (_dyn_free_adjusted(cluster, p) >= p.n_dyn) \
+        & _reserved_ports_free(cluster, p)
+    return feas, feas & fits
+
+
+def program_args(cluster: ClusterArrays, p: TGParams) -> _PlaceArgs:
+    """PlaceArgs of one program over `cluster`, with no scratch or output
+    pointers: what the row kernels K2 and K3 read."""
+    a = _PlaceArgs()
+    _set_cluster(a, cluster)
+    _set_ptrs(a, {f: t.data_ptr() for f, t in p._asdict().items()})
+    dims = _program_dims({f: tuple(t.shape) for f, t in p._asdict().items()},
+                         p.penalty_idx.shape[0], False, a.n)
+    for name, val in dims.items():
+        setattr(a, name, val)
+    return a
+
+
+class _RowLauncher:
+    """A one-entry-point library (`csrc/<name>.cu` over PlaceArgs), built
+    at first use, and its launch count on the main path."""
+
+    def __init__(self, name: str, entry: str, argtypes: list):
+        self.name, self.entry, self.argtypes = name, entry, argtypes
+        self.launches = 0
+        self._lib = None
+
+    def lib(self):
+        if self._lib is None:
+            from ._build import load_library
+
+            lib = load_library(self.name)
+            size = getattr(lib, f"nomad_{self.name}_args_size")
+            size.restype, size.argtypes = ctypes.c_size_t, []
+            fn = getattr(lib, self.entry)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.POINTER(_PlaceArgs), *self.argtypes, _VOID]
+            err = getattr(lib, f"nomad_{self.name}_error_string")
+            err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
+            if size() != ctypes.sizeof(_PlaceArgs):
+                raise RuntimeError(
+                    f"{self.name} library's PlaceArgs layout differs from "
+                    f"the wrapper's (rebuild csrc/{self.name}.cu)")
+            self._lib = lib
+        return self._lib
+
+    def launch(self, args: _PlaceArgs, *ptrs, device) -> None:
+        """Enqueue the entry point on `device`'s current stream; raises on
+        a refused launch."""
+        lib = self.lib()
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, self.entry)(ctypes.byref(args), *ptrs, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.name} kernel launch failed: "
+                + getattr(lib, f"nomad_{self.name}_error_string")(
+                    err).decode())
+        self.launches += 1
+
+
+_SYSTEM = _RowLauncher("system", "nomad_system_feasibility", [_VOID, _VOID])
+
+
+def system_launch_count() -> int:
+    """K2 launches since the last reset."""
+    return _SYSTEM.launches
+
+
+def reset_system_launch_count() -> None:
+    _SYSTEM.launches = 0
+
+
+def build_system_kernel() -> None:
+    """Build (or load the cached build of) the K2 library now."""
+    _SYSTEM.lib()
+
+
+def system_feasibility_cuda(cluster: ClusterArrays, p: TGParams):
+    """K2 on CUDA tensors (`csrc/system.cu`): one thread per node row.
+    Raises when the build or the launch fails; never falls back."""
+    if cluster.used.device.type != "cuda":
+        raise ValueError("system_feasibility_cuda needs CUDA tensors")
+    _check_inputs(cluster, p, p.penalty_idx.shape[0])
+    cluster = ClusterArrays(*(t.contiguous() for t in cluster))
+    p = TGParams(*(t.contiguous() for t in p))
+    dev = cluster.used.device
+    n = cluster.capacity.shape[0]
+    feas = torch.empty(n, dtype=torch.bool, device=dev)
+    fit = torch.empty(n, dtype=torch.bool, device=dev)
+    _SYSTEM.launch(program_args(cluster, p), feas.data_ptr(), fit.data_ptr(),
+                   device=dev)
+    return feas, fit
+
+
+def system_feasibility(cluster: ClusterArrays, p: TGParams):
+    """(constraint-feasible, feasible-and-fits) bool[N]: the plain version
+    for CPU tensors, the K2 kernel for CUDA tensors."""
+    kind = cluster.used.device.type
+    if kind == "cpu":
+        return system_feasibility_plain(cluster, p)
+    if kind == "cuda":
+        return system_feasibility_cuda(cluster, p)
+    raise ValueError(f"no system_feasibility implementation for {kind!r}")
 
 
 # ---- chains and waves of programs (K4, K5) ------------------------------------

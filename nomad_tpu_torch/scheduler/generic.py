@@ -12,8 +12,9 @@ reference's per-alloc stack.Select loop disappears. Plan-relative state
 
 On the server's batched path the worker sets `select_coordinator` and
 `select_order`, and the stack parks each program at the coordinator
-(`server/select_batch.py`). The preemption retry is not ported yet
-(ROADMAP A7).
+(`server/select_batch.py`). A placement that fails with preemption
+enabled is retried with eviction: `preemption.find_preemption_placement`
+ranks every node on the scheduler's device (K3).
 """
 from __future__ import annotations
 
@@ -441,6 +442,7 @@ class GenericScheduler:
             for i, (p, prev, _dest) in enumerate(entries):
                 node_id = result.node_ids[i]
                 score = result.scores[i]
+                victims: List[Allocation] = []
                 metrics = AllocMetric()
                 metrics.nodes_evaluated = n_ready
                 metrics.nodes_available = dict(by_dc)
@@ -450,11 +452,22 @@ class GenericScheduler:
                     # breakdown — for successes AND failures
                     self._apply_explain(metrics, result.explain, i)
                 if node_id is None and self.preemption_enabled:
-                    # the second pass with eviction enabled (reference
-                    # selectNextOption, generic_sched.go:720-738) needs
-                    # the preemption ranker, which this port has not yet
-                    raise NotImplementedError(
-                        "preemption retry is not ported yet (ROADMAP A7)")
+                    # Second pass with eviction enabled (reference
+                    # selectNextOption, generic_sched.go:720-738)
+                    from .preemption import find_preemption_placement
+
+                    params, _m = self.stack.compile_tg(
+                        self.job, tg, 1, self._plan_context_for(tg, [(p, prev, _dest)])
+                    )
+                    found = find_preemption_placement(
+                        self.state, self.cluster, self.job, tg, params,
+                        self.plan, device=self.device,
+                    )
+                    if found is not None:
+                        node_id, victims, score = found
+                        # preemption places where the fused dispatch did
+                        # NOT — the carry knows nothing of this row
+                        self.plan.carry_exact = False
                 if node_id is None:
                     # Failed placement (generic_sched.go:620 failedTGAllocs)
                     existing = self.failed_tg_allocs.get(tg.name)
@@ -477,6 +490,13 @@ class GenericScheduler:
 
                 node = self.state.node_by_id(node_id)
                 alloc_id = fast_uuid()
+                if victims:
+                    # Victims must enter the plan BEFORE allocated_resources
+                    # builds the NetworkIndex, so the new alloc can claim the
+                    # ports/bandwidth they release (handlePreemptions,
+                    # generic_sched.go:742).
+                    for v in victims:
+                        self.plan.append_preempted_alloc(v, alloc_id)
                 alloc_res, net_err = self._allocated_resources(tg, node)
                 if net_err is not None:
                     # Offer-time assignment (ports/devices) failed on the
@@ -487,12 +507,18 @@ class GenericScheduler:
                     # never commits — the dispatch carry is no longer a
                     # faithful post-commit view of this plan.
                     self.plan.carry_exact = False
+                    if victims:
+                        pres = self.plan.node_preemptions.get(node_id, [])
+                        vset = {v.id for v in victims}
+                        self.plan.node_preemptions[node_id] = [
+                            a for a in pres if a.id not in vset]
+                        victims = []
                     node_id, node, score, alloc_res, net_err = \
                         self._reselect_excluding(
                             tg, (p, prev, _dest), {node_id}, net_err)
                     if net_err is not None:
                         fail_network_exhausted(
-                            self.plan, node_id, node, [], metrics,
+                            self.plan, node_id, node, victims, metrics,
                             self.failed_tg_allocs, tg.name, net_err)
                         continue
                 alloc = Allocation(
@@ -514,6 +540,8 @@ class GenericScheduler:
                 )
                 alloc.metrics.score_node(node_id, "normalized-score", score)
                 alloc.metrics.populate_score_meta()
+                if victims:
+                    alloc.preempted_allocations = [v.id for v in victims]
                 if prev is not None:
                     alloc.previous_allocation = prev.id
                     if p.reschedule:

@@ -30,7 +30,8 @@ from ..structs import (
 from ..device import DeviceLike, resolve_device
 from ..tensor.cluster import ClusterTensors
 from .generic import GenericScheduler
-from .util import SchedulerConfiguration, State
+from .system import SystemScheduler
+from .util import Planner, SchedulerConfiguration, State
 
 
 class InMemState:
@@ -742,8 +743,8 @@ class Harness:
     def scheduler_for(self, eval: Evaluation):
         """Reference scheduler factory (scheduler.go:34 NewScheduler)."""
         if eval.type == "system":
-            raise NotImplementedError(
-                "the system scheduler is not ported yet (ROADMAP A7)")
+            return SystemScheduler(self.state, self, self.state.cluster,
+                                   device=self.device)
         return GenericScheduler(
             self.state, self, self.state.cluster,
             is_batch=(eval.type == "batch"), device=self.device)

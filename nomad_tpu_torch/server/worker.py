@@ -10,8 +10,7 @@ each eval's scheduler in a short-lived thread, and a SelectCoordinator
 (select_batch.py) fuses their placement runs into chain and wave kernel
 dispatches — conflict-aware batching over the eval axis instead of
 goroutine concurrency. Schedulers place on the server's device
-(`Server(device=)`). The system scheduler is not ported yet (ROADMAP A7):
-a `system` eval raises NotImplementedError and is nacked.
+(`Server(device=)`).
 """
 from __future__ import annotations
 
@@ -22,6 +21,7 @@ from typing import Dict, List, Optional, Tuple
 
 from ..lib.metrics import MetricsRegistry
 from ..scheduler.generic import GenericScheduler
+from ..scheduler.system import SystemScheduler
 from ..structs import Evaluation, Plan, PlanResult
 from ..structs.evaluation import EVAL_STATUS_BLOCKED
 
@@ -445,8 +445,8 @@ class Worker:
 
             return CoreScheduler(self.server, snap)
         if eval.type == "system":
-            raise NotImplementedError(
-                "the system scheduler is not ported yet (ROADMAP A7)")
+            return SystemScheduler(snap, planner, snap.cluster,
+                                   device=self.server.device)
         return GenericScheduler(
             snap, planner, snap.cluster, is_batch=(eval.type == "batch"),
             device=self.server.device)

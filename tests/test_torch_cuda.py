@@ -326,3 +326,106 @@ def test_server_batched_equals_sequential_on_the_card(cuda_device,
     assert len(seq) == 72 and seq == bat
     assert kp.chain_launch_count() > before[0] or waves > 0
     assert kp.wave_launch_count() > before[1] and waves > 0
+
+
+def _system_programs(stack, nodes, state):
+    """A system job's program, and one with plan deltas (stopped filler
+    allocs) and a reserved plus a dynamic port ask with released and
+    consumed ports."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import NetworkResource, Port
+    from nomad_tpu_torch.synth import synth_system_job
+
+    rng = random.Random(6)
+    job = synth_system_job(rng)
+    tg = job.task_groups[0]
+    yield stack.compile_tg(job, tg, len(nodes))[0]
+    tg.tasks[0].resources.networks = [NetworkResource(
+        mbits=1, reserved_ports=[Port("http", 8080)],
+        dynamic_ports=[Port("rpc", 0)])]
+    holder = list(state._allocs.values())[:6]
+    for k, a in enumerate(holder):
+        a.allocated_resources.tasks["web"].networks = [NetworkResource(
+            ip=nodes[k].node_resources.networks[0].ip, mbits=1,
+            reserved_ports=[Port("http", 8080)],
+            dynamic_ports=[Port("rpc", 20000 + k)])]
+    plan = PlanContext(stopped_allocs=holder)
+    for node in nodes[10:13]:
+        pa = mock.alloc(job=job, node_id=node.id, task_group=tg.name)
+        pa.allocated_resources = mock.alloc_resources(networks=[
+            NetworkResource(ip=node.node_resources.networks[0].ip, mbits=1,
+                            reserved_ports=[Port("http", 8080)],
+                            dynamic_ports=[Port("rpc", 20003)])])
+        plan.placed.append((node.id, tg.name, stack.cluster.usage_row(pa)))
+        plan.placed_allocs.append(pa)
+    yield stack.compile_tg(job, tg, len(nodes), plan)[0]
+
+
+@pytest.mark.cuda
+def test_system_kernel_matches_plain(cuda_device):
+    """K2 against its plain version on the card: both masks equal."""
+    state, nodes = build_synthetic_state(2000, 20000, seed=3)
+    stack = TorchStack(state.cluster, device=cuda_device)
+    before = kp.system_launch_count()
+    for params in _system_programs(stack, nodes, state):
+        arrays = stack.device_arrays()
+        p = params_from_numpy(params, cuda_device)
+        got = kp.system_feasibility(arrays, p)
+        want = kp.system_feasibility_plain(arrays, p)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.dtype == torch.bool and torch.equal(g.cpu(), w.cpu())
+        assert 0 < int(got[1].sum()) < int(got[0].sum())
+    assert kp.system_launch_count() == before + 2
+
+
+@pytest.mark.cuda
+def test_preempt_kernel_matches_plain(cuda_device):
+    """K3 against its plain version on the card: a candidate table built
+    by the retry's own host code for a priority-100 ask of a whole large
+    node, and one of all-equal priorities over identical rows (bitwise
+    ties: the lowest row wins)."""
+    import numpy as np
+
+    from nomad_tpu_torch.convert import candidates_from_numpy
+    from nomad_tpu_torch.kernels import preemption as kpre
+    from nomad_tpu_torch.scheduler.preemption import (candidate_table,
+                                                      ranked_cluster)
+    from nomad_tpu_torch.structs import Plan
+
+    state, nodes = build_synthetic_state(2000, 20000, seed=4)
+    job = synth_service_job(random.Random(7), count=1)
+    job.priority = 100
+    res = job.task_groups[0].tasks[0].resources
+    res.cpu, res.memory_mb = 15800, 32000
+    stack = TorchStack(state.cluster, device="cpu")
+    params, _m = stack.compile_tg(job, job.task_groups[0], 1)
+    prio, usage = candidate_table(state, state.cluster, job, Plan())
+    arrays = ranked_cluster(state.cluster, cuda_device)
+    n, a = prio.shape
+    gen = np.random.default_rng(8)
+    tie_prio = np.full_like(prio, 50.0)
+    tie_prio[:, a // 2:] = kpre.INF_PRIO
+    tie_usage = np.broadcast_to(gen.integers(0, 900, size=(1, a, usage.shape[
+        2])).astype(np.float32), usage.shape).copy()
+    big = int(arrays.capacity[:, 0].argmax())   # a large node's row
+    ties = arrays._replace(**{f: getattr(arrays, f)[big:big + 1].expand_as(
+        getattr(arrays, f)).contiguous() for f in ("used", "capacity")})
+    before = kpre.launch_count()
+    for cl, tables in ((arrays, (prio, usage)), (ties, (tie_prio,
+                                                        tie_usage))):
+        cand = candidates_from_numpy(*tables, cuda_device)
+        p = params_from_numpy(params, cuda_device)
+        got = kpre.preempt_rank(cl, p, cand)
+        want = kpre.preempt_rank_plain(cl, p, cand)
+        torch.cuda.synchronize()
+        for f in ("best_row", "best_k", "order", "feasible"):
+            assert torch.equal(getattr(got, f).cpu(),
+                               getattr(want, f).cpu().to(
+                                   getattr(got, f).dtype)), f
+        for f in ("scores", "best_score"):
+            torch.testing.assert_close(getattr(got, f).cpu(),
+                                       getattr(want, f).cpu(), rtol=0,
+                                       atol=ATOL, msg=f)
+        assert int(got.best_row) >= 0 and int(got.best_k) >= 1
+    assert kpre.launch_count() == before + 2

@@ -24,16 +24,19 @@ REWRITTEN = {
     "lib/tracectx.py": "comments naming the reference's issues",
     "lib/transfer.py": "guard_scope counts; torch has no transfer guard",
     "parallel/__init__.py": "only the host padding (parallel/pad.py)",
-    "scheduler/__init__.py": "no system or preemption scheduler yet",
-    "scheduler/generic.py": "device=, TorchStack, no preemption retry",
-    "scheduler/harness.py": "device=, no system scheduler",
+    "kernels/preemption.py": "PyTorch plain version and CUDA wrapper (K3)",
+    "scheduler/__init__.py": "the port's package docstring, TorchStack",
+    "scheduler/generic.py": "device=, TorchStack; the retry ranks on it",
+    "scheduler/harness.py": "device=, passed to both schedulers",
+    "scheduler/preemption.py": "the retry on torch tensors: four uploads",
+    "scheduler/system.py": "device=, TorchStack, K2 under a view lease",
     "scheduler/stack.py": "TorchStack: per-device view cache, K7, leases",
     "server/broker.py": "comments naming the reference's issues",
     "server/plan_apply.py": "comments naming the reference's issues",
     "server/program_table.py": "torch tables, the row-scatter insert",
     "server/select_batch.py": "CUDA-event outputs, leased fallbacks",
     "server/server.py": "device=, no device mesh",
-    "server/worker.py": "no mesh, no system scheduler",
+    "server/worker.py": "no mesh; schedulers take the server's device",
     "structs/alloc.py": "comments naming the reference's issues",
     "structs/codec.py": "registry of the port's own classes",
     "structs/evaluation.py": "comments naming the reference's issues",

@@ -3,8 +3,10 @@
 - An AST scan of `nomad_tpu_torch/**` and `chip_smoke.py` finds no import
   of `jax` or of `nomad_tpu` / `nomad_tpu.*`.
 - With JAX made unimportable, a fresh interpreter imports the port and
-  processes one eval on 16 nodes with device="cpu", and a port `Server`
-  schedules a batch of evals through the coordinator there.
+  processes one eval on 16 nodes with device="cpu", a port `Server`
+  schedules a batch of evals through the coordinator there, and a
+  Harness runs a system eval and a service eval whose placement takes
+  the preemption retry.
 - Every entry point defaults to the card and raises without one.
 """
 import ast
@@ -125,11 +127,68 @@ def test_port_server_runs_without_jax():
     assert proc.stdout.strip().endswith("ok")
 
 
+_NO_JAX_PREEMPT = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+from nomad_tpu_torch import mock
+from nomad_tpu_torch.scheduler.harness import Harness
+from nomad_tpu_torch.scheduler.util import SchedulerConfiguration
+
+h = Harness(device="cpu")
+h.state.set_scheduler_config(
+    SchedulerConfiguration(preemption_service_enabled=True))
+for _ in range(3):
+    node = mock.node()
+    h.state.upsert_node(node)
+    low = mock.job(priority=1)
+    h.state.upsert_job(low)
+    a = mock.alloc(job=low, node_id=node.id, client_status="running",
+                   allocated_resources=mock.alloc_resources(
+                       cpu=3200, memory_mb=7256, disk_mb=10, networks=[]))
+    a.task_group = low.task_groups[0].name
+    h.state.upsert_alloc(a)
+
+sys_job = mock.system_job(priority=50)
+h.state.upsert_job(sys_job)
+h.process(mock.eval_(job_id=sys_job.id, type="system", priority=50))
+assert h.evals[-1].status == "complete", h.evals[-1].status
+assert sum(len(v) for v in h.plans[-1].node_allocation.values()) == 3
+
+job = mock.job(priority=100)
+job.task_groups[0].count = 1
+res = job.task_groups[0].tasks[0].resources
+res.cpu, res.memory_mb, res.networks = 3000, 3000, []
+job.task_groups[0].networks = []
+h.state.upsert_job(job)
+h.process(mock.eval_(job_id=job.id, type="service", priority=100))
+plan = h.plans[-1]
+placed = [a for v in plan.node_allocation.values() for a in v]
+assert len(placed) == 1 and placed[0].preempted_allocations, placed
+assert plan.carry_exact is False
+assert not any(m.split(".")[0] in ("jax", "nomad_tpu")
+               for m, mod in sys.modules.items() if mod is not None), \
+    sorted(m for m in sys.modules if m.startswith(("jax", "nomad_tpu.")))
+print("ok")
+"""
+
+
+def test_port_runs_system_and_preemption_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX_PREEMPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
 def _entry_points():
     from nomad_tpu_torch.convert import cluster_from_numpy, params_from_numpy
     from nomad_tpu_torch.scheduler.generic import GenericScheduler
     from nomad_tpu_torch.scheduler.harness import Harness, InMemState
+    from nomad_tpu_torch.scheduler.preemption import ranked_cluster
     from nomad_tpu_torch.scheduler.stack import TorchStack
+    from nomad_tpu_torch.scheduler.system import SystemScheduler
     from nomad_tpu_torch.server import Server
     from nomad_tpu_torch.server.program_table import DeviceProgramTable
     from nomad_tpu_torch.tensor.cluster import ClusterTensors
@@ -143,6 +202,9 @@ def _entry_points():
         "Harness": lambda: Harness(),
         "GenericScheduler": lambda: GenericScheduler(state, None,
                                                      state.cluster),
+        "SystemScheduler": lambda: SystemScheduler(state, None,
+                                                   state.cluster),
+        "ranked_cluster": lambda: ranked_cluster(cl),
         "TorchStack": lambda: TorchStack(cl),
         "cluster_from_numpy": lambda: cluster_from_numpy(view),
         "params_from_numpy": lambda: params_from_numpy({}),
@@ -152,6 +214,7 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", ["Harness", "GenericScheduler",
+                                  "SystemScheduler", "ranked_cluster",
                                   "TorchStack", "cluster_from_numpy",
                                   "params_from_numpy", "Server",
                                   "DeviceProgramTable"])

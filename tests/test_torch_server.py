@@ -330,6 +330,13 @@ def test_plans_carry_the_references_certification(monkeypatch):
 
 @pytest.mark.parametrize("typ", ["system"])
 def test_unported_scheduler_raises(typ):
+    """The worker's scheduler types that were once unported now build
+    their scheduler on the server's device instead of raising (the
+    system scheduler since ROADMAP A7)."""
+    import torch
+
+    from nomad_tpu_torch.scheduler.harness import InMemState
+    from nomad_tpu_torch.scheduler.system import SystemScheduler
     from nomad_tpu_torch.server import ServerConfig
     from nomad_tpu_torch.server.worker import Worker
 
@@ -337,6 +344,9 @@ def test_unported_scheduler_raises(typ):
         device = "cpu"
         config = ServerConfig()
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        Worker(_Srv())._make_scheduler(
-            type("E", (), {"type": typ})(), None, None)
+    snap = InMemState()
+    sched = Worker(_Srv())._make_scheduler(
+        type("E", (), {"type": typ})(), snap, None)
+    assert isinstance(sched, SystemScheduler)
+    assert sched.device == torch.device("cpu")
+    assert sched.cluster is snap.cluster
