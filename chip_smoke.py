@@ -9,7 +9,8 @@ non-zero without printing a result:
 1. The card: `torch.cuda.get_device_name()` and nvidia-smi's name and power
    limit.
 2. Build the CUDA kernels from `nomad_tpu_torch/kernels/csrc` (one nvcc
-   per source, all at once, into `build/`), and print the build seconds.
+   per source, all at once, into `build/`: placement, chain, rows,
+   system, preempt, shard), and print the build seconds.
 3. Kernel against plain, at full width: the 10,000-node / 100,000-alloc
    synthetic cluster (N = 16384 rows), one program per case (binpack,
    spread algorithm, constraints, all-infeasible, affinity, spread targets,
@@ -89,7 +90,26 @@ non-zero without printing a result:
    fits no node without eviction is placed by evicting lower-priority
    allocs (K3 launched), its plan applied, `carry_exact` False, the node
    fitting afterwards.
-9. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
+9. The batched-eval path (K6) and the node-sharded step (K9): (a) on the
+   phase-3 cluster, `place_task_group_batch` against its plain version
+   for B = 64 programs of `bench.py`'s eval mix (count 8), explain off and
+   on, and for one dispatch at B = 4096, bench's default batch: indices
+   and counts equal, scores within 1e-6; K6, its plain version and its
+   bound timed at B = 4096. (b) `bench.py` `bench_tpu`'s single-device
+   loop on the port (a host `compile_tg` per eval, `stack_params`,
+   `pack_params`, one `place_packed_batch` per batch, asynchronous until
+   the end): 4,096 evals in batches of 1,024 (cut from bench's 16,384 /
+   4,096 to keep the smoke's time); evals/s and placed/total beside the
+   card's name and power limit, then every batch's sel_idx held against
+   the plain version on the inputs it read. (c) K9 on four shards in
+   meshes (2, 2) and (1, 4) over the cards (all four on one card when
+   there is one): `entry.dryrun_multichip(4, ...)` at its own size
+   (10,000 nodes, 5,000 allocs, 64 evals of count 4), then the phase-3
+   cluster with B = 64; each equal to its plain version and to K6 on the
+   whole view (sel_idx and counts exactly, scores within 1e-6), the
+   fold-in bitwise against plain; timed per dispatch and per step.
+   K6's launches are counted around (b), K9's around the dry runs.
+10. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
 """
 from __future__ import annotations
 
@@ -1685,6 +1705,275 @@ def _phase8_server(torch, kp, kpre, s, rng):
         s.broker.nack, s.planner.apply = real_nack, real_apply
 
 
+# ---- phase 9: the batched-eval path (K6) and the sharded step (K9) ------------
+
+#: bench.py's default batch (one K6 dispatch at this B in (a))
+K6_BATCH = 4096
+#: (b): bench_tpu's loop, cut from bench.py's 16,384 evals in batches of
+#: 4,096 to keep the smoke's time
+BENCH_EVALS, BENCH_BATCH, BENCH_COUNT = 4096, 1024, 8
+#: (c): four shards in two mesh shapes; (a) and (c): B of the small runs
+K9_SHAPES = ((2, 2), (1, 4))
+SMALL_BATCH = 64
+
+
+def _bench_jobs(state, rng, n, count):
+    """`bench.py` `build`'s eval mix (BASELINE configs 1, 2, 3 and 5),
+    each job upserted as bench does."""
+    from nomad_tpu_torch.synth import synth_service_job
+
+    jobs = []
+    for i in range(n):
+        j = synth_service_job(
+            rng, count=count,
+            with_affinity=(i % 2 == 0), with_spread=(i % 3 == 0),
+            distinct_hosts=(i % 5 == 0), with_devices=(i % 4 == 0),
+            distinct_property=(i % 7 == 0))
+        state.upsert_job(j)
+        jobs.append(j)
+    return jobs
+
+
+def _sync_all(torch) -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _host_ms(torch, fn, reps: int) -> float:
+    """Host clock per call over `reps` calls, every card synced before
+    and after (a sharded dispatch spans the cards' streams)."""
+    fn()
+    _sync_all(torch)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    _sync_all(torch)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _once_ms(torch, fn, on_card: bool):
+    """(result, host ms) of one call, synced when on the card."""
+    t0 = time.perf_counter()
+    out = fn()
+    if on_card:
+        _sync_all(torch)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _batch_bound(torch, kp, arrays, batch, m):
+    """Bound of one K6 (or K9) dispatch: the view read once, every
+    program's fields, and each program's outputs, its new_used and
+    final_scores0 among them."""
+    cpu = kp.TGParams(*(t.cpu() for t in batch))
+    parts = [_bound_parts(arrays, kp._program(cpu, b), m)
+             for b in range(cpu.n_place.shape[0])]
+    return _bound_of(parts, arrays)
+
+
+def _phase9_batch(torch, kp, state, rng, device=None):
+    """(a) K6 against plain on the phase-3 cluster: B = 64 of bench's mix,
+    explain off and on, and one dispatch at B = 4096; K6, its plain
+    version and its bound timed at B = 4096. `device="cpu"` rehearses
+    the control flow (both sides plain, nothing timed)."""
+    from nomad_tpu_torch.convert import params_from_numpy
+    from nomad_tpu_torch.parallel.pad import stack_params
+    from nomad_tpu_torch.scheduler.stack import TorchStack
+
+    dev = torch.device(device or "cuda")
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    stack = TorchStack(state.cluster, device=dev)
+    jobs = _bench_jobs(state, rng, K6_BATCH, BENCH_COUNT)
+    progs = [stack.compile_tg(j, j.task_groups[0], BENCH_COUNT)[0]
+             for j in jobs]
+    arrays = stack.device_arrays()
+    out = {"err": 0.0}
+    small, m = stack_params(progs[:SMALL_BATCH])
+    p64 = params_from_numpy(small, dev)
+    for explain in (False, True):
+        got = kp.place_task_group_batch(arrays, p64, m, explain)
+        want = kp.place_task_group_batch_plain(arrays, p64, m, explain)
+        out["err"] = max(out["err"], _compare(
+            want, got, f"K6 B={SMALL_BATCH} explain={explain}"))
+    ms64 = (_time_ms(lambda: kp.place_task_group_batch(arrays, p64, m), 20)
+            if on_card else None)
+    print(f"K6==plain B={SMALL_BATCH} M={m} (bench's mix, count "
+          f"{BENCH_COUNT}), explain off and on: placed "
+          f"{int((got.sel_idx >= 0).sum())}/{got.sel_idx.numel()}; one "
+          f"dispatch (explain off) "
+          + (f"{ms64:.4f} ms" if ms64 is not None else "not timed"))
+    out["small"] = (small, m)
+
+    big, m = stack_params(progs)
+    pb = params_from_numpy(big, dev)
+    got, ms = _once_ms(torch, lambda: kp.place_task_group_batch(
+        arrays, pb, m), on_card)
+    want, plain_ms = _once_ms(torch, lambda: kp.place_task_group_batch_plain(
+        arrays, pb, m), on_card)
+    out["err"] = max(out["err"], _compare(want, got,
+                                                f"K6 B={K6_BATCH}"))
+    del want, got
+    bound_ms, bound_by = _batch_bound(torch, kp, arrays, pb, m)
+    if on_card:
+        ms = _time_ms(lambda: kp.place_task_group_batch(arrays, pb, m), 5)
+    out["k6"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=None)
+    print(f"K6==plain B={K6_BATCH} M={m}: kernel {ms:.4f} ms per dispatch "
+          f"({ms / K6_BATCH:.6f} a program), plain {plain_ms:.1f} ms, "
+          f"bound {bound_ms:.6f} ms ({bound_by}); peak device memory "
+          + (f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+             if on_card else "not measured"))
+    print(f"phase 9 (a) took {time.perf_counter() - t0:.1f} s")
+    return stack, arrays, out
+
+
+def _phase9_bench(torch, kp, state, stack, rng, card, device=None):
+    """(b) `bench.py` `bench_tpu`'s single-device loop on the port: per
+    eval a host `compile_tg`, then `stack_params`, `pack_params` and one
+    `place_packed_batch` per batch, left asynchronous until the end.
+    Every batch's sel_idx is then held against the plain version on the
+    inputs it read. Returns (K6 launches in the loop, max error, line)."""
+    from nomad_tpu_torch.convert import to_device_async
+    from nomad_tpu_torch.parallel.pad import stack_params
+
+    dev = torch.device(device or "cuda")
+    on_card = dev.type == "cuda"
+    jobs = _bench_jobs(state, rng, BENCH_EVALS, BENCH_COUNT)
+
+    def dispatch(job_batch):
+        params = [stack.compile_tg(j, j.task_groups[0], BENCH_COUNT)[0]
+                  for j in job_batch]
+        batched, m = stack_params(params)
+        ibuf, fbuf, ubuf, spec = kp.pack_params(batched)
+        arrays = stack.device_arrays()
+        bufs = [to_device_async(b, dev) for b in (ibuf, fbuf, ubuf)]
+        sel, scores = kp.place_packed_batch(arrays, *bufs, spec, m)
+        return sel, scores, (arrays, bufs, spec, m)
+
+    kp.reset_chain_launch_counts()
+    t0 = time.perf_counter()
+    dispatch(jobs[:BENCH_BATCH])[0].cpu()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results = []
+    for i in range(0, len(jobs), BENCH_BATCH):
+        results.append(dispatch(jobs[i:i + BENCH_BATCH]))
+    sels = [(s.cpu(), sc.cpu()) for s, sc, _i in results]   # the sync point
+    dt = time.perf_counter() - t0
+    launches = kp.batch_launch_count()
+    if on_card and launches != len(results) + 1:
+        raise AssertionError(f"{launches} K6 launches for "
+                             f"{len(results) + 1} batches")
+    placed = int(sum(int((s >= 0).sum()) for s, _sc in sels))
+    total = sum(s.numel() for s, _sc in sels)
+    err = 0.0
+    for k, ((_s, _sc, (arrays, bufs, spec, m)), (got, score)) in enumerate(
+            zip(results, sels)):
+        want, want_score = kp.place_packed_batch_plain(arrays, *bufs, spec,
+                                                       m)
+        if not torch.equal(want.cpu(), got):
+            raise AssertionError(f"bench batch {k}: sel_idx differs from "
+                                 "plain")
+        err = max(err, float((score - want_score.cpu()).abs().max()))
+    if not err <= TOL:
+        raise AssertionError(f"bench loop scores differ by {err}")
+    rate = len(jobs) / dt
+    line = (f"bench loop (bench.py bench_tpu, single-device route; "
+            f"{len(jobs)} evals in batches of {BENCH_BATCH}, cut from "
+            f"bench's 16,384 / 4,096 to keep the smoke's time): "
+            f"{rate:.1f} evals/s ({dt:.3f} s; warm-up batch {warm:.3f} s), "
+            f"placed {placed}/{total}; {card}")
+    print(line)
+    print(f"bench loop: every batch's sel_idx equal to plain on the inputs "
+          f"it read; {launches} K6 launches")
+    return launches, err, rate
+
+
+def _k9_against(torch, ks, mesh, sc, batched, m, want6, what, on_card):
+    """K9 (`scheduler_step`) against its plain version and against K6 on
+    the whole view (`want6`): sel_idx and counts equal, scores within
+    TOL; the fold-in bitwise against plain. Returns the max error."""
+    from nomad_tpu_torch.parallel import scheduler_step
+
+    new_cluster, got = scheduler_step(mesh, m)(sc, batched)
+    want, folded = ks.sharded_place_plain(sc, batched, m, fold=True)
+    if on_card:
+        _sync_all(torch)
+    err = max(_compare(want, got, f"K9 {what} vs plain"),
+              _compare(want6, got, f"K9 {what} vs K6"))
+    for row in new_cluster.shards:
+        for j, shard in enumerate(row):
+            if not torch.equal(shard.used.cpu(), folded[j].cpu()):
+                raise AssertionError(f"K9 {what}: fold of shard {j} "
+                                     "differs from plain")
+    return err
+
+
+def _phase9_shard(torch, kp, arrays, small, device=None):
+    """(c) K9 on four shards, meshes (2, 2) and (1, 4) over the cards
+    (repeating a card when there are fewer than four): through
+    `entry.dryrun_multichip(4, ...)` at its own size (the main path: the
+    launch counts are read around it), then on the phase-3 cluster with
+    B = 64; each against its plain version and K6, timed per dispatch
+    and per step."""
+    from nomad_tpu_torch import entry
+    from nomad_tpu_torch.convert import params_from_numpy
+    from nomad_tpu_torch.kernels import shard as ks
+    from nomad_tpu_torch.parallel import (make_mesh, scheduler_step,
+                                          shard_cluster)
+
+    on_card = device is None or torch.device(device).type == "cuda"
+    count = torch.cuda.device_count() if on_card else 4
+    devs = ([f"cuda:{i % count}" for i in range(4)] if on_card
+            else [device] * 4)
+    out = {"err": 0.0, "launches": 0}
+    t0 = time.perf_counter()
+    for shape in K9_SHAPES:
+        ks.reset_launch_count()
+        run = entry.dryrun_multichip(4, devices=devs, batch=shape[0])
+        launches = ks.launch_count()
+        out["launches"] += launches
+        if on_card and launches != 1:
+            raise AssertionError(f"dry run {shape}: {launches} K9 launches")
+        whole = run.cluster.full()
+        want6 = kp.place_task_group_batch(
+            whole, params_from_numpy(run.batch, whole.used.device),
+            run.max_allocs)
+        out["err"] = max(out["err"], _k9_against(
+            torch, ks, run.mesh, run.cluster, run.batch, run.max_allocs,
+            want6, f"dry run {shape}", on_card))
+        print(f"K9 dry run {shape}: == plain == K6 on the whole view, fold "
+              f"bitwise; {launches} K9 launch")
+    batched, m = small
+    want6 = kp.place_task_group_batch(arrays,
+                                      params_from_numpy(batched,
+                                                        arrays.used.device),
+                                      m)
+    bound_ms, bound_by = _batch_bound(
+        torch, kp, arrays, params_from_numpy(batched, "cpu"), m)
+    for shape in K9_SHAPES:
+        mesh = make_mesh(4, batch=shape[0], devices=devs)
+        sc = shard_cluster(arrays, mesh)
+        out["err"] = max(out["err"], _k9_against(
+            torch, ks, mesh, sc, batched, m, want6,
+            f"phase-3 cluster {shape}", on_card))
+        _w, plain_ms = _once_ms(torch, lambda: ks.sharded_place_plain(
+            sc, batched, m, fold=True), on_card)
+        step = scheduler_step(mesh, m)
+        ms = (_host_ms(torch, lambda: step(sc, batched), 5) if on_card
+              else None)
+        out[shape] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=None)
+        print(f"K9 phase-3 cluster {shape} B={SMALL_BATCH} M={m}: == plain "
+              f"== K6, fold bitwise; "
+              + (f"{ms:.4f} ms per dispatch, {ms / m:.4f} ms per step"
+                 if ms is not None else "not timed")
+              + f"; plain {plain_ms:.1f} ms; bound {bound_ms:.6f} ms "
+              f"({bound_by}); shards on {sorted(set(devs))}")
+    print(f"phase 9 (c) took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1699,6 +1988,7 @@ def main() -> int:
     from nomad_tpu_torch.kernels import placement as kp
     from nomad_tpu_torch.kernels import preemption as kpre
     from nomad_tpu_torch.kernels import rows as kr
+    from nomad_tpu_torch.kernels import shard as ks
     from nomad_tpu_torch.parallel.pad import pad_params
     from nomad_tpu_torch.scheduler import stack as stack_mod
     from nomad_tpu_torch.scheduler.harness import Harness
@@ -1721,13 +2011,14 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    sources = ("placement", "chain", "rows", "system", "preempt")
+    sources = ("placement", "chain", "rows", "system", "preempt", "shard")
     _build.build_all(sources)
     kp.build_kernel()
     kp.build_chain_kernel()
     kp.build_system_kernel()
     kpre.build_kernel()
     kr.build_kernel()
+    ks.build_kernel()
     print(f"build: {', '.join(f'{n}.cu' for n in sources)} in parallel, "
           f"{time.perf_counter() - t0:.2f} s in all")
     for name in sources:
@@ -1960,6 +2251,12 @@ def main() -> int:
     # ---- 8. the system scheduler and preemption at full width ----
     sys8 = _phase8_system(torch, kp, kpre)
 
+    # ---- 9. the batched-eval path (K6) and the sharded step (K9) ----
+    stack9, arrays9, k6 = _phase9_batch(torch, kp, state, rng)
+    k6_launches, bench_err, _rate = _phase9_bench(torch, kp, state, stack9,
+                                                  rng, smi[0])
+    k9 = _phase9_shard(torch, kp, arrays9, k6["small"])
+
     print(json.dumps({"kernels": [{
         "name": "place_task_group",
         "route": "cuda",
@@ -2020,6 +2317,22 @@ def main() -> int:
         "launches": served["k3_launches_d"],
         "max_abs_err": sys8["k3_err"],
         **sys8["k3"],
+    }, {
+        "name": "place_task_group_batch",
+        "route": "cuda",
+        "source": "nomad_tpu_torch/kernels/csrc/chain.cu",
+        "replaces": "nomad_tpu/kernels/placement.py:945",
+        "launches": k6_launches,
+        "max_abs_err": max(k6["err"], bench_err),
+        **k6["k6"],
+    }, {
+        "name": "scheduler_step",
+        "route": "cuda",
+        "source": "nomad_tpu_torch/kernels/csrc/shard.cu",
+        "replaces": "nomad_tpu/parallel/mesh.py:287",
+        "launches": k9["launches"],
+        "max_abs_err": k9["err"],
+        **k9[(1, 4)],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

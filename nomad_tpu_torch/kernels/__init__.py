@@ -1,7 +1,6 @@
 """Device kernels of the port: hand-written CUDA beside plain PyTorch
 (feasibility + ranking, the replacement for the reference's scalar
-iterator chain, `scheduler/stack.go:321`). The vmap transport
-`place_task_group_batch` is not ported yet (ROADMAP B8)."""
+iterator chain, `scheduler/stack.go:321`)."""
 
 from .placement import (  # noqa: F401
     EXPLAIN_SCORE_NAMES,
@@ -10,6 +9,8 @@ from .placement import (  # noqa: F401
     PlacementExplain,
     PlacementResult,
     TGParams,
+    place_packed_batch,
     place_task_group,
+    place_task_group_batch,
     system_feasibility,
 )

@@ -9,7 +9,18 @@
 //       against the (used, dyn_free) carry its predecessors left;
 //   K5  `place_table_wave` (:878): L lanes of such chains in parallel, the
 //       lane carries folded into one by a bitwise owner-lane select, and
-//       the rows more than one lane changed counted as collisions.
+//       the rows more than one lane changed counted as collisions;
+//   K6  `place_task_group_batch` (:945) and `place_packed_batch` (:744,
+//       its fields unpacked by `_unpack_params`, :730): the vmap of K1 over
+//       B independent programs against one snapshot. No program sees
+//       another's placements, so a batch is a wave of B lanes of one
+//       program each with no fold (`nomad_place_batch`): the static grid
+//       over every program, then one scan block per program, B blocks on
+//       the card's 132 SMs at once; each lane carry is its program's
+//       new_used. The scan also updates the lane's dyn_free carry, which
+//       nothing reads here. Per program it keeps N·R + N floats of carry
+//       and about 40 bytes a row of scratch (≈ 1.2 MB at N = 16384,
+//       R = 8); B ≤ 65535 (gridDim.y of the static grid).
 //
 // The programs arrive as an array of `PlaceArgs` in device memory, one per
 // program, lane-major ([L][P]). The host builds them: each program field
@@ -46,7 +57,11 @@
 // 0.0025 ms (its ~1.7e8 fp32 operations at 67 TFLOP/s; the ~2 MB it must
 // move, the view once, the programs and the carry out, take less at
 // 3.35 TB/s), a wave of 3 lanes of 4 about 0.0035 ms (chip_smoke.py
-// computes both from the run's inputs).
+// computes both from the run's inputs). A K6 batch runs its B scan blocks
+// 132 at a time, one per SM (1024 threads and the launch bound allow one
+// block an SM), so it takes about ceil(B / 132) times K1's scan; its
+// bound is B times a program's operations, ≈ 0.0003 ms a program at
+// N = 16384, M = 16.
 
 #include "place_core.cuh"
 
@@ -69,18 +84,6 @@ struct LaneArgs {
 }  // extern "C"
 
 namespace {
-
-constexpr int STATIC_THREADS = 256;
-constexpr int ARG_WORDS = (int)(sizeof(PlaceArgs) / 4);
-static_assert(sizeof(PlaceArgs) % 4 == 0, "PlaceArgs copies as words");
-
-// copy one PlaceArgs from device memory into shared memory, all threads
-__device__ __forceinline__ void load_args(PlaceArgs* dst, const PlaceArgs* src) {
-  const uint32_t* s = (const uint32_t*)src;
-  uint32_t* d = (uint32_t*)dst;
-  for (int i = threadIdx.x; i < ARG_WORDS; i += blockDim.x) d[i] = s[i];
-  __syncthreads();
-}
 
 __global__ void chain_static(const PlaceArgs* progs) {
   __shared__ __align__(16) PlaceArgs A;
@@ -215,6 +218,13 @@ int nomad_place_lanes(const PlaceArgs* args0, const void* progs, int lanes,
   wave_fold<<<(A0.n + STATIC_THREADS - 1) / STATIC_THREADS, STATIC_THREADS,
               0, st>>>(L, lanes);
   return (int)cudaGetLastError();
+}
+
+// K6: `b` independent programs against one snapshot, one lane each with
+// no fold (see the header). Returns cudaGetLastError() (0 = ok).
+int nomad_place_batch(const PlaceArgs* args0, const void* progs, int b,
+                      const LaneArgs* lane_args, void* stream) {
+  return nomad_place_lanes(args0, progs, b, 1, lane_args, 0, stream);
 }
 
 }  // extern "C"

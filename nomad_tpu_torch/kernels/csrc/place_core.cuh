@@ -338,56 +338,66 @@ __device__ float spread_boost(const PlaceArgs& A, const Smem& S, int n) {
   return total;
 }
 
-// The M-step scan of one program, run by one whole block (blockDim.x a
-// multiple of 32, at most 1024) with `smem_raw` of smem_bytes(A) bytes.
-// Reads the static pass's scratch, updates new_used (the carry) in place.
-__device__ __forceinline__ void scan_program(const PlaceArgs& A,
-                                             unsigned char* smem_raw) {
-  Smem S = carve(A, smem_raw);
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int N = A.n, R = A.r;
+// Per-program constants of the scan, read once per block.
+struct ScanConsts {
+  float ask0, ask1, desired_count, n_dyn;
+  int n_place, algorithm;
+  bool distinct_hosts, has_res_ask;
+};
 
-  for (int i = tid; i < A.s * A.sv; i += nt) S.scounts[i] = A.spread_counts0[i];
-  for (int i = tid; i < A.p * A.dv; i += nt) S.dcounts[i] = A.dp_counts0[i];
+__device__ __forceinline__ ScanConsts scan_consts(const PlaceArgs& A) {
+  ScanConsts C;
+  C.ask0 = A.ask[0];
+  C.ask1 = A.ask[1];
+  C.n_place = *A.n_place;
+  C.desired_count = *A.desired_count;
+  C.algorithm = *A.algorithm;
+  C.distinct_hosts = *A.distinct_hosts != 0;
+  C.n_dyn = *A.n_dyn;
+  C.has_res_ask = false;
+  for (int i = 0; i < A.pp; ++i) C.has_res_ask |= A.res_ports[i] >= 0;
+  return C;
+}
+
+// The spread and distinct_property counts start from the program's.
+__device__ __forceinline__ void init_counts(const PlaceArgs& A, const Smem& S) {
+  for (int i = threadIdx.x; i < A.s * A.sv; i += blockDim.x)
+    S.scounts[i] = A.spread_counts0[i];
+  for (int i = threadIdx.x; i < A.p * A.dv; i += blockDim.x)
+    S.dcounts[i] = A.dp_counts0[i];
+}
+
+// Static-stage counts over this block's rows: nodes_feasible, and with
+// explain the evaluated / LUT / extra-mask / per-constraint filters.
+// Starts and ends with a barrier.
+__device__ void static_counts(const PlaceArgs& A, const Smem& S) {
+  const int tid = threadIdx.x, nt = blockDim.x;
   if (tid == 0) {
     S.stat[0] = S.stat[1] = S.stat[2] = 0;
     S.cnt[5] = 0;
   }
   for (int i = tid; i < A.c; i += nt) S.cfilt[i] = 0;
   __syncthreads();
-
-  const float ask0 = A.ask[0], ask1 = A.ask[1];
-  const int n_place = *A.n_place;
-  const float desired_count = *A.desired_count;
-  const int algorithm = *A.algorithm;
-  const bool distinct_hosts = *A.distinct_hosts != 0;
-  const float n_dyn = *A.n_dyn;
-  bool has_res_ask = false;
-  for (int i = 0; i < A.pp; ++i) has_res_ask |= A.res_ports[i] >= 0;
-
-  // static-stage counts
-  {
-    int nfeas = 0, ev = 0, flut = 0, fext = 0;
-    for (int n = tid; n < N; n += nt) {
-      nfeas += A.feas[n];
-      uint8_t f = A.flags[n];
-      if (f & F_BASE) {
-        ++ev;
-        if (!(f & F_LUT_ALL)) ++flut;
-        else if (!(f & F_EXTRA)) ++fext;
-        if (A.explain) {
-          for (int c = 0; c < A.c; ++c)
-            if ((A.cfail[(size_t)n * A.cw + (c >> 5)] >> (c & 31)) & 1u)
-              atomicAdd(&S.cfilt[c], 1);
-        }
+  int nfeas = 0, ev = 0, flut = 0, fext = 0;
+  for (int n = tid; n < A.n; n += nt) {
+    nfeas += A.feas[n];
+    uint8_t f = A.flags[n];
+    if (f & F_BASE) {
+      ++ev;
+      if (!(f & F_LUT_ALL)) ++flut;
+      else if (!(f & F_EXTRA)) ++fext;
+      if (A.explain) {
+        for (int c = 0; c < A.c; ++c)
+          if ((A.cfail[(size_t)n * A.cw + (c >> 5)] >> (c & 31)) & 1u)
+            atomicAdd(&S.cfilt[c], 1);
       }
     }
-    atomicAdd(&S.cnt[5], nfeas);
-    if (A.explain) {
-      atomicAdd(&S.stat[0], ev);
-      atomicAdd(&S.stat[1], flut);
-      atomicAdd(&S.stat[2], fext);
-    }
+  }
+  atomicAdd(&S.cnt[5], nfeas);
+  if (A.explain) {
+    atomicAdd(&S.stat[0], ev);
+    atomicAdd(&S.stat[1], flut);
+    atomicAdd(&S.stat[2], fext);
   }
   __syncthreads();
   if (tid == 0) {
@@ -400,139 +410,185 @@ __device__ __forceinline__ void scan_program(const PlaceArgs& A,
   }
   if (A.explain)
     for (int c = tid; c < A.c; c += nt) A.filt_constraint[c] = S.cfilt[c];
+  __syncthreads();
+}
+
+// Start of a step: the even-spread min/max over the current counts and
+// zeroed step counters. Ends with a barrier.
+__device__ __forceinline__ void begin_step(const PlaceArgs& A, const Smem& S) {
+  const int tid = threadIdx.x;
+  for (int s = tid; s < A.s; s += blockDim.x) {
+    float mn = BIG, mx = -BIG;
+    bool seen = false;
+    for (int t = 0; t < A.sv; ++t) {
+      float c = S.scounts[s * A.sv + t];
+      if (c > 0.0f) {
+        seen = true;
+        mn = fminf(mn, c);
+        mx = fmaxf(mx, c);
+      }
+    }
+    S.minc[s] = mn;
+    S.maxc[s] = mx;
+    S.any_seen[s] = seen;
+  }
+  if (tid < 6 + A.r) S.cnt[tid] = 0;
+  __syncthreads();
+}
+
+// One step over this block's rows: fit, ports, distinct_hosts, the
+// distinct_property mask and the fused score of every row, into mbuf
+// (masked score), okbuf and, at step 0, final0; the fit count into
+// S.cnt[0] (and the explain counters). Returns this thread's best row;
+// the caller's block_argmax publishes mbuf, okbuf and the counts.
+__device__ Best step_rows(const PlaceArgs& A, const Smem& S,
+                          const ScanConsts& C, int step) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int N = A.n, R = A.r;
+  const int* pen = A.penalty_idx + (size_t)step * A.pn;
+  Best best{LOWEST, 0x7fffffff};
+  int nfit = 0, c_dh = 0, c_dp = 0, c_dyn = 0, c_res = 0;
+  for (int n = tid; n < N; n += nt) {
+    const float* used = A.new_used + (size_t)n * R;
+    const float* cap = A.capacity + (size_t)n * R;
+    bool any_over = false;
+    int first_over = 0;
+    for (int r = 0; r < R; ++r) {
+      float u = used[r] + A.ask[r];
+      if (u > cap[r] && !any_over) { any_over = true; first_over = r; }
+    }
+    const float splaced = A.splaced[n];
+    bool dyn_ok = (A.dyn[n] - splaced * C.n_dyn) >= C.n_dyn;
+    bool res_ok = A.res_free[n] && !(C.has_res_ask && splaced > 0.0f);
+    bool fits = !any_over && dyn_ok && res_ok;
+    bool feas = A.feas[n] != 0;
+    bool ok = feas && fits;
+    const float jc = A.job_cnt[n];
+    bool dh_collide = C.distinct_hosts && jc > 0.0f;
+    ok = ok && !dh_collide;
+    bool dp_mask = true;
+    if (A.p > 0) {
+      for (int q = 0; q < A.p; ++q) {
+        int t = A.dtok[(size_t)n * A.p + q];
+        bool row_ok = (S.dcounts[q * A.dv + t] < A.dp_allowed[q] &&
+                       t != A.dv - 1) || !A.dp_active[q];
+        dp_mask = dp_mask && row_ok;
+      }
+      ok = ok && dp_mask;
+    }
+
+    // fused score (rank.go semantics)
+    float total = fit_total(used[0] + C.ask0, used[1] + C.ask1, cap[0],
+                            cap[1]);
+    float fit = C.algorithm == 1
+        ? fminf(fmaxf(total - 2.0f, 0.0f), 18.0f) * INV_18
+        : fminf(fmaxf(20.0f - total, 0.0f), 18.0f) * INV_18;
+    float ssum = fit, scnt = 1.0f;
+    const float tgc = A.tg_cnt[n];
+    bool collide = tgc > 0.0f;
+    float anti = -(tgc + 1.0f) / fmaxf(C.desired_count, 1.0f);
+    float p_anti = collide ? anti : 0.0f;
+    ssum = ssum + p_anti;
+    scnt = scnt + (collide ? 1.0f : 0.0f);
+    bool penalty = false;
+    for (int q = 0; q < A.pn; ++q) penalty |= pen[q] == n;
+    float p_pen = penalty ? -1.0f : 0.0f;
+    ssum = ssum + p_pen;
+    scnt = scnt + (penalty ? 1.0f : 0.0f);
+    const float aff = A.aff[n];
+    bool inc_aff = aff != 0.0f;
+    float p_aff = inc_aff ? aff : 0.0f;
+    ssum = ssum + p_aff;
+    scnt = scnt + (inc_aff ? 1.0f : 0.0f);
+    float sp = spread_boost(A, S, n);
+    bool inc_spread = sp != 0.0f;
+    float p_sp = inc_spread ? sp : 0.0f;
+    ssum = ssum + p_sp;
+    scnt = scnt + (inc_spread ? 1.0f : 0.0f);
+    float final_ = ssum / scnt;
+    float masked = ok ? final_ : NEG_INF;
+
+    A.mbuf[n] = masked;
+    A.okbuf[n] = ok;
+    if (step == 0) A.final0[n] = masked;
+    best = better(best, Best{masked, n});
+    nfit += feas && fits;
+    if (A.explain) {
+      float* pr = A.parts + (size_t)n * N_PARTS;
+      pr[0] = fit; pr[1] = p_anti; pr[2] = p_pen; pr[3] = p_aff; pr[4] = p_sp;
+      bool dh_fail = feas && dh_collide;
+      bool dp_fail = A.p > 0 && feas && !dh_fail && !dp_mask;
+      bool cand_m = feas && !dh_fail && !dp_fail;
+      c_dh += dh_fail;
+      c_dp += dp_fail;
+      if (cand_m && any_over) atomicAdd(&S.cnt[6 + first_over], 1);
+      c_dyn += cand_m && !any_over && !dyn_ok;
+      c_res += cand_m && !any_over && dyn_ok && !res_ok;
+    }
+  }
+  atomicAdd(&S.cnt[0], nfit);
+  if (A.explain) {
+    atomicAdd(&S.cnt[1], c_dh);
+    atomicAdd(&S.cnt[2], c_dp);
+    atomicAdd(&S.cnt[3], c_dyn);
+    atomicAdd(&S.cnt[4], c_res);
+  }
+  return best;
+}
+
+// The carry update of a placement on row idx (one thread).
+__device__ __forceinline__ void take_row(const PlaceArgs& A, int idx) {
+  for (int r = 0; r < A.r; ++r)
+    A.new_used[(size_t)idx * A.r + r] = A.new_used[(size_t)idx * A.r + r] + A.ask[r];
+  A.job_cnt[idx] = A.job_cnt[idx] + 1.0f;
+  A.tg_cnt[idx] = A.tg_cnt[idx] + 1.0f;
+  A.splaced[idx] = A.splaced[idx] + 1.0f;
+}
+
+// The placed row's spread tokens `st` [s] and distinct_property tokens
+// `dt` [p] each add one to their value's count (one thread).
+__device__ __forceinline__ void count_tokens(const PlaceArgs& A, const Smem& S,
+                                             const int* st, const int* dt) {
+  for (int s = 0; s < A.s; ++s) {
+    int t = st[s];
+    if (t != A.sv - 1) S.scounts[s * A.sv + t] += 1.0f;
+  }
+  for (int q = 0; q < A.p; ++q) {
+    int t = dt[q];
+    if (t != A.dv - 1) S.dcounts[q * A.dv + t] += 1.0f;
+  }
+}
+
+// The M-step scan of one program, run by one whole block (blockDim.x a
+// multiple of 32, at most 1024) with `smem_raw` of smem_bytes(A) bytes.
+// Reads the static pass's scratch, updates new_used (the carry) in place.
+__device__ __forceinline__ void scan_program(const PlaceArgs& A,
+                                             unsigned char* smem_raw) {
+  Smem S = carve(A, smem_raw);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int N = A.n, R = A.r;
+
+  init_counts(A, S);
+  const ScanConsts C = scan_consts(A);
+  static_counts(A, S);
 
   for (int step = 0; step < A.m; ++step) {
-    // even-spread min/max over the current counts
-    for (int s = tid; s < A.s; s += nt) {
-      float mn = BIG, mx = -BIG;
-      bool seen = false;
-      for (int t = 0; t < A.sv; ++t) {
-        float c = S.scounts[s * A.sv + t];
-        if (c > 0.0f) {
-          seen = true;
-          mn = fminf(mn, c);
-          mx = fmaxf(mx, c);
-        }
-      }
-      S.minc[s] = mn;
-      S.maxc[s] = mx;
-      S.any_seen[s] = seen;
-    }
-    if (tid < 6 + R) S.cnt[tid] = 0;
-    __syncthreads();
-
-    const int* pen = A.penalty_idx + (size_t)step * A.pn;
-    Best best{LOWEST, 0x7fffffff};
-    int nfit = 0, c_dh = 0, c_dp = 0, c_dyn = 0, c_res = 0;
-    for (int n = tid; n < N; n += nt) {
-      const float* used = A.new_used + (size_t)n * R;
-      const float* cap = A.capacity + (size_t)n * R;
-      bool any_over = false;
-      int first_over = 0;
-      for (int r = 0; r < R; ++r) {
-        float u = used[r] + A.ask[r];
-        if (u > cap[r] && !any_over) { any_over = true; first_over = r; }
-      }
-      const float splaced = A.splaced[n];
-      bool dyn_ok = (A.dyn[n] - splaced * n_dyn) >= n_dyn;
-      bool res_ok = A.res_free[n] && !(has_res_ask && splaced > 0.0f);
-      bool fits = !any_over && dyn_ok && res_ok;
-      bool feas = A.feas[n] != 0;
-      bool ok = feas && fits;
-      const float jc = A.job_cnt[n];
-      bool dh_collide = distinct_hosts && jc > 0.0f;
-      ok = ok && !dh_collide;
-      bool dp_mask = true;
-      if (A.p > 0) {
-        for (int q = 0; q < A.p; ++q) {
-          int t = A.dtok[(size_t)n * A.p + q];
-          bool row_ok = (S.dcounts[q * A.dv + t] < A.dp_allowed[q] &&
-                         t != A.dv - 1) || !A.dp_active[q];
-          dp_mask = dp_mask && row_ok;
-        }
-        ok = ok && dp_mask;
-      }
-
-      // fused score (rank.go semantics)
-      float total = fit_total(used[0] + ask0, used[1] + ask1, cap[0],
-                              cap[1]);
-      float fit = algorithm == 1
-          ? fminf(fmaxf(total - 2.0f, 0.0f), 18.0f) * INV_18
-          : fminf(fmaxf(20.0f - total, 0.0f), 18.0f) * INV_18;
-      float ssum = fit, scnt = 1.0f;
-      const float tgc = A.tg_cnt[n];
-      bool collide = tgc > 0.0f;
-      float anti = -(tgc + 1.0f) / fmaxf(desired_count, 1.0f);
-      float p_anti = collide ? anti : 0.0f;
-      ssum = ssum + p_anti;
-      scnt = scnt + (collide ? 1.0f : 0.0f);
-      bool penalty = false;
-      for (int q = 0; q < A.pn; ++q) penalty |= pen[q] == n;
-      float p_pen = penalty ? -1.0f : 0.0f;
-      ssum = ssum + p_pen;
-      scnt = scnt + (penalty ? 1.0f : 0.0f);
-      const float aff = A.aff[n];
-      bool inc_aff = aff != 0.0f;
-      float p_aff = inc_aff ? aff : 0.0f;
-      ssum = ssum + p_aff;
-      scnt = scnt + (inc_aff ? 1.0f : 0.0f);
-      float sp = spread_boost(A, S, n);
-      bool inc_spread = sp != 0.0f;
-      float p_sp = inc_spread ? sp : 0.0f;
-      ssum = ssum + p_sp;
-      scnt = scnt + (inc_spread ? 1.0f : 0.0f);
-      float final_ = ssum / scnt;
-      float masked = ok ? final_ : NEG_INF;
-
-      A.mbuf[n] = masked;
-      A.okbuf[n] = ok;
-      if (step == 0) A.final0[n] = masked;
-      best = better(best, Best{masked, n});
-      nfit += feas && fits;
-      if (A.explain) {
-        float* pr = A.parts + (size_t)n * N_PARTS;
-        pr[0] = fit; pr[1] = p_anti; pr[2] = p_pen; pr[3] = p_aff; pr[4] = p_sp;
-        bool dh_fail = feas && dh_collide;
-        bool dp_fail = A.p > 0 && feas && !dh_fail && !dp_mask;
-        bool cand_m = feas && !dh_fail && !dp_fail;
-        c_dh += dh_fail;
-        c_dp += dp_fail;
-        if (cand_m && any_over) atomicAdd(&S.cnt[6 + first_over], 1);
-        c_dyn += cand_m && !any_over && !dyn_ok;
-        c_res += cand_m && !any_over && dyn_ok && !res_ok;
-      }
-    }
-    atomicAdd(&S.cnt[0], nfit);
-    if (A.explain) {
-      atomicAdd(&S.cnt[1], c_dh);
-      atomicAdd(&S.cnt[2], c_dp);
-      atomicAdd(&S.cnt[3], c_dyn);
-      atomicAdd(&S.cnt[4], c_res);
-    }
+    begin_step(A, S);
+    Best best = step_rows(A, S, C, step);
     best = block_argmax(best, S.red);  // its barriers publish mbuf/okbuf
 
     if (tid == 0) {
       int pref = A.preferred_idx[step];
       int idx = best.i;
       if (pref >= 0 && A.okbuf[pref]) idx = pref;
-      bool found = A.okbuf[idx] && step < n_place;
+      bool found = A.okbuf[idx] && step < C.n_place;
       A.sel_idx[step] = found ? idx : -1;
       A.sel_score[step] = found ? A.mbuf[idx] : 0.0f;
       A.nodes_fit[step] = S.cnt[0];
       if (found) {
-        for (int r = 0; r < R; ++r)
-          A.new_used[(size_t)idx * R + r] = A.new_used[(size_t)idx * R + r] + A.ask[r];
-        A.job_cnt[idx] = A.job_cnt[idx] + 1.0f;
-        A.tg_cnt[idx] = A.tg_cnt[idx] + 1.0f;
-        A.splaced[idx] = A.splaced[idx] + 1.0f;
-        for (int s = 0; s < A.s; ++s) {
-          int t = A.stok[(size_t)idx * A.s + s];
-          if (t != A.sv - 1) S.scounts[s * A.sv + t] += 1.0f;
-        }
-        for (int q = 0; q < A.p; ++q) {
-          int t = A.dtok[(size_t)idx * A.p + q];
-          if (t != A.dv - 1) S.dcounts[q * A.dv + t] += 1.0f;
-        }
+        take_row(A, idx);
+        count_tokens(A, S, A.stok + (size_t)idx * A.s,
+                     A.dtok + (size_t)idx * A.p);
       }
       if (A.explain) {
         A.filt_distinct[step] = S.cnt[1];
@@ -569,6 +625,18 @@ __device__ __forceinline__ void scan_program(const PlaceArgs& A,
     }
     __syncthreads();
   }
+}
+
+constexpr int STATIC_THREADS = 256;
+constexpr int ARG_WORDS = (int)(sizeof(PlaceArgs) / 4);
+static_assert(sizeof(PlaceArgs) % 4 == 0, "PlaceArgs copies as words");
+
+// copy one PlaceArgs from device memory into shared memory, all threads
+__device__ __forceinline__ void load_args(PlaceArgs* dst, const PlaceArgs* src) {
+  const uint32_t* s = (const uint32_t*)src;
+  uint32_t* d = (uint32_t*)dst;
+  for (int i = threadIdx.x; i < ARG_WORDS; i += blockDim.x) d[i] = s[i];
+  __syncthreads();
 }
 
 }  // namespace

@@ -29,7 +29,11 @@ The batched server path runs programs in chains and waves (K4, K5):
 `place_packed_chain`, each with a plain version and a CUDA route
 (`csrc/chain.cu`, which shares K1's device code, `csrc/place_core.cuh`).
 The system scheduler's masks (K2) are `system_feasibility`, its plain
-version beside it and the kernel in `csrc/system.cu`.
+version beside it and the kernel in `csrc/system.cu`. The vmap transport
+(K6), independent programs against one snapshot, is
+`place_task_group_batch` and `place_packed_batch`, its kernel a wave of
+one-program lanes in `csrc/chain.cu`. The node-sharded form of K6 (K9) is
+`kernels/shard.py`.
 
 Types at the boundary: `attrs` is int16 (int32 when a key's vocabulary
 outgrows int16), `ports_used` is int32 holding the bits of the reference's
@@ -260,23 +264,16 @@ def _spread_boost(stok, counts, p: TGParams):
     return total
 
 
-def place_task_group_plain(cluster: ClusterArrays, p: TGParams,
-                           max_allocs: int,
-                           explain: bool = False) -> PlacementResult:
-    """Plain PyTorch placement of up to `max_allocs` allocs of one group.
-
-    Runs on whatever device the tensors are on. Mirrors
-    `nomad_tpu/kernels/placement.py` place_task_group term by term; the
-    TPU's one-hot einsums become direct indexing (each had exactly one
-    non-zero term, so the values are the same) and the scan a Python
-    loop."""
+def _static_plain(cluster: ClusterArrays, p: TGParams, explain: bool) -> dict:
+    """The per-program state before the scan: the static mask and scores,
+    tokens, the plan-adjusted used/dyn_free and the counts the scan
+    carries (K1's static pass)."""
     cap = cluster.capacity
-    n, r_tot = cap.shape
+    n = cap.shape[0]
     dev = cap.device
     i32 = torch.int32
-    rows = torch.arange(n, device=dev)
+    st = {"rows": torch.arange(n, device=dev)}
 
-    # ---- static (per-group) feasibility ----
     v = p.lut.shape[1]
     if p.lut.shape[0]:
         feas_c = _lookup(p.lut, _tokens(cluster.attrs, p.key_idx, v))
@@ -290,15 +287,17 @@ def place_task_group_plain(cluster: ClusterArrays, p: TGParams,
                                                        dtype=torch.float32),
                            n) > 0
         feas = feas & (in_cand | ~p.use_cand)
+    st["feas"] = feas
 
     if explain:
         base = cluster.node_ok
         if in_cand is not None:
             base = base & (in_cand | ~p.use_cand)
-        ex_evaluated = base.sum().to(i32)
-        ex_filt_constraint = ((~feas_c) & base[:, None]).sum(dim=0).to(i32)
-        ex_filt_lut = (base & ~lut_all).sum().to(i32)
-        ex_filt_extra = (base & lut_all & ~p.extra_mask).sum().to(i32)
+        st["ex_static"] = dict(
+            nodes_evaluated=base.sum().to(i32),
+            filt_constraint=((~feas_c) & base[:, None]).sum(dim=0).to(i32),
+            filt_lut=(base & ~lut_all).sum().to(i32),
+            filt_extra=(base & lut_all & ~p.extra_mask).sum().to(i32))
 
     if p.aff_lut.shape[0]:
         aff_vals = _lookup(p.aff_lut,
@@ -306,114 +305,160 @@ def place_task_group_plain(cluster: ClusterArrays, p: TGParams,
                                    p.aff_lut.shape[1]))
     else:
         aff_vals = torch.zeros((n, 0), dtype=torch.float32, device=dev)
-    aff_score = _sum_cols(aff_vals) * p.aff_inv_sum
+    st["aff_score"] = _sum_cols(aff_vals) * p.aff_inv_sum
 
     s_v = p.spread_desired.shape[1]
-    stok = (_tokens(cluster.attrs, p.spread_key_idx, s_v)
-            if p.spread_key_idx.shape[0]
-            else torch.zeros((n, 0), dtype=torch.long, device=dev))
+    st["stok"] = (_tokens(cluster.attrs, p.spread_key_idx, s_v)
+                  if p.spread_key_idx.shape[0]
+                  else torch.zeros((n, 0), dtype=torch.long, device=dev))
     d_v = p.dp_counts0.shape[1]
-    dtok = (_tokens(cluster.attrs, p.dp_key_idx, d_v)
-            if p.dp_key_idx.shape[0]
-            else torch.zeros((n, 0), dtype=torch.long, device=dev))
+    st["dtok"] = (_tokens(cluster.attrs, p.dp_key_idx, d_v)
+                  if p.dp_key_idx.shape[0]
+                  else torch.zeros((n, 0), dtype=torch.long, device=dev))
 
     # plan-relative deltas: a row's deltas are summed, then subtracted once
     used = cluster.used
     if p.delta_idx.shape[0]:
         used = used - _scatter(p.delta_idx, p.delta_res, n)
-    used = used.clone()
+    st["used"] = used.clone()
 
-    nodes_feasible = feas.sum().to(i32)
-    res_free = _reserved_ports_free(cluster, p)
-    dyn_free = _dyn_free_adjusted(cluster, p)
-    has_res_ask = torch.any(p.res_ports >= 0)
+    st["nodes_feasible"] = feas.sum().to(i32)
+    st["res_free"] = _reserved_ports_free(cluster, p)
+    st["dyn_free"] = _dyn_free_adjusted(cluster, p)
+    st["has_res_ask"] = torch.any(p.res_ports >= 0)
 
-    job_cnt = _scatter(p.jc_idx, p.jc_val, n)
-    tg_cnt = _scatter(p.jtc_idx, p.jtc_val, n)
-    splaced = torch.zeros(n, dtype=torch.float32, device=dev)
-    scounts = p.spread_counts0.clone()
-    dcounts = p.dp_counts0.clone()
-    ones_pen = torch.ones(p.penalty_idx.shape[1], dtype=torch.float32,
-                          device=dev)
+    st["job_cnt"] = _scatter(p.jc_idx, p.jc_val, n)
+    st["tg_cnt"] = _scatter(p.jtc_idx, p.jtc_val, n)
+    st["splaced"] = torch.zeros(n, dtype=torch.float32, device=dev)
+    st["scounts"] = p.spread_counts0.clone()
+    st["dcounts"] = p.dp_counts0.clone()
+    st["ones_pen"] = torch.ones(p.penalty_idx.shape[1], dtype=torch.float32,
+                                device=dev)
+    return st
+
+
+def _step_plain(cluster: ClusterArrays, p: TGParams, st: dict, i: int) -> dict:
+    """Step i of the scan over every row of `cluster`: fit, ports,
+    distinct_hosts, the distinct_property mask and the fused score; `ok`
+    and `masked` (the score at the −1e30 floor where not ok), and the
+    parts the explain reductions read."""
+    cap = cluster.capacity
+    n = cap.shape[0]
+    used, splaced, job_cnt, tg_cnt = (st["used"], st["splaced"],
+                                      st["job_cnt"], st["tg_cnt"])
+    penalty = _scatter(p.penalty_idx[i], st["ones_pen"], n) > 0
+
+    util = used + p.ask[None, :]
+    res_over = util > cap
+    any_over = torch.any(res_over, dim=1)
+    dyn_ok = (st["dyn_free"] - splaced * p.n_dyn) >= p.n_dyn
+    res_ok = st["res_free"] & ~(st["has_res_ask"] & (splaced > 0))
+    fits = ~any_over & dyn_ok & res_ok
+    ok = st["feas"] & fits
+    dh_collide = p.distinct_hosts & (job_cnt > 0)
+    ok = ok & ~dh_collide
+
+    dp_mask = None
+    dcounts, dtok = st["dcounts"], st["dtok"]
+    if dcounts.shape[0]:
+        d_v = dcounts.shape[1]
+        cur_d = _lookup(dcounts, dtok)
+        row_ok = (((cur_d < p.dp_allowed[None, :]) & (dtok != d_v - 1))
+                  | ~p.dp_active[None, :])
+        dp_mask = torch.all(row_ok, dim=1)
+        ok = ok & dp_mask
+
+    binpack, spreadfit = fit_scores(util, cap)
+    fit_score = torch.where(p.algorithm == 1, spreadfit, binpack)
+    ssum = fit_score
+    scnt = torch.ones_like(fit_score)
+    collide = tg_cnt > 0
+    anti = -(tg_cnt + 1.0) / torch.clamp(p.desired_count, min=1.0)
+    ssum = ssum + torch.where(collide, anti, 0.0)
+    scnt = scnt + collide
+    ssum = ssum + torch.where(penalty, -1.0, 0.0)
+    scnt = scnt + penalty
+    aff_score = st["aff_score"]
+    inc_aff = aff_score != 0.0
+    ssum = ssum + torch.where(inc_aff, aff_score, 0.0)
+    scnt = scnt + inc_aff
+    spread_score = _spread_boost(st["stok"], st["scounts"], p)
+    inc_spread = spread_score != 0.0
+    ssum = ssum + torch.where(inc_spread, spread_score, 0.0)
+    scnt = scnt + inc_spread
+    final = ssum / scnt
+    return dict(
+        ok=ok, fits=fits, final=final,
+        masked=torch.where(ok, final, NEG_INF), res_over=res_over,
+        any_over=any_over, dyn_ok=dyn_ok, res_ok=res_ok,
+        dh_collide=dh_collide, dp_mask=dp_mask, fit_score=fit_score,
+        collide=collide, anti=anti, penalty=penalty, inc_aff=inc_aff,
+        inc_spread=inc_spread, spread_score=spread_score)
+
+
+def _take_plain(st: dict, p: TGParams, idx, found, sel_tok, sel_dtok) -> None:
+    """The carry update of a placement on row `idx` (a row of this
+    state's cluster, or outside it: then only the counts change) when
+    `found`: the ask onto used, the job/tg/placed counts, and the
+    placed row's spread and distinct_property tokens (`sel_tok`,
+    `sel_dtok`) onto the value counts."""
+    hit = (st["rows"] == idx) & found
+    st["used"] = st["used"] + torch.where(hit[:, None], p.ask[None, :], 0.0)
+    st["job_cnt"] = st["job_cnt"] + hit
+    st["tg_cnt"] = st["tg_cnt"] + hit
+    st["splaced"] = st["splaced"] + hit.float()
+    scounts, dcounts = st["scounts"], st["dcounts"]
+    if scounts.shape[0]:
+        valid = (sel_tok != scounts.shape[1] - 1) & found
+        st["scounts"] = scounts + torch.nn.functional.one_hot(
+            sel_tok, scounts.shape[1]).float() * valid[:, None]
+    if dcounts.shape[0]:
+        dvalid = (sel_dtok != dcounts.shape[1] - 1) & found
+        st["dcounts"] = dcounts + torch.nn.functional.one_hot(
+            sel_dtok, dcounts.shape[1]).float() * dvalid[:, None]
+
+
+def place_task_group_plain(cluster: ClusterArrays, p: TGParams,
+                           max_allocs: int,
+                           explain: bool = False) -> PlacementResult:
+    """Plain PyTorch placement of up to `max_allocs` allocs of one group.
+
+    Runs on whatever device the tensors are on. Mirrors
+    `nomad_tpu/kernels/placement.py` place_task_group term by term; the
+    TPU's one-hot einsums become direct indexing (each had exactly one
+    non-zero term, so the values are the same) and the scan a Python
+    loop."""
+    n, r_tot = cluster.capacity.shape
+    dev = cluster.capacity.device
+    i32 = torch.int32
+    st = _static_plain(cluster, p, explain)
+    feas = st["feas"]
 
     sels, scores, n_fits, finals = [], [], [], []
     ex_steps = []
     for i in range(max_allocs):
-        active = i < p.n_place
-        penalty = _scatter(p.penalty_idx[i], ones_pen, n) > 0
-        pref_idx = p.preferred_idx[i]
-
-        util = used + p.ask[None, :]
-        res_over = util > cap
-        any_over = torch.any(res_over, dim=1)
-        dyn_ok = (dyn_free - splaced * p.n_dyn) >= p.n_dyn
-        res_ok = res_free & ~(has_res_ask & (splaced > 0))
-        fits = ~any_over & dyn_ok & res_ok
-        ok = feas & fits
-        dh_collide = p.distinct_hosts & (job_cnt > 0)
-        ok = ok & ~dh_collide
-
-        dp_mask = None
-        if dcounts.shape[0]:
-            cur_d = _lookup(dcounts, dtok)
-            row_ok = (((cur_d < p.dp_allowed[None, :]) & (dtok != d_v - 1))
-                      | ~p.dp_active[None, :])
-            dp_mask = torch.all(row_ok, dim=1)
-            ok = ok & dp_mask
-
-        binpack, spreadfit = fit_scores(util, cap)
-        fit_score = torch.where(p.algorithm == 1, spreadfit, binpack)
-        ssum = fit_score
-        scnt = torch.ones_like(fit_score)
-        collide = tg_cnt > 0
-        anti = -(tg_cnt + 1.0) / torch.clamp(p.desired_count, min=1.0)
-        ssum = ssum + torch.where(collide, anti, 0.0)
-        scnt = scnt + collide
-        ssum = ssum + torch.where(penalty, -1.0, 0.0)
-        scnt = scnt + penalty
-        inc_aff = aff_score != 0.0
-        ssum = ssum + torch.where(inc_aff, aff_score, 0.0)
-        scnt = scnt + inc_aff
-        spread_score = _spread_boost(stok, scounts, p)
-        inc_spread = spread_score != 0.0
-        ssum = ssum + torch.where(inc_spread, spread_score, 0.0)
-        scnt = scnt + inc_spread
-        final = ssum / scnt
-        masked = torch.where(ok, final, NEG_INF)
-
+        ev = _step_plain(cluster, p, st, i)
+        ok, masked = ev["ok"], ev["masked"]
         best = torch.argmax(masked)
+        pref_idx = p.preferred_idx[i]
         pref = pref_idx.clamp(min=0)
         pref_ok = (pref_idx >= 0) & ok[pref]
         idx = torch.where(pref_ok, pref, best)
-        found = ok[idx] & active
+        found = ok[idx] & (i < p.n_place)
         sels.append(torch.where(found, idx, -1))
-        scores.append(torch.where(found, final[idx], 0.0))
-        n_fits.append((feas & fits).sum())
+        scores.append(torch.where(found, ev["final"][idx], 0.0))
+        n_fits.append((feas & ev["fits"]).sum())
         finals.append(masked)
-
         # carry update: only row idx changes, and only when found
-        hit = ((rows == idx) & found)
-        used = used + torch.where(hit[:, None], p.ask[None, :], 0.0)
-        job_cnt = job_cnt + hit
-        tg_cnt = tg_cnt + hit
-        splaced = splaced + hit.float()
-        if scounts.shape[0]:
-            sel_tok = stok[idx]
-            valid = (sel_tok != scounts.shape[1] - 1) & found
-            scounts = scounts + torch.nn.functional.one_hot(
-                sel_tok, scounts.shape[1]).float() * valid[:, None]
-        if dcounts.shape[0]:
-            sel_dtok = dtok[idx]
-            dvalid = (sel_dtok != dcounts.shape[1] - 1) & found
-            dcounts = dcounts + torch.nn.functional.one_hot(
-                sel_dtok, dcounts.shape[1]).float() * dvalid[:, None]
+        _take_plain(st, p, idx, found, st["stok"][idx], st["dtok"][idx])
 
         if explain:
-            dh_fail = feas & dh_collide
+            dh_fail = feas & ev["dh_collide"]
+            dp_mask, any_over = ev["dp_mask"], ev["any_over"]
             dp_fail = (feas & ~dh_fail & ~dp_mask if dp_mask is not None
                        else torch.zeros_like(feas))
             cand_m = feas & ~dh_fail & ~dp_fail
-            ff = torch.argmax(res_over.to(torch.uint8), dim=1)
+            ff = torch.argmax(ev["res_over"].to(torch.uint8), dim=1)
             ff_hit = ((ff[:, None] == torch.arange(r_tot, device=dev)[None, :])
                       & (cand_m & any_over)[:, None])
             k = min(EXPLAIN_TOPK, n)
@@ -421,11 +466,13 @@ def place_task_group_plain(cluster: ClusterArrays, p: TGParams,
                                           stable=True)
             tk_score, tk_idx = tk_score[:k], tk_idx[:k]
             parts = torch.stack(
-                (fit_score, torch.where(collide, anti, 0.0),
-                 torch.where(penalty, -1.0, 0.0),
-                 torch.where(inc_aff, aff_score, 0.0),
-                 torch.where(inc_spread, spread_score, 0.0)), dim=1)
+                (ev["fit_score"], torch.where(ev["collide"], ev["anti"], 0.0),
+                 torch.where(ev["penalty"], -1.0, 0.0),
+                 torch.where(ev["inc_aff"], st["aff_score"], 0.0),
+                 torch.where(ev["inc_spread"], ev["spread_score"], 0.0)),
+                dim=1)
             tk_parts = parts[tk_idx] * (tk_score > NEG_INF / 2)[:, None]
+            dyn_ok, res_ok = ev["dyn_ok"], ev["res_ok"]
             ex_steps.append((
                 dh_fail.sum(), dp_fail.sum(), ff_hit.sum(dim=0),
                 (cand_m & ~any_over & ~dyn_ok).sum(),
@@ -436,10 +483,7 @@ def place_task_group_plain(cluster: ClusterArrays, p: TGParams,
     if explain:
         cols = list(zip(*ex_steps))
         ex = PlacementExplain(
-            nodes_evaluated=ex_evaluated,
-            filt_constraint=ex_filt_constraint,
-            filt_lut=ex_filt_lut,
-            filt_extra=ex_filt_extra,
+            **st["ex_static"],
             filt_distinct=torch.stack(cols[0]).to(i32),
             filt_dp=torch.stack(cols[1]).to(i32),
             exh_dim=torch.stack(cols[2]).to(i32),
@@ -452,8 +496,8 @@ def place_task_group_plain(cluster: ClusterArrays, p: TGParams,
     return PlacementResult(
         sel_idx=torch.stack(sels).to(i32),
         sel_score=torch.stack(scores),
-        new_used=used,
-        nodes_feasible=nodes_feasible,
+        new_used=st["used"],
+        nodes_feasible=st["nodes_feasible"],
         nodes_fit=torch.stack(n_fits).to(i32),
         final_scores0=finals[0],
         explain=ex,
@@ -1013,10 +1057,10 @@ class _ChainLaneArgs(ctypes.Structure):
 
 class _ChainLauncher:
     """The chain/wave library (csrc/chain.cu), built at first use, and
-    the launch counts of K4 (chains) and K5 (waves)."""
+    the launch counts of K4 (chains), K5 (waves) and K6 (batches)."""
 
     def __init__(self):
-        self.launches = {"chain": 0, "wave": 0}
+        self.launches = {"chain": 0, "wave": 0, "batch": 0}
         self._lib = None
 
     def lib(self):
@@ -1031,6 +1075,10 @@ class _ChainLauncher:
             lib.nomad_place_lanes.argtypes = [
                 ctypes.POINTER(_PlaceArgs), _VOID, _INT, _INT,
                 ctypes.POINTER(_ChainLaneArgs), _INT, _VOID]
+            lib.nomad_place_batch.restype = ctypes.c_int
+            lib.nomad_place_batch.argtypes = [
+                ctypes.POINTER(_PlaceArgs), _VOID, _INT,
+                ctypes.POINTER(_ChainLaneArgs), _VOID]
             lib.nomad_chain_error_string.restype = ctypes.c_char_p
             lib.nomad_chain_error_string.argtypes = [ctypes.c_int]
             if (lib.nomad_chain_args_size() != ctypes.sizeof(_PlaceArgs)
@@ -1056,8 +1104,14 @@ def wave_launch_count() -> int:
     return _CHAIN.launches["wave"]
 
 
+def batch_launch_count() -> int:
+    """K6 dispatches (batches of independent programs) since the last
+    reset."""
+    return _CHAIN.launches["batch"]
+
+
 def reset_chain_launch_counts() -> None:
-    _CHAIN.launches = {"chain": 0, "wave": 0}
+    _CHAIN.launches = {"chain": 0, "wave": 0, "batch": 0}
 
 
 def build_chain_kernel() -> None:
@@ -1088,21 +1142,40 @@ def _check_class_buf(name, t, cls, dev):
         raise TypeError(f"{name} must be contiguous {want} on {dev}")
 
 
-def _launch_lanes(cluster: ClusterArrays, shapes: dict, ptr_of, lanes: int,
-                  per_lane: int, max_allocs: int, explain: bool, fold: bool,
-                  snapshots: bool = False):
-    """Enqueue one dispatch of `lanes` chains of `per_lane` programs on
-    the current stream. `shapes` maps each TGParams field to its
-    per-program shape; `ptr_of(k, field)` gives program k's (lane-major)
-    device pointer for that field. Returns the per-program buffers
-    (leading axis lanes·per_lane) and the lane carries."""
+#: PlaceArgs as a numpy record: a dispatch's argument blocks are filled a
+#: field (a column) at a time
+_ARGS_DTYPE = np.dtype(_PlaceArgs)
+
+
+def _rows_ptrs(t: torch.Tensor, index) -> np.ndarray:
+    """Device pointers of rows `index` (along dim 0) of tensor `t`."""
+    return t.data_ptr() + np.asarray(index, np.int64) * (
+        t.stride(0) * t.element_size())
+
+
+def args_pointer(args: np.ndarray):
+    """ctypes pointer to the first PlaceArgs block of `args`."""
+    return args.ctypes.data_as(ctypes.POINTER(_PlaceArgs))
+
+
+def _lane_args(cluster: ClusterArrays, shapes: dict, ptrs_of, lanes: int,
+               per_lane: int, max_allocs: int, explain: bool):
+    """The per-program scratch and outputs (leading axis lanes·per_lane),
+    the per-lane scratch and used carries (leading axis lanes), and the
+    programs' PlaceArgs, on the host and copied to the cluster's device
+    on its current stream. `shapes` maps each TGParams field to its
+    per-program shape; `ptrs_of(field)` gives every program's (lane-major)
+    device pointer for that field, an int64 array. Returns (dims, host
+    args as a PlaceArgs record array, device args, per-program buffers,
+    per-lane buffers, lane used carries)."""
     from ..convert import to_device_async
     from ..lib.transfer import default_ledger
 
-    lib = _CHAIN.lib()
     dev = cluster.used.device
     n, r = cluster.capacity.shape
     b = lanes * per_lane
+    if b > 65535:
+        raise ValueError(f"{b} programs in one dispatch; at most 65535")
     if shapes["penalty_idx"][0] != max_allocs \
             or shapes["preferred_idx"][0] != max_allocs:
         raise ValueError("penalty/preferred rows must equal max_allocs")
@@ -1118,23 +1191,43 @@ def _launch_lanes(cluster: ClusterArrays, shapes: dict, ptr_of, lanes: int,
     prog = {k: alloc(b, sh, dt) for k, (sh, dt) in groups["prog"].items()}
     lane = {k: alloc(lanes, sh, dt) for k, (sh, dt) in groups["lane"].items()}
     used_l = alloc(lanes, (n, r), torch.float32)
-    dyn_l = alloc(lanes, n, torch.float32)
-    snap = alloc(b, (n, r), torch.float32) if snapshots else None
 
-    args = (_PlaceArgs * b)()
-    for k in range(b):
-        a = args[k]
-        _set_cluster(a, cluster)
-        _set_ptrs(a, {f: ptr_of(k, f) for f in TGParams._fields})
-        _set_ptrs(a, {name: t[k].data_ptr() for name, t in prog.items()})
-        _set_ptrs(a, {name: t[k // per_lane].data_ptr()
-                      for name, t in lane.items()})
-        a.new_used = used_l[k // per_lane].data_ptr()
-        for name, val in dims.items():
-            setattr(a, name, val)
-    raw = np.frombuffer(args, dtype=np.uint8)
+    base = _PlaceArgs()
+    _set_cluster(base, cluster)
+    for name, val in dims.items():
+        setattr(base, name, val)
+    args = np.repeat(np.frombuffer(bytearray(base), dtype=_ARGS_DTYPE), b)
+    k = np.arange(b)
+    for f in TGParams._fields:
+        args[f] = ptrs_of(f)
+    for name, t in prog.items():
+        args[name] = _rows_ptrs(t, k)
+    for name, t in lane.items():
+        args[name] = _rows_ptrs(t, k // per_lane)
+    args["new_used"] = _rows_ptrs(used_l, k // per_lane)
+    raw = args.view(np.uint8)
     with default_ledger().timed("kernels.place_args", raw.nbytes):
         dev_args = to_device_async(raw, dev)
+    return dims, args, dev_args, prog, lane, used_l
+
+
+def _launch_lanes(cluster: ClusterArrays, shapes: dict, ptrs_of, lanes: int,
+                  per_lane: int, max_allocs: int, explain: bool, fold: bool,
+                  snapshots: bool = False, batch: bool = False):
+    """Enqueue one dispatch of `lanes` chains of `per_lane` programs on
+    the current stream (`_lane_args` says what `shapes` and `ptrs_of`
+    are). With `batch` the lanes are a K6 batch (one program a lane, no
+    fold). Returns the per-program buffers (leading axis
+    lanes·per_lane) and the lane carries."""
+    lib = _CHAIN.lib()
+    dev = cluster.used.device
+    n, r = cluster.capacity.shape
+    b = lanes * per_lane
+    dims, args, dev_args, prog, _lane, used_l = _lane_args(
+        cluster, shapes, ptrs_of, lanes, per_lane, max_allocs, explain)
+    dyn_l = torch.empty((lanes, n), dtype=torch.float32, device=dev)
+    snap = (torch.empty((b, n, r), dtype=torch.float32, device=dev)
+            if snapshots else None)
 
     la = _ChainLaneArgs()
     la.used0, la.dyn0 = cluster.used.data_ptr(), cluster.dyn_free.data_ptr()
@@ -1148,13 +1241,18 @@ def _launch_lanes(cluster: ClusterArrays, shapes: dict, ptr_of, lanes: int,
                  torch.zeros(1, dtype=torch.int32, device=dev))
         la.used_f, la.dyn_f, la.collisions = (t.data_ptr() for t in out_f)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.nomad_place_lanes(ctypes.byref(args[0]), dev_args.data_ptr(),
-                                lanes, per_lane, ctypes.byref(la), int(fold),
-                                stream)
+    if batch:
+        err = lib.nomad_place_batch(args_pointer(args),
+                                    dev_args.data_ptr(), b, ctypes.byref(la),
+                                    stream)
+    else:
+        err = lib.nomad_place_lanes(args_pointer(args),
+                                    dev_args.data_ptr(), lanes, per_lane,
+                                    ctypes.byref(la), int(fold), stream)
     if err != 0:
         raise RuntimeError("chain kernel launch failed: "
                            + lib.nomad_chain_error_string(err).decode())
-    _CHAIN.launches["wave" if fold else "chain"] += 1
+    _CHAIN.launches["batch" if batch else "wave" if fold else "chain"] += 1
     # dev_args and the scratch may be freed now: the caching allocator
     # hands their memory only to work queued after this launch on the
     # same stream
@@ -1165,7 +1263,7 @@ def _launch_lanes(cluster: ClusterArrays, shapes: dict, ptr_of, lanes: int,
 
 
 def _table_source(ti, tf, tu, rows, di, df, du, sspec, dspec, b):
-    """(shapes, ptr_of) for table programs: static fields point into
+    """(shapes, ptrs_of) for table programs: static fields point into
     their table row, dynamic fields into their program's dynamic row."""
     dev = ti.device
     tables = {"i": ti, "f": tf, "u": tu}
@@ -1182,25 +1280,23 @@ def _table_source(ti, tf, tu, rows, di, df, du, sspec, dspec, b):
         for name, cls, off, shape in spec:
             where[name] = (src, cls, off, tuple(shape))
 
-    def ptr_of(k, name):
+    def ptrs_of(name):
         src, cls, off, _shape = where[name]
-        if src == "table":
-            t, row = tables[cls], int(rows[k])
-        else:
-            t, row = dyn[cls], k
-        return t.data_ptr() + (row * t.shape[1] + off) * _ESIZE[cls]
+        t, idx = ((tables[cls], rows) if src == "table"
+                  else (dyn[cls], np.arange(b)))
+        return _rows_ptrs(t, idx) + off * _ESIZE[cls]
 
-    return {name: w[3] for name, w in where.items()}, ptr_of
+    return {name: w[3] for name, w in where.items()}, ptrs_of
 
 
 def place_table_chain_cuda(cluster, ti, tf, tu, rows, di, df, du, sspec,
                            dspec, max_allocs, explain=False):
     _check_cluster(cluster)
     b = int(host_rows(rows).size)
-    shapes, ptr_of = _table_source(ti, tf, tu, rows, di, df, du, sspec,
-                                   dspec, b)
+    shapes, ptrs_of = _table_source(ti, tf, tu, rows, di, df, du, sspec,
+                                    dspec, b)
     base, ex, (used_l, dyn_l), _f, _s = _launch_lanes(
-        cluster, shapes, ptr_of, 1, b, max_allocs, explain, fold=False)
+        cluster, shapes, ptrs_of, 1, b, max_allocs, explain, fold=False)
     out = base + tuple(ex) if explain else base
     return out, (used_l[0], dyn_l[0])
 
@@ -1209,17 +1305,18 @@ def place_table_wave_cuda(cluster, ti, tf, tu, rows, di, df, du, sspec,
                           dspec, max_allocs, explain=False):
     _check_cluster(cluster)
     lanes, per_lane = host_rows(rows).shape
-    shapes, ptr_of = _table_source(ti, tf, tu, rows, di, df, du, sspec,
-                                   dspec, lanes * per_lane)
+    shapes, ptrs_of = _table_source(ti, tf, tu, rows, di, df, du, sspec,
+                                    dspec, lanes * per_lane)
     base, ex, _lanes, (used_f, dyn_f, coll), _s = _launch_lanes(
-        cluster, shapes, ptr_of, lanes, per_lane, max_allocs, explain,
+        cluster, shapes, ptrs_of, lanes, per_lane, max_allocs, explain,
         fold=True)
     out = base + tuple(ex) if explain else base
     return out + (coll.reshape(()),), (used_f, dyn_f)
 
 
-def place_task_group_chain_cuda(cluster, batch, max_allocs, explain=False):
-    _check_cluster(cluster)
+def _stacked_source(cluster, batch):
+    """(b, shapes, ptrs_of) for a stacked TGParams ([B, ...] fields on the
+    cluster's device): program k's fields are its slices."""
     batch = TGParams(*(t.contiguous() for t in batch))
     b = batch.n_place.shape[0]
     for name, dt in PARAM_TYPES.items():
@@ -1230,13 +1327,37 @@ def place_task_group_chain_cuda(cluster, batch, max_allocs, explain=False):
                             "cluster's device")
     fields = batch._asdict()
 
-    def ptr_of(k, name):
-        t = fields[name]
-        return t.data_ptr() + k * t.stride(0) * t.element_size()
+    def ptrs_of(name):
+        return _rows_ptrs(fields[name], np.arange(b))
 
-    shapes = {name: tuple(t.shape[1:]) for name, t in fields.items()}
+    return b, {name: tuple(t.shape[1:]) for name, t in fields.items()}, \
+        ptrs_of
+
+
+def _packed_source(cluster, i32buf, f32buf, u8buf, spec):
+    """(b, shapes, ptrs_of) for field-major packed buffers (`pack_params`
+    of a stacked batch)."""
+    bufs = {"i": i32buf, "f": f32buf, "u": u8buf}
+    for cls in "ifu":
+        _check_class_buf(f"packed[{cls}]", bufs[cls], cls,
+                         cluster.used.device)
+    where = {name: (cls, off, tuple(shape)) for name, cls, off, shape in spec}
+    b = where["n_place"][2][0]
+
+    def ptrs_of(name):
+        cls, off, shape = where[name]
+        size = int(np.prod(shape[1:])) if len(shape) > 1 else 1
+        return bufs[cls].data_ptr() + (off + np.arange(b, dtype=np.int64)
+                                       * size) * _ESIZE[cls]
+
+    return b, {name: w[2][1:] for name, w in where.items()}, ptrs_of
+
+
+def place_task_group_chain_cuda(cluster, batch, max_allocs, explain=False):
+    _check_cluster(cluster)
+    b, shapes, ptrs_of = _stacked_source(cluster, batch)
     base, ex, _lanes, _f, (final0, snap) = _launch_lanes(
-        cluster, shapes, ptr_of, 1, b, max_allocs, explain, fold=False,
+        cluster, shapes, ptrs_of, 1, b, max_allocs, explain, fold=False,
         snapshots=True)
     return PlacementResult(sel_idx=base[0], sel_score=base[1],
                            new_used=snap, nodes_feasible=base[2],
@@ -1247,21 +1368,9 @@ def place_task_group_chain_cuda(cluster, batch, max_allocs, explain=False):
 def place_packed_chain_cuda(cluster, i32buf, f32buf, u8buf, spec,
                             max_allocs, explain=False):
     _check_cluster(cluster)
-    bufs = {"i": i32buf, "f": f32buf, "u": u8buf}
-    for cls in "ifu":
-        _check_class_buf(f"packed[{cls}]", bufs[cls], cls,
-                         cluster.used.device)
-    where = {name: (cls, off, tuple(shape)) for name, cls, off, shape in spec}
-    b = where["n_place"][2][0]
-    shapes = {name: w[2][1:] for name, w in where.items()}
-
-    def ptr_of(k, name):
-        cls, off, shape = where[name]
-        size = int(np.prod(shape[1:])) if len(shape) > 1 else 1
-        return bufs[cls].data_ptr() + (off + k * size) * _ESIZE[cls]
-
+    b, shapes, ptrs_of = _packed_source(cluster, i32buf, f32buf, u8buf, spec)
     base, ex, _lanes, _f, _s = _launch_lanes(
-        cluster, shapes, ptr_of, 1, b, max_allocs, explain, fold=False)
+        cluster, shapes, ptrs_of, 1, b, max_allocs, explain, fold=False)
     return base + tuple(ex) if explain else base
 
 
@@ -1271,7 +1380,7 @@ def _route(cluster, plain, cuda):
         return plain
     if kind == "cuda":
         return cuda
-    raise ValueError(f"no chain implementation for device {kind!r}")
+    raise ValueError(f"no placement implementation for device {kind!r}")
 
 
 def place_task_group_chain(cluster: ClusterArrays, batch: TGParams,
@@ -1315,6 +1424,70 @@ def place_table_wave(cluster, ti, tf, tu, rows, di, df, du, sspec, dspec,
                   place_table_wave_cuda)(cluster, ti, tf, tu, rows, di, df,
                                          du, sspec, dspec, max_allocs,
                                          explain)
+
+
+# ---- batches of independent programs (K6) --------------------------------------
+# The vmap transport: B programs against one snapshot, none seeing another's
+# placements (the reference's N workers racing on one MVCC snapshot; plan
+# apply resolves conflicts). The plain version loops K1's plain version; the
+# CUDA route is a K5 wave of B one-program lanes with no fold
+# (`csrc/chain.cu` `nomad_place_batch`).
+
+
+def place_task_group_batch_plain(cluster, batch, max_allocs, explain=False):
+    return _stack_results([
+        place_task_group_plain(cluster, _program(batch, b), max_allocs,
+                               explain)
+        for b in range(batch.n_place.shape[0])])
+
+
+def place_packed_batch_plain(cluster, i32buf, f32buf, u8buf, spec,
+                             max_allocs):
+    r = place_task_group_batch_plain(
+        cluster, _unpack_params(i32buf, f32buf, u8buf, spec), max_allocs)
+    return r.sel_idx, r.sel_score
+
+
+def place_task_group_batch_cuda(cluster, batch, max_allocs, explain=False):
+    _check_cluster(cluster)
+    b, shapes, ptrs_of = _stacked_source(cluster, batch)
+    base, ex, (used_l, _dyn), _f, (final0, _s) = _launch_lanes(
+        cluster, shapes, ptrs_of, b, 1, max_allocs, explain, fold=False,
+        batch=True)
+    return PlacementResult(sel_idx=base[0], sel_score=base[1],
+                           new_used=used_l, nodes_feasible=base[2],
+                           nodes_fit=base[3], final_scores0=final0,
+                           explain=ex)
+
+
+def place_packed_batch_cuda(cluster, i32buf, f32buf, u8buf, spec,
+                            max_allocs):
+    _check_cluster(cluster)
+    b, shapes, ptrs_of = _packed_source(cluster, i32buf, f32buf, u8buf, spec)
+    base, _ex, _lanes, _f, _s = _launch_lanes(
+        cluster, shapes, ptrs_of, b, 1, max_allocs, False, fold=False,
+        batch=True)
+    return base[0], base[1]
+
+
+def place_task_group_batch(cluster: ClusterArrays, batch: TGParams,
+                           max_allocs: int,
+                           explain: bool = False) -> PlacementResult:
+    """Batched placement of a stacked batch ([B, ...] fields): each
+    program against the same snapshot, independently; every output gains
+    a leading B (new_used is [B, N, R]). Plain on CPU tensors, the K6
+    kernel on CUDA tensors; B ≤ 65535 there."""
+    return _route(cluster, place_task_group_batch_plain,
+                  place_task_group_batch_cuda)(cluster, batch, max_allocs,
+                                               explain)
+
+
+def place_packed_batch(cluster, i32buf, f32buf, u8buf, spec, max_allocs):
+    """Batched placement over field-major packed buffers; returns only
+    (sel_idx, sel_score), [B, M] each."""
+    return _route(cluster, place_packed_batch_plain,
+                  place_packed_batch_cuda)(cluster, i32buf, f32buf, u8buf,
+                                           spec, max_allocs)
 
 
 # ---- program packing (host numpy) --------------------------------------------

@@ -1,4 +1,6 @@
-"""The CUDA placement kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card:
+K1, the chain and wave (K4, K5), the batch (K6), the row kernels (K7, K8),
+K2, K3, and the node-sharded step (K9) on four shards.
 
 Marked `cuda`: it skips without an NVIDIA card (a CUDA kernel has no CPU
 mode). It imports nothing of JAX, so it also runs where JAX is absent:
@@ -429,3 +431,68 @@ def test_preempt_kernel_matches_plain(cuda_device):
                                        atol=ATOL, msg=f)
         assert int(got.best_row) >= 0 and int(got.best_k) >= 1
     assert kpre.launch_count() == before + 2
+
+
+def _batch_problem(cuda_device, n_prog=6, count=4):
+    from nomad_tpu_torch.parallel.pad import stack_params
+
+    state, _nodes = build_synthetic_state(300, 3000, seed=5)
+    rng = random.Random(8)
+    stack = TorchStack(state.cluster, device=cuda_device)
+    progs = []
+    for i in range(n_prog):
+        j = synth_service_job(rng, count=count,
+                              **_KINDS[sorted(_KINDS)[i % len(_KINDS)]])
+        state.upsert_job(j)
+        progs.append(stack.compile_tg(j, j.task_groups[0], count, None)[0])
+    batched, m = stack_params(progs)
+    return stack.device_arrays(), batched, m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("explain", [False, True], ids=["plain", "explain"])
+def test_batch_kernel_matches_plain(explain, cuda_device):
+    from nomad_tpu_torch.convert import tensor_from_numpy
+
+    arrays, batched, m = _batch_problem(cuda_device)
+    p = params_from_numpy(batched, cuda_device)
+    before = kp.batch_launch_count()
+    got = kp.place_task_group_batch(arrays, p, m, explain)
+    assert kp.batch_launch_count() == before + 1
+    want = kp.place_task_group_batch_plain(arrays, p, m, explain)
+    torch.cuda.synchronize()
+    _assert_same(want, got)
+    ibuf, fbuf, ubuf, spec = kp.pack_params(batched)
+    bufs = [tensor_from_numpy(b, cuda_device) for b in (ibuf, fbuf, ubuf)]
+    sel, score = kp.place_packed_batch(arrays, *bufs, spec, m)
+    torch.cuda.synchronize()
+    assert torch.equal(sel, want.sel_idx)
+    torch.testing.assert_close(score, want.sel_score, rtol=0, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)], ids=["1x4", "2x2"])
+def test_shard_kernel_matches_plain(shape, cuda_device):
+    """K9 on four shards over the visible cards (repeating when there are
+    fewer) == its plain version == K6 on the whole view; the fold-in
+    bitwise."""
+    from nomad_tpu_torch.kernels import shard as ks
+    from nomad_tpu_torch.parallel import (make_mesh, scheduler_step,
+                                          shard_cluster)
+
+    arrays, batched, m = _batch_problem(cuda_device, n_prog=8)
+    count = torch.cuda.device_count()
+    mesh = make_mesh(4, batch=shape[0],
+                     devices=[f"cuda:{i % count}" for i in range(4)])
+    sc = shard_cluster(arrays, mesh)
+    before = ks.launch_count()
+    new_cluster, got = scheduler_step(mesh, m)(sc, batched)
+    assert ks.launch_count() == before + 1
+    want, folded = ks.sharded_place_plain(sc, batched, m, fold=True)
+    torch.cuda.synchronize()
+    _assert_same(want, got)
+    _assert_same(kp.place_task_group_batch(
+        arrays, params_from_numpy(batched, cuda_device), m), got)
+    for row in new_cluster.shards:
+        for j, shard in enumerate(row):
+            assert torch.equal(shard.used.cpu(), folded[j].cpu()), j

@@ -2,7 +2,8 @@
 
 Every module of `nomad_tpu_torch/` that has a counterpart at the same path
 in `nomad_tpu/` is either a byte-identical copy (its relative imports then
-bind to the port's own modules) or named in `REWRITTEN` with what differs.
+bind to the port's own modules) or named in `REWRITTEN` with what differs;
+a module whose counterpart lies elsewhere is named in `ELSEWHERE`.
 A copy edited by accident, or a rewrite left off the list, fails here.
 """
 from pathlib import Path
@@ -23,7 +24,8 @@ REWRITTEN = {
     "lib/trace.py": "comments naming the reference's issues",
     "lib/tracectx.py": "comments naming the reference's issues",
     "lib/transfer.py": "guard_scope counts; torch has no transfer guard",
-    "parallel/__init__.py": "only the host padding (parallel/pad.py)",
+    "parallel/__init__.py": "the mesh's names and the host padding",
+    "parallel/mesh.py": "a grid of torch devices, K9 in place of GSPMD",
     "kernels/preemption.py": "PyTorch plain version and CUDA wrapper (K3)",
     "scheduler/__init__.py": "the port's package docstring, TorchStack",
     "scheduler/generic.py": "device=, TorchStack; the retry ranks on it",
@@ -48,6 +50,12 @@ REWRITTEN = {
 }
 
 
+#: port modules whose counterpart lies elsewhere in the repository
+ELSEWHERE = {
+    "entry.py": "__graft_entry__.py",
+}
+
+
 def _counterparts():
     return sorted(str(p.relative_to(PORT)) for p in PORT.rglob("*.py")
                   if (REF / p.relative_to(PORT)).is_file())
@@ -67,3 +75,11 @@ def test_rewritten_list_names_existing_modules():
     missing = [rel for rel in REWRITTEN
                if not ((PORT / rel).is_file() and (REF / rel).is_file())]
     assert not missing, missing
+
+
+@pytest.mark.parametrize("rel", sorted(ELSEWHERE))
+def test_counterpart_elsewhere_exists_and_is_rewritten(rel):
+    port, ref = PORT / rel, REPO / ELSEWHERE[rel]
+    assert port.is_file() and ref.is_file()
+    assert not (REF / rel).exists(), f"{rel} has a same-path counterpart"
+    assert port.read_bytes() != ref.read_bytes()

@@ -4,9 +4,10 @@
   of `jax` or of `nomad_tpu` / `nomad_tpu.*`.
 - With JAX made unimportable, a fresh interpreter imports the port and
   processes one eval on 16 nodes with device="cpu", a port `Server`
-  schedules a batch of evals through the coordinator there, and a
-  Harness runs a system eval and a service eval whose placement takes
-  the preemption retry.
+  schedules a batch of evals through the coordinator there, a Harness
+  runs a system eval and a service eval whose placement takes the
+  preemption retry, and `entry.dryrun_multichip` runs its sharded step on
+  four CPU shards.
 - Every entry point defaults to the card and raises without one.
 """
 import ast
@@ -182,8 +183,42 @@ def test_port_runs_system_and_preemption_without_jax():
     assert proc.stdout.strip().endswith("ok")
 
 
+_NO_JAX_DRYRUN = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+import torch
+torch.set_num_threads(2)
+from nomad_tpu_torch import entry
+
+run = entry.dryrun_multichip(4, devices=["cpu"] * 4)
+assert run.mesh.shape == {"batch": 2, "nodes": 2}, run.mesh.shape
+assert tuple(run.result.sel_idx.shape) == (64, run.max_allocs)
+assert len(run.new_cluster.shards) == 2 and len(run.new_cluster.row0) == 2
+assert bool((run.new_cluster.full().used >= run.cluster.full().used).all())
+assert not any(m.split(".")[0] in ("jax", "nomad_tpu")
+               for m, mod in sys.modules.items() if mod is not None), \
+    sorted(m for m in sys.modules if m.startswith(("jax", "nomad_tpu.")))
+print("ok")
+"""
+
+
+def test_port_dryrun_multichip_without_jax():
+    """The dry run's sharded step on four CPU shards, no JAX."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX_DRYRUN], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "dryrun_multichip: mesh={'batch': 2, 'nodes': 2} evals=64" \
+        in proc.stdout
+    assert proc.stdout.strip().endswith("ok")
+
+
 def _entry_points():
     from nomad_tpu_torch.convert import cluster_from_numpy, params_from_numpy
+    from nomad_tpu_torch.entry import entry
+    from nomad_tpu_torch.parallel import make_mesh
     from nomad_tpu_torch.scheduler.generic import GenericScheduler
     from nomad_tpu_torch.scheduler.harness import Harness, InMemState
     from nomad_tpu_torch.scheduler.preemption import ranked_cluster
@@ -210,6 +245,8 @@ def _entry_points():
         "params_from_numpy": lambda: params_from_numpy({}),
         "Server": lambda: Server(),
         "DeviceProgramTable": lambda: DeviceProgramTable(),
+        "entry": lambda: entry(),
+        "make_mesh": lambda: make_mesh(),
     }
 
 
@@ -217,7 +254,8 @@ def _entry_points():
                                   "SystemScheduler", "ranked_cluster",
                                   "TorchStack", "cluster_from_numpy",
                                   "params_from_numpy", "Server",
-                                  "DeviceProgramTable"])
+                                  "DeviceProgramTable", "entry",
+                                  "make_mesh"])
 def test_entry_points_default_to_cuda_and_raise_without_it(
         name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
