@@ -93,9 +93,11 @@ non-zero without printing a result:
 9. The batched-eval path (K6) and the node-sharded step (K9): (a) on the
    phase-3 cluster, `place_task_group_batch` against its plain version
    for B = 64 programs of `bench.py`'s eval mix (count 8), explain off and
-   on, and for one dispatch at B = 4096, bench's default batch: indices
-   and counts equal, scores within 1e-6; K6, its plain version and its
-   bound timed at B = 4096. (b) `bench.py` `bench_tpu`'s single-device
+   on, and one dispatch at B = 4096, bench's default batch, on both
+   routes: the packed route (`place_packed_batch`, no carry a program)
+   bitwise the full-carry route, which equals plain (indices and counts
+   equal, scores within 1e-6); both timed with their bounds, and the
+   peak device memory of each dispatch and since phase 4. (b) `bench.py` `bench_tpu`'s single-device
    loop on the port (a host `compile_tg` per eval, `stack_params`,
    `pack_params`, one `place_packed_batch` per batch, asynchronous until
    the end): 4,096 evals in batches of 1,024 (cut from bench's 16,384 /
@@ -104,12 +106,31 @@ non-zero without printing a result:
    the plain version on the inputs it read. (c) K9 on four shards in
    meshes (2, 2) and (1, 4) over the cards (all four on one card when
    there is one): `entry.dryrun_multichip(4, ...)` at its own size
-   (10,000 nodes, 5,000 allocs, 64 evals of count 4), then the phase-3
-   cluster with B = 64; each equal to its plain version and to K6 on the
-   whole view (sel_idx and counts exactly, scores within 1e-6), the
-   fold-in bitwise against plain; timed per dispatch and per step.
-   K6's launches are counted around (b), K9's around the dry runs.
-10. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
+   (10,000 nodes, 5,000 allocs, 64 evals of count 4; each dry run ends
+   with the live server on its mesh, 8 jobs through the sharded chain),
+   then the phase-3 cluster with B = 64; each equal to its plain version
+   and to K6 on the whole view (sel_idx and counts exactly, scores
+   within 1e-6), the fold-in bitwise against plain; timed per dispatch
+   and per step. K6's launches are counted around (b), K9's around the
+   dry runs.
+10. The server on a device mesh (B10-B13), four shards of the card in
+   meshes (1, 4) and (2, 2): (a) on the phase-3 cluster, the packed
+   chain (B10) of phase 5's 8 programs, explain off and on, the single
+   program with explain (B11) and the system masks (B12) against their
+   plain versions on the same shards and the unsharded K4, K1 and K2;
+   timed with their host calls a dispatch; then two churn rounds through
+   the view cache under a (2, 2) mesh, every K7 call per shard replayed
+   on a CPU copy (plain) and on an unsharded copy (K7), every copy equal
+   to both and to a cold upload (B13), K7's hot part at 64 rows timed.
+   (b) the phase-6 ingest and 64 evals of its mix, queued at once, then a
+   lone eval and a system eval, through `Server(ServerConfig(mesh=...))`
+   for each mesh and through `mesh=None`: placements equal alloc by
+   alloc; evals/s, latency and dispatches printed; the B10-B13 launch
+   counts are read around the meshed runs. (d) one K6 dispatch and one
+   K9 batch row of 65,536 programs (16 tiled) on 64 rows, every copy
+   equal to its original's plain result; the packed route bitwise the
+   full-carry one. ((c), the dry run's server half, runs in 9 (c).)
+11. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
 """
 from __future__ import annotations
 
@@ -172,6 +193,13 @@ def _compare(want, got, what: str) -> float:
             a, b = getattr(want.explain, f), getattr(got.explain, f)
             (close if f in ("topk_score", "topk_parts") else equal)(a, b, f)
     return err
+
+
+def _max_diff(a, b) -> float:
+    """The largest |a − b| over two tensors of one shape (any dtype; bool
+    masks as 0/1), read on the host."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return float((a - b).abs().max()) if a.numel() else 0.0
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -472,6 +500,54 @@ def _snap(torch, x):
     return x
 
 
+def _ingest(s, srng):
+    """`bench.py`'s ingest into a Server's state: N_NODES synthetic nodes,
+    N_ALLOCS running allocs of filler jobs, and 64 running services
+    holding a reserved and a dynamic port. Returns (nodes, filler jobs,
+    the port holders)."""
+    from nomad_tpu_torch.synth import (synth_alloc, synth_node,
+                                       synth_service_job)
+
+    nodes = []
+    for i in range(N_NODES):
+        node = synth_node(srng, i)
+        nodes.append(node)
+        s.state.upsert_node(node)
+    filler = [synth_service_job(srng) for _ in range(max(N_ALLOCS // 200, 1))]
+    for j in filler:
+        s.state.upsert_job(j)
+    for i in range(N_ALLOCS):
+        s.state.upsert_alloc(synth_alloc(
+            srng, nodes[srng.randrange(N_NODES)], filler[i % len(filler)]))
+    holders = []
+    for k in range(64):
+        node = nodes[srng.randrange(N_NODES)]
+        a = _port_alloc(node.id, filler[0].id, (100, 64, 10),
+                        [_ports_net(node, 8080, 20000 + k)])
+        a.job = filler[0]
+        s.state.upsert_alloc(a)
+        holders.append(a)
+    return nodes, filler, holders
+
+
+def _mix(srng, n):
+    """`bench.py`'s e2e mix of `n` service jobs of count 10: half pinned
+    to one datacenter. The pinned half registers first: a drain of pinned
+    jobs partitions into disjoint conflict groups and dispatches a wave,
+    while an unpinned job's footprint is every node and merges its whole
+    drain into one chain. Returns (jobs, their distinct_hosts flags)."""
+    from nomad_tpu_torch.synth import synth_service_job
+
+    order = sorted(range(n), key=lambda i: i % 2 == 0)
+    jobs = [synth_service_job(
+        srng, count=10, with_affinity=i % 2 == 0,
+        with_spread=i % 3 == 0, distinct_hosts=i % 5 == 0,
+        with_devices=i % 4 == 0,
+        datacenter=f"dc{1 + (i // 2) % 3}" if i % 2 == 1 else None)
+        for i in order]
+    return jobs, [i % 5 == 0 for i in order]
+
+
 def _phase6_server(torch, kp, kr, rng, device=None, then=None):
     """The batched server path on the card (`device` None) at the
     BASELINE size, at the server's defaults (speculation, chain adoption
@@ -482,8 +558,6 @@ def _phase6_server(torch, kp, kr, rng, device=None, then=None):
     from nomad_tpu_torch.scheduler import stack as stack_mod
     from nomad_tpu_torch.scheduler.stack import TorchStack
     from nomad_tpu_torch.server import Server, ServerConfig
-    from nomad_tpu_torch.synth import (synth_alloc, synth_node,
-                                       synth_service_job)
 
     out = {"err": {"chain": 0.0, "wave": 0.0}}
     srng = random.Random(SEED + 1)
@@ -498,47 +572,13 @@ def _phase6_server(torch, kp, kr, rng, device=None, then=None):
         # here; nodes upserted afterwards, as bench.py upserts them, arm
         # none (their TTL of an hour would never fire in this run anyway)
         s.start()
-        nodes = []
-        for i in range(N_NODES):
-            node = synth_node(srng, i)
-            nodes.append(node)
-            s.state.upsert_node(node)
-        filler = [synth_service_job(srng)
-                  for _ in range(max(N_ALLOCS // 200, 1))]
-        for j in filler:
-            s.state.upsert_job(j)
-        for i in range(N_ALLOCS):
-            s.state.upsert_alloc(synth_alloc(
-                srng, nodes[srng.randrange(N_NODES)],
-                filler[i % len(filler)]))
-        # running services holding a reserved and a dynamic port: the
-        # client stops a few between bursts (below)
-        holders = []
-        for k in range(64):
-            node = nodes[srng.randrange(N_NODES)]
-            a = _port_alloc(node.id, filler[0].id, (100, 64, 10),
-                            [_ports_net(node, 8080, 20000 + k)])
-            a.job = filler[0]
-            s.state.upsert_alloc(a)
-            holders.append(a)
+        nodes, filler, holders = _ingest(s, srng)
         cl = s.state.cluster
         print(f"server: ingested {N_NODES} nodes / {N_ALLOCS + 64} allocs in "
               f"{time.perf_counter() - t0:.1f} s")
 
         def feed(n):
-            # the bench.py e2e mix: half the jobs pinned to one
-            # datacenter. The pinned half registers first: a drain of
-            # pinned jobs partitions into disjoint conflict groups and
-            # dispatches a wave, while an unpinned job's footprint is
-            # every node and merges its whole drain into one chain.
-            order = sorted(range(n), key=lambda i: i % 2 == 0)
-            jobs = [synth_service_job(
-                srng, count=10, with_affinity=i % 2 == 0,
-                with_spread=i % 3 == 0, distinct_hosts=i % 5 == 0,
-                with_devices=i % 4 == 0,
-                datacenter=f"dc{1 + (i // 2) % 3}" if i % 2 == 1 else None)
-                for i in order]
-            return jobs, [i % 5 == 0 for i in order]
+            return _mix(srng, n)
 
         def run(jobs):
             evs = [s.job_register(j) for j in jobs]
@@ -1760,13 +1800,16 @@ def _once_ms(torch, fn, on_card: bool):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def _batch_bound(torch, kp, arrays, batch, m):
+def _batch_bound(torch, kp, arrays, batch, m, packed=False):
     """Bound of one K6 (or K9) dispatch: the view read once, every
-    program's fields, and each program's outputs, its new_used and
-    final_scores0 among them."""
+    program's fields, and each program's outputs — its new_used and
+    final_scores0 among them, or with `packed` (`place_packed_batch`,
+    which returns only sel_idx and sel_score) those two alone."""
     cpu = kp.TGParams(*(t.cpu() for t in batch))
     parts = [_bound_parts(arrays, kp._program(cpu, b), m)
              for b in range(cpu.n_place.shape[0])]
+    if packed:
+        parts = [(v, p, m * 8, ops) for v, p, _o, ops in parts]
     return _bound_of(parts, arrays)
 
 
@@ -1775,7 +1818,7 @@ def _phase9_batch(torch, kp, state, rng, device=None):
     explain off and on, and one dispatch at B = 4096; K6, its plain
     version and its bound timed at B = 4096. `device="cpu"` rehearses
     the control flow (both sides plain, nothing timed)."""
-    from nomad_tpu_torch.convert import params_from_numpy
+    from nomad_tpu_torch.convert import params_from_numpy, tensor_from_numpy
     from nomad_tpu_torch.parallel.pad import stack_params
     from nomad_tpu_torch.scheduler.stack import TorchStack
 
@@ -1806,23 +1849,64 @@ def _phase9_batch(torch, kp, state, rng, device=None):
 
     big, m = stack_params(progs)
     pb = params_from_numpy(big, dev)
-    got, ms = _once_ms(torch, lambda: kp.place_task_group_batch(
-        arrays, pb, m), on_card)
+    ibuf, fbuf, ubuf, spec = kp.pack_params(big)
+    bufs = [tensor_from_numpy(b, dev) for b in (ibuf, fbuf, ubuf)]
+
+    def packed():
+        return kp.place_packed_batch(arrays, *bufs, spec, m)
+
+    def full():
+        return kp.place_task_group_batch(arrays, pb, m)
+
+    # the packed route (bench's): no carry a program; its peak alone
+    peak = {}
+    if on_card:
+        torch.cuda.synchronize()
+        # the peak since phase 4's reset, the measure this phase printed
+        # before the packed route kept no carry
+        peak["since phase 4"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    (sel, score), _ms = _once_ms(torch, packed, on_card)
+    if on_card:
+        peak["packed"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    got, _ms = _once_ms(torch, full, on_card)
+    if on_card:
+        peak["full"] = torch.cuda.max_memory_allocated()
+    # C2: the packed route's results bitwise those of the full route
+    if not (torch.equal(sel, got.sel_idx) and torch.equal(
+            score.view(torch.int32), got.sel_score.view(torch.int32))):
+        raise AssertionError(f"K6 B={K6_BATCH}: the packed route differs "
+                             "from place_task_group_batch")
+    got = kp.PlacementResult(*(t.cpu() for t in got[:6]))
     want, plain_ms = _once_ms(torch, lambda: kp.place_task_group_batch_plain(
         arrays, pb, m), on_card)
-    out["err"] = max(out["err"], _compare(want, got,
-                                                f"K6 B={K6_BATCH}"))
+    out["err"] = max(out["err"], _compare(want, got, f"K6 B={K6_BATCH}"))
     del want, got
-    bound_ms, bound_by = _batch_bound(torch, kp, arrays, pb, m)
+    bound_ms, bound_by = _batch_bound(torch, kp, arrays, pb, m, packed=True)
+    full_bound = _batch_bound(torch, kp, arrays, pb, m)
+    ms = full_ms = None
     if on_card:
-        ms = _time_ms(lambda: kp.place_task_group_batch(arrays, pb, m), 5)
+        ms = _time_ms(packed, 5)
+        full_ms = _time_ms(full, 5)
+        peak["since phase 4"] = max(torch.cuda.max_memory_allocated(),
+                                    *peak.values())
     out["k6"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                      bound_by=bound_by, library_ms=None)
-    print(f"K6==plain B={K6_BATCH} M={m}: kernel {ms:.4f} ms per dispatch "
-          f"({ms / K6_BATCH:.6f} a program), plain {plain_ms:.1f} ms, "
-          f"bound {bound_ms:.6f} ms ({bound_by}); peak device memory "
-          + (f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
-             if on_card else "not measured"))
+    out["k6_full"] = dict(ms=full_ms, bound=full_bound)
+    gib = {k: f"{v / 2**30:.2f} GiB" for k, v in peak.items()}
+    print(f"K6==plain B={K6_BATCH} M={m}: packed route (place_packed_batch) "
+          + (f"{ms:.4f} ms per dispatch ({ms / K6_BATCH:.6f} a program)"
+             if ms is not None else "not timed")
+          + f", bound {bound_ms:.6f} ms ({bound_by}); full-carry route "
+          f"(place_task_group_batch) "
+          + (f"{full_ms:.4f} ms" if full_ms is not None else "not timed")
+          + f", bound {full_bound[0]:.6f} ms ({full_bound[1]}); packed "
+          f"sel_idx and sel_score bitwise the full route's; plain "
+          f"{plain_ms:.1f} ms; peak device memory: packed route "
+          f"{gib.get('packed', 'not measured')}, full-carry route "
+          f"{gib.get('full', 'not measured')}, phases 4 to 9 (a) "
+          f"{gib.get('since phase 4', 'not measured')}")
     print(f"phase 9 (a) took {time.perf_counter() - t0:.1f} s")
     return stack, arrays, out
 
@@ -1974,6 +2058,491 @@ def _phase9_shard(torch, kp, arrays, small, device=None):
     return out
 
 
+# ---- phase 10: the server on a device mesh (B10-B13); C1 at 65,536 programs ----
+
+#: four shards of the card in two mesh shapes (the kernels line reads the
+#: first)
+MESH_SHAPES = ((1, 4), (2, 2))
+#: (a): programs of the sharded chain, the phase-3 mix as phase 5 runs it
+CHAIN_MIX = ("binpack", "constraint", "affinity", "spread_targets",
+             "distinct_hosts", "distinct_property", "ports", "delta_penalty")
+#: (b): service evals through each server, all queued before start()
+MESH_EVALS = 64
+#: (d): programs of one dispatch past gridDim.y's 65,535, tiled from 16
+TILED_COPIES = 4096
+
+
+def _mesh4(torch, shape, device=None):
+    """A mesh of four shards over the cards (repeating a card when there
+    are fewer than four), or over `device`."""
+    from nomad_tpu_torch.parallel import make_mesh
+
+    on_card = device is None or torch.device(device).type == "cuda"
+    count = torch.cuda.device_count() if on_card else 4
+    devs = ([f"cuda:{i % count}" for i in range(4)] if on_card
+            else [device] * 4)
+    return make_mesh(4, batch=shape[0], devices=devs)
+
+
+def _phase10_routes(torch, kp, ks, arrays, chain, single, sysp, device=None):
+    """(a) B10, B11 and B12 on four shards, meshes (1, 4) and (2, 2): each
+    against its plain version on the same shards and against the
+    unsharded kernel on the whole view (K4, K1, K2); indices, counts and
+    masks equal, floats within TOL. Timed (host clock with the card
+    synced: a dispatch is many launches and copies), with the host calls
+    of one dispatch. `chain` = (packed buffers, spec, max_allocs, stacked
+    programs), `single` = (program, max_allocs), `sysp` a system
+    program."""
+    from nomad_tpu_torch.parallel import shard_cluster
+
+    on_card = device is None or torch.device(device).type == "cuda"
+    bufs, spec, m, stacked = chain
+    p1, m1 = single
+    out = {"err": dict.fromkeys(("chain", "single", "system"), 0.0)}
+    cpu_batch = kp.TGParams(*(t.cpu() for t in stacked))
+    bounds = {
+        "chain": _bound_of([_bound_parts(arrays, kp._program(cpu_batch, b),
+                                         m, own_carry=False)
+                            for b in range(cpu_batch.n_place.shape[0])],
+                           arrays),
+        "single": _bound(arrays, p1, m1),
+        "system": _k2_bound(arrays, sysp)}
+    for shape in MESH_SHAPES:
+        sc = shard_cluster(arrays, _mesh4(torch, shape, device))
+        calls = {}
+        for explain in (False, True):
+            got = kp.place_packed_chain(sc, *bufs, spec, m, explain=explain)
+            calls["chain"] = ks.host_calls()
+            plain = kp._flat_outputs(ks.sharded_chain_plain(
+                sc, kp._unpack_params(*bufs, spec), m, explain)[0], explain)
+            k4 = kp.place_packed_chain(arrays, *bufs, spec, m,
+                                       explain=explain)
+            for want, what in ((plain, "plain"), (k4, "K4")):
+                out["err"]["chain"] = max(out["err"]["chain"], _compare_flat(
+                    (want, ()), (got, ()), f"B10 {shape} vs {what}",
+                    explain))
+        got = kp.place_task_group(sc, p1, m1, explain=True)
+        calls["single"] = ks.host_calls()
+        plain = ks.sharded_task_group_plain(sc, p1, m1, True)
+        for want, what in ((plain, "plain"),
+                           (kp.place_task_group(arrays, p1, m1, True), "K1")):
+            out["err"]["single"] = max(out["err"]["single"], _compare(
+                want, got, f"B11 {shape} vs {what}"))
+        got = kp.system_feasibility(sc, sysp)
+        for want, what in ((ks.sharded_system_plain(sc, sysp), "plain"),
+                           (kp.system_feasibility(arrays, sysp), "K2")):
+            for a, b, name in zip(want, got, ("feasible", "fits")):
+                if b.dtype != torch.bool or not torch.equal(a.cpu(), b.cpu()):
+                    raise AssertionError(f"B12 {shape}: {name} differs from "
+                                         f"{what}")
+                out["err"]["system"] = max(out["err"]["system"],
+                                           _max_diff(a, b))
+        fns = {
+            "chain": (lambda: kp.place_packed_chain(sc, *bufs, spec, m,
+                                                    explain=True),
+                      lambda: ks.sharded_chain_plain(
+                          sc, kp._unpack_params(*bufs, spec), m, True)),
+            "single": (lambda: kp.place_task_group(sc, p1, m1, True),
+                       lambda: ks.sharded_task_group_plain(sc, p1, m1,
+                                                           True)),
+            "system": (lambda: kp.system_feasibility(sc, sysp),
+                       lambda: ks.sharded_system_plain(sc, sysp))}
+        for route, (kernel, plain_fn) in fns.items():
+            ms = _host_ms(torch, kernel, 3) if on_card else None
+            _w, plain_ms = _once_ms(torch, plain_fn, on_card)
+            bound_ms, bound_by = bounds[route]
+            out.setdefault(shape, {})[route] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+            unsharded = {"chain": "K4", "single": "K1", "system": "K2"}
+            print(f"phase 10 (a) {route} {shape}: == plain == unsharded "
+                  f"({unsharded[route]}), max_abs_err {out['err'][route]}; "
+                  + (f"{ms:.4f} ms a dispatch" if ms is not None
+                     else "not timed")
+                  + f"; plain {plain_ms:.1f} ms; bound {bound_ms:.6f} ms "
+                  f"({bound_by}); host calls a dispatch "
+                  f"{calls.get(route, 'one K2 launch a shard')}"
+                  + ("; the four shards share one card" if on_card and
+                     torch.cuda.device_count() == 1 else ""))
+    return out
+
+
+def _phase10_view(torch, kr, cl, nodes, rng, device=None):
+    """(a) B13: the view cache under a (2, 2) mesh keeps a sharded view
+    and refreshes it with K7 per shard. Rounds of churn on the phase-3
+    cluster; every K7 call the refresh made is replayed on a CPU copy of
+    the shards (the plain version) and, with its global rows, on an
+    unsharded copy of the view (K7 on the whole view): the fields K7
+    writes equal both in every copy of every shard, and every field a
+    cold upload, bitwise. Then K7's hot part at 64 rows on the shards is
+    timed against its plain version."""
+    import numpy as np
+
+    from nomad_tpu_torch.convert import tensor_from_numpy
+    from nomad_tpu_torch.kernels.placement import ClusterArrays
+    from nomad_tpu_torch.parallel import set_active_mesh
+    from nomad_tpu_torch.parallel.mesh import copy_fields, shard_copies
+    from nomad_tpu_torch.scheduler import stack as stack_mod
+    from nomad_tpu_torch.scheduler.stack import TorchStack
+
+    dev = torch.device(device or "cuda")
+    on_card = dev.type == "cuda"
+    names = ("hot_rows_update_sharded", "port_rows_update_sharded",
+             "port_words_update_sharded")
+    real = {n: getattr(stack_mod, n) for n in names}
+    calls = []
+
+    def recorder(name):
+        def run(bufs, rows, *host):
+            calls.append((name, rows, host))
+            return real[name](bufs, rows, *host)
+        return run
+
+    def fields(sc, to=None):
+        """Per field {(device, node shard): tensor} of a sharded view (a
+        copy on `to` when given)."""
+        return ClusterArrays(*({k: t if to is None else t.to(to, copy=True)
+                                for k, t in f.items()}
+                               for f in copy_fields(sc)))
+
+    def staged(a):
+        return tensor_from_numpy(np.ascontiguousarray(a), dev)
+
+    set_active_mesh(_mesh4(torch, (2, 2), device))
+    try:
+        stack = TorchStack(cl, device=dev)
+        sc = stack.device_arrays()
+        plain = fields(sc, "cpu")
+        flat = sc.full()
+        flat = ClusterArrays(*(t.clone() for t in flat))
+        kr.reset_sharded_delta_launch_count()
+        for n in names:
+            setattr(stack_mod, n, recorder(n))
+        try:
+            live = []
+            for rnd in range(2):
+                for k in range(16):
+                    node = nodes[rng.randrange(len(nodes))]
+                    port = 9500 + rnd * 16 + k
+                    a = _port_alloc(node.id, f"mesh-{rnd}", (100, 64, 10),
+                                    [_ports_net(node, port, port + 12000)])
+                    cl.upsert_alloc(a)
+                    live.append(a)
+                for _ in range(6):
+                    a = live.pop(rng.randrange(len(live)))
+                    a.client_status = "complete"
+                    cl.upsert_alloc(a)
+                node = nodes[rng.randrange(len(nodes))]
+                node.meta = dict(node.meta or {}, mesh=str(rnd))
+                cl.upsert_node(node)
+                sc = stack.device_arrays()
+        finally:
+            for n in names:
+                setattr(stack_mod, n, real[n])
+        launches = kr.sharded_delta_launch_count()
+        for name, rows, host in calls:
+            if name == "hot_rows_update_sharded":
+                kr.hot_rows_update_sharded(
+                    (plain.used, plain.node_ok, plain.dyn_free), rows, *host)
+                kr.hot_rows_update(flat.used, flat.node_ok, flat.dyn_free,
+                                   *map(staged, host))
+            elif name == "port_rows_update_sharded":
+                kr.port_rows_update_sharded(plain.ports_used, rows, *host)
+                kr.port_rows_update(flat.ports_used, *map(staged, host))
+            else:
+                kr.port_words_update_sharded(plain.ports_used, rows, *host)
+                kr.port_words_update(flat.ports_used, *map(staged, host))
+        if on_card:
+            _sync_all(torch)
+        rows = sc.n // len(sc.row0)
+        err = 0.0
+        for (d, j), copy in shard_copies(sc).items():
+            # the fields K7 writes (a re-registration re-uploads the static
+            # ones, held against the cold upload below)
+            for f in ("used", "node_ok", "dyn_free", "ports_used"):
+                got = getattr(copy, f).cpu()
+                wants = (getattr(plain, f)[(d, j)],
+                         getattr(flat, f)[j * rows:(j + 1) * rows].cpu())
+                if not all(torch.equal(got, w) for w in wants):
+                    raise AssertionError(f"B13: copy ({d}, {j}) {f} differs "
+                                         "from plain or the unsharded K7")
+                err = max([err] + [_max_diff(w, got) for w in wants])
+        for i in range(len(sc.devices)):
+            _cold_equal(torch, ClusterArrays(*(torch.cat(
+                [getattr(c, f) for c in sc.shards[i]])
+                for f in ClusterArrays._fields)), cl,
+                f"B13 batch row {i}")
+        parts = sorted({name for name, _r, _h in calls})
+        if on_card and (launches == 0 or len(parts) < 3):
+            raise AssertionError(f"B13: {launches} sharded K7 refreshes, "
+                                 f"parts {parts}")
+        # K7's hot part at 64 rows on the shards, every copy
+        idx = np.sort(np.random.default_rng(SEED).choice(
+            cl.n_cap, 64, replace=False)).astype(np.int32)
+        host = (idx, cl.used[idx].astype(np.float32),
+                cl.node_ok[idx].astype(np.bool_),
+                cl.dyn_free[idx].astype(np.float32))
+        cur = fields(sc)
+        hot = (cur.used, cur.node_ok, cur.dyn_free)
+        phot = (plain.used, plain.node_ok, plain.dyn_free)
+        ms = (_host_ms(torch, lambda: kr.hot_rows_update_sharded(
+            hot, rows, *host), 20) if on_card else None)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            kr.hot_rows_update_sharded(phot, rows, *host)
+        plain_ms = (time.perf_counter() - t0) / 20 * 1e3
+        n_copies = len(shard_copies(sc))
+        # a hot row reads its index, used, node_ok and dyn_free values and
+        # writes the last three, once in each copy of its shard
+        row_in = 4 + cl.used.shape[1] * 4 + 1 + 4
+        bound_ms, bound_by = _bound_ms(
+            64 * (n_copies // len(sc.row0)) * (2 * row_in - 4), 0)
+        out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=None)
+        print(f"phase 10 (a) B13 (2, 2): 2 churn rounds refreshed with K7 per "
+              f"shard ({launches} K7 launches on the shards' copies, "
+              f"{len(calls)} calls: {parts}); every copy == plain == K7 on "
+              f"the unsharded view == a cold upload, bitwise (max_abs_err "
+              f"{err}); hot part at "
+              f"64 rows over {n_copies} copies "
+              + (f"{ms:.4f} ms" if ms is not None else "not timed")
+              + f", plain {plain_ms:.4f} ms, bound {bound_ms:.7f} ms "
+              f"({bound_by})")
+        return out, err
+    finally:
+        set_active_mesh(None)
+
+
+def _phase10_server(torch, kp, ks, kr, device=None):
+    """(b) The phase-6 state and mix through `Server(ServerConfig(
+    num_schedulers=1, eval_batch=16, mesh=...))`, all evals queued at once
+    (registered with the broker's leader gate closed, then restored, the
+    way `start()` restores evals registered before it; the server itself
+    starts before the ingest so that it arms no 10,000 heartbeat timer
+    threads), then one service eval alone (the single program) and a
+    system job's eval: for each mesh shape the placements, alloc by
+    alloc, must equal the same feed through `mesh=None`. Every sharded
+    chain (B10) and single (B11) dispatch of a meshed server is captured
+    (the view and programs it read, the outputs it wrote) and held
+    against its plain version on those inputs. The meshed runs are this
+    phase's main path: the launch counts of B10-B13 are set to 0 just
+    before each and read just after (summed here). Returns (the counts,
+    the max error of the captured dispatches by route)."""
+    from nomad_tpu_torch.parallel import get_active_mesh
+    from nomad_tpu_torch.scheduler import stack as stack_mod
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.synth import synth_service_job, synth_system_job
+
+    on_card = device is None or torch.device(device).type == "cuda"
+    final = ("complete", "failed", "blocked", "cancelled")
+    base = None
+    counts = dict.fromkeys(ks.ROUTES + ("view",), 0)
+    err = {"chain": 0.0, "single": 0.0}
+    # the coordinator's chain and single routes, and the stack's solo one
+    sites = ((kp, "place_packed_chain", "chain"),
+             (kp, "place_task_group", "single"),
+             (stack_mod, "place_task_group", "single"))
+    real = [getattr(mod, name) for mod, name, _r in sites]
+    records = []
+
+    def recorder(fn, route):
+        def rec(arrays, *args, **kw):
+            if not isinstance(arrays, ks.ShardedCluster):
+                return fn(arrays, *args, **kw)
+            snap = _snap(torch, (arrays,) + args)
+            res = fn(arrays, *args, **kw)
+            records.append((route, snap, kw.get("explain", False),
+                            _snap(torch, res)))
+            return res
+        return rec
+
+    def capture(on):
+        for (mod, name, route), fn in zip(sites, real):
+            setattr(mod, name, recorder(fn, route) if on else fn)
+
+    for shape in (None,) + MESH_SHAPES:
+        mesh = None if shape is None else _mesh4(torch, shape, device)
+        label = "mesh=None" if shape is None else f"mesh {shape}"
+        srng = random.Random(SEED + 5)
+        t0 = time.perf_counter()
+        s = Server(ServerConfig(num_schedulers=1, heartbeat_ttl=3600.0,
+                                eval_batch=16, mesh=mesh), device=device)
+        try:
+            # started before the ingest, as in phase 6: `start()` arms a
+            # TTL timer thread per node already in the state, 10,000 here
+            s.start()
+            _ingest(s, srng)
+            jobs, dh = _mix(srng, MESH_EVALS)
+            # every eval queued at once: registered while the broker's
+            # leader gate is closed, then restored together, as `start()`
+            # restores the evals registered before it
+            s.broker.set_enabled(False)
+            evs = [s.job_register(j) for j in jobs]
+            ingest_s = time.perf_counter() - t0
+            records.clear()
+            capture(True)
+            ks.reset_route_launch_counts()
+            kr.reset_sharded_delta_launch_count()
+            start = time.time()
+            s.broker.set_enabled(True)
+            s._restore_evals()
+            done = [s.wait_for_eval(ev.id, statuses=final, timeout=600.0)
+                    for ev in evs]
+            if any(d is None or d.status != "complete" for d in done):
+                raise AssertionError(
+                    f"{label}: {[d and d.status for d in done]}")
+            lat = sorted(d.modify_time - start for d in done)
+            span = lat[-1]
+            deadline = time.time() + 10.0
+            while s.workers[0].batch_stats.get("evals", 0) < MESH_EVALS \
+                    and time.time() < deadline:
+                time.sleep(0.01)   # the worker's counters land last
+            stats = dict(s.workers[0].batch_stats)
+            one = synth_service_job(srng, count=3)
+            got = s.wait_for_eval(s.job_register(one).id, statuses=final,
+                                  timeout=600.0)
+            sysj = synth_system_job(srng)
+            got2 = s.wait_for_eval(s.job_register(sysj).id, statuses=final,
+                                   timeout=600.0)
+            if got is None or got.status != "complete" or got2 is None \
+                    or got2.status != "complete":
+                raise AssertionError(f"{label}: lone eval {got}, system "
+                                     f"{got2}")
+            run_counts = dict(ks.route_launch_counts(),
+                              view=kr.sharded_delta_launch_count())
+            capture(False)
+            names = {nid: nd.name for nid, nd in s.state._nodes.items()}
+            placed = {}
+            for ji, j in enumerate(jobs + [one, sysj]):
+                allocs = s.state.allocs_by_job("default", j.id)
+                if ji < len(jobs) and (len(allocs) != 10 or (
+                        dh[ji] and len({a.node_id for a in allocs}) != 10)):
+                    raise AssertionError(f"{label}: job {ji} placed "
+                                         f"{len(allocs)}/10")
+                for a in allocs:
+                    placed[(ji, a.name.rsplit("[", 1)[1])] = names[a.node_id]
+            n_sys = len(s.state.allocs_by_job("default", sysj.id))
+        finally:
+            capture(False)
+            s.shutdown()
+        if get_active_mesh() is not None:
+            raise AssertionError("the server left its mesh installed")
+        q = lambda f: lat[min(int(f * len(lat)), len(lat) - 1)]  # noqa: E731
+        disp = stats.get("dispatches", 0)
+        print(f"phase 10 (b) server {label}: ingest + {MESH_EVALS} evals "
+              f"queued in {ingest_s:.1f} s; {MESH_EVALS} evals in "
+              f"{span:.3f} s from their release, {MESH_EVALS / span:.2f} "
+              f"evals/s, latency from the release p50 {q(0.5) * 1e3:.1f} ms, "
+              f"p99 "
+              f"{q(0.99) * 1e3:.1f} ms; {disp} dispatches of "
+              f"{stats.get('programs', 0)} programs, "
+              f"{stats.get('dispatch_ms', 0.0) / max(disp, 1):.1f} ms a "
+              f"dispatch on the coordinator; then a lone eval and a system "
+              f"eval ({n_sys} allocs); sharded launches {run_counts}")
+        if shape is None:
+            base = placed
+            continue
+        for k, n in run_counts.items():
+            counts[k] += n
+        if set(base) != set(placed) or any(base[k] != placed[k]
+                                           for k in base):
+            diff = sorted(k for k in base if base.get(k) != placed.get(k))
+            raise AssertionError(f"{label}: the meshed server places "
+                                 f"differently: {len(diff)} allocs, e.g. "
+                                 f"{diff[:4]}")
+        if on_card and not all(run_counts.values()):
+            raise AssertionError(f"{label}: a sharded route never launched "
+                                 f"on the meshed server: {run_counts}")
+        t1 = time.perf_counter()
+        shapes = []
+        for i, (route, args, explain, res) in enumerate(records):
+            what = f"{label} {route} dispatch {i}"
+            if route == "chain":
+                sc, ib, fb, ub, spec, m = args
+                batch = kp._unpack_params(ib, fb, ub, spec)
+                want = kp._flat_outputs(ks.sharded_chain_plain(
+                    sc, batch, m, explain)[0], explain)
+                err[route] = max(err[route], _compare_flat(
+                    (want, ()), (res, ()), what, explain))
+                shapes.append(f"P={batch.n_place.shape[0]} M={m}")
+            else:
+                sc, p, m = args
+                want = ks.sharded_task_group_plain(sc, p, m, explain)
+                err[route] = max(err[route], _compare(want, res, what))
+                shapes.append(f"single M={m}")
+        if not any(r == "chain" for r, *_x in records):
+            raise AssertionError(f"{label}: no sharded chain dispatch")
+        records.clear()
+        print(f"phase 10 (b) {label}: {len(placed)} allocs placed alike "
+              f"with and without the mesh; {len(shapes)} captured sharded "
+              f"dispatches ({', '.join(shapes)}) == plain on the inputs "
+              f"they read, max_abs_err {err} "
+              f"({time.perf_counter() - t1:.1f} s)")
+    return counts, err
+
+
+def _tiled(kp, small, copies):
+    import numpy as np
+
+    return kp.TGParams(*(np.tile(np.asarray(f), (copies,) + (1,) * (
+        np.asarray(f).ndim - 1)) for f in small))
+
+
+def _phase10_limits(torch, kp, ks, device=None):
+    """(d) C1: one K6 dispatch and one K9 batch row of 65,536 programs on a
+    64-row view (16 distinct programs tiled): every copy equal to the
+    plain result of its original. C2: the packed route's (sel_idx,
+    sel_score) bitwise the full-carry route's."""
+    from nomad_tpu_torch.convert import params_from_numpy, tensor_from_numpy
+    from nomad_tpu_torch.parallel import shard_cluster
+    from nomad_tpu_torch.parallel.pad import stack_params
+    from nomad_tpu_torch.scheduler.stack import TorchStack
+    from nomad_tpu_torch.synth import build_synthetic_state
+
+    dev = torch.device(device or "cuda")
+    t0 = time.perf_counter()
+    state, _nodes = build_synthetic_state(48, 200, seed=SEED)
+    stack = TorchStack(state.cluster, device=dev)
+    jobs = _bench_jobs(state, random.Random(SEED + 9), 16, 3)
+    small, m = stack_params([stack.compile_tg(j, j.task_groups[0], 3)[0]
+                             for j in jobs])
+    big = _tiled(kp, small, TILED_COPIES)
+    arrays = stack.device_arrays()
+    b = TILED_COPIES * 16
+
+    def same(want, got, fields, what):
+        for f in fields:
+            w, g = getattr(want, f).cpu(), getattr(got, f).cpu()
+            g = g.reshape((-1,) + tuple(w.shape))
+            if not torch.equal(g, w.expand_as(g).to(g.dtype)):
+                raise AssertionError(f"{what}: {f} of a copy differs from "
+                                     "its original's plain result")
+
+    want = kp.place_task_group_batch_plain(arrays, params_from_numpy(
+        small, dev), m)
+    got = kp.place_task_group_batch(arrays, params_from_numpy(big, dev), m)
+    ibuf, fbuf, ubuf, spec = kp.pack_params(big)
+    bufs = [tensor_from_numpy(x, dev) for x in (ibuf, fbuf, ubuf)]
+    sel, score = kp.place_packed_batch(arrays, *bufs, spec, m)
+    same(want, got, ("sel_idx", "nodes_feasible", "nodes_fit", "sel_score",
+                     "new_used"), f"K6 B={b}")
+    if not (torch.equal(sel, got.sel_idx) and torch.equal(
+            score.view(torch.int32), got.sel_score.view(torch.int32))):
+        raise AssertionError(f"K6 B={b}: the packed route differs from the "
+                             "full-carry route")
+    del got
+    sc = shard_cluster(arrays, _mesh4(torch, (1, 4), device))
+    want9, _f = ks.sharded_place_plain(sc, small, m)
+    got9, _f = ks.sharded_place(sc, big, m)
+    same(want9, got9, ("sel_idx", "nodes_feasible", "nodes_fit",
+                       "sel_score"), f"K9 B={b}")
+    print(f"phase 10 (d) C1: K6 (both routes) and one K9 batch row of {b} "
+          f"programs on {arrays.capacity.shape[0]} rows, every copy equal to "
+          f"the plain result of its original; C2: the packed route's "
+          f"sel_idx and sel_score bitwise the full-carry route's "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> int:
     import torch
 
@@ -1983,20 +2552,20 @@ def main() -> int:
         return 1
 
     from nomad_tpu_torch import mock
-    from nomad_tpu_torch.convert import params_from_numpy
+    from nomad_tpu_torch.convert import params_from_numpy, tensor_from_numpy
     from nomad_tpu_torch.kernels import _build
     from nomad_tpu_torch.kernels import placement as kp
     from nomad_tpu_torch.kernels import preemption as kpre
     from nomad_tpu_torch.kernels import rows as kr
     from nomad_tpu_torch.kernels import shard as ks
-    from nomad_tpu_torch.parallel.pad import pad_params
+    from nomad_tpu_torch.parallel.pad import pad_params, stack_params
     from nomad_tpu_torch.scheduler import stack as stack_mod
     from nomad_tpu_torch.scheduler.harness import Harness
     from nomad_tpu_torch.scheduler.stack import PlanContext, TorchStack
     from nomad_tpu_torch.structs import (Constraint, Evaluation,
                                          NetworkResource, Port, Spread)
     from nomad_tpu_torch.synth import (build_synthetic_state,
-                                       synth_service_job)
+                                       synth_service_job, synth_system_job)
 
     # ---- 1. the card ----
     kind = torch.cuda.get_device_name(0)
@@ -2257,6 +2826,30 @@ def main() -> int:
                                                   rng, smi[0])
     k9 = _phase9_shard(torch, kp, arrays9, k6["small"])
 
+    # ---- 10. the server on a device mesh (B10-B13); C1 and C2 ----
+    t0 = time.perf_counter()
+    progs = [st.compile_tg(j, j.task_groups[0], n_place, plan)[0]
+             for st, j, n_place, plan, _rows in (cases[c] for c in CHAIN_MIX)]
+    stacked, m10 = stack_params(progs)
+    ibuf, fbuf, ubuf, spec10 = kp.pack_params(stacked)
+    bufs10 = [tensor_from_numpy(b, torch.device("cuda"))
+              for b in (ibuf, fbuf, ubuf)]
+    st_aff, j_aff = cases["affinity"][0], cases["affinity"][1]
+    (p_aff,), m_aff = pad_params([st_aff.compile_tg(j_aff, j_aff.task_groups[0],
+                                                    10)[0]])
+    sysj = synth_system_job(rng)
+    (p_sys,), _m = pad_params([binpack.compile_tg(sysj, sysj.task_groups[0],
+                                                  1)[0]])
+    routes = _phase10_routes(
+        torch, kp, ks, binpack.device_arrays(),
+        (bufs10, spec10, m10, params_from_numpy(stacked, "cuda")),
+        (params_from_numpy(p_aff, "cuda"), m_aff),
+        params_from_numpy(p_sys, "cuda"))
+    view13, view_err = _phase10_view(torch, kr, cl, nodes, rng)
+    counts10, server10 = _phase10_server(torch, kp, ks, kr)
+    _phase10_limits(torch, kp, ks)
+    print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+
     print(json.dumps({"kernels": [{
         "name": "place_task_group",
         "route": "cuda",
@@ -2318,10 +2911,10 @@ def main() -> int:
         "max_abs_err": sys8["k3_err"],
         **sys8["k3"],
     }, {
-        "name": "place_task_group_batch",
+        "name": "place_packed_batch",
         "route": "cuda",
         "source": "nomad_tpu_torch/kernels/csrc/chain.cu",
-        "replaces": "nomad_tpu/kernels/placement.py:945",
+        "replaces": "nomad_tpu/kernels/placement.py:744",
         "launches": k6_launches,
         "max_abs_err": max(k6["err"], bench_err),
         **k6["k6"],
@@ -2333,6 +2926,38 @@ def main() -> int:
         "launches": k9["launches"],
         "max_abs_err": k9["err"],
         **k9[(1, 4)],
+    }, {
+        "name": "place_packed_chain_sharded",
+        "route": "cuda",
+        "source": "nomad_tpu_torch/kernels/csrc/shard.cu",
+        "replaces": "nomad_tpu/kernels/placement.py:802",
+        "launches": counts10["chain"],
+        "max_abs_err": max(routes["err"]["chain"], server10["chain"]),
+        **routes[MESH_SHAPES[0]]["chain"],
+    }, {
+        "name": "place_task_group_sharded",
+        "route": "cuda",
+        "source": "nomad_tpu_torch/kernels/csrc/shard.cu",
+        "replaces": "nomad_tpu/kernels/placement.py:345",
+        "launches": counts10["single"],
+        "max_abs_err": max(routes["err"]["single"], server10["single"]),
+        **routes[MESH_SHAPES[0]]["single"],
+    }, {
+        "name": "system_feasibility_sharded",
+        "route": "cuda",
+        "source": "nomad_tpu_torch/kernels/csrc/system.cu",
+        "replaces": "nomad_tpu/kernels/placement.py:957",
+        "launches": counts10["system"],
+        "max_abs_err": routes["err"]["system"],
+        **routes[MESH_SHAPES[0]]["system"],
+    }, {
+        "name": "view_row_delta_sharded",
+        "route": "cuda",
+        "source": "nomad_tpu_torch/kernels/csrc/rows.cu",
+        "replaces": "nomad_tpu/scheduler/stack.py:115",
+        "launches": counts10["view"],
+        "max_abs_err": view_err,
+        **view13,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import functools
 import random
+import time
 from typing import NamedTuple, Optional, Sequence
 
 from .device import DeviceLike, resolve_device
@@ -65,13 +66,17 @@ class DryRun(NamedTuple):
     max_allocs: int
     new_cluster: object   # the advanced sharded view
     result: object        # PlacementResult, [evals, ...]
+    server_stats: dict    # the meshed server's worker batch stats
 
 
 def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None,
                      batch: Optional[int] = None) -> DryRun:
     """Run one sharded scheduler step on an n-device mesh over `devices`
     (default: the visible cards; `batch` as `make_mesh` takes it) and
-    check it placed something."""
+    check it placed something; then the live server on the same mesh
+    (broker → worker batch drain → coordinator → the sharded chain →
+    plan apply): 32 nodes and 8 service jobs of count 2 must give 16
+    allocs through the batch path. The mesh is uninstalled at the end."""
     import torch
 
     from .parallel import (make_mesh, scheduler_step, shard_cluster,
@@ -100,4 +105,42 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None,
     assert placed > 0, "dry run placed nothing"
     print(f"dryrun_multichip: mesh={mesh.shape} evals={n_evals} "
           f"placed={placed}/{n_evals * m}")
-    return DryRun(mesh, cluster, batched, m, new_cluster, result)
+
+    # ---- the server path: the live control plane on the mesh, its view
+    # cache sharded because the Server installed the mesh
+    from .parallel import set_active_mesh
+    from .server import Server, ServerConfig
+    from .synth import synth_node, synth_service_job
+
+    rng = random.Random(23)
+    srv = Server(ServerConfig(num_schedulers=1, heartbeat_ttl=3600.0,
+                              eval_batch=8, mesh=mesh), device=lead)
+    try:
+        for i in range(32):
+            srv.state.upsert_node(synth_node(rng, i))
+        jobs = [synth_service_job(rng, count=2) for _ in range(8)]
+        evs = [srv.job_register(j) for j in jobs]
+        srv.start()
+        for ev in evs:
+            got = srv.wait_for_eval(
+                ev.id, statuses=("complete", "failed", "blocked",
+                                 "cancelled"), timeout=180.0)
+            assert got is not None and got.status == "complete", got
+        n_allocs = sum(1 for j in jobs
+                       for _a in srv.state.allocs_by_job("default", j.id))
+        assert n_allocs == 16, f"expected 16 allocs, got {n_allocs}"
+        # the worker writes its batch counters after the batch's evals
+        # complete
+        deadline = time.time() + 10.0
+        while not srv.workers[0].batch_stats.get("evals") \
+                and time.time() < deadline:
+            time.sleep(0.01)
+        wstats = dict(srv.workers[0].batch_stats)
+        assert wstats.get("batched", 0) > 0, (
+            f"fused chain path did not engage: {wstats}")
+        print(f"dryrun_multichip server path: 8 jobs -> {n_allocs} allocs, "
+              f"worker batch stats {wstats}")
+    finally:
+        srv.shutdown()
+        set_active_mesh(None)
+    return DryRun(mesh, cluster, batched, m, new_cluster, result, wstats)

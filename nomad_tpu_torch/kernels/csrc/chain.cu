@@ -17,10 +17,17 @@
 //       program each with no fold (`nomad_place_batch`): the static grid
 //       over every program, then one scan block per program, B blocks on
 //       the card's 132 SMs at once; each lane carry is its program's
-//       new_used. The scan also updates the lane's dyn_free carry, which
-//       nothing reads here. Per program it keeps N·R + N floats of carry
-//       and about 40 bytes a row of scratch (≈ 1.2 MB at N = 16384,
-//       R = 8); B ≤ 65535 (gridDim.y of the static grid).
+//       new_used, which `place_task_group_batch` returns. The packed route
+//       (`nomad_place_batch_pooled`) returns only (sel_idx, sel_score), as
+//       the reference's does, so it keeps no [B, N, R] carry: its scan
+//       grid is one block per resident block (one an SM), each looping
+//       over programs g, g + slots, ... in a carry slot of its own
+//       (`batch_scan`), and the view's dyn_free is read, not copied. Per
+//       program it keeps about 31 bytes a row of static scratch; per slot
+//       N·R floats of carry, the lane scratch and the unread step-0 score
+//       vector. A slot is copied from the view once; after each program
+//       only the at most D + M rows it wrote go back. Any B: the static grids run in chunks of 65535 programs
+//       (gridDim.y).
 //
 // The programs arrive as an array of `PlaceArgs` in device memory, one per
 // program, lane-major ([L][P]). The host builds them: each program field
@@ -108,47 +115,43 @@ chain_scan(const PlaceArgs* progs, int p_per_lane, LaneArgs L) {
     const int prog = lane * p_per_lane + b;
     __syncthreads();  // the carry and the previous program are settled
     load_args(&A, progs + prog);
-
-    // carry-dependent half of the static pass
-    for (int n = tid; n < N; n += nt) A.dyn[n] = adjusted_dyn(A, n, dyn_c[n]);
-    for (int t = tid; t < A.d; t += nt) {
-      const int row = A.delta_idx[t];
-      if (row < 0 || row >= N) continue;
-      bool first = true;
-      for (int q = 0; q < t; ++q) first = first && A.delta_idx[q] != row;
-      if (!first) continue;  // the row's first delta subtracts them all
-      for (int r = 0; r < R; ++r) {
-        float dsum = 0.0f;
-        for (int i = 0; i < A.d; ++i)
-          if (A.delta_idx[i] == row)
-            dsum = dsum + A.delta_res[(size_t)i * R + r];
-        used_c[(size_t)row * R + r] = used_c[(size_t)row * R + r] - dsum;
-      }
-    }
-    __syncthreads();
-
-    scan_program(A, smem_raw);  // ends with a barrier
-
-    // dyn_free carry: dyn − placed · n_dyn on the rows this program took
-    if (tid == 0) {
-      const float n_dyn = *A.n_dyn;
-      for (int i = 0; i < A.m; ++i) {
-        const int row = A.sel_idx[i];
-        if (row < 0) continue;
-        bool first = true;
-        float placed = 0.0f;
-        for (int q = 0; q < A.m; ++q) {
-          if (A.sel_idx[q] != row) continue;
-          if (q < i) first = false;
-          placed = placed + 1.0f;
-        }
-        if (first) dyn_c[row] = dyn_c[row] - placed * n_dyn;
-      }
-    }
+    carry_in(A, used_c, dyn_c);  // the carry-dependent half of the static pass
+    scan_program(A, smem_raw);   // ends with a barrier
+    if (tid == 0) carry_out_dyn(A, A.sel_idx, dyn_c);
     if (L.used_snap != nullptr) {
       __syncthreads();
       float* snap = L.used_snap + (size_t)prog * N * R;
       for (int i = tid; i < N * R; i += nt) snap[i] = used_c[i];
+    }
+  }
+}
+
+// K6's packed route: `gridDim.x` blocks (the resident blocks, one an SM),
+// block g running programs g, g + gridDim.x, ... in turn, each from the
+// view in slot g's carry (the programs' PlaceArgs point their lane fields
+// at slot k mod gridDim.x). The slot is copied from the view once; after
+// each program only the rows it wrote (its deltas' rows in carry_in, its
+// placements' rows in take_row) are copied back from the view, so the
+// next program starts from the view again. Nothing reads the carries
+// afterwards, so no [B, N, R] carry and no lane dyn_free exist.
+__global__ void __launch_bounds__(SCAN_THREADS, 1)
+batch_scan(const PlaceArgs* progs, int b_total, LaneArgs L) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(16) PlaceArgs A;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int N = L.n, R = L.r;
+  float* used_c = L.used_l + (size_t)blockIdx.x * N * R;
+  for (int i = tid; i < N * R; i += nt) used_c[i] = L.used0[i];
+  for (int prog = blockIdx.x; prog < b_total; prog += gridDim.x) {
+    __syncthreads();  // the slot holds the view again
+    load_args(&A, progs + prog);
+    carry_in(A, used_c, L.dyn0);
+    scan_program(A, smem_raw);  // ends with a barrier: sel_idx is written
+    for (int t = tid; t < A.d + A.m; t += nt) {
+      const int row = t < A.d ? A.delta_idx[t] : A.sel_idx[t - A.d];
+      if (row < 0 || row >= N) continue;
+      for (int r = 0; r < R; ++r)
+        used_c[(size_t)row * R + r] = L.used0[(size_t)row * R + r];
     }
   }
 }
@@ -186,6 +189,30 @@ const char* nomad_chain_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// chain_static over programs [0, b), in chunks of at most MAX_GRID_Y
+// programs (gridDim.y).
+static cudaError_t launch_static(const PlaceArgs& A0, const PlaceArgs* dev,
+                                 int b, cudaStream_t st) {
+  const int gx = (A0.n + STATIC_THREADS - 1) / STATIC_THREADS;
+  for (int y0 = 0; y0 < b; y0 += MAX_GRID_Y) {
+    dim3 grid(gx, b - y0 < MAX_GRID_Y ? b - y0 : MAX_GRID_Y);
+    chain_static<<<grid, STATIC_THREADS, 0, st>>>(dev + y0);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+static cudaError_t scan_smem(const PlaceArgs& A0, const void* kernel,
+                             size_t* shm) {
+  *shm = smem_bytes(A0);
+  if (*shm + sizeof(PlaceArgs) > 48 * 1024)
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)*shm);
+  return cudaSuccess;
+}
+
 // Enqueues one dispatch on `stream`: the static grid over every program,
 // the lane chains, and with fold != 0 the wave fold. `args0` is the host
 // copy of program 0's arguments (every program shares its shapes, so its
@@ -198,20 +225,15 @@ int nomad_place_lanes(const PlaceArgs* args0, const void* progs, int lanes,
   const LaneArgs L = *lane_args;
   cudaStream_t st = (cudaStream_t)stream;
   if (A0.n <= 0 || A0.r < 2 || lanes <= 0 || p_per_lane <= 0 ||
-      L.n != A0.n || L.r != A0.r || lanes * p_per_lane > 65535)
+      L.n != A0.n || L.r != A0.r ||
+      (long long)lanes * p_per_lane > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const PlaceArgs* dev = (const PlaceArgs*)progs;
-  dim3 grid((A0.n + STATIC_THREADS - 1) / STATIC_THREADS, lanes * p_per_lane);
-  chain_static<<<grid, STATIC_THREADS, 0, st>>>(dev);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_static(A0, dev, lanes * p_per_lane, st);
   if (err != cudaSuccess) return (int)err;
-  size_t shm = smem_bytes(A0);
-  if (shm + sizeof(PlaceArgs) > 48 * 1024) {
-    err = cudaFuncSetAttribute(chain_scan,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)shm);
-    if (err != cudaSuccess) return (int)err;
-  }
+  size_t shm;
+  err = scan_smem(A0, (const void*)chain_scan, &shm);
+  if (err != cudaSuccess) return (int)err;
   chain_scan<<<lanes, SCAN_THREADS, shm, st>>>(dev, p_per_lane, L);
   err = cudaGetLastError();
   if (err != cudaSuccess || !fold) return (int)err;
@@ -225,6 +247,28 @@ int nomad_place_lanes(const PlaceArgs* args0, const void* progs, int lanes,
 int nomad_place_batch(const PlaceArgs* args0, const void* progs, int b,
                       const LaneArgs* lane_args, void* stream) {
   return nomad_place_lanes(args0, progs, b, 1, lane_args, 0, stream);
+}
+
+// K6's packed route: the static grid over every program, then `slots`
+// scan blocks taking the `b` programs in turn (batch_scan); `lane_args`
+// holds `slots` carries. Returns cudaGetLastError() (0 = ok).
+int nomad_place_batch_pooled(const PlaceArgs* args0, const void* progs,
+                             int b, int slots, const LaneArgs* lane_args,
+                             void* stream) {
+  const PlaceArgs& A0 = *args0;
+  const LaneArgs L = *lane_args;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (A0.n <= 0 || A0.r < 2 || b <= 0 || slots <= 0 || slots > b ||
+      L.n != A0.n || L.r != A0.r)
+    return (int)cudaErrorInvalidValue;
+  const PlaceArgs* dev = (const PlaceArgs*)progs;
+  cudaError_t err = launch_static(A0, dev, b, st);
+  if (err != cudaSuccess) return (int)err;
+  size_t shm;
+  err = scan_smem(A0, (const void*)batch_scan, &shm);
+  if (err != cudaSuccess) return (int)err;
+  batch_scan<<<slots, SCAN_THREADS, shm, st>>>(dev, b, L);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,10 +1,12 @@
 // Shared device code of the placement kernels for Hopper (sm_90a):
 // the argument block of one placement program (`PlaceArgs`), the per-row
-// static pass, the block-wide argmax and the M-step scan of one program.
-// `placement.cu` (K1, one program) and `chain.cu` (K4/K5, chains of
-// programs in lanes) include it, and `system.cu` (K2) and `preempt.cu`
-// (K3) reuse its per-row helpers. What each computes, and what bounds
-// it, is told in those files.
+// static pass, the carry-dependent half of it against a chain's carry
+// (`carry_in`, `carry_out_dyn`), the block-wide argmax and the M-step scan
+// of one program. `placement.cu` (K1, one program), `chain.cu` (K4/K5,
+// chains of programs in lanes; K6) and `shard.cu` (K9 and the sharded
+// chain B10/B11) include it, and `system.cu` (K2) and `preempt.cu` (K3)
+// reuse its per-row helpers. What each computes, and what bounds it, is
+// told in those files.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -222,6 +224,54 @@ __device__ __forceinline__ void static_row_carry(const PlaceArgs& A, int n) {
   for (int r = 0; r < A.r; ++r)
     A.new_used[(size_t)n * A.r + r] = used0_at(A, n, r);
   A.dyn[n] = adjusted_dyn(A, n, A.dyn_free[n]);
+}
+
+// The carry-dependent half of the static pass against a carry, by the
+// whole block: A.dyn from the carried dyn_free `dyn_c` with the plan's
+// port credits and debits, and the plan's resource deltas subtracted from
+// the carried used rows `used_c` in place (a row's deltas summed first, in
+// delta order, then subtracted once — used0_at's arithmetic). Ends with a
+// barrier.
+__device__ __forceinline__ void carry_in(const PlaceArgs& A, float* used_c,
+                                         const float* dyn_c) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int N = A.n, R = A.r;
+  for (int n = tid; n < N; n += nt) A.dyn[n] = adjusted_dyn(A, n, dyn_c[n]);
+  for (int t = tid; t < A.d; t += nt) {
+    const int row = A.delta_idx[t];
+    if (row < 0 || row >= N) continue;
+    bool first = true;
+    for (int q = 0; q < t; ++q) first = first && A.delta_idx[q] != row;
+    if (!first) continue;  // the row's first delta subtracts them all
+    for (int r = 0; r < R; ++r) {
+      float dsum = 0.0f;
+      for (int i = 0; i < A.d; ++i)
+        if (A.delta_idx[i] == row)
+          dsum = dsum + A.delta_res[(size_t)i * R + r];
+      used_c[(size_t)row * R + r] = used_c[(size_t)row * R + r] - dsum;
+    }
+  }
+  __syncthreads();
+}
+
+// The dyn_free carry update of a finished program (one thread):
+// dyn − placed · n_dyn in f32 on each row it took, `rows` [m] the rows of
+// its steps (−1: none), as the reference's `_chain_with_carry` does.
+__device__ __forceinline__ void carry_out_dyn(const PlaceArgs& A,
+                                              const int* rows, float* dyn_c) {
+  const float n_dyn = *A.n_dyn;
+  for (int i = 0; i < A.m; ++i) {
+    const int row = rows[i];
+    if (row < 0) continue;
+    bool first = true;
+    float placed = 0.0f;
+    for (int q = 0; q < A.m; ++q) {
+      if (rows[q] != row) continue;
+      if (q < i) first = false;
+      placed = placed + 1.0f;
+    }
+    if (first) dyn_c[row] = dyn_c[row] - placed * n_dyn;
+  }
 }
 
 struct Best {
@@ -628,6 +678,8 @@ __device__ __forceinline__ void scan_program(const PlaceArgs& A,
 }
 
 constexpr int STATIC_THREADS = 256;
+// the largest gridDim.y: a static grid over more programs runs in chunks
+constexpr int MAX_GRID_Y = 65535;
 constexpr int ARG_WORDS = (int)(sizeof(PlaceArgs) / 4);
 static_assert(sizeof(PlaceArgs) % 4 == 0, "PlaceArgs copies as words");
 

@@ -145,6 +145,19 @@ class PlacementResult(NamedTuple):
     explain: Optional[PlacementExplain] = None
 
 
+def _sharded_routes(cluster):
+    """kernels/shard.py when `cluster` is a node-sharded view
+    (`ShardedCluster`, the view cache's form under an active mesh), else
+    None."""
+    if isinstance(cluster, ClusterArrays):
+        return None
+    from . import shard
+
+    if isinstance(cluster, shard.ShardedCluster):
+        return shard
+    return None
+
+
 # ---- plain PyTorch version ---------------------------------------------------
 
 
@@ -418,6 +431,56 @@ def _take_plain(st: dict, p: TGParams, idx, found, sel_tok, sel_dtok) -> None:
             sel_dtok, dcounts.shape[1]).float() * dvalid[:, None]
 
 
+def _explain_step(st: dict, ev: dict, k: int) -> tuple:
+    """One step's explain reductions over the rows of `st`/`ev`: the
+    distinct_hosts, distinct_property, per-dimension, dynamic-port and
+    reserved-port filter counts, and the top-`k` rows (score descending,
+    the lower row first among equal scores), their scores and score
+    parts (zero at the −1e30 floor)."""
+    feas = st["feas"]
+    r_tot = ev["res_over"].shape[1]
+    dh_fail = feas & ev["dh_collide"]
+    dp_mask, any_over = ev["dp_mask"], ev["any_over"]
+    dp_fail = (feas & ~dh_fail & ~dp_mask if dp_mask is not None
+               else torch.zeros_like(feas))
+    cand_m = feas & ~dh_fail & ~dp_fail
+    ff = torch.argmax(ev["res_over"].to(torch.uint8), dim=1)
+    ff_hit = ((ff[:, None] == torch.arange(r_tot, device=feas.device)[None, :])
+              & (cand_m & any_over)[:, None])
+    tk_score, tk_idx = torch.sort(ev["masked"], descending=True, stable=True)
+    tk_score, tk_idx = tk_score[:k], tk_idx[:k]
+    parts = torch.stack(
+        (ev["fit_score"], torch.where(ev["collide"], ev["anti"], 0.0),
+         torch.where(ev["penalty"], -1.0, 0.0),
+         torch.where(ev["inc_aff"], st["aff_score"], 0.0),
+         torch.where(ev["inc_spread"], ev["spread_score"], 0.0)),
+        dim=1)
+    tk_parts = parts[tk_idx] * (tk_score > NEG_INF / 2)[:, None]
+    dyn_ok, res_ok = ev["dyn_ok"], ev["res_ok"]
+    return (dh_fail.sum(), dp_fail.sum(), ff_hit.sum(dim=0),
+            (cand_m & ~any_over & ~dyn_ok).sum(),
+            (cand_m & ~any_over & dyn_ok & ~res_ok).sum(),
+            tk_idx, tk_score, tk_parts)
+
+
+def _explain_of(ex_static: dict, ex_steps: list) -> PlacementExplain:
+    """PlacementExplain from the static counts and the steps' tuples
+    (`_explain_step`'s order)."""
+    i32 = torch.int32
+    cols = list(zip(*ex_steps))
+    return PlacementExplain(
+        **ex_static,
+        filt_distinct=torch.stack(cols[0]).to(i32),
+        filt_dp=torch.stack(cols[1]).to(i32),
+        exh_dim=torch.stack(cols[2]).to(i32),
+        exh_dyn_ports=torch.stack(cols[3]).to(i32),
+        exh_res_ports=torch.stack(cols[4]).to(i32),
+        topk_idx=torch.stack(cols[5]).to(i32),
+        topk_score=torch.stack(cols[6]),
+        topk_parts=torch.stack(cols[7]),
+    )
+
+
 def place_task_group_plain(cluster: ClusterArrays, p: TGParams,
                            max_allocs: int,
                            explain: bool = False) -> PlacementResult:
@@ -428,8 +491,7 @@ def place_task_group_plain(cluster: ClusterArrays, p: TGParams,
     TPU's one-hot einsums become direct indexing (each had exactly one
     non-zero term, so the values are the same) and the scan a Python
     loop."""
-    n, r_tot = cluster.capacity.shape
-    dev = cluster.capacity.device
+    n = cluster.capacity.shape[0]
     i32 = torch.int32
     st = _static_plain(cluster, p, explain)
     feas = st["feas"]
@@ -453,46 +515,9 @@ def place_task_group_plain(cluster: ClusterArrays, p: TGParams,
         _take_plain(st, p, idx, found, st["stok"][idx], st["dtok"][idx])
 
         if explain:
-            dh_fail = feas & ev["dh_collide"]
-            dp_mask, any_over = ev["dp_mask"], ev["any_over"]
-            dp_fail = (feas & ~dh_fail & ~dp_mask if dp_mask is not None
-                       else torch.zeros_like(feas))
-            cand_m = feas & ~dh_fail & ~dp_fail
-            ff = torch.argmax(ev["res_over"].to(torch.uint8), dim=1)
-            ff_hit = ((ff[:, None] == torch.arange(r_tot, device=dev)[None, :])
-                      & (cand_m & any_over)[:, None])
-            k = min(EXPLAIN_TOPK, n)
-            tk_score, tk_idx = torch.sort(masked, descending=True,
-                                          stable=True)
-            tk_score, tk_idx = tk_score[:k], tk_idx[:k]
-            parts = torch.stack(
-                (ev["fit_score"], torch.where(ev["collide"], ev["anti"], 0.0),
-                 torch.where(ev["penalty"], -1.0, 0.0),
-                 torch.where(ev["inc_aff"], st["aff_score"], 0.0),
-                 torch.where(ev["inc_spread"], ev["spread_score"], 0.0)),
-                dim=1)
-            tk_parts = parts[tk_idx] * (tk_score > NEG_INF / 2)[:, None]
-            dyn_ok, res_ok = ev["dyn_ok"], ev["res_ok"]
-            ex_steps.append((
-                dh_fail.sum(), dp_fail.sum(), ff_hit.sum(dim=0),
-                (cand_m & ~any_over & ~dyn_ok).sum(),
-                (cand_m & ~any_over & dyn_ok & ~res_ok).sum(),
-                tk_idx, tk_score, tk_parts))
+            ex_steps.append(_explain_step(st, ev, min(EXPLAIN_TOPK, n)))
 
-    ex = None
-    if explain:
-        cols = list(zip(*ex_steps))
-        ex = PlacementExplain(
-            **st["ex_static"],
-            filt_distinct=torch.stack(cols[0]).to(i32),
-            filt_dp=torch.stack(cols[1]).to(i32),
-            exh_dim=torch.stack(cols[2]).to(i32),
-            exh_dyn_ports=torch.stack(cols[3]).to(i32),
-            exh_res_ports=torch.stack(cols[4]).to(i32),
-            topk_idx=torch.stack(cols[5]).to(i32),
-            topk_score=torch.stack(cols[6]),
-            topk_parts=torch.stack(cols[7]),
-        )
+    ex = _explain_of(st["ex_static"], ex_steps) if explain else None
     return PlacementResult(
         sel_idx=torch.stack(sels).to(i32),
         sel_score=torch.stack(scores),
@@ -765,7 +790,11 @@ def place_task_group_cuda(cluster: ClusterArrays, p: TGParams,
 def place_task_group(cluster: ClusterArrays, p: TGParams, max_allocs: int,
                      explain: bool = False) -> PlacementResult:
     """Place up to `max_allocs` allocs of one task group: the plain version
-    for CPU tensors, the CUDA kernel for CUDA tensors."""
+    for CPU tensors, the CUDA kernel for CUDA tensors; on a sharded view
+    the sharded single program (B11, kernels/shard.py)."""
+    shard = _sharded_routes(cluster)
+    if shard is not None:
+        return shard.sharded_task_group(cluster, p, max_allocs, explain)
     kind = cluster.used.device.type
     if kind == "cpu":
         return place_task_group_plain(cluster, p, max_allocs, explain)
@@ -896,7 +925,11 @@ def system_feasibility_cuda(cluster: ClusterArrays, p: TGParams):
 
 def system_feasibility(cluster: ClusterArrays, p: TGParams):
     """(constraint-feasible, feasible-and-fits) bool[N]: the plain version
-    for CPU tensors, the K2 kernel for CUDA tensors."""
+    for CPU tensors, the K2 kernel for CUDA tensors; on a sharded view K2
+    per shard (B12, kernels/shard.py)."""
+    shard = _sharded_routes(cluster)
+    if shard is not None:
+        return shard.sharded_system_feasibility(cluster, p)
     kind = cluster.used.device.type
     if kind == "cpu":
         return system_feasibility_plain(cluster, p)
@@ -1079,6 +1112,10 @@ class _ChainLauncher:
             lib.nomad_place_batch.argtypes = [
                 ctypes.POINTER(_PlaceArgs), _VOID, _INT,
                 ctypes.POINTER(_ChainLaneArgs), _VOID]
+            lib.nomad_place_batch_pooled.restype = ctypes.c_int
+            lib.nomad_place_batch_pooled.argtypes = [
+                ctypes.POINTER(_PlaceArgs), _VOID, _INT, _INT,
+                ctypes.POINTER(_ChainLaneArgs), _VOID]
             lib.nomad_chain_error_string.restype = ctypes.c_char_p
             lib.nomad_chain_error_string.argtypes = [ctypes.c_int]
             if (lib.nomad_chain_args_size() != ctypes.sizeof(_PlaceArgs)
@@ -1159,38 +1196,47 @@ def args_pointer(args: np.ndarray):
 
 
 def _lane_args(cluster: ClusterArrays, shapes: dict, ptrs_of, lanes: int,
-               per_lane: int, max_allocs: int, explain: bool):
+               per_lane: int, max_allocs: int, explain: bool,
+               slots: Optional[int] = None, n_global: Optional[int] = None):
     """The per-program scratch and outputs (leading axis lanes·per_lane),
     the per-lane scratch and used carries (leading axis lanes), and the
     programs' PlaceArgs, on the host and copied to the cluster's device
     on its current stream. `shapes` maps each TGParams field to its
     per-program shape; `ptrs_of(field)` gives every program's (lane-major)
-    device pointer for that field, an int64 array. Returns (dims, host
-    args as a PlaceArgs record array, device args, per-program buffers,
-    per-lane buffers, lane used carries)."""
+    device pointer for that field, an int64 array. With `slots`, the lane
+    buffers are a pool of that many, program k in slot k mod slots (K6's
+    packed route). `n_global` is the row count explain's top-K is sized
+    for (a shard's view reports its part of the global one). Returns
+    (dims, host args as a PlaceArgs record array, device args,
+    per-program buffers, per-lane buffers, lane used carries)."""
     from ..convert import to_device_async
     from ..lib.transfer import default_ledger
 
     dev = cluster.used.device
     n, r = cluster.capacity.shape
     b = lanes * per_lane
-    if b > 65535:
-        raise ValueError(f"{b} programs in one dispatch; at most 65535")
     if shapes["penalty_idx"][0] != max_allocs \
             or shapes["preferred_idx"][0] != max_allocs:
         raise ValueError("penalty/preferred rows must equal max_allocs")
     if shapes["extra_mask"][0] not in (1, n) or shapes["ask"] != (r,):
         raise ValueError("program shapes disagree with the cluster")
-    dims = _program_dims(shapes, max_allocs, explain, n)
+    dims = _program_dims(shapes, max_allocs, explain,
+                         n if n_global is None else n_global)
     groups = _scratch_shapes(dims, n, r, explain)
+    n_lanes = lanes if slots is None else slots
+    if slots is not None:
+        # the pooled route returns no step-0 score vector: it is slot
+        # scratch there
+        groups["lane"]["final0"] = groups["prog"].pop("final0")
 
     def alloc(count, shape, dt):
         shape = shape if isinstance(shape, tuple) else (shape,)
         return torch.empty((count,) + shape, dtype=dt, device=dev)
 
     prog = {k: alloc(b, sh, dt) for k, (sh, dt) in groups["prog"].items()}
-    lane = {k: alloc(lanes, sh, dt) for k, (sh, dt) in groups["lane"].items()}
-    used_l = alloc(lanes, (n, r), torch.float32)
+    lane = {k: alloc(n_lanes, sh, dt)
+            for k, (sh, dt) in groups["lane"].items()}
+    used_l = alloc(n_lanes, (n, r), torch.float32)
 
     base = _PlaceArgs()
     _set_cluster(base, cluster)
@@ -1198,13 +1244,14 @@ def _lane_args(cluster: ClusterArrays, shapes: dict, ptrs_of, lanes: int,
         setattr(base, name, val)
     args = np.repeat(np.frombuffer(bytearray(base), dtype=_ARGS_DTYPE), b)
     k = np.arange(b)
+    lane_of = k // per_lane if slots is None else k % slots
     for f in TGParams._fields:
         args[f] = ptrs_of(f)
     for name, t in prog.items():
         args[name] = _rows_ptrs(t, k)
     for name, t in lane.items():
-        args[name] = _rows_ptrs(t, k // per_lane)
-    args["new_used"] = _rows_ptrs(used_l, k // per_lane)
+        args[name] = _rows_ptrs(t, lane_of)
+    args["new_used"] = _rows_ptrs(used_l, lane_of)
     raw = args.view(np.uint8)
     with default_ledger().timed("kernels.place_args", raw.nbytes):
         dev_args = to_device_async(raw, dev)
@@ -1213,26 +1260,35 @@ def _lane_args(cluster: ClusterArrays, shapes: dict, ptrs_of, lanes: int,
 
 def _launch_lanes(cluster: ClusterArrays, shapes: dict, ptrs_of, lanes: int,
                   per_lane: int, max_allocs: int, explain: bool, fold: bool,
-                  snapshots: bool = False, batch: bool = False):
+                  snapshots: bool = False, batch: bool = False,
+                  pooled: bool = False):
     """Enqueue one dispatch of `lanes` chains of `per_lane` programs on
     the current stream (`_lane_args` says what `shapes` and `ptrs_of`
     are). With `batch` the lanes are a K6 batch (one program a lane, no
-    fold). Returns the per-program buffers (leading axis
-    lanes·per_lane) and the lane carries."""
+    fold); `pooled` runs that batch in a pool of carries, one per
+    resident scan block, and returns no lane carries and no step-0
+    score vectors. Returns the
+    per-program buffers (leading axis lanes·per_lane) and the lane
+    carries."""
     lib = _CHAIN.lib()
     dev = cluster.used.device
     n, r = cluster.capacity.shape
     b = lanes * per_lane
+    slots = (min(b, torch.cuda.get_device_properties(dev)
+                 .multi_processor_count) if pooled else None)
     dims, args, dev_args, prog, _lane, used_l = _lane_args(
-        cluster, shapes, ptrs_of, lanes, per_lane, max_allocs, explain)
-    dyn_l = torch.empty((lanes, n), dtype=torch.float32, device=dev)
+        cluster, shapes, ptrs_of, lanes, per_lane, max_allocs, explain,
+        slots=slots)
+    dyn_l = (None if pooled
+             else torch.empty((lanes, n), dtype=torch.float32, device=dev))
     snap = (torch.empty((b, n, r), dtype=torch.float32, device=dev)
             if snapshots else None)
 
     la = _ChainLaneArgs()
     la.used0, la.dyn0 = cluster.used.data_ptr(), cluster.dyn_free.data_ptr()
     la.n, la.r = n, r
-    la.used_l, la.dyn_l = used_l.data_ptr(), dyn_l.data_ptr()
+    la.used_l = used_l.data_ptr()
+    la.dyn_l = dyn_l.data_ptr() if dyn_l is not None else None
     la.used_snap = snap.data_ptr() if snap is not None else None
     out_f = None
     if fold:
@@ -1241,7 +1297,11 @@ def _launch_lanes(cluster: ClusterArrays, shapes: dict, ptrs_of, lanes: int,
                  torch.zeros(1, dtype=torch.int32, device=dev))
         la.used_f, la.dyn_f, la.collisions = (t.data_ptr() for t in out_f)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if batch:
+    if pooled:
+        err = lib.nomad_place_batch_pooled(args_pointer(args),
+                                           dev_args.data_ptr(), b, slots,
+                                           ctypes.byref(la), stream)
+    elif batch:
         err = lib.nomad_place_batch(args_pointer(args),
                                     dev_args.data_ptr(), b, ctypes.byref(la),
                                     stream)
@@ -1252,14 +1312,16 @@ def _launch_lanes(cluster: ClusterArrays, shapes: dict, ptrs_of, lanes: int,
     if err != 0:
         raise RuntimeError("chain kernel launch failed: "
                            + lib.nomad_chain_error_string(err).decode())
-    _CHAIN.launches["batch" if batch else "wave" if fold else "chain"] += 1
+    _CHAIN.launches["batch" if batch or pooled else "wave" if fold
+                    else "chain"] += 1
     # dev_args and the scratch may be freed now: the caching allocator
     # hands their memory only to work queued after this launch on the
     # same stream
     base = (prog["sel_idx"], prog["sel_score"], prog["nodes_feasible"],
             prog["nodes_fit"])
     ex = _explain_out(prog, dims["c"]) if explain else None
-    return base, ex, (used_l, dyn_l), out_f, (prog["final0"], snap)
+    lanes_out = None if pooled else (used_l, dyn_l)
+    return base, ex, lanes_out, out_f, (prog.get("final0"), snap)
 
 
 def _table_source(ti, tf, tu, rows, di, df, du, sspec, dspec, b):
@@ -1388,7 +1450,11 @@ def place_task_group_chain(cluster: ClusterArrays, batch: TGParams,
                            explain: bool = False) -> PlacementResult:
     """Chained placement of a stacked batch ([B, ...] fields): program b
     sees programs 0..b-1's placements; new_used is the carry after each
-    program. Plain on CPU tensors, the chain kernel on CUDA tensors."""
+    program. Plain on CPU tensors, the chain kernel on CUDA tensors; on a
+    sharded view the sharded chain (B10, kernels/shard.py)."""
+    shard = _sharded_routes(cluster)
+    if shard is not None:
+        return shard.sharded_chain(cluster, batch, max_allocs, explain)
     return _route(cluster, place_task_group_chain_plain,
                   place_task_group_chain_cuda)(cluster, batch, max_allocs,
                                                explain)
@@ -1397,7 +1463,13 @@ def place_task_group_chain(cluster: ClusterArrays, batch: TGParams,
 def place_packed_chain(cluster, i32buf, f32buf, u8buf, spec, max_allocs,
                        explain=False):
     """Chained placement over field-major packed buffers; returns
-    (sel_idx, sel_score, nodes_feasible, nodes_fit[, explain leaves])."""
+    (sel_idx, sel_score, nodes_feasible, nodes_fit[, explain leaves]). On
+    a sharded view (the coordinator's route under a mesh) the sharded
+    chain (B10, kernels/shard.py), its outputs on the lead device."""
+    shard = _sharded_routes(cluster)
+    if shard is not None:
+        return shard.sharded_packed_chain(cluster, i32buf, f32buf, u8buf,
+                                          spec, max_allocs, explain)
     return _route(cluster, place_packed_chain_plain,
                   place_packed_chain_cuda)(cluster, i32buf, f32buf, u8buf,
                                            spec, max_allocs, explain)
@@ -1466,7 +1538,7 @@ def place_packed_batch_cuda(cluster, i32buf, f32buf, u8buf, spec,
     b, shapes, ptrs_of = _packed_source(cluster, i32buf, f32buf, u8buf, spec)
     base, _ex, _lanes, _f, _s = _launch_lanes(
         cluster, shapes, ptrs_of, b, 1, max_allocs, False, fold=False,
-        batch=True)
+        pooled=True)
     return base[0], base[1]
 
 
@@ -1476,7 +1548,7 @@ def place_task_group_batch(cluster: ClusterArrays, batch: TGParams,
     """Batched placement of a stacked batch ([B, ...] fields): each
     program against the same snapshot, independently; every output gains
     a leading B (new_used is [B, N, R]). Plain on CPU tensors, the K6
-    kernel on CUDA tensors; B ≤ 65535 there."""
+    kernel on CUDA tensors."""
     return _route(cluster, place_task_group_batch_plain,
                   place_task_group_batch_cuda)(cluster, batch, max_allocs,
                                                explain)
@@ -1484,7 +1556,9 @@ def place_task_group_batch(cluster: ClusterArrays, batch: TGParams,
 
 def place_packed_batch(cluster, i32buf, f32buf, u8buf, spec, max_allocs):
     """Batched placement over field-major packed buffers; returns only
-    (sel_idx, sel_score), [B, M] each."""
+    (sel_idx, sel_score), [B, M] each, as the reference does — so the
+    kernel keeps no per-program carry (its scan runs in a pool of
+    carries, one per resident block)."""
     return _route(cluster, place_packed_batch_plain,
                   place_packed_batch_cuda)(cluster, i32buf, f32buf, u8buf,
                                            spec, max_allocs)

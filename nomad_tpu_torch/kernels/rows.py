@@ -26,12 +26,21 @@ plain version for CPU tensors and the kernel for CUDA tensors (or raise);
 there is no fallback between the two. All write in place into the tensors
 they are given: the caller decides between the cached tensors and a copy
 (the view cache's copy slot).
+
+B13. Under an active mesh the view is node-sharded (the reference's delta
+applies run "on the already-sharded buffers",
+`nomad_tpu/scheduler/stack.py:801-802`): `hot_rows_update_sharded`,
+`port_rows_update_sharded` and `port_words_update_sharded` route each
+changed row or word to the node shard that owns it, rebased to the
+shard's first row, and run the same K7 part on every distinct copy of
+that shard; a shard no change of which lands launches nothing.
 """
 from __future__ import annotations
 
 import ctypes
 from typing import Dict
 
+import numpy as np
 import torch
 
 _VOID, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -72,6 +81,8 @@ class _Launcher:
     def __init__(self):
         self.launches = 0
         self.delta_launches = dict.fromkeys(DELTA_PARTS, 0)
+        #: B13: K7 launches on a card's shard copies
+        self.sharded_launches = 0
         self._lib = None
 
     def lib(self):
@@ -120,6 +131,16 @@ def delta_launch_counts() -> Dict[str, int]:
 
 def reset_delta_launch_counts() -> None:
     _LAUNCHER.delta_launches = dict.fromkeys(DELTA_PARTS, 0)
+
+
+def sharded_delta_launch_count() -> int:
+    """K7 launches on the copies of a sharded view's shards on a card
+    (B13) since the last reset."""
+    return _LAUNCHER.sharded_launches
+
+
+def reset_sharded_delta_launch_count() -> None:
+    _LAUNCHER.sharded_launches = 0
 
 
 def build_kernel() -> None:
@@ -255,3 +276,64 @@ def port_rows_update(ports, idx, vals):
 def port_words_update(ports, rows, words, vals):
     return _route(ports, port_words_update_plain, port_words_update_cuda)(
         ports, rows, words, vals)
+
+
+# ---- K7 on a node-sharded view (B13) -------------------------------------------
+
+
+def _per_shard(bufs, rows: int, row_of, launch) -> None:
+    """Route the changes at global rows `row_of` to the copies of the
+    node shards that own them (`bufs`: per field {(device, node shard):
+    tensor}, shards of `rows` rows): `launch(copy's tensors, their
+    device, positions, local rows)` once per copy of each shard with
+    changes. Counts each K7 launch on a card as a B13 launch."""
+    from ..parallel.mesh import route_rows
+
+    keys = list(bufs[0])
+    for j, pos, local in route_rows(row_of, rows,
+                                    len({k[1] for k in keys})):
+        for key in keys:
+            if key[1] == j:
+                dev = bufs[0][key].device
+                launch(tuple(b[key] for b in bufs), dev, pos, local)
+                if dev.type == "cuda":
+                    _LAUNCHER.sharded_launches += 1
+
+
+def staged(a: np.ndarray, dev) -> torch.Tensor:
+    """Host array `a` on `dev`, staged through pinned memory."""
+    from ..convert import to_device_async
+
+    return to_device_async(np.ascontiguousarray(a), dev)
+
+
+def hot_rows_update_sharded(bufs, rows: int, idx, used_vals, ok_vals,
+                            dyn_vals) -> None:
+    """K7's hot part on a sharded view: `bufs` = (used, node_ok,
+    dyn_free), each {(device, node shard): tensor}; host arrays `idx`
+    (global rows, i32) and their f32[K, R], bool[K], f32[K] values.
+    Writes in place."""
+    def launch(b, dev, pos, local):
+        hot_rows_update(*b, staged(local, dev), staged(used_vals[pos], dev),
+                        staged(ok_vals[pos], dev), staged(dyn_vals[pos], dev))
+
+    _per_shard(bufs, rows, idx, launch)
+
+
+def port_rows_update_sharded(ports, rows: int, idx, vals) -> None:
+    """K7's whole port rows on a sharded bitmap ({(device, node shard):
+    tensor}); host `idx` global rows and their [K, W] words."""
+    def launch(b, dev, pos, local):
+        port_rows_update(b[0], staged(local, dev), staged(vals[pos], dev))
+
+    _per_shard((ports,), rows, idx, launch)
+
+
+def port_words_update_sharded(ports, rows: int, row_idx, words, vals) -> None:
+    """K7's single words on a sharded bitmap: host `row_idx` (global
+    rows), `words` and `vals`, [K] each."""
+    def launch(b, dev, pos, local):
+        port_words_update(b[0], staged(local, dev), staged(words[pos], dev),
+                          staged(vals[pos], dev))
+
+    _per_shard((ports,), rows, row_idx, launch)

@@ -1,47 +1,73 @@
-"""Node-sharded batched placement (K9): the reference's `_batch_place`
-and `_step` under a (batch, nodes) mesh (`nomad_tpu/parallel/mesh.py:287`,
-`:303`), without GSPMD.
+"""Node-sharded placement: the reference's jitted kernels on a node-sharded
+view, without GSPMD.
 
 A `ShardedCluster` holds the cluster's rows split into contiguous node
 shards, one per column of a grid of devices, replicated over the grid's
-rows (one copy per distinct device). A batch of B programs splits over the
-grid's rows: Bp = B / rows programs each. Every program runs K1's scan
-with its node axis split: per step, each shard evaluates its rows and
-reports its best (score, global row) with what the combine needs; the
-batch row's lead device (node shard 0) combines the reports — the max
-score, the lowest global row among equal scores, the preferred-row
-override — and every shard applies the winner: the owner adds the ask to
-its row, every shard adds the winner's spread and distinct_property tokens
-to its copy of the replicated counts. `fold` adds the reference's
-`_step` fold-in, `used + Σ_b (new_used_b − used)` per shard in ascending
-b.
+rows (one copy per distinct device). Every route runs K1's scan with its
+node axis split: per step, each shard evaluates its rows and reports its
+best (score, global row) with what the combine needs; the lead device
+(node shard 0 of the batch row) combines the reports — the max score, the
+lowest global row among equal scores, the preferred-row override — and
+every shard applies the winner: the owner adds the ask to its row, every
+shard adds the winner's spread and distinct_property tokens to its copy
+of the replicated counts. The routes:
 
-Two implementations compute the same function: `sharded_place_plain`
-(the same loop in PyTorch, on any devices; the CPU tests hold it against
-the reference's mesh) and `sharded_place_cuda` (`csrc/shard.cu`, on CUDA
-devices). `sharded_place` picks by the shards' device type.
+- K9, `sharded_place` (the reference's `_batch_place` and `_step` under a
+  (batch, nodes) mesh, `nomad_tpu/parallel/mesh.py:287`, `:303`): a
+  batch of B programs split over the grid's rows, Bp = B / rows each,
+  independent; `fold` adds `_step`'s fold-in, `used + Σ_b (new_used_b −
+  used)` per shard in ascending b.
+- B10, `sharded_chain` (`place_task_group_chain` / `place_packed_chain`,
+  `nomad_tpu/kernels/placement.py:778`, `:802`, on a sharded view): the
+  programs in order on batch row 0's shards, each shard passing its own
+  (used, dyn_free) carry from program to program.
+- B11, `sharded_task_group` (`place_task_group`, `:345`): B10 at one
+  program.
+- B12, `sharded_system_feasibility` (`system_feasibility`, `:957`): K2 on
+  each shard's rows, the masks joined in global row order.
+
+With explain (B10, B11) each shard reduces its own rows and the combine
+sums the counts and merges the shards' top-K into the global one (score
+descending, the lowest global row first among equal scores; K = min(5,
+global N)). With a batch axis > 1 the chain, single and system routes
+read batch row 0's shards; the view cache keeps every copy equal.
+
+Each route has a plain version (the same loop in PyTorch, on any devices;
+the CPU tests hold it against the reference's mesh) and a CUDA one
+(`csrc/shard.cu`, K2's `csrc/system.cu` for B12); the shards' device type
+picks.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .placement import (
+    EXPLAIN_TOPK,
     ClusterArrays,
+    PlacementExplain,
     PlacementResult,
     TGParams,
     _check_cluster,
+    _explain_of,
+    _explain_out,
+    _explain_step,
+    _flat_outputs,
     _lane_args,
     _PlaceArgs,
     _program,
-    args_pointer,
+    _scratch_shapes,
     _stacked_source,
     _static_plain,
     _step_plain,
     _take_plain,
+    _unpack_params,
+    args_pointer,
+    system_feasibility,
+    system_feasibility_plain,
 )
 
 _VOID = ctypes.c_void_p
@@ -83,13 +109,18 @@ def rebase(p: TGParams, row0: int, rows: int, n: int) -> TGParams:
     return TGParams(**f)
 
 
-def _split(sc: ShardedCluster, batch) -> Tuple[TGParams, int, int]:
-    """The batch as CPU/torch tensors, and (programs per batch row, rows
-    per shard). Raises ValueError when the batch rows do not divide B."""
+def _as_params(batch) -> TGParams:
     if any(isinstance(t, np.ndarray) for t in batch):
         from ..convert import params_from_numpy
 
-        batch = params_from_numpy(batch, "cpu")
+        return params_from_numpy(batch, "cpu")
+    return batch
+
+
+def _split(sc: ShardedCluster, batch) -> Tuple[TGParams, int, int]:
+    """The batch as CPU/torch tensors, and (programs per batch row, rows
+    per shard). Raises ValueError when the batch rows do not divide B."""
+    batch = _as_params(batch)
     b, bm = batch.n_place.shape[0], len(sc.devices)
     if b % bm:
         raise ValueError(f"{b} programs do not split over {bm} batch rows")
@@ -110,15 +141,31 @@ def _check_grid(sc: ShardedCluster, kind: str) -> None:
 # ---- plain PyTorch version --------------------------------------------------
 
 
-def _place_program_plain(shards, ps, row0, ns, max_allocs):
+def _merge_topk(parts, row0, k: int):
+    """The global top-`k` from the shards' top-K lists `parts` (per shard
+    (local idx, score, score parts), each in top-K order): a stable
+    descending sort of the concatenation, in shard order, keeps the lowest
+    global row first among equal scores."""
+    idx = torch.cat([i.long().cpu() + r0 for (i, _s, _p), r0 in
+                     zip(parts, row0)])
+    score = torch.cat([sc.cpu() for _i, sc, _p in parts])
+    pp = torch.cat([p.cpu() for _i, _s, p in parts])
+    order = torch.sort(score, descending=True, stable=True).indices[:k]
+    return idx[order].to(torch.int32), score[order], pp[order]
+
+
+def _place_program_plain(shards, ps, row0, ns, max_allocs, explain=False,
+                         topk=0):
     """One program over the node shards `shards` (its rebased fields
     `ps`, one per shard): static pass, then per step the shards' reports,
     the combine and the apply. Returns (sel, score, nodes_feasible, fits,
-    final0 per shard, new_used per shard)."""
+    final0 per shard, new_used per shard, the explain leaves or None);
+    explain's top-K holds `topk` rows of the whole view."""
     nm = len(shards)
-    sts = [_static_plain(cl, p, False) for cl, p in zip(shards, ps)]
+    sts = [_static_plain(cl, p, explain) for cl, p in zip(shards, ps)]
     p0 = ps[0]
     sels, scores, fits, final0 = [], [], [], None
+    ex_steps = []
     for i in range(max_allocs):
         # (b) each shard's step and its best row
         evs = [_step_plain(cl, p, st, i)
@@ -126,6 +173,13 @@ def _place_program_plain(shards, ps, row0, ns, max_allocs):
         local = [int(torch.argmax(ev["masked"])) for ev in evs]
         if i == 0:
             final0 = [ev["masked"] for ev in evs]
+        if explain:
+            # each shard's reductions over its own rows, then the combine
+            steps = [_explain_step(st, ev, min(topk, ns))
+                     for st, ev in zip(sts, evs)]
+            tk = _merge_topk([x[5:] for x in steps], row0, topk)
+            ex_steps.append(tuple(
+                sum(x[q].cpu() for x in steps) for q in range(5)) + tk)
         # (c) the combine: the max score, the first shard (lowest global
         # row) among equal ones; the preferred row from its owner
         vals = torch.stack([ev["masked"][k].cpu() for ev, k in
@@ -149,7 +203,13 @@ def _place_program_plain(shards, ps, row0, ns, max_allocs):
             _take_plain(st, p, loc if k == j else -1, found, stok.to(dev),
                         dtok.to(dev))
     nfeas = sum(int(st["nodes_feasible"]) for st in sts)
-    return (sels, scores, nfeas, fits, final0, [st["used"] for st in sts])
+    ex = None
+    if explain:
+        ex_static = {f: sum(st["ex_static"][f].cpu() for st in sts)
+                     for f in sts[0]["ex_static"]}
+        ex = _explain_of(ex_static, ex_steps)
+    return (sels, scores, nfeas, fits, final0, [st["used"] for st in sts],
+            ex)
 
 
 def sharded_place_plain(sc: ShardedCluster, batch, max_allocs: int,
@@ -166,9 +226,10 @@ def sharded_place_plain(sc: ShardedCluster, batch, max_allocs: int,
         ps = [rebase(_row_programs(batch, i, bp, sc.devices[i][j]),
                      sc.row0[j], ns, sc.n) for j in range(nm)]
         for k in range(bp):
-            sels, scores, nfeas, fits, final0, used = _place_program_plain(
-                sc.shards[i], [_program(p, k) for p in ps], sc.row0, ns,
-                max_allocs)
+            sels, scores, nfeas, fits, final0, used, _ex = \
+                _place_program_plain(sc.shards[i],
+                                     [_program(p, k) for p in ps], sc.row0,
+                                     ns, max_allocs)
             rows.append(PlacementResult(
                 sel_idx=torch.tensor(sels, dtype=torch.int32),
                 sel_score=torch.stack(scores) if scores
@@ -198,7 +259,76 @@ def sharded_place_plain(sc: ShardedCluster, batch, max_allocs: int,
     return result, folded
 
 
+def _on(p: TGParams, dev) -> TGParams:
+    return TGParams(*(t.to(dev) for t in p))
+
+
+def _shard_dyn(dyn, n_dyn, sel, row0: int, rows: int):
+    """A shard's dyn_free carry after a program that placed on global
+    rows `sel`: dyn − placed · n_dyn, as `_chain_with_carry` does."""
+    local = torch.as_tensor(sel, dtype=torch.long) - row0
+    local = local[(local >= 0) & (local < rows)].to(dyn.device)
+    placed = torch.zeros(rows, dtype=torch.float32, device=dyn.device)
+    placed = placed.index_add_(0, local, torch.ones_like(local,
+                                                         dtype=torch.float32))
+    return dyn - placed * n_dyn
+
+
+def sharded_chain_plain(sc: ShardedCluster, batch, max_allocs: int,
+                        explain: bool = False):
+    """Plain B10: the programs of `batch` ([P, ...] fields) in order on
+    batch row 0's shards, each shard's (used, dyn_free) carried from
+    program to program. Returns (PlacementResult with a leading P on the
+    grid's first device, new_used the carry after each program; the
+    final carry per shard)."""
+    batch = _as_params(batch)
+    shards, devs = sc.shards[0], sc.devices[0]
+    ns = sc.n // len(sc.row0)
+    out = devs[0]
+    topk = min(EXPLAIN_TOPK, sc.n)
+    carry = [(sh.used, sh.dyn_free) for sh in shards]
+    results = []
+    for b in range(batch.n_place.shape[0]):
+        prog = _program(batch, b)
+        ps = [rebase(_on(prog, d), r0, ns, sc.n)
+              for d, r0 in zip(devs, sc.row0)]
+        cls = [sh._replace(used=u, dyn_free=d)
+               for sh, (u, d) in zip(shards, carry)]
+        sels, scores, nfeas, fits, final0, used, ex = _place_program_plain(
+            cls, ps, sc.row0, ns, max_allocs, explain, topk)
+        carry = [(u, _shard_dyn(d, p.n_dyn, sels, r0, ns))
+                 for u, (_u, d), p, r0 in zip(used, carry, ps, sc.row0)]
+        results.append(PlacementResult(
+            sel_idx=torch.tensor(sels, dtype=torch.int32),
+            sel_score=(torch.stack(scores) if scores
+                       else torch.zeros(0, dtype=torch.float32)),
+            new_used=torch.cat([u.to(out) for u in used]),
+            nodes_feasible=torch.tensor(nfeas, dtype=torch.int32),
+            nodes_fit=torch.tensor(fits, dtype=torch.int32),
+            final_scores0=(torch.cat([f.to(out) for f in final0])
+                           if final0 is not None
+                           else torch.zeros(0, dtype=torch.float32)),
+            explain=ex))
+    ex = None
+    if explain:
+        ex = PlacementExplain(*(torch.stack([leaf.to(out) for leaf in col])
+                                for col in zip(*(r.explain
+                                                 for r in results))))
+    result = PlacementResult(*(torch.stack([getattr(r, f).to(out)
+                                            for r in results])
+                               for f in PlacementResult._fields[:6]),
+                             explain=ex)
+    return result, carry
+
+
 # ---- the CUDA kernel ----------------------------------------------------------
+
+
+#: the combine's explain outputs, in `ShardCombine`'s order (the names of
+#: `_scratch_shapes`' explain buffers)
+_EXPLAIN_BUFS = ("ex_static", "filt_constraint", "filt_distinct", "filt_dp",
+                 "exh_dim", "exh_dyn", "exh_res", "topk_idx", "topk_score",
+                 "topk_parts")
 
 
 class _ShardStep(ctypes.Structure):
@@ -206,7 +336,8 @@ class _ShardStep(ctypes.Structure):
 
     _fields_ = [("step", _INT), ("apply", _INT), ("row0", _INT),
                 ("rec_words", _INT), ("win_words", _INT), ("rec", _VOID),
-                ("win", _VOID), ("counts", _VOID)]
+                ("win", _VOID), ("counts", _VOID), ("dyn_c", _VOID),
+                ("taken", _VOID)]
 
 
 class _ShardCombine(ctypes.Structure):
@@ -214,17 +345,22 @@ class _ShardCombine(ctypes.Structure):
 
     _fields_ = [("step", _INT), ("shards", _INT), ("progs", _INT),
                 ("m", _INT), ("rec_words", _INT), ("win_words", _INT),
+                ("prog0", _INT), ("cstride", _INT),
                 ("rec", _VOID), ("win", _VOID), ("sel_idx", _VOID),
                 ("sel_score", _VOID), ("nodes_fit", _VOID),
-                ("nodes_feasible", _VOID)]
+                ("nodes_feasible", _VOID)] + [
+                    (name, _VOID) for name in _EXPLAIN_BUFS]
 
 
 class _Launcher:
-    """The shard library (csrc/shard.cu), built at first use, and its
-    count of dispatches on the main path."""
+    """The shard library (csrc/shard.cu), built at first use, its count of
+    K9 dispatches, the kernel launches of the sharded routes, and the
+    host calls (launches and copies) the last sharded dispatch made."""
 
     def __init__(self):
         self.launches = 0
+        self.routes = dict.fromkeys(ROUTES, 0)
+        self.host_calls = 0
         self._lib = None
 
     def lib(self):
@@ -238,7 +374,8 @@ class _Launcher:
             lib.nomad_shard_error_string.argtypes = [ctypes.c_int]
             args = ctypes.POINTER(_PlaceArgs)
             for fn, argtypes in (
-                    ("nomad_shard_static", [args, _VOID, _INT, _VOID]),
+                    ("nomad_shard_static", [args, _VOID, _INT, _INT,
+                                            _VOID]),
                     ("nomad_shard_step", [args, _VOID, _INT,
                                           ctypes.POINTER(_ShardStep), _VOID]),
                     ("nomad_shard_combine", [_VOID,
@@ -255,17 +392,30 @@ class _Launcher:
             self._lib = lib
         return self._lib
 
-    def call(self, fn: str, dev, *args) -> None:
+    def call(self, fn: str, dev, *args, route: Optional[str] = None) -> None:
         """Run entry point `fn` with `dev` current, on its current stream
-        (the last argument); raises on a refused launch."""
+        (the last argument); raises on a refused launch. Counts the launch
+        to `route`'s launches when given."""
         lib = self.lib()
         with torch.cuda.device(dev):
             err = getattr(lib, fn)(
                 *args, torch.cuda.current_stream(dev).cuda_stream)
+        self.host_calls += 1
         if err != 0:
             raise RuntimeError(f"shard kernel {fn} failed: "
                                + lib.nomad_shard_error_string(err).decode())
+        if route is not None:
+            self.routes[route] += 1
 
+    def copy(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        """A record or winner copy between shards, on the devices' current
+        streams (a cross-device copy waits on both)."""
+        dst.copy_(src)
+        self.host_calls += 1
+
+
+#: the sharded routes with a launch count of their own
+ROUTES = ("chain", "single", "system")
 
 _SHARD = _Launcher()
 
@@ -279,47 +429,101 @@ def reset_launch_count() -> None:
     _SHARD.launches = 0
 
 
+def route_launch_counts() -> dict:
+    """Kernel launches of the sharded chain (B10), single program (B11)
+    and system masks (B12) on CUDA shards since the last reset: every
+    static, step and combine launch of a chain or single dispatch, and
+    one K2 launch a shard of a system dispatch."""
+    return dict(_SHARD.routes)
+
+
+def reset_route_launch_counts() -> None:
+    _SHARD.routes = dict.fromkeys(ROUTES, 0)
+
+
+def host_calls() -> int:
+    """Host calls (kernel launches and copies) of the last CUDA sharded
+    chain or single dispatch."""
+    return _SHARD.host_calls
+
+
 def build_kernel() -> None:
     """Build (or load the cached build of) the shard library now."""
     _SHARD.lib()
 
 
+_ARG_SIZE = ctypes.sizeof(_PlaceArgs)
+
+
 class _Cell:
     """One (batch row, node shard) of a dispatch: the shard's programs,
-    scratch, carries, counts, step records and winners on its device."""
+    scratch, carries, counts, step records and winners on its device.
+    A chain cell (`chain`) runs its programs one at a time against one
+    carry, started from the shard's view, and holds one program's
+    records; a batch cell (K9) runs them side by side, a carry each. A
+    chain cell counts its launches to `route`."""
 
     def __init__(self, shard: ClusterArrays, progs: TGParams, row0: int,
-                 max_allocs: int):
+                 max_allocs: int, explain: bool = False, chain: bool = False,
+                 n_global: Optional[int] = None,
+                 route: Optional[str] = None):
         _check_cluster(shard)
         self.dev = shard.used.device
         self.row0 = row0
+        self.route = route
         # held until the dispatch ends: the launches read these fields
         self.progs = TGParams(*(t.contiguous() for t in progs))
         progs = self.progs
         bp, shapes, ptrs_of = _stacked_source(shard, progs)
+        lanes, per_lane = (1, bp) if chain else (bp, 1)
         (self.dims, self.args, self.dev_args, self.prog, self.lane,
-         self.used) = _lane_args(shard, shapes, ptrs_of, bp, 1, max_allocs,
-                                 False)
+         self.used) = _lane_args(shard, shapes, ptrs_of, lanes, per_lane,
+                                 max_allocs, explain, n_global=n_global)
         d = self.dims
-        self.rec_words = 7 + 2 * (d["s"] + d["p"])
+        # csrc/shard.cu shard_rec_words()
+        self.rec_words = 7 + 2 * (d["s"] + d["p"]) + (
+            4 + shard.capacity.shape[1] + 7 * d["topk"] + 3 + d["c"]
+            if explain else 0)
         self.win_words = 2 + d["s"] + d["p"]
         i32 = torch.int32
-        self.rec = torch.empty((bp, self.rec_words), dtype=i32,
+        rows = 1 if chain else bp
+        self.rec = torch.empty((rows, self.rec_words), dtype=i32,
                                device=self.dev)
-        self.win = torch.zeros((bp, self.win_words), dtype=i32,
+        self.win = torch.zeros((rows, self.win_words), dtype=i32,
                                device=self.dev)
         self.counts = torch.empty(
-            (bp, max(d["s"] * d["sv"] + d["p"] * d["dv"], 1)),
+            (rows, max(d["s"] * d["sv"] + d["p"] * d["dv"], 1)),
             dtype=torch.float32, device=self.dev)
+        self.dyn = self.taken = None
+        if chain:
+            self.used[0].copy_(shard.used)
+            self.dyn = shard.dyn_free.clone()
+            self.taken = torch.empty(max(max_allocs, 1), dtype=i32,
+                                     device=self.dev)
 
-    def step(self, step: int, apply: bool) -> None:
+    def static(self, carry: bool) -> None:
+        """The static pass of every program; `carry` also writes each
+        program's carry from the view (K9)."""
+        _SHARD.call("nomad_shard_static", self.dev, args_pointer(self.args),
+                    self.dev_args.data_ptr(), len(self.args), int(carry),
+                    route=self.route)
+
+    def step(self, step: int, apply: bool, k: Optional[int] = None) -> None:
+        """Step `step` of every program (K9), or of a chain's program
+        `k`."""
         t = _ShardStep(step=step, apply=int(apply), row0=self.row0,
                        rec_words=self.rec_words, win_words=self.win_words,
                        rec=self.rec.data_ptr(), win=self.win.data_ptr(),
-                       counts=self.counts.data_ptr())
-        _SHARD.call("nomad_shard_step", self.dev, args_pointer(self.args),
-                    self.dev_args.data_ptr(), len(self.args),
-                    ctypes.byref(t))
+                       counts=self.counts.data_ptr(),
+                       dyn_c=None if self.dyn is None else self.dyn.data_ptr(),
+                       taken=(None if self.taken is None
+                              else self.taken.data_ptr()))
+        off = 0 if k is None else k
+        _SHARD.call("nomad_shard_step", self.dev,
+                    args_pointer(self.args[off:]),
+                    self.dev_args.data_ptr() + off * _ARG_SIZE,
+                    len(self.args) if k is None else 1, ctypes.byref(t),
+                    route=self.route)
 
 
 def sharded_place_cuda(sc: ShardedCluster, batch, max_allocs: int,
@@ -358,10 +562,10 @@ def sharded_place_cuda(sc: ShardedCluster, batch, max_allocs: int,
         cells.append(row)
 
     # (a) the static pass of every shard
+    _SHARD.host_calls = 0
     for row in cells:
         for c in row:
-            _SHARD.call("nomad_shard_static", c.dev, args_pointer(c.args),
-                        c.dev_args.data_ptr(), bp)
+            c.static(carry=True)
     for step in range(m):
         for row, lead in zip(cells, leads):
             # (b) each shard's step, with the previous winner applied first
@@ -370,7 +574,7 @@ def sharded_place_cuda(sc: ShardedCluster, batch, max_allocs: int,
             # (c) the records to the lead device, the combine, the winner
             # back to every shard
             for j, c in enumerate(row):
-                lead["rec"][j].copy_(c.rec)
+                _SHARD.copy(lead["rec"][j], c.rec)
             comb = _ShardCombine(
                 step=step, shards=nm, progs=bp, m=m,
                 rec_words=row[0].rec_words, win_words=row[0].win_words,
@@ -380,7 +584,7 @@ def sharded_place_cuda(sc: ShardedCluster, batch, max_allocs: int,
             _SHARD.call("nomad_shard_combine", row[0].dev,
                         row[0].dev_args.data_ptr(), ctypes.byref(comb))
             for c in row:
-                c.win.copy_(lead["win"])
+                _SHARD.copy(c.win, lead["win"])
     # (d) the last step's winner
     if m > 0:
         for row in cells:
@@ -432,3 +636,180 @@ def sharded_place(sc: ShardedCluster, batch, max_allocs: int,
         return sharded_place_cuda(sc, batch, max_allocs, fold)
     raise ValueError(f"no sharded placement for devices {sorted(kinds)}")
 
+
+# ---- the sharded routes of the view's readers (B10, B11, B12) ------------------
+
+
+def sharded_chain_cuda(sc: ShardedCluster, batch, max_allocs: int,
+                       explain: bool = False, snapshots: bool = True,
+                       route: str = "chain"):
+    """B10 (and B11 at one program, `route` "single") on CUDA shards
+    (`csrc/shard.cu`): what `sharded_chain_plain` returns; new_used only
+    with `snapshots`. Per program: each shard's step launches, the
+    records to the lead device, the combine, the winner back, M times,
+    then the last apply with the shards' dyn_free carry update. Every
+    launch and copy is queued on the devices' current streams; nothing
+    syncs with the host. Raises when a build or launch fails."""
+    _check_grid(sc, "cuda")
+    if max_allocs < 1:
+        raise ValueError("the sharded chain needs max_allocs >= 1")
+    batch = _as_params(batch)
+    shards, devs = sc.shards[0], sc.devices[0]
+    nm, ns, m = len(shards), sc.n // len(sc.row0), max_allocs
+    out = devs[0]
+    n_progs = batch.n_place.shape[0]
+    _SHARD.lib()
+    _SHARD.host_calls = 0
+    on_dev, cells = {}, []
+    for j, (sh, d) in enumerate(zip(shards, devs)):
+        if d not in on_dev:
+            on_dev[d] = _on(batch, d)
+        cells.append(_Cell(sh, rebase(on_dev[d], sc.row0[j], ns, sc.n),
+                           sc.row0[j], m, explain, chain=True,
+                           n_global=sc.n, route=route))
+    lead = cells[0]
+    i32, f32 = torch.int32, torch.float32
+    rec = torch.empty((nm, 1, lead.rec_words), dtype=i32, device=out)
+    win = torch.zeros((1, lead.win_words), dtype=i32, device=out)
+    res = dict(sel_idx=torch.empty((n_progs, m), dtype=i32, device=out),
+               sel_score=torch.empty((n_progs, m), dtype=f32, device=out),
+               nodes_fit=torch.empty((n_progs, m), dtype=i32, device=out),
+               nodes_feasible=torch.zeros(n_progs, dtype=i32, device=out))
+    cstride = max(lead.dims["c"], 1)
+    if explain:
+        shapes = _scratch_shapes(lead.dims, sc.n,
+                                 shards[0].capacity.shape[1], True)["prog"]
+        for name in _EXPLAIN_BUFS:
+            shape, dt = shapes[name]
+            shape = shape if isinstance(shape, tuple) else (shape,)
+            res[name] = torch.empty((n_progs,) + shape, dtype=dt,
+                                    device=out)
+    ptrs = {k: res[k].data_ptr() if k in res else None
+            for k in ("sel_idx", "sel_score", "nodes_fit",
+                      "nodes_feasible") + _EXPLAIN_BUFS}
+
+    for c in cells:
+        c.static(carry=False)
+    snaps = []
+    for k in range(n_progs):
+        for step in range(m):
+            for c in cells:
+                c.step(step, apply=step > 0, k=k)
+            for j, c in enumerate(cells):
+                _SHARD.copy(rec[j], c.rec)
+            comb = _ShardCombine(
+                step=step, shards=nm, progs=1, m=m,
+                rec_words=lead.rec_words, win_words=lead.win_words,
+                prog0=k, cstride=cstride, rec=rec.data_ptr(),
+                win=win.data_ptr(), **ptrs)
+            _SHARD.call("nomad_shard_combine", out,
+                        lead.dev_args.data_ptr() + k * _ARG_SIZE,
+                        ctypes.byref(comb), route=route)
+            for c in cells:
+                _SHARD.copy(c.win, win)
+        for c in cells:
+            c.step(m, apply=True, k=k)
+        if snapshots:
+            snaps.append(torch.cat([c.used[0].to(out) for c in cells]))
+
+    ex = _explain_out(res, lead.dims["c"]) if explain else None
+    result = PlacementResult(
+        sel_idx=res["sel_idx"], sel_score=res["sel_score"],
+        new_used=torch.stack(snaps) if snapshots else None,
+        nodes_feasible=res["nodes_feasible"], nodes_fit=res["nodes_fit"],
+        final_scores0=torch.cat([c.prog["final0"].to(out) for c in cells],
+                                dim=1),
+        explain=ex)
+    return result, [(c.used[0], c.dyn) for c in cells]
+
+
+def _chain_impl(sc: ShardedCluster):
+    kinds = {d.type for d in sc.devices[0]}
+    if kinds == {"cpu"}:
+        return "plain"
+    if kinds == {"cuda"}:
+        return "cuda"
+    raise ValueError(f"no sharded placement for devices {sorted(kinds)}")
+
+
+def sharded_chain(sc: ShardedCluster, batch, max_allocs: int,
+                  explain: bool = False) -> PlacementResult:
+    """B10: `place_task_group_chain` on a sharded view — the programs of
+    `batch` in order, new_used the carry after each program, every output
+    on the grid's first device."""
+    if _chain_impl(sc) == "plain":
+        return sharded_chain_plain(sc, batch, max_allocs, explain)[0]
+    return sharded_chain_cuda(sc, batch, max_allocs, explain)[0]
+
+
+def sharded_packed_chain(sc: ShardedCluster, i32buf, f32buf, u8buf, spec,
+                         max_allocs: int, explain: bool = False):
+    """B10: `place_packed_chain` on a sharded view; returns (sel_idx,
+    sel_score, nodes_feasible, nodes_fit[, explain leaves]) on the grid's
+    first device, as the unsharded route does."""
+    batch = _unpack_params(i32buf, f32buf, u8buf, spec)
+    if _chain_impl(sc) == "plain":
+        r = sharded_chain_plain(sc, batch, max_allocs, explain)[0]
+    else:
+        r = sharded_chain_cuda(sc, batch, max_allocs, explain,
+                               snapshots=False)[0]
+    return _flat_outputs(r, explain)
+
+
+def _first(r: PlacementResult, explain: bool) -> PlacementResult:
+    """Program 0 of a chain's result, shaped as one program's."""
+    ex = (PlacementExplain(*(leaf[0] for leaf in r.explain))
+          if explain else None)
+    return PlacementResult(*(f[0] for f in r[:6]), explain=ex)
+
+
+def sharded_task_group_plain(sc: ShardedCluster, p: TGParams,
+                             max_allocs: int,
+                             explain: bool = False) -> PlacementResult:
+    """Plain B11: the plain chain at one program (any devices)."""
+    batch = TGParams(*(t.unsqueeze(0) for t in p))
+    return _first(sharded_chain_plain(sc, batch, max_allocs, explain)[0],
+                  explain)
+
+
+def sharded_task_group(sc: ShardedCluster, p: TGParams, max_allocs: int,
+                       explain: bool = False) -> PlacementResult:
+    """B11: `place_task_group` on a sharded view (the chain at one
+    program), shaped as the unsharded route returns it."""
+    if _chain_impl(sc) == "plain":
+        return sharded_task_group_plain(sc, p, max_allocs, explain)
+    batch = TGParams(*(t.unsqueeze(0) for t in p))
+    return _first(sharded_chain_cuda(sc, batch, max_allocs, explain,
+                                     route="single")[0], explain)
+
+
+def _system_over(sc: ShardedCluster, p: TGParams, fn):
+    shards, devs = sc.shards[0], sc.devices[0]
+    ns = sc.n // len(sc.row0)
+    feas, fit = [], []
+    for sh, d, r0 in zip(shards, devs, sc.row0):
+        f, g = fn(sh, rebase(_on(p, d), r0, ns, sc.n))
+        feas.append(f.to(devs[0]))
+        fit.append(g.to(devs[0]))
+    return torch.cat(feas), torch.cat(fit)
+
+
+def sharded_system_plain(sc: ShardedCluster, p: TGParams):
+    """Plain B12: K2's plain version on each shard (any devices)."""
+    return _system_over(sc, p, system_feasibility_plain)
+
+
+def sharded_system_feasibility(sc: ShardedCluster, p: TGParams):
+    """B12: `system_feasibility` on a sharded view — K2 (its plain version
+    on CPU shards) on each of batch row 0's shards over its own rows, the
+    program's row fields rebased, the two masks joined in global row
+    order on the grid's first device."""
+    _chain_impl(sc)
+
+    def k2(shard: ClusterArrays, q: TGParams):
+        out = system_feasibility(shard, q)
+        if shard.used.device.type == "cuda":
+            _SHARD.routes["system"] += 1    # the K2 launch on this shard
+        return out
+
+    return _system_over(sc, p, k2)

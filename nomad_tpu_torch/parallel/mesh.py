@@ -24,7 +24,7 @@ lead device, in place of GSPMD's all-reduce.
 from __future__ import annotations
 
 import os
-from typing import NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,10 +58,11 @@ class Mesh:
         return f"Mesh({self.shape}, {[str(d) for d in self.devices.flat]})"
 
 
-#: process-wide mesh the control plane would shard cluster uploads over
-#: (None = single-device dispatch). The port's `Server` does not install
-#: one yet: it raises on `mesh=` until the server half of the sharded path
-#: is ported.
+#: process-wide mesh the control plane shards its cluster view over (None =
+#: single-device dispatch). `Server(ServerConfig(mesh=...))` installs it
+#: and removes it on shutdown; the view cache (`TorchStack.device_arrays`)
+#: then keeps a node-sharded view, and its readers take the sharded routes
+#: (kernels/shard.py).
 _ACTIVE_MESH: Optional[Mesh] = None
 
 
@@ -155,40 +156,95 @@ def params_sharding(mesh: Mesh, batched: bool = True) -> TGParams:
     return TGParams(*(NamedSharding(mesh, spec) for _ in TGParams._fields))
 
 
-def shard_cluster(arrays: ClusterArrays, mesh: Mesh) -> ShardedCluster:
-    """Split the view's rows into the mesh's node shards, each copied to
-    its devices (one copy per distinct device of a node column): every
-    tensor is sharded as `cluster_sharding` says."""
-    from ..lib.hbm import default_hbm
-    from ..lib.transfer import default_ledger
-
-    n = int(arrays.capacity.shape[0])
+def shard_tensor(t: torch.Tensor, mesh: Mesh,
+                 axis: int = 0) -> Dict[Tuple[torch.device, int],
+                                        torch.Tensor]:
+    """Tensor `t` split along `axis` into the mesh's node shards, each
+    copied to its devices: {(device, node shard): copy}, one copy per
+    distinct device of a node column. Raises ValueError when the shards
+    do not divide the rows."""
+    n = int(t.shape[axis])
     nm = mesh.devices.shape[1]
     if n % nm:
         raise ValueError(f"{n} rows do not split over {nm} node shards")
     rows = n // nm
+    copies = {}
+    for row in mesh.grid():
+        for j, dev in enumerate(row):
+            if (dev, j) not in copies:
+                copies[(dev, j)] = t.narrow(axis, j * rows, rows).to(
+                    dev, copy=True)
+    return copies
+
+
+def assemble(mesh: Mesh, n: int, fields: ClusterArrays) -> ShardedCluster:
+    """The sharded view over `n` rows from per-field copies (each field
+    `shard_tensor`'s {(device, node shard): tensor})."""
     grid = mesh.grid()
+    nm = len(grid[0])
+    return ShardedCluster(
+        devices=grid, row0=tuple(j * (n // nm) for j in range(nm)), n=n,
+        shards=tuple(tuple(ClusterArrays(*(f[(dev, j)] for f in fields))
+                           for j, dev in enumerate(row)) for row in grid))
+
+
+def copy_fields(sc: ShardedCluster) -> ClusterArrays:
+    """Per field, the {(device, node shard): tensor} of every distinct
+    copy of a sharded view (what `assemble` takes)."""
+    copies = shard_copies(sc)
+    return ClusterArrays(*({k: getattr(c, f) for k, c in copies.items()}
+                           for f in ClusterArrays._fields))
+
+
+def shard_copies(sc: ShardedCluster) -> Dict[Tuple[torch.device, int],
+                                             ClusterArrays]:
+    """The distinct copies of a sharded view: {(device, node shard):
+    ClusterArrays}."""
+    return {(dev, j): shard
+            for devs, shards in zip(sc.devices, sc.shards)
+            for j, (dev, shard) in enumerate(zip(devs, shards))}
+
+
+def route_rows(row_of: np.ndarray, rows: int,
+               shards: int) -> List[Tuple[int, np.ndarray, np.ndarray]]:
+    """Changed global rows (or the row of each changed port word)
+    `row_of` routed to the node shards of `rows` rows that own them:
+    [(node shard, the positions in `row_of` it owns, those rows rebased
+    to its first row, i32)] for each shard that owns any. Every distinct
+    copy of a shard takes the same changes."""
+    row_of = np.asarray(row_of, dtype=np.int64)
+    owner = row_of // rows
+    out = []
+    for j in range(shards):
+        pos = np.nonzero(owner == j)[0]
+        if pos.size:
+            out.append((j, pos, (row_of[pos] - j * rows).astype(np.int32)))
+    return out
+
+
+def shard_cluster(arrays: ClusterArrays, mesh: Mesh) -> ShardedCluster:
+    """Split the view's rows into the mesh's node shards, each copied to
+    its devices (one copy per distinct device of a node column): every
+    tensor is sharded as `cluster_sharding` says (`shard_tensor`, which
+    is also the view cache's full upload under an active mesh)."""
+    from ..lib.hbm import default_hbm
+    from ..lib.transfer import default_ledger
+
+    n = int(arrays.capacity.shape[0])
     axes = [sh.spec.index(NODE_AXIS) for sh in cluster_sharding(mesh)]
     nb = sum(int(a.nbytes) for a in arrays)
-    copies = {}
     with default_ledger().timed("mesh.shard_cluster", nb,
                                 count=len(arrays)):
-        for row in grid:
-            for j, dev in enumerate(row):
-                if (dev, j) not in copies:
-                    copies[(dev, j)] = ClusterArrays(*(
-                        t.narrow(axis, j * rows, rows).to(dev, copy=True)
-                        for t, axis in zip(arrays, axes)))
+        fields = ClusterArrays(*(shard_tensor(t, mesh, axis)
+                                 for t, axis in zip(arrays, axes)))
+    sc = assemble(mesh, n, fields)
     # residency ledger: each distinct shard booked on its device, with the
     # node-axis length so the capacity planner can price a node row
     hbm = default_hbm()
-    for shard in copies.values():
+    for shard in shard_copies(sc).values():
         for a in shard:
             hbm.track("mesh.cluster", a, rows=n)
-    return ShardedCluster(
-        devices=grid, row0=tuple(j * rows for j in range(nm)), n=n,
-        shards=tuple(tuple(copies[(dev, j)] for j, dev in enumerate(row))
-                     for row in grid))
+    return sc
 
 
 def _check_on(cluster: ShardedCluster, mesh: Mesh) -> None:

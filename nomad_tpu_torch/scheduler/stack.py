@@ -37,13 +37,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..convert import params_from_numpy, tensor_from_numpy, to_device_async
+from ..convert import params_from_numpy, tensor_from_numpy
 from ..device import DeviceLike, resolve_device
 from ..kernels.placement import (EXPLAIN_SCORE_NAMES, ClusterArrays,
                                  PlacementExplain, PlacementResult, TGParams,
                                  place_task_group)
-from ..kernels.rows import (hot_rows_update, port_rows_update,
-                            port_words_update)
+from ..kernels.rows import (hot_rows_update, hot_rows_update_sharded,
+                            port_rows_update, port_rows_update_sharded,
+                            port_words_update, port_words_update_sharded,
+                            staged)
 from ..lib.metrics import default_registry
 from ..parallel.pad import pad_params
 from ..structs import Allocation, Job, TaskGroup
@@ -172,6 +174,13 @@ def _u32_bits(a: np.ndarray) -> np.ndarray:
     bitmap's type, convert.tensor_from_numpy)."""
     a = np.ascontiguousarray(a)
     return a.view(np.int32) if a.dtype == np.uint32 else a
+
+
+def _clone(t):
+    """A copy of a view tensor, or of every copy of a sharded field."""
+    if isinstance(t, dict):
+        return {k: v.clone() for k, v in t.items()}
+    return t.clone()
 
 
 # ---- view leases + dispatch carry (device-resident plan deltas) ------------
@@ -752,21 +761,44 @@ class TorchStack:
         All writes go to the device's current stream, behind every launch
         already queued there; pinned staging buffers of the delta values
         stay alive until their copies ran (PyTorch's caching host
-        allocator records the stream use)."""
+        allocator records the stream use).
+
+        When a control-plane mesh is active (parallel/mesh.py
+        set_active_mesh), the view is node-sharded over the mesh: every
+        upload is split into its node shards (`shard_tensor`, one copy per
+        distinct device of a node column) and the result is a
+        `ShardedCluster`; row deltas run K7 per shard on every copy
+        (B13). The mesh is part of the static and ports keys and of delta
+        eligibility, so a mesh flip is a full upload; carry adoption
+        declines. A lease covers every shard and copy. The mesh's lead
+        device must be this stack's device."""
         from ..lib.hbm import default_hbm
         from ..lib.transfer import default_ledger
+        from ..parallel.mesh import (assemble, copy_fields, get_active_mesh,
+                                     shard_copies, shard_tensor)
 
         reg = default_registry()
         led = default_ledger()
         hbm = default_hbm()
         cl = self.cluster
         dev = _dev_key(self.device)
+        mesh = get_active_mesh()
+        if mesh is not None and _dev_key(mesh.grid()[0][0]) != dev:
+            raise ValueError(f"the active mesh leads on {mesh.grid()[0][0]}, "
+                             f"this stack places on {dev}")
 
         def up(a, dtype=None):
-            return tensor_from_numpy(a, dev, dtype)
+            if mesh is None:
+                return tensor_from_numpy(a, dev, dtype)
+            return shard_tensor(tensor_from_numpy(a, torch.device("cpu"),
+                                                  dtype), mesh)
 
         def stage(a):
-            return to_device_async(np.ascontiguousarray(a), dev)
+            return staged(a, dev)
+
+        #: rows of a node shard under a mesh (None: the view is whole)
+        shard_rows = (None if mesh is None
+                      else cl.n_cap // mesh.devices.shape[1])
 
         with _DEV_CACHE_LOCK:
             # capture ALL keys BEFORE reading delta rows or uploading: a
@@ -780,8 +812,9 @@ class TorchStack:
             # key's vocabulary approaches the i16 range); the dtype rides
             # the static key so the flip is a clean re-upload
             attr_dt = np.int16 if cl.vocab.max_vocab < 32000 else np.int32
-            static_key = (cl.node_version, cl.n_cap, cl.k_cap, attr_dt)
-            ports_key = (ports_version, cl.n_cap)
+            static_key = (cl.node_version, cl.n_cap, cl.k_cap, mesh,
+                          attr_dt)
+            ports_key = (ports_version, cl.n_cap, mesh)
             per_dev = _DEV_CACHE.setdefault(cl, {})
             ent = per_dev.get(dev)
             if ent is not None and ent["version"] == version \
@@ -809,11 +842,18 @@ class TorchStack:
                     capacity = up(cl.capacity, np.float32)
                     attrs = up(cl.attrs, attr_dt)
                 reg.inc("view.upload_bytes", nb)
-            # delta eligibility: the same row bucket — a grown n_cap
-            # changes every tensor's shape, not expressible as row writes
-            can_delta = ent is not None and ent["n_cap"] == cl.n_cap
+            # delta eligibility: the same mesh and row bucket — a grown
+            # n_cap changes every tensor's shape, a mesh flip its
+            # placement; neither is expressible as row writes
+            can_delta = (ent is not None and ent["n_cap"] == cl.n_cap
+                         and ent["mesh"] is mesh)
             limit = max(8, cl.n_cap // 4)
             prev = ent["arrays"] if ent is not None else None
+            # the view's tensors by field: tensors, or under a mesh each
+            # field's {(device, node shard): copy}
+            prev_f = (copy_fields(prev)
+                      if ent is not None and ent["mesh"] is not None
+                      else prev)
 
             did_delta = False
             hot_entries = (cl.hot_entries_since(ent["version"], limit)
@@ -838,7 +878,8 @@ class TorchStack:
                 # the small-limit hot_entries read — a long chain's row
                 # set routinely exceeds it, and the proof lives in the
                 # chain's certify cursor + the head token's windows
-                res = (self._chain_carry_overlay(cl, ent, carry, prev)
+                res = (self._chain_carry_overlay(cl, ent, carry, prev,
+                                                 mesh)
                        if can_delta else None)
                 if res is not None:
                     skip, overlay = res
@@ -859,7 +900,7 @@ class TorchStack:
                     carry = None
             if not adopted and carry is not None and hot_rows:
                 skip = self._carry_skip_rows(cl, ent, carry, prev,
-                                             hot_entries)
+                                             hot_entries, mesh)
                 adopted = skip is not None
                 if not adopted:
                     skip = set()
@@ -893,15 +934,15 @@ class TorchStack:
             elif hot_rows is not None:
                 if hot_rows:
                     used, node_ok, dyn_free = self._apply_hot_rows(
-                        cl, (prev.used, prev.node_ok, prev.dyn_free),
-                        hot_rows, in_place, stage, led)
+                        cl, (prev_f.used, prev_f.node_ok, prev_f.dyn_free),
+                        hot_rows, in_place, stage, led, shard_rows)
                     did_delta = True
                     reg.inc("view.delta_rows", len(hot_rows))
                 else:
                     # version bumped without touching hot rows (job
                     # index churn, vocab growth): the tensors are current
-                    used, node_ok, dyn_free = (prev.used, prev.node_ok,
-                                               prev.dyn_free)
+                    used, node_ok, dyn_free = (prev_f.used, prev_f.node_ok,
+                                               prev_f.dyn_free)
             else:
                 nb = (cl.used.size * 4 + cl.node_ok.nbytes
                       + cl.dyn_free.nbytes)
@@ -921,7 +962,7 @@ class TorchStack:
                 if port_words:
                     ports_used = self._apply_port_words(
                         cl, ent["ports_used"], port_words, in_place, stage,
-                        led, reg)
+                        led, reg, shard_rows)
                     did_delta = True
                 elif port_words is not None:
                     ports_used = ent["ports_used"]
@@ -940,7 +981,7 @@ class TorchStack:
             reg.set_gauge("view.hot_log_len", st["hot_log_len"])
             reg.set_gauge("view.ports_log_len", st["ports_log_len"])
 
-            arrays = ClusterArrays(
+            fields = ClusterArrays(
                 capacity=capacity,
                 used=used,
                 node_ok=node_ok,
@@ -948,15 +989,20 @@ class TorchStack:
                 ports_used=ports_used,
                 dyn_free=dyn_free,
             )
+            arrays = (fields if mesh is None
+                      else assemble(mesh, cl.n_cap, fields))
             # residency ledger: book the refreshed view slots by site
-            # class. Tensors carried forward are already booked (no-op);
-            # an adopted carry RE-SITES from select_batch.carry to the
-            # view (the swap moves ownership, not bytes); replaced
-            # tensors auto-release once their last reference (an
-            # in-flight launch's lease, a copy slot's source) drops.
-            hbm.track_cluster("stack.view", arrays, cl.n_cap)
+            # class (each shard copy on its device). Tensors carried
+            # forward are already booked (no-op); an adopted carry
+            # RE-SITES from select_batch.carry to the view (the swap moves
+            # ownership, not bytes); replaced tensors auto-release once
+            # their last reference (an in-flight launch's lease, a copy
+            # slot's source) drops.
+            for view in ((arrays,) if mesh is None
+                         else shard_copies(arrays).values()):
+                hbm.track_cluster("stack.view", view, cl.n_cap)
             per_dev[dev] = {
-                "version": version, "arrays": arrays,
+                "version": version, "arrays": arrays, "mesh": mesh,
                 "static_key": static_key, "capacity": capacity,
                 "attrs": attrs, "ports_key": ports_key,
                 "ports_version": ports_version,
@@ -979,25 +1025,30 @@ class TorchStack:
             return _leased(per_dev[dev], lease_token)
 
     @staticmethod
-    def _apply_hot_rows(cl, bufs, rows, in_place, stage, led):
+    def _apply_hot_rows(cl, bufs, rows, in_place, stage, led,
+                        shard_rows=None):
         """Write the CURRENT host values of `rows` into the hot tensors
         `bufs` = (used, node_ok, dyn_free) — into copies unless
-        `in_place` — with one K7 hot-row launch; returns the tensors."""
+        `in_place` — with one K7 hot-row launch, or under a mesh (`bufs`
+        sharded in shards of `shard_rows` rows) one per copy of each shard
+        with changed rows; returns the tensors."""
         idx, uvals, ovals, dvals = _delta_rows_host(
             rows, cl.used, cl.node_ok, cl.dyn_free)
         if not in_place:
-            bufs = tuple(b.clone() for b in bufs)
+            bufs = tuple(_clone(b) for b in bufs)
         nb = idx.nbytes + uvals.size * 4 + ovals.nbytes + dvals.nbytes
+        vals = (uvals.astype(np.float32), ovals.astype(np.bool_),
+                dvals.astype(np.float32))
         with led.timed("stack.hot_delta", nb, count=4):
-            args = (stage(idx), stage(uvals.astype(np.float32)),
-                    stage(ovals.astype(np.bool_)),
-                    stage(dvals.astype(np.float32)))
-            hot_rows_update(*bufs, *args)
+            if shard_rows is not None:
+                hot_rows_update_sharded(bufs, shard_rows, idx, *vals)
+            else:
+                hot_rows_update(*bufs, stage(idx), *map(stage, vals))
         default_registry().inc("view.upload_bytes", nb)
         return bufs
 
     @staticmethod
-    def _carry_skip_rows(cl, ent, carry, prev, hot_entries):
+    def _carry_skip_rows(cl, ent, carry, prev, hot_entries, mesh):
         """Decide whether a dispatch carry is adoptable and which rows
         it covers. Returns the SKIP row set (rows whose device values
         the carry already holds — no upload needed), or None to reject.
@@ -1020,7 +1071,12 @@ class TorchStack:
           program's plan-relative deltas (stops/preempts — their port
           credits adjust dyn_free in ways the chain carry deliberately
           does not model) touched it. Everything else overlays from
-          host, which is always authoritative."""
+          host, which is always authoritative.
+
+        Declines under a mesh (active now, or when the entry was built):
+        no carry is adopted into a sharded view."""
+        if mesh is not None or ent["mesh"] is not None:
+            return None
         if carry["base_arrays"] is not prev:
             return None
         predicted = carry["predicted"]
@@ -1051,7 +1107,7 @@ class TorchStack:
                 - carry["stop_rows"])
 
     @staticmethod
-    def _chain_carry_overlay(cl, ent, carry, prev):
+    def _chain_carry_overlay(cl, ent, carry, prev, mesh):
         """Decide whether a certified CHAIN carry
         (spec_chain_publish_carry) is adoptable and split the rows into
         (skip, overlay), or return None to reject outright.
@@ -1072,7 +1128,10 @@ class TorchStack:
         until their windows commit — overlaying them keeps the proven
         prefix adoptable instead of rejecting the whole carry).
         Everything in neither set is unchanged since the entry's
-        upload, and the carry equals the base there by construction."""
+        upload, and the carry equals the base there by construction.
+        Declines under a mesh, as `_carry_skip_rows` does."""
+        if mesh is not None or ent["mesh"] is not None:
+            return None
         if carry["base_arrays"] is not prev:
             return None
         predicted = carry["predicted"]
@@ -1117,24 +1176,30 @@ class TorchStack:
 
     @staticmethod
     def _apply_port_words(cl, ports_buf, port_words, in_place, stage, led,
-                          reg):
+                          reg, shard_rows=None):
         """Apply a word-granular port delta: whole-row writes for
         rebuilt rows (node upsert/remove), single-u32 writes for port
         flips — the steady-state case ships 4-byte words instead of
         8 KiB rows (`stack.ports_word_delta`). Into a copy of the bitmap
-        unless `in_place`."""
+        unless `in_place`; under a mesh (`shard_rows` rows a shard) on
+        every copy of the shards the rows fall in."""
         full_rows = sorted(r for r, ws in port_words.items()
                            if ws is None)
         word_items = sorted((r, w) for r, ws in port_words.items()
                             if ws is not None for w in ws)
         if not in_place:
-            ports_buf = ports_buf.clone()
+            ports_buf = _clone(ports_buf)
+        sharded = shard_rows is not None
         if full_rows:
             pidx, pvals = _delta_rows_host(full_rows, cl.ports_used)
             nb = pidx.nbytes + pvals.nbytes
             with led.timed("stack.ports_delta", nb, count=2):
-                port_rows_update(ports_buf, stage(pidx),
-                                 stage(_u32_bits(pvals)))
+                if sharded:
+                    port_rows_update_sharded(ports_buf, shard_rows, pidx,
+                                             _u32_bits(pvals))
+                else:
+                    port_rows_update(ports_buf, stage(pidx),
+                                     stage(_u32_bits(pvals)))
             reg.inc("view.delta_rows", len(full_rows))
             reg.inc("view.upload_bytes", nb)
         if word_items:
@@ -1145,8 +1210,13 @@ class TorchStack:
             vals_a = cl.ports_used[rows_a, words_a]
             nb = rows_a.nbytes + words_a.nbytes + vals_a.nbytes
             with led.timed("stack.ports_word_delta", nb, count=3):
-                port_words_update(ports_buf, stage(rows_a), stage(words_a),
-                                  stage(_u32_bits(vals_a)))
+                if sharded:
+                    port_words_update_sharded(ports_buf, shard_rows, rows_a,
+                                              words_a, _u32_bits(vals_a))
+                else:
+                    port_words_update(ports_buf, stage(rows_a),
+                                      stage(words_a),
+                                      stage(_u32_bits(vals_a)))
             reg.inc("view.ports_words", len(word_items))
             reg.inc("view.upload_bytes", nb)
         return ports_buf

@@ -449,16 +449,20 @@ class SelectCoordinator:
             want_ex = any(r.explain for r in reqs)
             dev = _device_of(reqs, resolved, key)
             # device-resident table path first; falls back to the packed
-            # or single transport on residency ceilings, caps flush races
-            # or coordinator-less (bare arrays) callers. (The reference
-            # also falls back under an active device mesh; the port has
-            # no mesh yet, ROADMAP A9.)
+            # or single transport on residency ceilings, caps flush races,
+            # an active device mesh (the view is node-sharded: the packed
+            # and single routes reach the sharded chain, B10, and single
+            # program, B11, through its type) or coordinator-less (bare
+            # arrays) callers
             cluster = None
             if key[0] == "cluster":
+                from ..parallel.mesh import get_active_mesh
+
                 owner = getattr(reqs[0].arrays_fn, "__self__", None)
                 cluster = getattr(owner, "cluster", None)
-                if self._dispatch_table(reqs, cluster, dev, want_ex, led,
-                                        _mono, _kernel_done):
+                if get_active_mesh() is None and self._dispatch_table(
+                        reqs, cluster, dev, want_ex, led, _mono,
+                        _kernel_done):
                     continue
             # a cluster-bound view is leased until the outputs are on
             # the host (released by the resolver callback, or below on a
@@ -972,10 +976,14 @@ class SelectCoordinator:
         schedulers are compiling on the pool); aborts — leaving the
         batch parked for the normal path — unless every live thread is
         parked, every request is bound to `cluster`, the adaptive gate
-        is armed, and the chain has a carry to predict from. (The
-        reference also declines under an active device mesh; the port
-        has none.)"""
+        is armed, and the chain has a carry to predict from. Declines
+        under an active device mesh (its dispatches carry no view to
+        predict from)."""
         if not spec_enabled() or self._ran or self._spec is not None:
+            return False
+        from ..parallel.mesh import get_active_mesh
+
+        if get_active_mesh() is not None:
             return False
         gate = _gate_for(cluster)
         if not gate.armed():

@@ -71,8 +71,10 @@ class ServerConfig:
         #: dispatches amortize the fixed per-dispatch cost; ≥64 pays a
         #: longer serial scan for no further dispatch saving)
         self.eval_batch = eval_batch
-        #: device mesh of the reference package; the port has none yet
-        #: (ROADMAP A9), so anything but None raises at Server()
+        #: control-plane device mesh (parallel/mesh.py Mesh), "env"
+        #: (NOMAD_TPU_MESH, `mesh_from_env`) or None: the Server installs
+        #: it process-wide and its view cache shards the cluster over it;
+        #: its lead device must be the server's device
         self.mesh = mesh
 
 
@@ -140,9 +142,28 @@ class Server:
         #: caller asks for the CPU)
         self.device = resolve_device(device)
         self.config = config or ServerConfig()
-        if self.config.mesh is not None:
-            raise NotImplementedError(
-                "device meshes are not ported yet (ROADMAP A9)")
+        # Control-plane device mesh: sharded cluster views on the live
+        # worker path (the dry run proves this same path). Installed
+        # process-wide — the kernel dispatch layer (TorchStack) is below
+        # the Server and sees it via get_active_mesh().
+        mesh = self.config.mesh
+        if mesh == "env":
+            from ..parallel.mesh import mesh_from_env
+
+            mesh = mesh_from_env()
+        if mesh is not None:
+            # the view cache keys the sharded view by its lead device
+            from ..scheduler.stack import _dev_key
+
+            lead = mesh.grid()[0][0]
+            if _dev_key(lead) != _dev_key(self.device):
+                raise ValueError(f"the mesh leads on {lead}, the server "
+                                 f"places on {self.device}")
+        self._installed_mesh = mesh
+        if mesh is not None:
+            from ..parallel.mesh import set_active_mesh
+
+            set_active_mesh(mesh)
         # Serializes quota admission (check-then-act) against the job
         # upsert: the HTTP layer is a ThreadingHTTPServer, so two
         # concurrent registers could otherwise both pass _enforce_quota
@@ -455,6 +476,14 @@ class Server:
         wal = getattr(self.state, "wal", None)
         if wal is not None:
             wal.close()
+        if self._installed_mesh is not None:
+            # uninstall the process-global mesh this server set up —
+            # but only if a newer server hasn't replaced it meanwhile
+            from ..parallel.mesh import get_active_mesh, set_active_mesh
+
+            if get_active_mesh() is self._installed_mesh:
+                set_active_mesh(None)
+            self._installed_mesh = None
 
     # ---- core GC (leader.go schedulePeriodic + core_sched.go) ----
 

@@ -386,13 +386,14 @@ class Worker:
         # this batch's state. None (no estimator / nothing cheap bounds
         # the eval) conflicts with every stale row — sound, never fast.
         # Skipped entirely when speculation can never run (the hard
-        # opt-out): masks nobody reads are pure batch-start latency. (The
-        # reference also skips them under an active device mesh; the
-        # port has no mesh yet, ROADMAP A9.)
+        # opt-out or an active mesh): masks nobody reads are pure
+        # batch-start latency.
+        from ..parallel.mesh import get_active_mesh
         from .select_batch import spec_enabled
 
         fp_fn = (getattr(self.server, "_eval_footprint", None)
-                 if spec_enabled() else None)
+                 if spec_enabled() and get_active_mesh() is None
+                 else None)
         futs = []
         for order, (ev, tok) in enumerate(items):
             coord.trace_ids[order] = ev.id

@@ -496,3 +496,258 @@ def test_shard_kernel_matches_plain(shape, cuda_device):
     for row in new_cluster.shards:
         for j, shard in enumerate(row):
             assert torch.equal(shard.used.cpu(), folded[j].cpu()), j
+
+
+# ---- C1: more than 65,535 programs a dispatch --------------------------------
+
+
+def _tiled_problem(cuda_device, copies=4096):
+    """16 distinct programs over a 64-row view, and the same programs
+    tiled `copies` times (65,536 at the default): program k is a copy of
+    program k mod 16."""
+    import numpy as np
+
+    from nomad_tpu_torch.kernels.placement import TGParams
+    from nomad_tpu_torch.parallel.pad import stack_params
+
+    state, _nodes = build_synthetic_state(48, 200, seed=9)
+    rng = random.Random(10)
+    stack = TorchStack(state.cluster, device=cuda_device)
+    progs = []
+    for i in range(16):
+        j = synth_service_job(rng, count=3,
+                              **_KINDS[sorted(_KINDS)[i % len(_KINDS)]])
+        state.upsert_job(j)
+        progs.append(stack.compile_tg(j, j.task_groups[0], 3, None)[0])
+    batched, m = stack_params(progs)
+    tiled = TGParams(*(np.tile(np.asarray(f), (copies,) + (1,) * (
+        np.asarray(f).ndim - 1)) for f in batched))
+    arrays = stack.device_arrays()
+    assert arrays.capacity.shape[0] == 64
+    return arrays, batched, tiled, m
+
+
+def _assert_tiled(want, got, fields=("sel_idx", "nodes_feasible",
+                                     "nodes_fit"),
+                  floats=("sel_score",)):
+    """Every copy's outputs equal its original's (program k mod 16)."""
+    for f in fields:
+        a, b = getattr(want, f).cpu(), getattr(got, f).cpu()
+        b = b.reshape((-1,) + tuple(a.shape))
+        assert torch.equal(b, a.expand_as(b).to(b.dtype)), f
+    for f in floats:
+        a, b = getattr(want, f).cpu(), getattr(got, f).cpu()
+        b = b.reshape((-1,) + tuple(a.shape))
+        torch.testing.assert_close(b, a.expand_as(b), rtol=0, atol=ATOL,
+                                   msg=f)
+
+
+@pytest.mark.cuda
+def test_batch_kernel_takes_65536_programs(cuda_device):
+    """K6 at B = 65,536 (above gridDim.y's 65,535) on 64 rows: both
+    routes, every copy equal to the plain result of its original; the
+    packed route (C2) keeps no [B, N, R] carry."""
+    from nomad_tpu_torch.convert import tensor_from_numpy
+
+    arrays, small, tiled, m = _tiled_problem(cuda_device)
+    want = kp.place_task_group_batch_plain(
+        arrays, params_from_numpy(small, cuda_device), m)
+    got = kp.place_task_group_batch(
+        arrays, params_from_numpy(tiled, cuda_device), m)
+    torch.cuda.synchronize()
+    assert got.sel_idx.shape[0] == 65536
+    _assert_tiled(want, got, floats=("sel_score", "new_used",
+                                     "final_scores0"))
+    del got
+    ibuf, fbuf, ubuf, spec = kp.pack_params(tiled)
+    bufs = [tensor_from_numpy(b, cuda_device) for b in (ibuf, fbuf, ubuf)]
+    p = params_from_numpy(tiled, cuda_device)
+
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    (sel, score), packed = peak_of(
+        lambda: kp.place_packed_batch(arrays, *bufs, spec, m))
+    _full, full = peak_of(lambda: kp.place_task_group_batch(arrays, p, m))
+    # the full route's lane carries (used [B, N, R], dyn_free [B, N]) are
+    # what the packed route no longer allocates
+    carry = 65536 * (arrays.used.numel() + arrays.dyn_free.numel()) * 4
+    assert full - packed >= carry, (full, packed, carry)
+    _assert_tiled(want, kp.PlacementResult(
+        sel_idx=sel, sel_score=score, new_used=None, nodes_feasible=None,
+        nodes_fit=None, final_scores0=None), fields=("sel_idx",))
+
+
+@pytest.mark.cuda
+def test_shard_kernel_takes_65536_programs_a_batch_row(cuda_device):
+    """K9 with one batch row of 65,536 programs on four shards: every copy
+    equal to the plain K9 result of its original."""
+    from nomad_tpu_torch.kernels import shard as ks
+    from nomad_tpu_torch.parallel import make_mesh, shard_cluster
+
+    arrays, small, tiled, m = _tiled_problem(cuda_device)
+    mesh = make_mesh(4, batch=1, devices=["cuda:0"] * 4)
+    sc = shard_cluster(arrays, mesh)
+    want, _f = ks.sharded_place_plain(sc, small, m)
+    got, _f = ks.sharded_place(sc, tiled, m)
+    torch.cuda.synchronize()
+    assert got.sel_idx.shape[0] == 65536
+    _assert_tiled(want, got)
+
+
+# ---- C2: the packed K6 equals the full-carry route ---------------------------
+
+
+@pytest.mark.cuda
+def test_packed_batch_equals_the_full_carry_route_bitwise(cuda_device):
+    """The pooled packed route's (sel_idx, sel_score) are bitwise those of
+    `place_task_group_batch`, which keeps a carry a program."""
+    from nomad_tpu_torch.convert import tensor_from_numpy
+
+    arrays, batched, m = _batch_problem(cuda_device, n_prog=300)
+    full = kp.place_task_group_batch(
+        arrays, params_from_numpy(batched, cuda_device), m)
+    ibuf, fbuf, ubuf, spec = kp.pack_params(batched)
+    bufs = [tensor_from_numpy(b, cuda_device) for b in (ibuf, fbuf, ubuf)]
+    sel, score = kp.place_packed_batch(arrays, *bufs, spec, m)
+    torch.cuda.synchronize()
+    assert torch.equal(sel, full.sel_idx)
+    assert torch.equal(score.view(torch.int32),
+                       full.sel_score.view(torch.int32))
+
+
+# ---- the sharded routes (B10-B13) on four shards of the card ------------------
+
+
+def _card_mesh(shape):
+    from nomad_tpu_torch.parallel import make_mesh
+
+    count = torch.cuda.device_count()
+    return make_mesh(4, batch=shape[0],
+                     devices=[f"cuda:{i % count}" for i in range(4)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)], ids=["1x4", "2x2"])
+@pytest.mark.parametrize("explain", [False, True], ids=["plain", "explain"])
+def test_sharded_chain_matches_plain_and_k4(shape, explain, cuda_device):
+    """B10: the packed chain on a sharded view == its plain version == the
+    unsharded chain (K4); the chain's carries equal the plain ones."""
+    from nomad_tpu_torch.convert import tensor_from_numpy
+    from nomad_tpu_torch.kernels import shard as ks
+    from nomad_tpu_torch.parallel import shard_cluster
+
+    arrays, batched, m = _batch_problem(cuda_device, n_prog=6)
+    sc = shard_cluster(arrays, _card_mesh(shape))
+    ibuf, fbuf, ubuf, spec = kp.pack_params(batched)
+    bufs = [tensor_from_numpy(b, cuda_device) for b in (ibuf, fbuf, ubuf)]
+    before = ks.route_launch_counts()["chain"]
+    got = kp.place_packed_chain(sc, *bufs, spec, m, explain=explain)
+    # a static launch a node shard, then per program M steps of a launch
+    # a shard and a combine, and the last apply a shard
+    n_prog, s = int(batched.n_place.shape[0]), len(sc.row0)
+    assert ks.route_launch_counts()["chain"] == before + s + n_prog * (
+        m * (s + 1) + s)
+    want = kp._flat_outputs(ks.sharded_chain_plain(
+        sc, kp._unpack_params(*bufs, spec), m, explain)[0], explain)
+    k4 = kp.place_packed_chain(arrays, *bufs, spec, m, explain=explain)
+    torch.cuda.synchronize()
+    _assert_flat(want, got, explain)
+    _assert_flat(k4, got, explain)
+    stacked = params_from_numpy(batched, cuda_device)
+    r, carry = ks.sharded_chain_cuda(sc, stacked, m)
+    r_plain, carry_plain = ks.sharded_chain_plain(sc, stacked, m)
+    torch.cuda.synchronize()
+    _assert_same(r_plain, r)
+    for (u, d), (pu, pd) in zip(carry, carry_plain):
+        assert torch.equal(u.cpu(), pu.cpu()) and torch.equal(d.cpu(),
+                                                              pd.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)], ids=["1x4", "2x2"])
+def test_sharded_single_matches_plain_and_k1(shape, cuda_device):
+    """B11: place_task_group with explain on a sharded view == its plain
+    version == K1 on the whole view."""
+    from nomad_tpu_torch.kernels import shard as ks
+    from nomad_tpu_torch.parallel import shard_cluster
+
+    arrays, batched, m = _batch_problem(cuda_device, n_prog=4)
+    sc = shard_cluster(arrays, _card_mesh(shape))
+    stacked = params_from_numpy(batched, cuda_device)
+    for b in range(4):
+        p = kp._program(stacked, b)
+        before = ks.route_launch_counts()["single"]
+        got = kp.place_task_group(sc, p, m, explain=True)
+        s = len(sc.row0)
+        assert ks.route_launch_counts()["single"] == before + s + m * (
+            s + 1) + s
+        want = kp.place_task_group(arrays, p, m, explain=True)
+        plain = ks.sharded_task_group_plain(sc, p, m, explain=True)
+        torch.cuda.synchronize()
+        _assert_same(want, got)
+        _assert_same(plain, got)
+
+
+@pytest.mark.cuda
+def test_sharded_system_matches_k2(cuda_device):
+    """B12: K2 per shard, masks joined == K2 on the whole view."""
+    from nomad_tpu_torch.kernels import shard as ks
+    from nomad_tpu_torch.parallel import shard_cluster
+
+    arrays, batched, _m = _batch_problem(cuda_device, n_prog=3)
+    sc = shard_cluster(arrays, _card_mesh((1, 4)))
+    stacked = params_from_numpy(batched, cuda_device)
+    for b in range(3):
+        p = kp._program(stacked, b)
+        before = ks.route_launch_counts()["system"]
+        got = kp.system_feasibility(sc, p)
+        assert ks.route_launch_counts()["system"] == before + 4  # a shard
+        want = kp.system_feasibility(arrays, p)
+        for w, g in zip(want, got):
+            assert torch.equal(w.cpu(), g.cpu())
+
+
+@pytest.mark.cuda
+def test_sharded_view_refresh_matches_a_cold_upload(cuda_device):
+    """B13: under a (2, 2) mesh of the card the view cache's K7 per shard
+    keeps every copy equal to a cold upload after churn."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.kernels import rows as kr
+    from nomad_tpu_torch.parallel import set_active_mesh, shard_cluster
+    from nomad_tpu_torch.parallel.mesh import shard_copies
+    from nomad_tpu_torch.structs import NetworkResource, Port
+
+    state, nodes = build_synthetic_state(300, 3000, seed=12)
+    mesh = _card_mesh((2, 2))
+    stack = TorchStack(state.cluster, device=cuda_device)
+    set_active_mesh(mesh)
+    try:
+        stack.device_arrays()
+        before = kr.sharded_delta_launch_count()
+        job = synth_service_job(random.Random(3), count=1)
+        for k, node in enumerate(nodes[::17]):
+            a = mock.alloc(job=job, node_id=node.id, client_status="running")
+            a.allocated_resources = mock.alloc_resources(
+                cpu=100, memory_mb=64, networks=[NetworkResource(
+                    ip=node.node_resources.networks[0].ip, mbits=1,
+                    reserved_ports=[Port("http", 9000 + k)])])
+            state.upsert_alloc(a)
+        sc = stack.device_arrays()
+        assert kr.sharded_delta_launch_count() > before
+        set_active_mesh(None)
+        cold = shard_cluster(TorchStack(state.cluster,
+                                        device="cpu").device_arrays(), mesh)
+    finally:
+        set_active_mesh(None)
+    torch.cuda.synchronize()
+    for key, shard in shard_copies(sc).items():
+        want = shard_copies(cold)[key]
+        for f in kp.ClusterArrays._fields:
+            assert torch.equal(getattr(shard, f).cpu(),
+                               getattr(want, f).cpu()), (key, f)

@@ -19,26 +19,30 @@ REWRITTEN = {
     "analysis/__init__.py": "only the name sets, no lint engine",
     "analysis/vocab.py": "the four name sets the copies import",
     "kernels/__init__.py": "the port's kernel package",
-    "kernels/placement.py": "PyTorch plain versions and CUDA wrappers",
+    "kernels/placement.py": "PyTorch plain versions and CUDA wrappers; "
+                            "sharded views route to kernels/shard.py",
     "lib/hbm.py": "torch tensors and torch.cuda memory stats",
     "lib/trace.py": "comments naming the reference's issues",
     "lib/tracectx.py": "comments naming the reference's issues",
     "lib/transfer.py": "guard_scope counts; torch has no transfer guard",
     "parallel/__init__.py": "the mesh's names and the host padding",
-    "parallel/mesh.py": "a grid of torch devices, K9 in place of GSPMD",
+    "parallel/mesh.py": "a grid of torch devices, K9 and the sharded "
+                        "routes in place of GSPMD; shard_tensor, "
+                        "route_rows",
     "kernels/preemption.py": "PyTorch plain version and CUDA wrapper (K3)",
     "scheduler/__init__.py": "the port's package docstring, TorchStack",
     "scheduler/generic.py": "device=, TorchStack; the retry ranks on it",
     "scheduler/harness.py": "device=, passed to both schedulers",
     "scheduler/preemption.py": "the retry on torch tensors: four uploads",
     "scheduler/system.py": "device=, TorchStack, K2 under a view lease",
-    "scheduler/stack.py": "TorchStack: per-device view cache, K7, leases",
+    "scheduler/stack.py": "TorchStack: per-device view cache, K7, leases; "
+                          "a ShardedCluster under a mesh, K7 per shard",
     "server/broker.py": "comments naming the reference's issues",
     "server/plan_apply.py": "comments naming the reference's issues",
     "server/program_table.py": "torch tables, the row-scatter insert",
     "server/select_batch.py": "CUDA-event outputs, leased fallbacks",
-    "server/server.py": "device=, no device mesh",
-    "server/worker.py": "no mesh; schedulers take the server's device",
+    "server/server.py": "device=; a mesh must lead on the server's device",
+    "server/worker.py": "schedulers take the server's device",
     "structs/alloc.py": "comments naming the reference's issues",
     "structs/codec.py": "registry of the port's own classes",
     "structs/evaluation.py": "comments naming the reference's issues",

@@ -196,6 +196,9 @@ assert run.mesh.shape == {"batch": 2, "nodes": 2}, run.mesh.shape
 assert tuple(run.result.sel_idx.shape) == (64, run.max_allocs)
 assert len(run.new_cluster.shards) == 2 and len(run.new_cluster.row0) == 2
 assert bool((run.new_cluster.full().used >= run.cluster.full().used).all())
+assert run.server_stats.get("batched", 0) > 0, run.server_stats
+from nomad_tpu_torch.parallel import get_active_mesh
+assert get_active_mesh() is None
 assert not any(m.split(".")[0] in ("jax", "nomad_tpu")
                for m, mod in sys.modules.items() if mod is not None), \
     sorted(m for m in sys.modules if m.startswith(("jax", "nomad_tpu.")))
@@ -204,7 +207,8 @@ print("ok")
 
 
 def test_port_dryrun_multichip_without_jax():
-    """The dry run's sharded step on four CPU shards, no JAX."""
+    """The dry run's sharded step and its server half (the live server on
+    the mesh) on four CPU shards, no JAX."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_DRYRUN], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -212,6 +216,7 @@ def test_port_dryrun_multichip_without_jax():
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "dryrun_multichip: mesh={'batch': 2, 'nodes': 2} evals=64" \
         in proc.stdout
+    assert "dryrun_multichip server path: 8 jobs -> 16 allocs" in proc.stdout
     assert proc.stdout.strip().endswith("ok")
 
 
