@@ -27,13 +27,19 @@ non-zero without printing a result:
    launch count must equal the number of selects, and every select's
    kernel output must equal the plain version on the CUDA inputs it read
    (a copy taken at the launch: later refreshes write the view in place).
-5. The chain, wave and row-scatter kernels against their plain versions at
+5. The chain, wave and insert kernels against their plain versions at
    full width (N = 16384): a chain of B = 8 programs of the phase-3 mix
-   through the device program table, explain on and off; a wave of L = 3
-   datacenter-pinned lanes of P = 4 programs, and a built stale-footprint
-   wave whose lanes overlap (collisions > 0, equal in both); the table's
-   insert into a fresh table against `index_copy_`. Times each kernel, its
-   plain version and (for the insert) `index_copy_`, with each bound.
+   through the device program table (a fresh table: its commit is one
+   insert launch), explain on and off; a wave of L = 3 datacenter-pinned
+   lanes of P = 4 programs, and a built stale-footprint wave whose lanes
+   overlap (collisions > 0, equal in both); the fused insert (K8) of 8
+   random rows into the table's three class tables (T = 512) bitwise
+   against its plain version on the same staged buffer. Times each kernel,
+   its plain version and (for the insert) `torch.index_copy`, with each
+   bound; the insert three ways in turns: (a) call time, 200 calls
+   between CUDA events; (b) device time, 200 launches in one CUDA graph;
+   (c) the route from host arrays (pack, one staged copy, one launch)
+   against staging each array and `index_copy`.
 6. The server path at the server's defaults (speculative dispatch, chain
    adoption and the row-delta view on): a port `Server` (eval_batch 16)
    on the card over a second copy of the cluster, ingested as `bench.py`
@@ -43,7 +49,8 @@ non-zero without printing a result:
    burst at a time; between bursts four port-holding services finish and
    one node re-registers. Every eval must complete with all 640 allocs of
    its burst placed, distinct_hosts respected and no partial plan; the
-   chain, wave, insert and view row-delta (K7) kernels must have launched;
+   chain, wave, insert and view row-delta (K7) kernels must have launched,
+   K8 once an insert and K7 once a refresh that applied a row delta;
    every chain/wave launch is held against its plain version on the inputs
    it read (a copy taken at the launch), and the view it read must be
    unchanged when its lease is released. After each burst, once quiet,
@@ -54,11 +61,13 @@ non-zero without printing a result:
    collections.
 7. The slice at full width, on the phase-3 cluster (N = 16384): (a) rounds
    of randomized churn (placements and stops holding ports, a node
-   re-registration, a node removal) refreshed through K7, each K7 call
-   equal to its plain version on a copy of what it writes and the view
-   equal to a cold upload, bitwise; K7's three parts timed against their
-   plain versions and `index_copy_` at 64 hot rows, 8 port rows and 64
-   port words, beside the whole-group uploads they replace; (b) three
+   re-registration, a node removal) refreshed through K7, each flush one
+   launch, equal to its plain version on the same packed buffer (applied
+   to a copy of what it writes) and the view equal to a cold upload,
+   bitwise; K7's fused refresh of 64 hot rows, 8 port rows and 64 port
+   words timed as phase 5 times the insert (call, device and route time)
+   against its plain version and the five `index_copy_` calls of the
+   same delta, beside the whole-group uploads it replaces; (b) three
    speculative rounds of datacenter-pinned programs against a sequential
    twin cluster (a deep copy): equal node choices, bit-equal scores, every
    launch certified; (c) the refresh after the chain's plans commit books
@@ -119,17 +128,19 @@ non-zero without printing a result:
    program with explain (B11) and the system masks (B12) against their
    plain versions on the same shards and the unsharded K4, K1 and K2;
    timed with their host calls a dispatch; then two churn rounds through
-   the view cache under a (2, 2) mesh, every K7 call per shard replayed
-   on a CPU copy (plain) and on an unsharded copy (K7), every copy equal
-   to both and to a cold upload (B13), K7's hot part at 64 rows timed.
+   the view cache under a (2, 2) mesh, every flush replayed on CPU copies
+   of the shards (plain) and on an unsharded copy (K7), every copy equal
+   to both and to a cold upload, one launch for each shard copy with
+   changes (B13), K7's hot part at 64 rows timed.
    (b) the phase-6 ingest and 64 evals of its mix, queued at once, then a
    lone eval and a system eval, through `Server(ServerConfig(mesh=...))`
    for each mesh and through `mesh=None`: placements equal alloc by
    alloc; evals/s, latency and dispatches printed; the B10-B13 launch
-   counts are read around the meshed runs. (d) one K6 dispatch and one
-   K9 batch row of 65,536 programs (16 tiled) on 64 rows, every copy
-   equal to its original's plain result; the packed route bitwise the
-   full-carry one. ((c), the dry run's server half, runs in 9 (c).)
+   counts are read around the meshed runs, beside the calls they were
+   made in (B10 and B11 dispatches, B12 mask calls, B13 flushes). (d)
+   one K6 dispatch and one K9 batch row of 65,536 programs (16 tiled) on
+   64 rows, every copy equal to its original's plain result; the packed
+   route bitwise the full-carry one. ((c), the dry run's server half, runs in 9 (c).)
 11. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
 """
 from __future__ import annotations
@@ -215,6 +226,42 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """Device time of one call of `fn`: `reps` calls captured in one CUDA
+    graph and replayed between two events, so the host's issue of each
+    launch is not in the time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _wall_ms(fn, reps: int) -> float:
+    """Host wall time of one call of `fn` (host-only work) over `reps`."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
 
 
 def _bound(cluster, p, m: int):
@@ -352,47 +399,15 @@ def _phase5_kernels(torch, kp, kr, cases, nodes, rng):
         progs.append(stack.compile_tg(j, j.task_groups[0], n_place, plan)[0])
     arrays = cases["binpack"][0].device_arrays()
 
-    # K8: a fresh table's insert, then the same scatter against index_copy_
+    # K8: a fresh table's insert in one launch, then the fused insert
+    # against its plain version and index_copy, timed three ways
     before = kr.launch_count()
     prep, tables, dyn = _table_transport(torch, progs, "cuda")
-    if kr.launch_count() != before + 3:
-        raise AssertionError("the table insert did not launch the kernel")
-    idx = torch.as_tensor(kp.host_rows(prep.rows)[:len(mix)],
-                          dtype=torch.int32, device="cuda")
-    srcs = [t[idx.long()].clone() for t in tables]
-    for t, src in zip(tables, srcs):
-        want = kr.row_scatter_plain(torch.zeros_like(t), idx, src)
-        got = kr.row_scatter_cuda(torch.zeros_like(t), idx, src)
-        torch.cuda.synchronize()
-        if not torch.equal(want, got) or not torch.equal(got[idx.long()],
-                                                         src):
-            raise AssertionError(f"row scatter differs ({t.dtype})")
-    dsts = [torch.zeros_like(t) for t in tables]
-    idx64 = idx.long()
-
-    def insert_kernel():
-        for d, src in zip(dsts, srcs):
-            kr.row_scatter_cuda(d, idx, src)
-
-    def insert_plain():
-        for d, src in zip(dsts, srcs):
-            kr.row_scatter_plain(d, idx, src)
-
-    def insert_library():
-        for d, src in zip(dsts, srcs):
-            d.index_copy_(0, idx64, src)
-
-    ins_bytes = sum(2 * s_.numel() * s_.element_size() for s_ in srcs) \
-        + 3 * idx.numel() * 4
-    out["insert"] = dict(
-        ms=_time_ms(insert_kernel, 200), plain_ms=_time_ms(insert_plain, 200),
-        bound_ms=ins_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=_time_ms(insert_library, 200))
-    print(f"insert (8 rows into the i32/f32/u8 tables, row bytes "
-          f"{[t.shape[1] * t.element_size() for t in tables]}): kernel "
-          f"{out['insert']['ms']:.4f} ms, plain {out['insert']['plain_ms']:.4f}"
-          f" ms, index_copy_ {out['insert']['library_ms']:.4f} ms, bound "
-          f"{out['insert']['bound_ms']:.6f} ms (bytes)")
+    if kr.launch_count() != before + 1:
+        raise AssertionError("the table insert did not launch the kernel "
+                             "exactly once")
+    out["insert"], out["err"]["insert"] = _k8_timing(torch, kr, tables,
+                                                     rng)
 
     # K4: the chain of the 8 programs, explain off and on
     args = (arrays, *tables, prep.rows, *dyn, prep.sspec, prep.dspec, prep.m)
@@ -481,6 +496,87 @@ def _phase5_kernels(torch, kp, kr, cases, nodes, rng):
     print(f"stale-footprint wave: {coll} collision rows, equal to plain")
     out["max_err"] = max(out["err"].values())
     return out
+
+
+def _k8_timing(torch, kr, tables, rng):
+    """K8 at the main path's shape: K = 8 random rows into the program
+    table's three class tables (T = 512 rows, the default capacity), the
+    kernel bitwise against its plain version on the same staged buffer,
+    the staged rows where idx names them and the old tables unwritten.
+    Timed in turns within this call: (a) call time of the kernel, the
+    plain version and `torch.index_copy` out of place (one call a table,
+    the same function), inputs on the card; (b) device time, 200 launches
+    in one CUDA graph; (c) the route from host arrays: pack, one staged
+    copy and the launch, against staging each array and index_copy.
+    Returns (timings, max abs error)."""
+    import numpy as np
+
+    from nomad_tpu_torch.convert import to_device_async
+
+    dev = tables[0].device
+    t = tables[0].shape[0]
+    nrng = np.random.default_rng(rng.randrange(2 ** 31))
+    k = 8
+    idx = np.sort(nrng.choice(t, k, replace=False)).astype(np.int32)
+    li, lf, lu = (x.shape[1] for x in tables)
+    rows = (nrng.integers(-2 ** 31, 2 ** 31 - 1, (k, li), dtype=np.int32),
+            nrng.standard_normal((k, lf)).astype(np.float32),
+            nrng.integers(0, 256, (k, lu), dtype=np.uint8))
+    old = [x.clone() for x in tables]
+    staged = kr.pack_insert(idx, *rows, dev).to(dev)
+    got = kr.table_insert_cuda(tables, staged)
+    want = kr.table_insert_plain(tables, staged)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w, r, o, x in zip(got, want, rows, old, tables):
+        if not (torch.equal(g, w) and np.array_equal(
+                g[torch.as_tensor(idx, device=dev).long()].cpu().numpy(), r)
+                and torch.equal(o, x)):
+            raise AssertionError(f"fused insert differs ({g.dtype})")
+        err = max(err, _max_diff(g, w))
+    idx64 = torch.as_tensor(idx, device=dev).long()
+    srcs = [torch.as_tensor(r, device=dev) for r in rows]
+
+    def library():
+        return [torch.index_copy(x, 0, idx64, r_)
+                for x, r_ in zip(tables, srcs)]
+
+    def torch_route():
+        i = to_device_async(idx, dev).long()
+        return [torch.index_copy(x, 0, i, to_device_async(r_, dev))
+                for x, r_ in zip(tables, rows)]
+
+    res = dict(ms=_time_ms(lambda: kr.table_insert_cuda(tables, staged), 200),
+               plain_ms=_time_ms(lambda: kr.table_insert_plain(tables,
+                                                               staged), 200),
+               library_ms=_time_ms(library, 200))
+    res["device_ms"] = _graph_ms(
+        lambda: kr.table_insert_cuda(tables, staged), 200)
+    res["library_device_ms"] = _graph_ms(library, 200)
+    res["route_ms"] = _time_ms(lambda: kr.table_insert(
+        tables, kr.pack_insert(idx, *rows, dev)), 200)
+    res["library_route_ms"] = _time_ms(torch_route, 200)
+    # what the host spends: the three output allocations of a call, and
+    # the pack into one pinned buffer of the route
+    alloc_ms = _wall_ms(lambda: [torch.empty(x.shape, dtype=x.dtype,
+                                             device=dev) for x in tables], 200)
+    pack_ms = _wall_ms(lambda: kr.pack_insert(idx, *rows, dev), 200)
+    nbytes = (2 * t * (4 * li + 4 * lf + lu)
+              + k * (4 + 4 * li + 4 * lf + lu))
+    res["bound_ms"], res["bound_by"] = _bound_ms(nbytes, 0)
+    print(f"insert (K = {k} rows into the i32/f32/u8 tables of T = {t} rows, "
+          f"row bytes {[4 * li, 4 * lf, lu]}): call: kernel "
+          f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, index_copy "
+          f"{res['library_ms']:.4f} ms; device (a CUDA graph of 200 calls): "
+          f"kernel {res['device_ms']:.4f} ms, index_copy "
+          f"{res['library_device_ms']:.4f} ms; route from host arrays: "
+          f"packed + one copy + one launch {res['route_ms']:.4f} ms, staged "
+          f"arrays + index_copy "
+          f"{res['library_route_ms']:.4f} ms; host parts: three output "
+          f"allocations {alloc_ms:.4f} ms, pack {pack_ms:.4f} ms; bound "
+          f"{res['bound_ms']:.7f} ms ({res['bound_by']}, {nbytes} bytes); "
+          f"max_abs_err {err}")
+    return res, err
 
 
 def _mean(xs) -> float:
@@ -670,7 +766,10 @@ def _phase6_server(torch, kp, kr, rng, device=None, then=None):
         kp.reset_chain_launch_counts()
         kr.reset_launch_count()
         kr.reset_delta_launch_counts()
-        k7 = dict.fromkeys(kr.DELTA_PARTS, 0)
+        # K7 launches and refreshes that applied a delta, in the bursts
+        k7 = refreshes = 0
+        inserts0 = default_ledger().snapshot().get(
+            "select_batch.table_insert", {}).get("count", 0)
         for name in names:
             setattr(kp, name, recorder(name))
         TorchStack.device_arrays = device_arrays
@@ -682,9 +781,12 @@ def _phase6_server(torch, kp, kr, rng, device=None, then=None):
                 if burst:
                     churn(burst)
                 k7_0 = kr.delta_launch_counts()
+                d0 = default_registry().counters(prefix="view.").get(
+                    "delta_uploads", 0)
                 _server_burst(s, feed, run, gc_pauses, burst)
-                for part, n in kr.delta_launch_counts().items():
-                    k7[part] += n - k7_0[part]
+                k7 += kr.delta_launch_counts() - k7_0
+                refreshes += default_registry().counters(
+                    prefix="view.").get("delta_uploads", 0) - d0
                 # quiet: the cached view, refreshed, equals a cold upload
                 if s.device.type == "cuda":
                     torch.cuda.synchronize()
@@ -698,16 +800,29 @@ def _phase6_server(torch, kp, kr, rng, device=None, then=None):
             stack_mod.spec_chain_view = real_scv
             stack_mod.release_view = real_rel
             gc.callbacks.remove(on_gc)
+        # one insert a commit with new rows: the ledger site books 4
+        # arrays an insert
+        inserts = (default_ledger().snapshot().get(
+            "select_batch.table_insert", {}).get("count", 0) - inserts0) // 4
         launches = {"chain": kp.chain_launch_count(),
                     "wave": kp.wave_launch_count(),
                     "insert": kr.launch_count(),
                     "single": kp.launch_count(),
-                    "k7": sum(k7.values()), "k7_parts": k7}
+                    "k7": k7}
         out["launches"] = launches
         for k in ("chain", "wave", "insert", "k7"):
             if launches[k] == 0:
                 raise AssertionError(f"the {k} kernel never launched on the "
                                      f"server path: {launches}")
+        if s.device.type == "cuda" and (launches["insert"] != inserts
+                                        or k7 != refreshes):
+            raise AssertionError(
+                f"{launches['insert']} K8 launches for {inserts} inserts, "
+                f"{k7} K7 launches for {refreshes} refreshes with a delta "
+                "(one launch each)")
+        print(f"server: K8 {launches['insert']} launches for {inserts} "
+              f"inserts; K7 {k7} launches for {refreshes} refreshes that "
+              "applied a row delta")
         if released_bad:
             raise AssertionError(f"leased views written before their "
                                  f"release: {released_bad[:4]}")
@@ -939,38 +1054,38 @@ def _dc_mask(cl, dc):
 
 
 def _k7_churn(torch, kr, cl, nodes, rng, out, device=None) -> None:
-    """(a) Rounds of randomized churn refreshed through K7, each part
-    held against its plain version on the same inputs (a clone of the
-    tensors it writes), and the view against a cold upload."""
+    """(a) Rounds of randomized churn refreshed through K7: every flush
+    held against the plain version on the same packed buffer (applied to
+    a clone of the tensors it writes), one launch a flush on the card,
+    and the view against a cold upload."""
     from nomad_tpu_torch.scheduler import stack as stack_mod
     from nomad_tpu_torch.scheduler.stack import TorchStack
 
     stack = TorchStack(cl, device=device)
     _cold_equal(torch, stack.device_arrays(), cl, "before the churn")
-    calls = dict.fromkeys(kr.DELTA_PARTS, 0)
-    n_dst = {"hot_rows": 3, "port_rows": 1, "port_words": 1}
-    real = {p: getattr(stack_mod, f"{p}_update") for p in kr.DELTA_PARTS}
-    plain = {p: getattr(kr, f"{p}_update_plain") for p in kr.DELTA_PARTS}
+    parts = dict.fromkeys(("hot", "port_rows", "port_words"), 0)
+    flushes = [0]
+    real = stack_mod.apply_view_delta
 
-    def checked(part):
-        def run(*args):
-            k = n_dst[part]
-            want = [t.clone() for t in args[:k]]
-            plain[part](*want, *args[k:])
-            real[part](*args)
-            for a, b in zip(want, args[:k]):
-                if not torch.equal(a, b):
-                    raise AssertionError(f"K7 {part} differs from its "
-                                         "plain version")
-            calls[part] += 1
-            for a, b in zip(want, args[:k]):
-                out["k7_err"] = max(out.get("k7_err", 0.0), float(
-                    (a.double() - b.double()).abs().max()) if a.numel()
-                    else 0.0)
-        return run
+    def checked(bufs, delta, shard_rows=None):
+        dev = bufs[0].device
+        want = tuple(t.clone() for t in bufs)
+        kr.view_delta_plain(want, kr.pack_view_delta([delta], [bufs],
+                                                     dev).to(dev))
+        n0 = kr.delta_launch_counts()
+        real(bufs, delta, shard_rows)
+        if dev.type == "cuda" and kr.delta_launch_counts() != n0 + 1:
+            raise AssertionError("a K7 flush took other than one launch")
+        for a, b in zip(want, bufs):
+            if not torch.equal(a, b):
+                raise AssertionError("K7 differs from its plain version")
+            out["k7_err"] = max(out.get("k7_err", 0.0), _max_diff(a, b))
+        flushes[0] += 1
+        for name in parts:
+            parts[name] += getattr(delta, name) is not None
+        return bufs
 
-    for part in kr.DELTA_PARTS:
-        setattr(stack_mod, f"{part}_update", checked(part))
+    stack_mod.apply_view_delta = checked
     live, removed = [], set()
     try:
         for rnd in range(CHURN_ROUNDS):
@@ -999,89 +1114,115 @@ def _k7_churn(torch, kr, cl, nodes, rng, out, device=None) -> None:
             _cold_equal(torch, stack.device_arrays(), cl,
                         f"churn round {rnd}")
     finally:
-        for part in kr.DELTA_PARTS:
-            setattr(stack_mod, f"{part}_update", real[part])
-    if not all(calls.values()):
-        raise AssertionError(f"a K7 part never ran in the churn: {calls}")
-    out["churn_calls"] = calls
+        stack_mod.apply_view_delta = real
+    if not all(parts.values()):
+        raise AssertionError(f"a K7 part never ran in the churn: {parts}")
+    out["churn_calls"] = dict(parts, flushes=flushes[0])
     print(f"slice (a): {CHURN_ROUNDS} churn rounds (16 placements with a "
           "reserved and a dynamic port, 8 stops, a node re-registration, "
-          f"a node removal each): K7 calls {calls}, each equal to its plain "
-          "version and the view equal to a cold upload, bitwise")
+          f"a node removal each): {flushes[0]} K7 flushes (parts {parts}), "
+          "one launch each, each equal to its plain version on the same "
+          "packed buffer and the view equal to a cold upload, bitwise")
 
 
 def _k7_timing(torch, kr, cl, out) -> None:
-    """K7's three parts against their plain versions and index_copy_ at
-    a hot delta of 64 rows, 8 port rows and 64 port words, on copies of
-    the view; and the whole-group uploads the delta replaces."""
+    """K7's fused refresh at a delta of 64 hot rows, 8 port rows and 64
+    port words, on copies of the view, timed in turns within this call:
+    (a) call time of the kernel, the plain version and the five
+    `index_copy_` calls of the same delta, inputs on the card; (b) device
+    time, 200 launches in one CUDA graph; (c) the route from host arrays:
+    pack, one staged copy and the launch, against staging each of the nine
+    arrays and the five `index_copy_` calls. Beside them the whole-group
+    uploads the delta replaces."""
     import numpy as np
 
-    from nomad_tpu_torch.convert import tensor_from_numpy
+    from nomad_tpu_torch.convert import tensor_from_numpy, to_device_async
     from nomad_tpu_torch.scheduler.stack import TorchStack
 
     v = TorchStack(cl).device_arrays()
     dev = v.used.device
-    used, ok, dyn, ports = (v.used.clone(), v.node_ok.clone(),
-                            v.dyn_free.clone(), v.ports_used.clone())
+    bufs = tuple(t.clone() for t in (v.used, v.node_ok, v.dyn_free,
+                                     v.ports_used))
+    used, ok, dyn, ports = bufs
     n, r = used.shape
     w = ports.shape[1]
-    g = torch.Generator().manual_seed(SEED)
-    pick = torch.randperm(n, generator=g)
-    hidx = pick[:64].to(torch.int32).to(dev)
-    pidx = pick[64:72].to(torch.int32).to(dev)
-    widx = pick[72:136].to(torch.int32).to(dev)
-    words = torch.randint(0, w, (64,), generator=g,
-                          dtype=torch.int32).to(dev)
-    uv, ov, dv = (used[hidx.long()].clone() + 1, ~ok[hidx.long()],
-                  dyn[hidx.long()].clone() - 1)
-    pv = ports[pidx.long()].clone() ^ 1
-    wv = ports[widx.long(), words.long()].clone() ^ 1
-    flat = (widx.long() * w + words.long())
-    h64, p64 = hidx.long(), pidx.long()
-    parts = {
-        "hot_rows": (
-            lambda: kr.hot_rows_update_cuda(used, ok, dyn, hidx, uv, ov, dv),
-            lambda: kr.hot_rows_update_plain(used, ok, dyn, hidx, uv, ov,
-                                             dv),
-            lambda: (used.index_copy_(0, h64, uv), ok.index_copy_(0, h64, ov),
-                     dyn.index_copy_(0, h64, dv)),
-            64 * (4 + 4 * r + 1 + 4) + 64 * (4 * r + 1 + 4)),
-        "port_rows": (
-            lambda: kr.port_rows_update_cuda(ports, pidx, pv),
-            lambda: kr.port_rows_update_plain(ports, pidx, pv),
-            lambda: ports.index_copy_(0, p64, pv),
-            8 * (4 + 4 * w) + 8 * 4 * w),
-        "port_words": (
-            lambda: kr.port_words_update_cuda(ports, widx, words, wv),
-            lambda: kr.port_words_update_plain(ports, widx, words, wv),
-            lambda: ports.view(-1).index_copy_(0, flat, wv),
-            64 * 12 + 64 * 4),
-    }
-    timing = {}
-    for name, (kern, pl, lib, nbytes) in parts.items():
-        timing[name] = dict(ms=_time_ms(kern, 200), plain_ms=_time_ms(pl, 200),
-                            library_ms=_time_ms(lib, 200),
-                            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    nrng = np.random.default_rng(SEED)
+    pick = nrng.permutation(n).astype(np.int32)
+    hidx, pidx = np.sort(pick[:64]), np.sort(pick[64:72])
+    widx = pick[72:136]
+    words = nrng.integers(0, w, 64).astype(np.int32)
+    host = [t.cpu().numpy() for t in bufs]
+    host_parts = (
+        (hidx, host[0][hidx] + 1, ~host[1][hidx], host[2][hidx] - 1),
+        (pidx, host[3][pidx] ^ 1),
+        (widx, words, host[3][widx, words] ^ 1))
+    delta = kr.ViewDelta()
+    delta.add_hot(*host_parts[0])
+    delta.add_port_rows(*host_parts[1])
+    delta.add_port_words(*host_parts[2])
+    staged = kr.pack_view_delta([delta], [bufs], dev).to(dev)
+    got = kr.view_delta_cuda(tuple(t.clone() for t in bufs), staged)
+    want = kr.view_delta_plain(tuple(t.clone() for t in bufs), staged)
+    torch.cuda.synchronize()
+    for a, b in zip(want, got):
+        if not torch.equal(a, b):
+            raise AssertionError("the timed K7 delta differs from plain")
+        out["k7_err"] = max(out.get("k7_err", 0.0), _max_diff(a, b))
+    (hi, hu, ho, hd), (pi, pv), (wr, wc, wv) = (
+        [torch.as_tensor(a, device=dev) for a in part]
+        for part in host_parts)
+    h64, p64 = hi.long(), pi.long()
+    flat = wr.long() * w + wc.long()
+
+    def library():
+        used.index_copy_(0, h64, hu)
+        ok.index_copy_(0, h64, ho)
+        dyn.index_copy_(0, h64, hd)
+        ports.index_copy_(0, p64, pv)
+        ports.view(-1).index_copy_(0, flat, wv)
+
+    def torch_route():
+        hi_, hu_, ho_, hd_, pi_, pv_, wr_, wc_, wv_ = (
+            to_device_async(a, dev) for part in host_parts for a in part)
+        i = hi_.long()
+        used.index_copy_(0, i, hu_)
+        ok.index_copy_(0, i, ho_)
+        dyn.index_copy_(0, i, hd_)
+        ports.index_copy_(0, pi_.long(), pv_)
+        ports.view(-1).index_copy_(0, wr_.long() * w + wc_.long(), wv_)
+
+    res = dict(ms=_time_ms(lambda: kr.view_delta_cuda(bufs, staged), 200),
+               plain_ms=_time_ms(lambda: kr.view_delta_plain(bufs, staged),
+                                 200),
+               library_ms=_time_ms(library, 200))
+    res["device_ms"] = _graph_ms(
+        lambda: kr.view_delta_cuda(bufs, staged), 200)
+    res["library_device_ms"] = _graph_ms(library, 200)
+    res["route_ms"] = _time_ms(lambda: kr.apply_view_delta(bufs, delta), 200)
+    res["library_route_ms"] = _time_ms(torch_route, 200)
+    pack_ms = _wall_ms(lambda: kr.pack_view_delta([delta], [bufs], dev), 200)
+    nbytes = (64 * (4 + 4 * r + 1 + 4) + 64 * (4 * r + 1 + 4)
+              + 8 * (4 + 4 * w) + 8 * 4 * w + 64 * 12 + 64 * 4)
+    res["bound_ms"], res["bound_by"] = _bound_ms(nbytes, 0)
+    out["k7"] = res
     ports_np = np.ascontiguousarray(cl.ports_used)
     hot = (cl.used, cl.node_ok, cl.dyn_free)
     full_ports = _time_ms(lambda: tensor_from_numpy(ports_np, dev), 5)
     full_hot = _time_ms(lambda: [tensor_from_numpy(a, dev, dt) for a, dt in
                                  zip(hot, (np.float32, np.bool_,
                                            np.float32))], 5)
-    out["k7"] = dict(
-        ms=sum(t["ms"] for t in timing.values()),
-        plain_ms=sum(t["plain_ms"] for t in timing.values()),
-        bound_ms=sum(t["bound_ms"] for t in timing.values()),
-        bound_by="bytes",
-        library_ms=sum(t["library_ms"] for t in timing.values()))
-    out["k7_parts"] = timing
     hot_nb = cl.used.size * 4 + cl.node_ok.nbytes + cl.dyn_free.nbytes
-    for name, t in timing.items():
-        print(f"slice K7 {name}: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, index_copy_ {t['library_ms']:.4f} ms,"
-              f" bound {t['bound_ms']:.7f} ms (bytes)")
-    print(f"slice K7 refresh (64 hot rows, 8 port rows, 64 port words): "
-          f"kernels {out['k7']['ms']:.4f} ms against the whole-group "
+    print(f"slice K7 refresh (64 hot rows, 8 port rows, 64 port words, one "
+          f"launch): call: kernel {res['ms']:.4f} ms, plain "
+          f"{res['plain_ms']:.4f} ms, five index_copy_ "
+          f"{res['library_ms']:.4f} ms; device (a CUDA graph of 200 calls): "
+          f"kernel {res['device_ms']:.4f} ms, five index_copy_ "
+          f"{res['library_device_ms']:.4f} ms; route from host arrays: "
+          f"packed + one copy + one launch {res['route_ms']:.4f} ms, nine "
+          f"staged arrays + five index_copy_ "
+          f"{res['library_route_ms']:.4f} ms; host part: pack "
+          f"{pack_ms:.4f} ms; bound {res['bound_ms']:.7f} ms "
+          f"({res['bound_by']}, {nbytes} bytes); against the whole-group "
           f"uploads it replaces: port bitmap {ports_np.nbytes / 2**20:.0f} "
           f"MiB {full_ports:.4f} ms, hot group {hot_nb / 2**20:.2f} MiB "
           f"{full_hot:.4f} ms")
@@ -2170,15 +2311,16 @@ def _phase10_routes(torch, kp, ks, arrays, chain, single, sysp, device=None):
 def _phase10_view(torch, kr, cl, nodes, rng, device=None):
     """(a) B13: the view cache under a (2, 2) mesh keeps a sharded view
     and refreshes it with K7 per shard. Rounds of churn on the phase-3
-    cluster; every K7 call the refresh made is replayed on a CPU copy of
+    cluster; every flush the refresh made is replayed on a CPU copy of
     the shards (the plain version) and, with its global rows, on an
     unsharded copy of the view (K7 on the whole view): the fields K7
     writes equal both in every copy of every shard, and every field a
-    cold upload, bitwise. Then K7's hot part at 64 rows on the shards is
-    timed against its plain version."""
+    cold upload, bitwise; the flushes launched once for each shard copy
+    with changes. Then K7's hot part at 64 rows on the shards (one packed
+    buffer for the card, one launch a copy) is timed against its plain
+    version."""
     import numpy as np
 
-    from nomad_tpu_torch.convert import tensor_from_numpy
     from nomad_tpu_torch.kernels.placement import ClusterArrays
     from nomad_tpu_torch.parallel import set_active_mesh
     from nomad_tpu_torch.parallel.mesh import copy_fields, shard_copies
@@ -2187,16 +2329,13 @@ def _phase10_view(torch, kr, cl, nodes, rng, device=None):
 
     dev = torch.device(device or "cuda")
     on_card = dev.type == "cuda"
-    names = ("hot_rows_update_sharded", "port_rows_update_sharded",
-             "port_words_update_sharded")
-    real = {n: getattr(stack_mod, n) for n in names}
+    real = stack_mod.apply_view_delta
     calls = []
 
-    def recorder(name):
-        def run(bufs, rows, *host):
-            calls.append((name, rows, host))
-            return real[name](bufs, rows, *host)
-        return run
+    def recorder(bufs, delta, shard_rows=None):
+        if shard_rows is not None:
+            calls.append((delta, shard_rows, list(bufs[0])))
+        return real(bufs, delta, shard_rows)
 
     def fields(sc, to=None):
         """Per field {(device, node shard): tensor} of a sharded view (a
@@ -2205,8 +2344,8 @@ def _phase10_view(torch, kr, cl, nodes, rng, device=None):
                                 for k, t in f.items()}
                                for f in copy_fields(sc)))
 
-    def staged(a):
-        return tensor_from_numpy(np.ascontiguousarray(a), dev)
+    def k7_bufs(f):
+        return (f.used, f.node_ok, f.dyn_free, f.ports_used)
 
     set_active_mesh(_mesh4(torch, (2, 2), device))
     try:
@@ -2216,8 +2355,7 @@ def _phase10_view(torch, kr, cl, nodes, rng, device=None):
         flat = sc.full()
         flat = ClusterArrays(*(t.clone() for t in flat))
         kr.reset_sharded_delta_launch_count()
-        for n in names:
-            setattr(stack_mod, n, recorder(n))
+        stack_mod.apply_view_delta = recorder
         try:
             live = []
             for rnd in range(2):
@@ -2237,24 +2375,17 @@ def _phase10_view(torch, kr, cl, nodes, rng, device=None):
                 cl.upsert_node(node)
                 sc = stack.device_arrays()
         finally:
-            for n in names:
-                setattr(stack_mod, n, real[n])
+            stack_mod.apply_view_delta = real
         launches = kr.sharded_delta_launch_count()
-        for name, rows, host in calls:
-            if name == "hot_rows_update_sharded":
-                kr.hot_rows_update_sharded(
-                    (plain.used, plain.node_ok, plain.dyn_free), rows, *host)
-                kr.hot_rows_update(flat.used, flat.node_ok, flat.dyn_free,
-                                   *map(staged, host))
-            elif name == "port_rows_update_sharded":
-                kr.port_rows_update_sharded(plain.ports_used, rows, *host)
-                kr.port_rows_update(flat.ports_used, *map(staged, host))
-            else:
-                kr.port_words_update_sharded(plain.ports_used, rows, *host)
-                kr.port_words_update(flat.ports_used, *map(staged, host))
+        rows = sc.n // len(sc.row0)
+        copies_changed = 0
+        for delta, shard_rows, keys in calls:
+            kr.apply_view_delta(k7_bufs(plain), delta, shard_rows)
+            kr.apply_view_delta(k7_bufs(flat), delta)
+            changed = delta.split(shard_rows, len(sc.row0))
+            copies_changed += sum(key[1] in changed for key in keys)
         if on_card:
             _sync_all(torch)
-        rows = sc.n // len(sc.row0)
         err = 0.0
         for (d, j), copy in shard_copies(sc).items():
             # the fields K7 writes (a re-registration re-uploads the static
@@ -2272,24 +2403,24 @@ def _phase10_view(torch, kr, cl, nodes, rng, device=None):
                 [getattr(c, f) for c in sc.shards[i]])
                 for f in ClusterArrays._fields)), cl,
                 f"B13 batch row {i}")
-        parts = sorted({name for name, _r, _h in calls})
-        if on_card and (launches == 0 or len(parts) < 3):
-            raise AssertionError(f"B13: {launches} sharded K7 refreshes, "
-                                 f"parts {parts}")
+        parts = sorted({name for delta, _r, _k in calls
+                        for name in ("hot", "port_rows", "port_words")
+                        if getattr(delta, name) is not None})
+        if on_card and (launches != copies_changed or len(parts) < 3):
+            raise AssertionError(f"B13: {launches} sharded K7 launches for "
+                                 f"{copies_changed} shard copies with "
+                                 f"changes, parts {parts}")
         # K7's hot part at 64 rows on the shards, every copy
         idx = np.sort(np.random.default_rng(SEED).choice(
             cl.n_cap, 64, replace=False)).astype(np.int32)
-        host = (idx, cl.used[idx].astype(np.float32),
-                cl.node_ok[idx].astype(np.bool_),
-                cl.dyn_free[idx].astype(np.float32))
-        cur = fields(sc)
-        hot = (cur.used, cur.node_ok, cur.dyn_free)
-        phot = (plain.used, plain.node_ok, plain.dyn_free)
-        ms = (_host_ms(torch, lambda: kr.hot_rows_update_sharded(
-            hot, rows, *host), 20) if on_card else None)
+        delta = kr.ViewDelta()
+        delta.add_hot(idx, cl.used[idx], cl.node_ok[idx], cl.dyn_free[idx])
+        cur = k7_bufs(fields(sc))
+        ms = (_host_ms(torch, lambda: kr.apply_view_delta(cur, delta, rows),
+                       20) if on_card else None)
         t0 = time.perf_counter()
         for _ in range(20):
-            kr.hot_rows_update_sharded(phot, rows, *host)
+            kr.apply_view_delta(k7_bufs(plain), delta, rows)
         plain_ms = (time.perf_counter() - t0) / 20 * 1e3
         n_copies = len(shard_copies(sc))
         # a hot row reads its index, used, node_ok and dyn_free values and
@@ -2300,11 +2431,11 @@ def _phase10_view(torch, kr, cl, nodes, rng, device=None):
         out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=None)
         print(f"phase 10 (a) B13 (2, 2): 2 churn rounds refreshed with K7 per "
-              f"shard ({launches} K7 launches on the shards' copies, "
-              f"{len(calls)} calls: {parts}); every copy == plain == K7 on "
-              f"the unsharded view == a cold upload, bitwise (max_abs_err "
-              f"{err}); hot part at "
-              f"64 rows over {n_copies} copies "
+              f"shard ({len(calls)} flushes, {launches} K7 launches for "
+              f"{copies_changed} shard copies with changes, parts {parts}); "
+              "every copy == plain == K7 on the unsharded view == a cold "
+              f"upload, bitwise (max_abs_err {err}); hot part at 64 rows "
+              f"over {n_copies} copies (one packed buffer, a launch a copy) "
               + (f"{ms:.4f} ms" if ms is not None else "not timed")
               + f", plain {plain_ms:.4f} ms, bound {bound_ms:.7f} ms "
               f"({bound_by})")
@@ -2327,7 +2458,8 @@ def _phase10_server(torch, kp, ks, kr, device=None):
     against its plain version on those inputs. The meshed runs are this
     phase's main path: the launch counts of B10-B13 are set to 0 just
     before each and read just after (summed here). Returns (the counts,
-    the max error of the captured dispatches by route)."""
+    the max error of the captured dispatches by route, the calls on the
+    sharded view by route: dispatches, system mask calls, view flushes)."""
     from nomad_tpu_torch.parallel import get_active_mesh
     from nomad_tpu_torch.scheduler import stack as stack_mod
     from nomad_tpu_torch.server import Server, ServerConfig
@@ -2344,6 +2476,21 @@ def _phase10_server(torch, kp, ks, kr, device=None):
              (stack_mod, "place_task_group", "single"))
     real = [getattr(mod, name) for mod, name, _r in sites]
     records = []
+    # calls on the sharded view (B12's system masks, B13's flushes; B10's
+    # and B11's dispatches are the records), summed over the meshed runs
+    calls = dict.fromkeys(ks.ROUTES + ("view",), 0)
+    run_calls = dict(calls)
+    real_sys, real_flush = kp.system_feasibility, stack_mod.apply_view_delta
+
+    def counting_sys(arrays, *args, **kw):
+        if isinstance(arrays, ks.ShardedCluster):
+            run_calls["system"] += 1
+        return real_sys(arrays, *args, **kw)
+
+    def counting_flush(bufs, delta, shard_rows=None):
+        if shard_rows is not None:
+            run_calls["view"] += 1
+        return real_flush(bufs, delta, shard_rows)
 
     def recorder(fn, route):
         def rec(arrays, *args, **kw):
@@ -2359,6 +2506,8 @@ def _phase10_server(torch, kp, ks, kr, device=None):
     def capture(on):
         for (mod, name, route), fn in zip(sites, real):
             setattr(mod, name, recorder(fn, route) if on else fn)
+        kp.system_feasibility = counting_sys if on else real_sys
+        stack_mod.apply_view_delta = counting_flush if on else real_flush
 
     for shape in (None,) + MESH_SHAPES:
         mesh = None if shape is None else _mesh4(torch, shape, device)
@@ -2380,6 +2529,7 @@ def _phase10_server(torch, kp, ks, kr, device=None):
             evs = [s.job_register(j) for j in jobs]
             ingest_s = time.perf_counter() - t0
             records.clear()
+            run_calls.update(dict.fromkeys(run_calls, 0))
             capture(True)
             ks.reset_route_launch_counts()
             kr.reset_sharded_delta_launch_count()
@@ -2444,6 +2594,13 @@ def _phase10_server(torch, kp, ks, kr, device=None):
             continue
         for k, n in run_counts.items():
             counts[k] += n
+        for route in ("chain", "single"):
+            run_calls[route] = sum(r == route for r, *_x in records)
+        for k, n in run_calls.items():
+            calls[k] += n
+        print(f"phase 10 (b) {label}: calls on the sharded view {run_calls} "
+              f"(chain and single: dispatches; system: mask calls; view: "
+              f"flushes) for the launches {run_counts}")
         if set(base) != set(placed) or any(base[k] != placed[k]
                                            for k in base):
             diff = sorted(k for k in base if base.get(k) != placed.get(k))
@@ -2478,7 +2635,7 @@ def _phase10_server(torch, kp, ks, kr, device=None):
               f"dispatches ({', '.join(shapes)}) == plain on the inputs "
               f"they read, max_abs_err {err} "
               f"({time.perf_counter() - t1:.1f} s)")
-    return counts, err
+    return counts, err, calls
 
 
 def _tiled(kp, small, copies):
@@ -2846,7 +3003,7 @@ def main() -> int:
         (params_from_numpy(p_aff, "cuda"), m_aff),
         params_from_numpy(p_sys, "cuda"))
     view13, view_err = _phase10_view(torch, kr, cl, nodes, rng)
-    counts10, server10 = _phase10_server(torch, kp, ks, kr)
+    counts10, server10, calls10 = _phase10_server(torch, kp, ks, kr)
     _phase10_limits(torch, kp, ks)
     print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
@@ -2929,6 +3086,7 @@ def main() -> int:
     }, {
         "name": "place_packed_chain_sharded",
         "route": "cuda",
+        "calls": calls10["chain"],
         "source": "nomad_tpu_torch/kernels/csrc/shard.cu",
         "replaces": "nomad_tpu/kernels/placement.py:802",
         "launches": counts10["chain"],
@@ -2937,6 +3095,7 @@ def main() -> int:
     }, {
         "name": "place_task_group_sharded",
         "route": "cuda",
+        "calls": calls10["single"],
         "source": "nomad_tpu_torch/kernels/csrc/shard.cu",
         "replaces": "nomad_tpu/kernels/placement.py:345",
         "launches": counts10["single"],
@@ -2945,6 +3104,7 @@ def main() -> int:
     }, {
         "name": "system_feasibility_sharded",
         "route": "cuda",
+        "calls": calls10["system"],
         "source": "nomad_tpu_torch/kernels/csrc/system.cu",
         "replaces": "nomad_tpu/kernels/placement.py:957",
         "launches": counts10["system"],
@@ -2953,6 +3113,7 @@ def main() -> int:
     }, {
         "name": "view_row_delta_sharded",
         "route": "cuda",
+        "calls": calls10["view"],
         "source": "nomad_tpu_torch/kernels/csrc/rows.cu",
         "replaces": "nomad_tpu/scheduler/stack.py:115",
         "launches": counts10["view"],

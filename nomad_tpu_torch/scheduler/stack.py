@@ -42,10 +42,7 @@ from ..device import DeviceLike, resolve_device
 from ..kernels.placement import (EXPLAIN_SCORE_NAMES, ClusterArrays,
                                  PlacementExplain, PlacementResult, TGParams,
                                  place_task_group)
-from ..kernels.rows import (hot_rows_update, hot_rows_update_sharded,
-                            port_rows_update, port_rows_update_sharded,
-                            port_words_update, port_words_update_sharded,
-                            staged)
+from ..kernels.rows import ViewDelta, apply_view_delta
 from ..lib.metrics import default_registry
 from ..parallel.pad import pad_params
 from ..structs import Allocation, Job, TaskGroup
@@ -158,22 +155,16 @@ def _leased(ent: dict, token) -> ClusterArrays:
 # apply; ports_used alone is u32[N, 2048] (128 MiB at 16K rows), so a
 # whole-tensor re-upload per version bump dwarfs the placement kernel.
 # The delta path ships only the rows the cluster's bounded delta log
-# names and writes them with the row-delta kernels (kernels/rows.py, K7):
-# in place on the cached tensors when no lease is held, else into copies
-# (the copy slot — a leased view's tensors are never written).
+# names and writes them with the row-delta kernel (kernels/rows.py, K7),
+# one staged copy and one launch a refresh: in place on the cached tensors
+# when no lease is held, else into copies (the copy slot — a leased view's
+# tensors are never written).
 
 
 def _delta_rows_host(rows, *arrays):
     """Sorted delta row indices (i32) and their CURRENT host values."""
     idx = np.fromiter(sorted(rows), dtype=np.int32, count=len(rows))
     return (idx,) + tuple(a[idx] for a in arrays)
-
-
-def _u32_bits(a: np.ndarray) -> np.ndarray:
-    """u32 port words as the int32 holding the same bits (the device
-    bitmap's type, convert.tensor_from_numpy)."""
-    a = np.ascontiguousarray(a)
-    return a.view(np.int32) if a.dtype == np.uint32 else a
 
 
 def _clone(t):
@@ -793,9 +784,6 @@ class TorchStack:
             return shard_tensor(tensor_from_numpy(a, torch.device("cpu"),
                                                   dtype), mesh)
 
-        def stage(a):
-            return staged(a, dev)
-
         #: rows of a node shard under a mesh (None: the view is whole)
         shard_rows = (None if mesh is None
                       else cl.n_cap // mesh.devices.shape[1])
@@ -855,7 +843,10 @@ class TorchStack:
                       if ent is not None and ent["mesh"] is not None
                       else prev)
 
-            did_delta = False
+            #: the refresh's row delta, gathered here and flushed once,
+            #: and the ledger bookings (site, bytes, count) of its parts
+            delta = ViewDelta()
+            sites = []
             hot_entries = (cl.hot_entries_since(ent["version"], limit)
                            if can_delta else None)
             hot_rows = None
@@ -928,15 +919,13 @@ class TorchStack:
                 if overlay:
                     used, node_ok, dyn_free = self._apply_hot_rows(
                         cl, (used, node_ok, dyn_free), overlay, in_place,
-                        stage, led)
-                    did_delta = True
+                        delta, sites)
                     reg.inc("view.delta_rows", len(overlay))
             elif hot_rows is not None:
                 if hot_rows:
                     used, node_ok, dyn_free = self._apply_hot_rows(
                         cl, (prev_f.used, prev_f.node_ok, prev_f.dyn_free),
-                        hot_rows, in_place, stage, led, shard_rows)
-                    did_delta = True
+                        hot_rows, in_place, delta, sites)
                     reg.inc("view.delta_rows", len(hot_rows))
                 else:
                     # version bumped without touching hot rows (job
@@ -961,9 +950,8 @@ class TorchStack:
                               if can_delta else None)
                 if port_words:
                     ports_used = self._apply_port_words(
-                        cl, ent["ports_used"], port_words, in_place, stage,
-                        led, reg, shard_rows)
-                    did_delta = True
+                        cl, ent["ports_used"], port_words, in_place, delta,
+                        sites, reg)
                 elif port_words is not None:
                     ports_used = ent["ports_used"]
                 else:
@@ -972,7 +960,19 @@ class TorchStack:
                         ports_used = up(cl.ports_used)
                     reg.inc("view.ports_full_uploads")
                     reg.inc("view.upload_bytes", nb)
-            if did_delta:
+            if delta:
+                # K7: every part of the delta in one packed buffer, one
+                # staged copy and one launch (under a mesh one buffer a
+                # device and one launch a shard copy with changes). The
+                # flush's host time (pack, copy, launch) books at
+                # stack.delta_flush, with no bytes or count; the parts
+                # book the bytes and counts of the arrays they ship at
+                # their own sites, with no time.
+                with led.timed("stack.delta_flush", 0, count=0):
+                    apply_view_delta((used, node_ok, dyn_free, ports_used),
+                                     delta, shard_rows)
+                for site, nb, count in sites:
+                    led.record(site, nb, 0.0, count)
                 # one event per refresh that applied any row delta (hot
                 # and/or ports) — pure port flips must not read as "no
                 # delta activity"
@@ -1025,25 +1025,18 @@ class TorchStack:
             return _leased(per_dev[dev], lease_token)
 
     @staticmethod
-    def _apply_hot_rows(cl, bufs, rows, in_place, stage, led,
-                        shard_rows=None):
-        """Write the CURRENT host values of `rows` into the hot tensors
-        `bufs` = (used, node_ok, dyn_free) — into copies unless
-        `in_place` — with one K7 hot-row launch, or under a mesh (`bufs`
-        sharded in shards of `shard_rows` rows) one per copy of each shard
-        with changed rows; returns the tensors."""
+    def _apply_hot_rows(cl, bufs, rows, in_place, delta, sites):
+        """Add the CURRENT host values of `rows` to the refresh's `delta`
+        as its hot part (its ledger booking to `sites`), for the hot
+        tensors `bufs` = (used, node_ok, dyn_free) — copies of them unless
+        `in_place` — and return the tensors the flush writes."""
         idx, uvals, ovals, dvals = _delta_rows_host(
             rows, cl.used, cl.node_ok, cl.dyn_free)
         if not in_place:
             bufs = tuple(_clone(b) for b in bufs)
         nb = idx.nbytes + uvals.size * 4 + ovals.nbytes + dvals.nbytes
-        vals = (uvals.astype(np.float32), ovals.astype(np.bool_),
-                dvals.astype(np.float32))
-        with led.timed("stack.hot_delta", nb, count=4):
-            if shard_rows is not None:
-                hot_rows_update_sharded(bufs, shard_rows, idx, *vals)
-            else:
-                hot_rows_update(*bufs, stage(idx), *map(stage, vals))
+        delta.add_hot(idx, uvals, ovals, dvals)
+        sites.append(("stack.hot_delta", nb, 4))
         default_registry().inc("view.upload_bytes", nb)
         return bufs
 
@@ -1175,31 +1168,26 @@ class TorchStack:
         return skip, overlay
 
     @staticmethod
-    def _apply_port_words(cl, ports_buf, port_words, in_place, stage, led,
-                          reg, shard_rows=None):
-        """Apply a word-granular port delta: whole-row writes for
-        rebuilt rows (node upsert/remove), single-u32 writes for port
-        flips — the steady-state case ships 4-byte words instead of
-        8 KiB rows (`stack.ports_word_delta`). Into a copy of the bitmap
-        unless `in_place`; under a mesh (`shard_rows` rows a shard) on
-        every copy of the shards the rows fall in."""
+    def _apply_port_words(cl, ports_buf, port_words, in_place, delta, sites,
+                          reg):
+        """Add a word-granular port delta to the refresh's `delta` (its
+        ledger bookings to `sites`):
+        whole rows for rebuilt rows (node upsert/remove), single u32 words
+        for port flips — the steady-state case ships 4-byte words instead
+        of 8 KiB rows (`stack.ports_word_delta`). A row is in one of the
+        two parts, never both (the flush's one launch relies on it).
+        Returns the bitmap the flush writes: a copy unless `in_place`."""
         full_rows = sorted(r for r, ws in port_words.items()
                            if ws is None)
         word_items = sorted((r, w) for r, ws in port_words.items()
                             if ws is not None for w in ws)
         if not in_place:
             ports_buf = _clone(ports_buf)
-        sharded = shard_rows is not None
         if full_rows:
             pidx, pvals = _delta_rows_host(full_rows, cl.ports_used)
             nb = pidx.nbytes + pvals.nbytes
-            with led.timed("stack.ports_delta", nb, count=2):
-                if sharded:
-                    port_rows_update_sharded(ports_buf, shard_rows, pidx,
-                                             _u32_bits(pvals))
-                else:
-                    port_rows_update(ports_buf, stage(pidx),
-                                     stage(_u32_bits(pvals)))
+            delta.add_port_rows(pidx, pvals)
+            sites.append(("stack.ports_delta", nb, 2))
             reg.inc("view.delta_rows", len(full_rows))
             reg.inc("view.upload_bytes", nb)
         if word_items:
@@ -1209,14 +1197,8 @@ class TorchStack:
                                   dtype=np.int32, count=len(word_items))
             vals_a = cl.ports_used[rows_a, words_a]
             nb = rows_a.nbytes + words_a.nbytes + vals_a.nbytes
-            with led.timed("stack.ports_word_delta", nb, count=3):
-                if sharded:
-                    port_words_update_sharded(ports_buf, shard_rows, rows_a,
-                                              words_a, _u32_bits(vals_a))
-                else:
-                    port_words_update(ports_buf, stage(rows_a),
-                                      stage(words_a),
-                                      stage(_u32_bits(vals_a)))
+            delta.add_port_words(rows_a, words_a, vals_a)
+            sites.append(("stack.ports_word_delta", nb, 3))
             reg.inc("view.ports_words", len(word_items))
             reg.inc("view.upload_bytes", nb)
         return ports_buf

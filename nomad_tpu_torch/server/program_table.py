@@ -20,11 +20,12 @@ Content addressing: a row key is the blake2b digest of the packed static
 bytes, so a changed job spec is simply a NEW row; stale rows age out of
 the LRU. Tables are per (cluster, device).
 
-The insert (K8) is `kernels/rows.py row_scatter` — the hand-written row
-scatter on a card, `index_copy_` on the CPU. As in the reference, an
-insert never writes the tables a committed dispatch may still read: it
-copies them and scatters into the copy, so handles that `commit` already
-returned stay valid.
+The insert (K8) is `kernels/rows.py` `table_insert`: the commit's row
+indices and rows packed into one host buffer (`pack_insert`), one staged
+copy and one launch of the hand-written kernel on a card, `index_copy` on
+the CPU. As in the reference, an insert never writes the tables a
+committed dispatch may still read: it returns new tables, so handles that
+`commit` already returned stay valid.
 """
 from __future__ import annotations
 
@@ -39,11 +40,10 @@ import numpy as np
 
 import torch
 
-from ..convert import tensor_from_numpy
 from ..device import DeviceLike, resolve_device
 from ..kernels.placement import (DYN_FIELDS, STATIC_FIELDS, TGParams,
                                  pack_param_rows_batch)
-from ..kernels.rows import row_scatter
+from ..kernels.rows import pack_insert, table_insert
 from ..parallel.pad import STATIC_DIMS, pad_params, param_dims
 
 #: per-dim ceilings for table residency: a program past any of these
@@ -75,16 +75,6 @@ class _Prep:
         self.sspec = sspec
         self.dspec = dspec
         self.m = m
-
-
-def _insert_rows(tables, idx, ri, rf, ru):
-    """K8: copies of the three class tables with row idx[k] of each
-    replaced by row k of ri/rf/ru (the reference's `_get_insert_jit`,
-    whose insert is not donated either)."""
-    out = []
-    for table, rows in zip(tables, (ri, rf, ru)):
-        out.append(row_scatter(table.clone(), idx, rows))
-    return tuple(out)
 
 
 class DeviceProgramTable:
@@ -254,12 +244,13 @@ class DeviceProgramTable:
                 ru = np.stack([v[2] for _, v in items])
                 nb = idx.nbytes + ri.nbytes + rf.nbytes + ru.nbytes
                 count = 4
+                # K8: one packed buffer, one staged copy, one launch; new
+                # tables, as the reference's non-donated insert returns
                 with ledger.timed("select_batch.table_insert", nb,
                                   count=count):
-                    up = [tensor_from_numpy(a, dev)
-                          for a in (idx, ri, rf, ru)]
-                self._ti, self._tf, self._tu = _insert_rows(
-                    (self._ti, self._tf, self._tu), *up)
+                    self._ti, self._tf, self._tu = table_insert(
+                        (self._ti, self._tf, self._tu),
+                        pack_insert(idx, ri, rf, ru, dev))
             # residency: the per-dtype-class tables are the fixed device
             # cost of the table transport. Tracking is idempotent for
             # unchanged handles; an insert replaced them, so the new

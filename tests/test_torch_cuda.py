@@ -118,7 +118,7 @@ def _assert_carry(want, got):
 def _table_dispatch(cuda_device, dcs=None, n_prog=5):
     """A seeded cluster, mixed programs (one with plan deltas, one inert
     pad) and their program-table transport on the card; the table's
-    commit runs the row-scatter kernel."""
+    commit runs the insert kernel once."""
     from nomad_tpu_torch.convert import tensor_from_numpy
     from nomad_tpu_torch.kernels import rows as kr
     from nomad_tpu_torch.lib.transfer import default_ledger
@@ -143,7 +143,7 @@ def _table_dispatch(cuda_device, dcs=None, n_prog=5):
     prep = table.prepare(progs)
     before = kr.launch_count()
     ti, tf, tu, _nb, _count = table.commit(prep, default_ledger())
-    assert kr.launch_count() == before + 3
+    assert kr.launch_count() == before + 1
     dyn = [tensor_from_numpy(d, cuda_device)
            for d in (prep.dyn_i, prep.dyn_f, prep.dyn_u)]
     return stack.device_arrays(), prep, (ti, tf, tu), dyn
@@ -210,77 +210,91 @@ def test_packed_and_stacked_chains_match_plain(cuda_device):
 
 
 @pytest.mark.cuda
-def test_row_scatter_matches_index_copy(cuda_device):
+@pytest.mark.parametrize("widths", [(37, 64, 13), (64, 64, 64), (5, 3, 1),
+                                    (96, 40, 37)],
+                         ids=lambda w: "i{}-f{}-u{}".format(*w))
+def test_table_insert_matches_index_copy(widths, cuda_device):
+    """K8, the fused insert: new i32/f32/u8 tables in one launch, bitwise
+    equal to its plain version (`torch.index_copy` out of place) on the
+    same packed buffer, the staged rows where idx names them, the old
+    tables unwritten; u8 rows of widths no multiple of 4 or 16 too."""
+    import numpy as np
+
     from nomad_tpu_torch.kernels import rows as kr
 
-    gen = torch.Generator().manual_seed(7)
-    for dt, width in ((torch.int32, 37), (torch.float32, 64),
-                      (torch.uint8, 13), (torch.uint8, 64)):
-        table = torch.randint(0, 100, (40, width), generator=gen).to(dt)
-        src = torch.randint(0, 100, (6, width), generator=gen).to(dt)
-        idx = torch.tensor([3, 0, 39, 17, 8, 22], dtype=torch.int32)
-        want = kr.row_scatter_plain(table.clone(), idx, src)
-        got = kr.row_scatter(table.to(cuda_device), idx.to(cuda_device),
-                             src.to(cuda_device))
-        torch.cuda.synchronize()
-        assert torch.equal(want, got.cpu()), (dt, width)
+    li, lf, lu = widths
+    rng = np.random.default_rng(sum(widths))
+    t, k = 512, 8
+    old = (rng.integers(-2 ** 31, 2 ** 31 - 1, (t, li), dtype=np.int32),
+           rng.standard_normal((t, lf)).astype(np.float32),
+           rng.integers(0, 256, (t, lu), dtype=np.uint8))
+    idx = np.sort(rng.choice(t, k, replace=False)).astype(np.int32)
+    rows = (rng.integers(-2 ** 31, 2 ** 31 - 1, (k, li), dtype=np.int32),
+            rng.standard_normal((k, lf)).astype(np.float32),
+            rng.integers(0, 256, (k, lu), dtype=np.uint8))
+    tables = tuple(torch.from_numpy(a).to(cuda_device) for a in old)
+    packed = kr.pack_insert(idx, *rows, cuda_device)
+    before = kr.launch_count()
+    got = kr.table_insert(tables, packed)
+    assert kr.launch_count() == before + 1
+    want = kr.table_insert_plain(tuple(torch.from_numpy(a) for a in old),
+                                 kr.pack_insert(idx, *rows))
+    torch.cuda.synchronize()
+    for g, w, r in zip(got, want, rows):
+        assert torch.equal(g.cpu(), w)
+        assert np.array_equal(g.cpu().numpy()[idx], r)
+    for a, t_ in zip(old, tables):
+        assert np.array_equal(t_.cpu().numpy(), a)
 
 
 _N_CAP, _R, _W = 16384, 8, 2048
-
-
-def _delta_idx(gen, k, n):
-    """k distinct rows of n (the view cache never passes duplicates)."""
-    return torch.randperm(n, generator=gen)[:k].to(torch.int32)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [0, 1, _N_CAP // 4], ids=["empty", "one",
                                                         "quarter"])
 def test_view_delta_kernels_match_index_copy(k, cuda_device):
-    """K7's three parts against their plain versions at the view's full
-    shape (N = 16384, R = 8, W = 2048 words), bitwise: an empty delta,
-    one row and the n_cap // 4 rows past which the view uploads whole."""
+    """K7, the fused refresh, at the view's full shape (N = 16384, R = 8,
+    W = 2048 words): k hot rows, min(k, 64) whole port rows and k port
+    words on other rows in one packed buffer and one launch, bitwise equal
+    to the plain version on the CPU and on the card (the same staged
+    buffer): an empty delta, one row and the n_cap // 4 rows past which
+    the view uploads whole."""
+    import numpy as np
+
     from nomad_tpu_torch.kernels import rows as kr
 
-    gen = torch.Generator().manual_seed(11 + k)
-    used = torch.rand(_N_CAP, _R, generator=gen) * 1000
-    node_ok = torch.rand(_N_CAP, generator=gen) < 0.5
-    dyn = torch.rand(_N_CAP, generator=gen) * 100
-    idx = _delta_idx(gen, k, _N_CAP)
-    uv = torch.rand(k, _R, generator=gen) * 1000
-    ov = torch.rand(k, generator=gen) < 0.5
-    dv = torch.rand(k, generator=gen) * 100
-    want = kr.hot_rows_update_plain(used.clone(), node_ok.clone(),
-                                    dyn.clone(), idx, uv, ov, dv)
-    on = [t.to(cuda_device) for t in (used, node_ok, dyn, idx, uv, ov, dv)]
-    n0 = kr.delta_launch_counts()["hot_rows"]
-    got = kr.hot_rows_update(*on)
+    rng = np.random.default_rng(11 + k)
+    view = (rng.standard_normal((_N_CAP, _R)).astype(np.float32) * 1000,
+            rng.random(_N_CAP) < 0.5,
+            rng.standard_normal(_N_CAP).astype(np.float32) * 100,
+            rng.integers(-2 ** 31, 2 ** 31 - 1, (_N_CAP, _W),
+                         dtype=np.int32))
+    rows = rng.permutation(_N_CAP).astype(np.int32)
+    n_prow = min(k, 64)
+    delta = kr.ViewDelta()
+    if k:
+        hot = np.sort(rng.choice(_N_CAP, k, replace=False)).astype(np.int32)
+        delta.add_hot(hot, rng.standard_normal((k, _R)).astype(np.float32),
+                      rng.random(k) < 0.5,
+                      rng.standard_normal(k).astype(np.float32))
+        delta.add_port_rows(np.sort(rows[:n_prow]), rng.integers(
+            -2 ** 31, 2 ** 31 - 1, (n_prow, _W), dtype=np.int32))
+        delta.add_port_words(rows[n_prow:n_prow + k],
+                             rng.integers(0, _W, k).astype(np.int32),
+                             rng.integers(-2 ** 31, 2 ** 31 - 1, k,
+                                          dtype=np.int32))
+    want = kr.apply_view_delta(tuple(torch.from_numpy(a.copy())
+                                     for a in view), delta)
+    on = tuple(torch.from_numpy(a).to(cuda_device) for a in view)
+    staged = kr.pack_view_delta([delta], [on], cuda_device).to(cuda_device)
+    plain = kr.view_delta_plain(tuple(t.clone() for t in on), staged)
+    n0 = kr.delta_launch_counts()
+    got = kr.view_delta(on, staged)
     torch.cuda.synchronize()
-    assert kr.delta_launch_counts()["hot_rows"] == n0 + (1 if k else 0)
-    for a, b in zip(want, got):
-        assert torch.equal(a, b.cpu())
-
-    ports = torch.randint(-2 ** 31, 2 ** 31 - 1, (_N_CAP, _W),
-                          generator=gen, dtype=torch.int32)
-    prow = _delta_idx(gen, min(k, 64), _N_CAP)
-    pvals = torch.randint(-2 ** 31, 2 ** 31 - 1, (prow.shape[0], _W),
-                          generator=gen, dtype=torch.int32)
-    want = kr.port_rows_update_plain(ports.clone(), prow, pvals)
-    got = kr.port_rows_update(ports.to(cuda_device), prow.to(cuda_device),
-                              pvals.to(cuda_device))
-    torch.cuda.synchronize()
-    assert torch.equal(want, got.cpu())
-
-    wrows = _delta_idx(gen, k, _N_CAP)       # distinct (row, word) pairs
-    words = torch.randint(0, _W, (k,), generator=gen, dtype=torch.int32)
-    wvals = torch.randint(-2 ** 31, 2 ** 31 - 1, (k,), generator=gen,
-                          dtype=torch.int32)
-    want = kr.port_words_update_plain(ports.clone(), wrows, words, wvals)
-    got = kr.port_words_update(ports.to(cuda_device), wrows.to(cuda_device),
-                               words.to(cuda_device), wvals.to(cuda_device))
-    torch.cuda.synchronize()
-    assert torch.equal(want, got.cpu())
+    assert kr.delta_launch_counts() == n0 + (1 if k else 0)
+    for w, p, g in zip(want, plain, got):
+        assert torch.equal(w, g.cpu()) and torch.equal(p, g)
 
 
 def _server_placements(eval_batch, cuda_device):

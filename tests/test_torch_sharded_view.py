@@ -224,8 +224,8 @@ def test_leased_sharded_view_is_never_written(meshes):
 
 
 def test_a_change_launches_k7_on_its_shard_only(meshes, monkeypatch):
-    """A refresh whose changed rows all lie in node shard 1 writes K7 on
-    that shard's two copies and on no other tensor."""
+    """A refresh whose changed rows all lie in node shard 1 flushes K7
+    once on each of that shard's two copies and on no other tensor."""
     _jmesh, mesh = meshes
     nodes = [_node(i) for i in range(40)]
     tw = Twin(nodes)
@@ -235,13 +235,13 @@ def test_a_change_launches_k7_on_its_shard_only(meshes, monkeypatch):
     target = [n for n in nodes if rows <= cl.row_of[n.id] < 2 * rows][:3]
     assert target
     calls = []
-    real = kr.hot_rows_update
+    real = kr.view_delta
 
-    def recording(used, *rest):
-        calls.append(used)
-        return real(used, *rest)
+    def recording(bufs, *rest):
+        calls.append(bufs[0])
+        return real(bufs, *rest)
 
-    monkeypatch.setattr(kr, "hot_rows_update", recording)
+    monkeypatch.setattr(kr, "view_delta", recording)
     for node in target:
         tw.upsert_alloc(_alloc(node.id, cpu=77))
     sc = tw.refresh(mesh, "one shard")
