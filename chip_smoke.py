@@ -123,11 +123,15 @@ non-zero without printing a result:
    and per step. K6's launches are counted around (b), K9's around the
    dry runs.
 10. The server on a device mesh (B10-B13), four shards of the card in
-   meshes (1, 4) and (2, 2): (a) on the phase-3 cluster, the packed
-   chain (B10) of phase 5's 8 programs, explain off and on, the single
-   program with explain (B11) and the system masks (B12) against their
-   plain versions on the same shards and the unsharded K4, K1 and K2;
-   timed with their host calls a dispatch; then two churn rounds through
+   meshes (1, 4) and (2, 2): (a) on the phase-3 cluster, at (1, 4),
+   (2, 2) and (1, 8), the packed chain (B10) of phase 5's 8 programs,
+   explain off and on, the single program with explain (B11) and the
+   system masks (B12) against their plain versions on the same shards
+   and the unsharded K4, K1 and K2; B10 and B11 through their cluster
+   route (two launches a dispatch when the shards share the card) and
+   their steps route, bitwise equal, both timed in turns (host clock and
+   device span a dispatch) with their host calls and launches; then two
+   churn rounds through
    the view cache under a (2, 2) mesh, every flush replayed on CPU copies
    of the shards (plain) and on an unsharded copy (K7), every copy equal
    to both and to a cold upload, one launch for each shard copy with
@@ -137,7 +141,8 @@ non-zero without printing a result:
    for each mesh and through `mesh=None`: placements equal alloc by
    alloc; evals/s, latency and dispatches printed; the B10-B13 launch
    counts are read around the meshed runs, beside the calls they were
-   made in (B10 and B11 dispatches, B12 mask calls, B13 flushes). (d)
+   made in (B10 and B11 dispatches, B12 mask calls, B13 flushes); on the
+   cluster route B10 and B11 launch 2 a dispatch. (d)
    one K6 dispatch and one K9 batch row of 65,536 programs (16 tiled) on
    64 rows, every copy equal to its original's plain result; the packed
    route bitwise the full-carry one. ((c), the dry run's server half, runs in 9 (c).)
@@ -2204,6 +2209,9 @@ def _phase9_shard(torch, kp, arrays, small, device=None):
 #: four shards of the card in two mesh shapes (the kernels line reads the
 #: first)
 MESH_SHAPES = ((1, 4), (2, 2))
+#: (a): the sharded routes' shapes; (1, 8) is the widest thread-block
+#: cluster of the chain kernel
+ROUTE_SHAPES = MESH_SHAPES + ((1, 8),)
 #: (a): programs of the sharded chain, the phase-3 mix as phase 5 runs it
 CHAIN_MIX = ("binpack", "constraint", "affinity", "spread_targets",
              "distinct_hosts", "distinct_property", "ports", "delta_penalty")
@@ -2211,29 +2219,101 @@ CHAIN_MIX = ("binpack", "constraint", "affinity", "spread_targets",
 MESH_EVALS = 64
 #: (d): programs of one dispatch past gridDim.y's 65,535, tiled from 16
 TILED_COPIES = 4096
+#: (a): dispatches timed a route
+ROUTE_REPS = 10
 
 
-def _mesh4(torch, shape, device=None):
-    """A mesh of four shards over the cards (repeating a card when there
-    are fewer than four), or over `device`."""
+def _mesh(torch, shape, device=None):
+    """A mesh of shape[0] x shape[1] shards over the cards (repeating a
+    card when there are fewer), or over `device`."""
     from nomad_tpu_torch.parallel import make_mesh
 
+    n = shape[0] * shape[1]
     on_card = device is None or torch.device(device).type == "cuda"
-    count = torch.cuda.device_count() if on_card else 4
-    devs = ([f"cuda:{i % count}" for i in range(4)] if on_card
-            else [device] * 4)
-    return make_mesh(4, batch=shape[0], devices=devs)
+    count = torch.cuda.device_count() if on_card else n
+    devs = ([f"cuda:{i % count}" for i in range(n)] if on_card
+            else [device] * n)
+    return make_mesh(n, batch=shape[0], devices=devs)
 
 
-def _phase10_routes(torch, kp, ks, arrays, chain, single, sysp, device=None):
-    """(a) B10, B11 and B12 on four shards, meshes (1, 4) and (2, 2): each
-    against its plain version on the same shards and against the
-    unsharded kernel on the whole view (K4, K1, K2); indices, counts and
-    masks equal, floats within TOL. Timed (host clock with the card
-    synced: a dispatch is many launches and copies), with the host calls
-    of one dispatch. `chain` = (packed buffers, spec, max_allocs, stacked
-    programs), `single` = (program, max_allocs), `sysp` a system
-    program."""
+def _dispatch_samples(torch, ks, fn, reps: int):
+    """`reps` sharded chain dispatches of `fn`, one at a time: each one's
+    host clock (every card synced before and after) and device span (CUDA
+    events on the current stream just before its first launch, so the
+    host's set-up before it is outside, and just after it returns: on the
+    cluster route the two kernels' device time, on the steps route also
+    the device's waits for the host's launches and copies). Returns (host
+    ms, span ms) lists."""
+    first = []
+
+    def call(*args, **kw):
+        if not first:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            first.append(e)
+        return real(*args, **kw)
+
+    real = ks._SHARD.call
+    hosts, spans = [], []
+    ks._SHARD.call = call
+    try:
+        for _ in range(reps):
+            first.clear()
+            _sync_all(torch)
+            t0 = time.perf_counter()
+            fn()
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            _sync_all(torch)
+            hosts.append((time.perf_counter() - t0) * 1e3)
+            spans.append(first[0].elapsed_time(end))
+    finally:
+        del ks._SHARD.call
+    return hosts, spans
+
+
+def _route_times(torch, ks, what, fns, on_card):
+    """B10's or B11's two CUDA routes on one sharded view, in turns
+    (cluster, steps, steps, cluster) of ROUTE_REPS dispatches: per route
+    the medians over both turns of the host clock and the device span a
+    dispatch (`_dispatch_samples`), the host calls and the kernel launches
+    of one dispatch. `fns` maps the route to a dispatch."""
+    out = {}
+    if not on_card:
+        return out
+    for route in ("cluster", "steps", "steps", "cluster"):
+        before = ks.route_launch_counts()[what]
+        fns[route]()
+        _sync_all(torch)
+        launches = ks.route_launch_counts()[what] - before
+        calls = ks.host_calls()
+        if ks.last_chain_route() != route:
+            raise AssertionError(f"{what}: {route} dispatch took the "
+                                 f"{ks.last_chain_route()} route")
+        hosts, spans = _dispatch_samples(torch, ks, fns[route], ROUTE_REPS)
+        r = out.setdefault(route, dict(host_ms=[], span_ms=[]))
+        r["host_ms"] += hosts
+        r["span_ms"] += spans
+        r.update(calls=calls, launches=launches)
+    for r in out.values():
+        r["host_ms"] = statistics.median(r["host_ms"])
+        r["span_ms"] = statistics.median(r["span_ms"])
+    return out
+
+
+def _phase10_routes(torch, kp, ks, arrays, chain, single, sysp, device=None,
+                    card=""):
+    """(a) B10, B11 and B12 on sharded views of the card, meshes (1, 4),
+    (2, 2) and (1, 8): each against its plain version on the same shards
+    and against the unsharded kernel on the whole view (K4, K1, K2);
+    indices, counts and masks equal, floats within TOL. B10 and B11 also
+    take their steps route, called directly, which must equal the cluster
+    route bitwise. Timed per dispatch: the entry point on the host clock
+    with the card synced (the kernels line's ms), and both CUDA routes in
+    turns on the host clock and as a device span between CUDA events,
+    with their host calls and launches. `chain` = (packed buffers, spec,
+    max_allocs, stacked programs), `single` = (program, max_allocs),
+    `sysp` a system program."""
     from nomad_tpu_torch.parallel import shard_cluster
 
     on_card = device is None or torch.device(device).type == "cuda"
@@ -2248,14 +2328,22 @@ def _phase10_routes(torch, kp, ks, arrays, chain, single, sysp, device=None):
                            arrays),
         "single": _bound(arrays, p1, m1),
         "system": _k2_bound(arrays, sysp)}
-    for shape in MESH_SHAPES:
-        sc = shard_cluster(arrays, _mesh4(torch, shape, device))
+    batch = kp._unpack_params(*bufs, spec)
+    batch1 = kp.TGParams(*(t.unsqueeze(0) for t in p1))
+    unsharded = {"chain": "K4", "single": "K1", "system": "K2"}
+    for shape in ROUTE_SHAPES:
+        sc = shard_cluster(arrays, _mesh(torch, shape, device))
+        layout = ks.chain_route(sc.devices[0])
         calls = {}
         for explain in (False, True):
             got = kp.place_packed_chain(sc, *bufs, spec, m, explain=explain)
             calls["chain"] = ks.host_calls()
+            if ks.last_chain_route() != layout:
+                raise AssertionError(f"B10 {shape}: took the "
+                                     f"{ks.last_chain_route()} route, the "
+                                     f"layout gives {layout}")
             plain = kp._flat_outputs(ks.sharded_chain_plain(
-                sc, kp._unpack_params(*bufs, spec), m, explain)[0], explain)
+                sc, batch, m, explain)[0], explain)
             k4 = kp.place_packed_chain(arrays, *bufs, spec, m,
                                        explain=explain)
             for want, what in ((plain, "plain"), (k4, "K4")):
@@ -2269,6 +2357,17 @@ def _phase10_routes(torch, kp, ks, arrays, chain, single, sysp, device=None):
                            (kp.place_task_group(arrays, p1, m1, True), "K1")):
             out["err"]["single"] = max(out["err"]["single"], _compare(
                 want, got, f"B11 {shape} vs {what}"))
+        if on_card and layout == "cluster":
+            if calls != {"chain": 2, "single": 2}:
+                raise AssertionError(f"{shape}: host calls a dispatch "
+                                     f"{calls}, the cluster route makes 2")
+            # the two CUDA routes on the same shards, bit for bit
+            for what, b, mm in (("chain", batch, m), ("single", batch1, m1)):
+                for explain in (False, True):
+                    a = ks._chain_cluster(sc, b, mm, explain, route=what)
+                    z = ks._chain_steps(sc, b, mm, explain, route=what)
+                    _bitwise(torch, a, z, f"{what} {shape} cluster vs "
+                             f"steps, explain {explain}")
         got = kp.system_feasibility(sc, sysp)
         for want, what in ((ks.sharded_system_plain(sc, sysp), "plain"),
                            (kp.system_feasibility(arrays, sysp), "K2")):
@@ -2281,21 +2380,41 @@ def _phase10_routes(torch, kp, ks, arrays, chain, single, sysp, device=None):
         fns = {
             "chain": (lambda: kp.place_packed_chain(sc, *bufs, spec, m,
                                                     explain=True),
-                      lambda: ks.sharded_chain_plain(
-                          sc, kp._unpack_params(*bufs, spec), m, True)),
+                      lambda: ks.sharded_chain_plain(sc, batch, m, True)),
             "single": (lambda: kp.place_task_group(sc, p1, m1, True),
                        lambda: ks.sharded_task_group_plain(sc, p1, m1,
                                                            True)),
             "system": (lambda: kp.system_feasibility(sc, sysp),
                        lambda: ks.sharded_system_plain(sc, sysp))}
+        two = {
+            "chain": {"cluster": lambda: ks._chain_cluster(
+                          sc, batch, m, True, snapshots=False),
+                      "steps": lambda: ks._chain_steps(
+                          sc, batch, m, True, snapshots=False)},
+            "single": {"cluster": lambda: ks._chain_cluster(
+                           sc, batch1, m1, True, route="single"),
+                       "steps": lambda: ks._chain_steps(
+                           sc, batch1, m1, True, route="single")}}
         for route, (kernel, plain_fn) in fns.items():
-            ms = _host_ms(torch, kernel, 3) if on_card else None
+            ms = _host_ms(torch, kernel, ROUTE_REPS) if on_card else None
             _w, plain_ms = _once_ms(torch, plain_fn, on_card)
             bound_ms, bound_by = bounds[route]
-            out.setdefault(shape, {})[route] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
-            unsharded = {"chain": "K4", "single": "K1", "system": "K2"}
+            times = (_route_times(torch, ks, route, two[route], on_card)
+                     if route in two and layout == "cluster" else {})
+            entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None)
+            if times:
+                entry.update(steps_ms=times["steps"]["host_ms"],
+                             span_ms=times["cluster"]["span_ms"],
+                             steps_span_ms=times["steps"]["span_ms"])
+                # the scan alone: the cluster route's span, explain off
+                b, mm = (batch, m) if route == "chain" else (batch1, m1)
+                _h, off = _dispatch_samples(
+                    torch, ks, lambda: ks._chain_cluster(
+                        sc, b, mm, False, snapshots=False), ROUTE_REPS)
+                times["cluster"]["off_ms"] = statistics.median(off)
+                steps = b.n_place.shape[0] * mm
+            out.setdefault(shape, {})[route] = entry
             print(f"phase 10 (a) {route} {shape}: == plain == unsharded "
                   f"({unsharded[route]}), max_abs_err {out['err'][route]}; "
                   + (f"{ms:.4f} ms a dispatch" if ms is not None
@@ -2303,9 +2422,49 @@ def _phase10_routes(torch, kp, ks, arrays, chain, single, sysp, device=None):
                   + f"; plain {plain_ms:.1f} ms; bound {bound_ms:.6f} ms "
                   f"({bound_by}); host calls a dispatch "
                   f"{calls.get(route, 'one K2 launch a shard')}"
-                  + ("; the four shards share one card" if on_card and
-                     torch.cuda.device_count() == 1 else ""))
+                  + (f"; route {layout}" if route in two else "")
+                  + (f"; the {shape[0] * shape[1]} shards share one card"
+                     if on_card and torch.cuda.device_count() == 1 else ""))
+            for name, t in times.items():
+                print(f"phase 10 (a) {route} {shape} {name} route: host "
+                      f"clock {t['host_ms']:.4f} ms, device span from the "
+                      f"first launch (CUDA events) {t['span_ms']:.4f} ms a "
+                      f"dispatch (medians of {2 * ROUTE_REPS} dispatches in "
+                      f"turns, cluster, steps, steps, cluster); "
+                      f"{t['calls']} host calls, {t['launches']} launches a "
+                      f"dispatch; {card}")
+            if times:
+                on = times["cluster"]["span_ms"]
+                off = times["cluster"]["off_ms"]
+                print(f"phase 10 (a) {route} {shape} cluster route, explain "
+                      f"off: device span {off:.4f} ms a dispatch (median of "
+                      f"{ROUTE_REPS}); a step of the {steps}: "
+                      f"{off / steps * 1e3:.1f} µs, explain's share "
+                      f"{(on - off) / steps * 1e3:.1f} µs; {card}")
     return out
+
+
+def _bitwise(torch, want, got, what: str) -> None:
+    """Two (PlacementResult, carries) of the sharded chain, bit for bit:
+    every output and explain leaf, new_used where both have it, and the
+    shards' final (used, dyn_free)."""
+    def bits(t):
+        t = t.detach().cpu().contiguous()
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    (rw, cw), (rg, cg) = want, got
+    leaves = [(f, getattr(rw, f), getattr(rg, f))
+              for f in ("sel_idx", "sel_score", "nodes_feasible", "nodes_fit",
+                        "new_used", "final_scores0")]
+    if rw.explain is not None:
+        leaves += [(f, a, b) for f, a, b in zip(
+            type(rw.explain)._fields, rw.explain, rg.explain)]
+    for (u, d), (gu, gd) in zip(cw, cg):
+        leaves += [("carry used", u, gu), ("carry dyn_free", d, gd)]
+    for name, a, b in leaves:
+        if (a is None) != (b is None) or (a is not None and not (
+                a.shape == b.shape and torch.equal(bits(a), bits(b)))):
+            raise AssertionError(f"{what}: {name} differs")
 
 
 def _phase10_view(torch, kr, cl, nodes, rng, device=None):
@@ -2347,7 +2506,7 @@ def _phase10_view(torch, kr, cl, nodes, rng, device=None):
     def k7_bufs(f):
         return (f.used, f.node_ok, f.dyn_free, f.ports_used)
 
-    set_active_mesh(_mesh4(torch, (2, 2), device))
+    set_active_mesh(_mesh(torch, (2, 2), device))
     try:
         stack = TorchStack(cl, device=dev)
         sc = stack.device_arrays()
@@ -2510,7 +2669,7 @@ def _phase10_server(torch, kp, ks, kr, device=None):
         stack_mod.apply_view_delta = counting_flush if on else real_flush
 
     for shape in (None,) + MESH_SHAPES:
-        mesh = None if shape is None else _mesh4(torch, shape, device)
+        mesh = None if shape is None else _mesh(torch, shape, device)
         label = "mesh=None" if shape is None else f"mesh {shape}"
         srng = random.Random(SEED + 5)
         t0 = time.perf_counter()
@@ -2610,6 +2769,14 @@ def _phase10_server(torch, kp, ks, kr, device=None):
         if on_card and not all(run_counts.values()):
             raise AssertionError(f"{label}: a sharded route never launched "
                                  f"on the meshed server: {run_counts}")
+        if on_card and ks.chain_route(mesh.grid()[0]) == "cluster":
+            # every chain and single dispatch: one static, one cluster launch
+            for route in ("chain", "single"):
+                if run_counts[route] != 2 * run_calls[route]:
+                    raise AssertionError(
+                        f"{label}: {run_counts[route]} {route} launches for "
+                        f"{run_calls[route]} dispatches, the cluster route "
+                        "makes 2 a dispatch")
         t1 = time.perf_counter()
         shapes = []
         for i, (route, args, explain, res) in enumerate(records):
@@ -2688,7 +2855,7 @@ def _phase10_limits(torch, kp, ks, device=None):
         raise AssertionError(f"K6 B={b}: the packed route differs from the "
                              "full-carry route")
     del got
-    sc = shard_cluster(arrays, _mesh4(torch, (1, 4), device))
+    sc = shard_cluster(arrays, _mesh(torch, (1, 4), device))
     want9, _f = ks.sharded_place_plain(sc, small, m)
     got9, _f = ks.sharded_place(sc, big, m)
     same(want9, got9, ("sel_idx", "nodes_feasible", "nodes_fit",
@@ -3001,7 +3168,7 @@ def main() -> int:
         torch, kp, ks, binpack.device_arrays(),
         (bufs10, spec10, m10, params_from_numpy(stacked, "cuda")),
         (params_from_numpy(p_aff, "cuda"), m_aff),
-        params_from_numpy(p_sys, "cuda"))
+        params_from_numpy(p_sys, "cuda"), card=smi[0])
     view13, view_err = _phase10_view(torch, kr, cl, nodes, rng)
     counts10, server10, calls10 = _phase10_server(torch, kp, ks, kr)
     _phase10_limits(torch, kp, ks)

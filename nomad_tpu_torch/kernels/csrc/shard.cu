@@ -20,66 +20,97 @@
 // The host (kernels/shard.py) gives each shard the program fields of its
 // batch row with the row indices rebased to the shard (idx − row0, −1
 // outside it; pads are −1 already), a node-width extra_mask sliced, and
-// the preferred rows left global. Per dispatch and batch row of Bp
-// programs (K9), or per program of a chain (B10, B11), with S shards:
-//   1. shard_static (per shard): grid (shard rows / 256, Bp), in chunks of
-//      65535 programs. K1's static pass on the shard's rows; for K9 also
-//      the plan's deltas subtracted into the program's carry.
-//   2. per step, M times:
-//      a. shard_step (per shard): one 1024-thread block per program.
-//         First it applies the previous step's winner (the owner adds the
-//         ask to its row and bumps the counts; every shard adds the
-//         winner's spread and distinct_property tokens to its copy of the
-//         replicated counts, the same adds in the same order). A chain's
-//         step 0 first takes the carry-dependent half of the static pass
-//         against the shard's carry (place_core.cuh `carry_in`). Then K1's
-//         step on the shard's rows (`step_rows`, the code K1, K4 and K5
-//         run) and the block argmax, and one record per program: the best
-//         (score, global row), that row's ok flag and tokens, the fit
-//         count, the feasible count (step 0), and the preferred row's ok,
-//         score and tokens if this shard owns it. With explain the record
-//         adds the step's filter counts, the shard's own top-K (K rounds of
-//         the argmax over its rows, as K1's scan; fewer rows than K leave
-//         empty entries) and at step 0 the static filter counts.
-//      b. the records are copied to the lead device (node shard 0) by the
-//         caller, on the devices' current streams.
-//      c. shard_combine (lead): one thread per program. The max score,
-//         the lowest global row among equal scores (jnp.argmax's first
-//         index): every row at the −1e30 floor gives global row 0, not
-//         found. The preferred-row override with the owner's ok, the fit
-//         counts summed, sel_idx / sel_score / nodes_fit (and
-//         nodes_feasible) written, and the winner record (found, row,
-//         tokens) copied back to every shard by the caller. With explain:
-//         the counts summed over shards (i32, exact in any order) and the
-//         shards' top-K merged into the global top-K, score descending and
-//         the lowest global row first among equal scores — lax.top_k's
-//         order, also for the many rows at the −1e30 floor.
-//   3. shard_step with apply only: the last step's winner; a chain's
-//      shards then take the dyn_free carry update of the rows they own.
-//   4. shard_fold (scheduler_step only, per node shard): one thread per
-//      element, used + Σ_b (new_used_b − used) in ascending b; the partial
-//      sum passes from batch row to batch row in order.
-// No host sync inside a dispatch.
+// the preferred rows left global. One step of one shard's program
+// (`step_body`, one 1024-thread block) first applies the previous step's
+// winner (the owner adds the ask to its row and bumps the counts; every
+// shard adds the winner's spread and distinct_property tokens to its copy
+// of the replicated counts, the same adds in the same order); a chain's
+// step 0 first takes the carry-dependent half of the static pass against
+// the shard's carry (place_core.cuh `carry_in`). Then K1's step on the
+// shard's rows (`step_rows`, the code K1, K4 and K5 run) and the block
+// argmax, and one record: the best (score, global row), that row's ok flag
+// and tokens, the fit count, the feasible count (step 0), and the
+// preferred row's ok, score and tokens if this shard owns it. With
+// explain the record adds the step's filter counts, the shard's own top-K
+// (K rounds of the argmax over its rows, as K1's scan; fewer rows than K
+// leave empty entries) and at step 0 the static filter counts. The
+// combine of the shards' records (`combine_records`, one warp a program):
+// the max score, the lowest global row among equal scores
+// (jnp.argmax's first index): every row at the −1e30 floor gives global
+// row 0, not found. The preferred-row override with the owner's ok, the
+// fit counts summed, sel_idx / sel_score / nodes_fit (and nodes_feasible)
+// written, and the winner record (found, row, tokens) for every shard.
+// With explain: the counts summed over shards (i32, exact in any order)
+// and the shards' top-K merged into the global top-K, score descending
+// and the lowest global row first among equal scores — lax.top_k's order,
+// also for the many rows at the −1e30 floor.
 //
-// What bounds it on this card: latency, as K1. Each step of a shard is one
-// launch whose blocks stride over the shard's rows, then a copy of a few
-// words per program, a one-thread-per-program combine and a copy back;
-// per step that is 3S + 1 launches and copies per batch row, or per
-// program of a chain. The work per step is K1's over N / S rows; when the
-// shards share one card their step launches queue on its one stream, so a
-// step costs S launches of N / S rows plus the combine. The bound is K1's,
-// K4's or K6's operations over the card's fp32 rate, or the bytes of the
-// view, the programs and the outputs, whichever is larger; chip_smoke.py
-// computes it from the run's inputs.
+// Two launch structures run those functions:
+//   steps (K9 always; B10/B11 when the shards span devices or S > 8): per
+//      dispatch and batch row of Bp programs (K9), or per program of a
+//      chain, with S shards:
+//      1. shard_static (per shard): grid (shard rows / 256, Bp), in chunks
+//         of 65535 programs. K1's static pass on the shard's rows; for K9
+//         also the plan's deltas subtracted into the program's carry.
+//      2. per step, M times: shard_step (per shard, one block a program,
+//         the counts through global memory); the records copied to the
+//         lead device (node shard 0) by the caller; shard_combine on the
+//         lead; the winner copied back to every shard.
+//      3. shard_step with apply only: the last step's winner; a chain's
+//         shards then take the dyn_free carry update of the rows they own.
+//      4. shard_fold (scheduler_step only, per node shard): one thread per
+//         element, used + Σ_b (new_used_b − used) in ascending b; the
+//         partial sum passes from batch row to batch row in order.
+//      That is S + P·(M·(3S + 1) + S) launches and copies a chain.
+//   cluster (B10/B11 when batch row 0's S ≤ 8 shards share one card): two
+//      launches a dispatch. shard_static over every shard (blockIdx.z the
+//      shard), then shard_chain_cluster: S blocks, one a shard, as one
+//      thread-block cluster on neighbouring SMs. Each block keeps its
+//      counts, the winner and its taken rows in shared memory; per step
+//      it runs `step_body` with its record stored into its slot in block
+//      0's shared memory through distributed shared memory (stores only:
+//      a remote load costs several times a local one, and the combine
+//      reads every record word), the cluster meets at a hardware barrier,
+//      block 0 runs the same combine over its S slots and stores the
+//      winner into every block's shared memory, and the cluster meets
+//      again. All P·(M + 1) steps run inside the launch; with snapshots
+//      each block writes its carry after each program into a [P, N, R]
+//      buffer.
+// No host sync inside a dispatch. Both structures run the same device
+// functions in the same order, so their outputs are bitwise equal.
+//
+// What bounds it on this card: latency, as K1. The work per step is K1's
+// over N / S rows on one SM a shard; the steps of a chain depend on each
+// other. The steps route adds 3S + 1 host calls a step (≈ 20 µs each) and
+// its launches queue on one stream when the shards share a card; the
+// cluster route replaces them with two cluster barriers a step. What is
+// left a step is the scan over N / S rows and, with explain, K rounds of
+// a block-wide argmax for the shard's top-K and block 0's serial merge of
+// the S lists (PERF.md has the times). The bound is K1's, K4's or K6's
+// operations over the card's fp32 rate, or the bytes of the view, the
+// programs and the outputs, whichever is larger; chip_smoke.py computes
+// it from the run's inputs.
+
+#include <cooperative_groups.h>
 
 #include "place_core.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+// the largest thread-block cluster the chain kernel forms: the portable
+// cluster size of sm_90
+constexpr int MAX_CLUSTER = 8;
+
+}  // namespace
 
 extern "C" {
 
 // One step of one shard's programs.
 struct ShardStep {
   int step;        // the step to evaluate; m = apply only
-  int apply;       // apply the previous step's winners first
+  int apply;       // apply the previous step's winner first
   int row0;        // the shard's first global row
   int rec_words;   // shard_rec_words()
   int win_words;   // 2 + s + p
@@ -114,6 +145,21 @@ struct ShardCombine {
   float* topk_parts;     // [P, m, topk, 5]
 };
 
+// A whole chain dispatch on one card: the static pass of every shard and
+// the cluster launch.
+struct ShardChain {
+  int shards;      // S, node shards of batch row 0 (the cluster's size)
+  int progs;       // P programs, in order
+  int m;           // steps a program
+  int scan_bytes;  // smem_bytes() of the programs (the entry point's)
+  int n;           // global rows (the snapshot's)
+  const PlaceArgs* args[MAX_CLUSTER];  // shard j's [progs] PlaceArgs
+  int row0[MAX_CLUSTER];               // shard j's first global row
+  float* dyn_c[MAX_CLUSTER];           // shard j's [rows] dyn_free carry
+  float* snap;       // [progs, n, r] the carry after each program, or null
+  ShardCombine out;  // the outputs (step set per step; rec, win unused)
+};
+
 }  // extern "C"
 
 namespace {
@@ -138,20 +184,61 @@ __host__ __device__ inline int shard_rec_words(const PlaceArgs& A) {
          (A.explain ? 4 + A.r + TOPK_WORDS * A.topk + 3 + A.c : 0);
 }
 
-__global__ void shard_static(const PlaceArgs* progs, int carry) {
+// The programs of up to MAX_CLUSTER shards of one device.
+struct ShardProgs {
+  const PlaceArgs* p[MAX_CLUSTER];
+};
+
+// grid (rows / STATIC_THREADS, programs of this chunk, shards)
+__global__ void shard_static(ShardProgs P, int y0, int carry) {
   __shared__ __align__(16) PlaceArgs A;
-  load_args(&A, progs + blockIdx.y);
+  load_args(&A, P.p[blockIdx.z] + y0 + blockIdx.y);
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= A.n) return;
   static_row(A, n);
   if (carry) static_row_carry(A, n);
 }
 
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARPS = SCAN_THREADS / 32;
+// the static shared memory of explain_record's per-warp top-K lists
+constexpr size_t LIST_BYTES = sizeof(Best) * WARPS * TOPK_MAX;
+
+// The best (value, row) of the warp, on every lane (the rows unique, so
+// every order of the shuffles picks the same one).
+__device__ __forceinline__ Best warp_best(Best b) {
+  for (int off = 16; off > 0; off >>= 1) {
+    Best o;
+    o.v = __shfl_xor_sync(FULL, b.v, off);
+    o.i = __shfl_xor_sync(FULL, b.i, off);
+    b = better(b, o);
+  }
+  return b;
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
+}
+
+// `c` comes after `last` in top-K order (value descending, then row
+// ascending): the entries left once `last` is taken, the rows unique.
+__device__ __forceinline__ bool after(Best c, Best last) {
+  return c.v < last.v || (c.v == last.v && c.i > last.i);
+}
+
 // The explain part of a step's record (the whole block; after the step's
-// block_argmax, which published mbuf and the counts).
-__device__ void explain_record(const PlaceArgs& A, const Smem& S,
-                               const ShardStep& T, int* r) {
+// block_argmax, which published mbuf and the counts). The shard's top-K
+// is lax.top_k's over its rows (value descending, the lower row first):
+// each warp takes the top-K of its lanes' rows, K rounds of a warp argmax
+// over the rows after its last pick, and warp 0 merges the warps' lists,
+// K rounds over their heads — the K picks of K rounds of a block argmax,
+// with one block barrier where those take 3K.
+__device__ void explain_record(const PlaceArgs& A, const Smem& S, int step,
+                               int row0, int* r) {
+  __shared__ Best lists[WARPS * TOPK_MAX];
   const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, K = A.topk;
   int* ex = r + shard_ex(A);
   if (tid == 0) {
     ex[0] = S.cnt[1];
@@ -160,37 +247,101 @@ __device__ void explain_record(const PlaceArgs& A, const Smem& S,
     ex[3] = S.cnt[4];
     for (int q = 0; q < A.r; ++q) ex[4 + q] = S.cnt[6 + q];
   }
-  int* tk = ex + 4 + A.r;
-  // the shard's top-K: K rounds of the argmax, excluding rows taken
-  for (int k = 0; k < A.topk; ++k) {
+  Best last{LOWEST, NONE};
+  for (int k = 0; k < K; ++k) {
     Best b{LOWEST, NONE};
     for (int n = tid; n < A.n; n += nt) {
-      bool skip = false;
-      for (int q = 0; q < k; ++q) skip |= S.taken[q] == n;
-      if (!skip) b = better(b, Best{A.mbuf[n], n});
+      const Best c{A.mbuf[n], n};
+      if (k == 0 || after(c, last)) b = better(b, c);
     }
-    b = block_argmax(b, S.red);
-    if (tid == 0) {
-      S.taken[k] = b.i;
+    last = warp_best(b);
+    if (lane == 0) lists[warp * TOPK_MAX + k] = last;
+  }
+  __syncthreads();
+  int* tk = ex + 4 + A.r;
+  if (warp == 0) {
+    const int nw = nt >> 5;
+    int head = 0;
+    for (int k = 0; k < K; ++k) {
+      const Best mine = lane < nw && head < K ? lists[lane * TOPK_MAX + head]
+                                              : Best{LOWEST, NONE};
+      const Best b = warp_best(mine);
       const bool valid = b.i < A.n;
+      if (valid && mine.i == b.i) ++head;
       const float keep = valid && b.v > NEG_INF / 2 ? 1.0f : 0.0f;
       int* e = tk + TOPK_WORDS * k;
-      e[0] = __float_as_int(b.v);
-      e[1] = valid ? T.row0 + b.i : NONE;
-      for (int q = 0; q < N_PARTS; ++q)
-        e[2 + q] = __float_as_int(
-            valid ? A.parts[(size_t)b.i * N_PARTS + q] * keep : 0.0f);
+      if (lane == 0) {
+        e[0] = __float_as_int(b.v);
+        e[1] = valid ? row0 + b.i : NONE;
+      }
+      if (lane < N_PARTS)
+        e[2 + lane] = __float_as_int(
+            valid ? A.parts[(size_t)b.i * N_PARTS + lane] * keep : 0.0f);
     }
-    __syncthreads();
   }
-  if (T.step == 0) {
-    int* st = tk + TOPK_WORDS * A.topk;
+  if (step == 0) {
+    int* st = tk + TOPK_WORDS * K;
     if (tid == 0) {
       st[0] = A.ex_static[0];
       st[1] = A.ex_static[1];
       st[2] = A.ex_static[2];
     }
     for (int c = tid; c < A.c; c += nt) st[3 + c] = A.filt_constraint[c];
+  }
+}
+
+// One step of one shard's program, by the whole block, its replicated
+// counts in S: with `apply` the previous step's winner `w` first (a chain
+// records the local row it took in `taken` and, after its last step,
+// takes the dyn_free carry update into `dyn_c`); a chain's carry taken in
+// at step 0; then step `step` (< A.m) into the record `r`.
+__device__ void step_body(const PlaceArgs& A, const Smem& S, int step,
+                          bool apply, int row0, int* r, const int* w,
+                          int* taken, float* dyn_c) {
+  const int tid = threadIdx.x;
+  if (apply && tid == 0) {
+    int local = -1;
+    if (w[0]) {
+      local = w[1] - row0;
+      if (local >= 0 && local < A.n) take_row(A, local);
+      else local = -1;
+      count_tokens(A, S, w + 2, w + 2 + A.s);
+    }
+    if (taken != nullptr) {
+      taken[step - 1] = local;
+      if (step == A.m) carry_out_dyn(A, taken, dyn_c);
+    }
+  }
+  __syncthreads();
+  if (dyn_c != nullptr && step == 0 && !apply)
+    carry_in(A, A.new_used, dyn_c);
+
+  if (step < A.m) {
+    const ScanConsts C = scan_consts(A);
+    if (step == 0) static_counts(A, S);
+    begin_step(A, S);
+    Best best = step_rows(A, S, C, step);
+    best = block_argmax(best, S.red);  // its barriers publish mbuf/okbuf
+    if (tid == 0) {
+      const int tw = A.s + A.p;
+      r[0] = __float_as_int(best.v);
+      r[1] = row0 + best.i;
+      r[2] = A.okbuf[best.i];
+      r[3] = S.cnt[0];
+      r[4] = step == 0 ? *A.nodes_feasible : 0;
+      for (int s = 0; s < A.s; ++s) r[7 + s] = A.stok[(size_t)best.i * A.s + s];
+      for (int q = 0; q < A.p; ++q) r[7 + A.s + q] = A.dtok[(size_t)best.i * A.p + q];
+      const int pref = A.preferred_idx[step] - row0;
+      const bool owned = A.preferred_idx[step] >= 0 && pref >= 0 && pref < A.n;
+      const bool pref_ok = owned && A.okbuf[pref];
+      r[5] = pref_ok;
+      r[6] = __float_as_int(pref_ok ? A.mbuf[pref] : 0.0f);
+      for (int s = 0; s < A.s; ++s)
+        r[7 + tw + s] = pref_ok ? A.stok[(size_t)pref * A.s + s] : 0;
+      for (int q = 0; q < A.p; ++q)
+        r[7 + tw + A.s + q] = pref_ok ? A.dtok[(size_t)pref * A.p + q] : 0;
+    }
+    if (A.explain) explain_record(A, S, step, row0, r);
   }
 }
 
@@ -210,153 +361,205 @@ shard_step(const PlaceArgs* progs, ShardStep T) {
     init_counts(A, S);
   }
   __syncthreads();
-  if (T.apply && tid == 0) {
-    const int* w = T.win + (size_t)b * T.win_words;
-    int local = -1;
-    if (w[0]) {
-      local = w[1] - T.row0;
-      if (local >= 0 && local < A.n) take_row(A, local);
-      else local = -1;
-      count_tokens(A, S, w + 2, w + 2 + A.s);
-    }
-    if (T.taken != nullptr) {
-      T.taken[T.step - 1] = local;
-      if (T.step == A.m) carry_out_dyn(A, T.taken, T.dyn_c);
-    }
-  }
-  __syncthreads();
-  if (T.dyn_c != nullptr && T.step == 0 && !T.apply)
-    carry_in(A, A.new_used, T.dyn_c);
-
-  if (T.step < A.m) {
-    const ScanConsts C = scan_consts(A);
-    if (T.step == 0) static_counts(A, S);
-    begin_step(A, S);
-    Best best = step_rows(A, S, C, T.step);
-    best = block_argmax(best, S.red);  // its barriers publish mbuf/okbuf
-    int* r = T.rec + (size_t)b * T.rec_words;
-    if (tid == 0) {
-      const int tw = A.s + A.p;
-      r[0] = __float_as_int(best.v);
-      r[1] = T.row0 + best.i;
-      r[2] = A.okbuf[best.i];
-      r[3] = S.cnt[0];
-      r[4] = T.step == 0 ? *A.nodes_feasible : 0;
-      for (int s = 0; s < A.s; ++s) r[7 + s] = A.stok[(size_t)best.i * A.s + s];
-      for (int q = 0; q < A.p; ++q) r[7 + A.s + q] = A.dtok[(size_t)best.i * A.p + q];
-      const int pref = A.preferred_idx[T.step] - T.row0;
-      const bool owned = A.preferred_idx[T.step] >= 0 && pref >= 0 && pref < A.n;
-      const bool pref_ok = owned && A.okbuf[pref];
-      r[5] = pref_ok;
-      r[6] = __float_as_int(pref_ok ? A.mbuf[pref] : 0.0f);
-      for (int s = 0; s < A.s; ++s)
-        r[7 + tw + s] = pref_ok ? A.stok[(size_t)pref * A.s + s] : 0;
-      for (int q = 0; q < A.p; ++q)
-        r[7 + tw + A.s + q] = pref_ok ? A.dtok[(size_t)pref * A.p + q] : 0;
-    }
-    if (A.explain) explain_record(A, S, T, r);
-  }
+  step_body(A, S, T.step, T.apply != 0, T.row0,
+            T.rec + (size_t)b * T.rec_words,
+            T.win + (size_t)b * T.win_words, T.taken, T.dyn_c);
   for (int i = tid; i < sc; i += nt) counts[i] = S.scounts[i];
   for (int i = tid; i < dc; i += nt) counts[sc + i] = S.dcounts[i];
 }
 
 // The explain outputs of program `g` at this step from its shards'
-// records `r0` (shard stride `stride`).
+// records (`rec(j)` shard j's), by one warp: the counts summed over the
+// shards (i32, exact in any order), and the global top-K, K rounds of the
+// warp's best entry after the last pick over the shards' lists (each in
+// lax.top_k order; entries without a row skipped).
+template <class Rec>
 __device__ void combine_explain(const PlaceArgs& A, const ShardCombine& C,
-                                const int* r0, size_t stride, int g) {
+                                Rec rec, int g) {
+  const int lane = threadIdx.x & 31;
   const int ex = shard_ex(A), K = A.topk, R = A.r;
   const size_t o = (size_t)g * C.m + C.step;
-  int cnt[4] = {0, 0, 0, 0};
-  for (int j = 0; j < C.shards; ++j)
-    for (int q = 0; q < 4; ++q) cnt[q] += r0[j * stride + ex + q];
-  C.filt_distinct[o] = cnt[0];
-  C.filt_dp[o] = cnt[1];
-  C.exh_dyn[o] = cnt[2];
-  C.exh_res[o] = cnt[3];
-  for (int q = 0; q < R; ++q) {
-    int d = 0;
-    for (int j = 0; j < C.shards; ++j) d += r0[j * stride + ex + 4 + q];
-    C.exh_dim[o * R + q] = d;
+  for (int q = lane; q < 4 + R; q += 32) {
+    int v = 0;
+    for (int j = 0; j < C.shards; ++j) v += rec(j)[ex + q];
+    if (q == 0) C.filt_distinct[o] = v;
+    else if (q == 1) C.filt_dp[o] = v;
+    else if (q == 2) C.exh_dyn[o] = v;
+    else if (q == 3) C.exh_res[o] = v;
+    else C.exh_dim[o * R + q - 4] = v;
   }
-  // the global top-K: K rounds of the best entry not yet taken over the
-  // shards' lists (each holds its shard's best rows in lax.top_k order)
-  int picked[TOPK_MAX];
+  Best last{LOWEST, NONE};
   for (int k = 0; k < K; ++k) {
-    Best best{LOWEST, NONE};
+    Best c{LOWEST, NONE};
     const int* from = nullptr;
-    for (int j = 0; j < C.shards; ++j) {
-      const int* tk = r0 + j * stride + ex + 4 + R;
+    for (int j = lane; j < C.shards; j += 32) {
+      const int* tk = rec(j) + ex + 4 + R;
       for (int e = 0; e < K; ++e) {
         const int* en = tk + TOPK_WORDS * e;
-        const int row = en[1];
-        if (row == NONE) continue;
-        bool seen = false;
-        for (int q = 0; q < k; ++q) seen |= picked[q] == row;
-        if (seen) continue;
-        const float v = __int_as_float(en[0]);
-        if (from == nullptr || v > best.v || (v == best.v && row < best.i)) {
-          best = Best{v, row};
+        const Best b{__int_as_float(en[0]), en[1]};
+        if (b.i == NONE || (k > 0 && !after(b, last))) continue;
+        if (from == nullptr || b.v > c.v || (b.v == c.v && b.i < c.i)) {
+          c = b;
           from = en;
         }
       }
     }
-    picked[k] = best.i;
+    last = warp_best(c);
+    // the entry's parts from the lane that offered it (none: zeros)
+    const unsigned at = __ballot_sync(FULL, from != nullptr && c.i == last.i);
+    const int* pick = nullptr;
+    if (at != 0) {
+      const int src = __ffs(at) - 1;
+      pick = (const int*)__shfl_sync(FULL, (unsigned long long)from, src);
+    }
     const size_t t = o * K + k;
-    C.topk_idx[t] = best.i;
-    C.topk_score[t] = best.v;
+    if (lane == 0) {
+      C.topk_idx[t] = last.i;
+      C.topk_score[t] = last.v;
+    }
     // (the shards offer min(K, rows) entries each, at least K in all)
-    for (int q = 0; q < N_PARTS; ++q)
-      C.topk_parts[t * N_PARTS + q] =
-          from != nullptr ? __int_as_float(from[2 + q]) : 0.0f;
+    if (lane < N_PARTS)
+      C.topk_parts[t * N_PARTS + lane] =
+          pick != nullptr ? __int_as_float(pick[2 + lane]) : 0.0f;
   }
   if (C.step == 0) {
     const int st = ex + 4 + R + TOPK_WORDS * K;
-    for (int q = 0; q < 3 + A.c; ++q) {
+    for (int q = lane; q < 3 + A.c; q += 32) {
       int v = 0;
-      for (int j = 0; j < C.shards; ++j) v += r0[j * stride + st + q];
+      for (int j = 0; j < C.shards; ++j) v += rec(j)[st + q];
       if (q < 3) C.ex_static[(size_t)g * 3 + q] = v;
       else C.filt_constraint[(size_t)g * C.cstride + q - 3] = v;
     }
   }
 }
 
-__global__ void shard_combine(const PlaceArgs* progs, ShardCombine C) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= C.progs) return;
-  const PlaceArgs& A = progs[b];
-  const size_t stride = (size_t)C.progs * C.rec_words;
-  const int* r0 = C.rec + (size_t)b * C.rec_words;
-  int bj = 0, pj = -1, nfit = 0, nfeas = 0;
-  Best best{__int_as_float(r0[0]), r0[1]};
-  for (int j = 0; j < C.shards; ++j) {
-    const int* r = r0 + j * stride;
-    const Best c{__int_as_float(r[0]), r[1]};
-    if (c.v > best.v || (c.v == best.v && c.i < best.i)) {  // better()
-      best = c;
-      bj = j;
+// The combine of program `g`'s step C.step by one warp: its outputs from
+// the shards' records (`rec(j)` shard j's), the winner into `w`. The best
+// (score, global row) over the shards, the fit and feasible counts summed,
+// the preferred row from the (one) shard that owns it and found it ok.
+template <class Rec>
+__device__ void combine_records(const PlaceArgs& A, const ShardCombine& C,
+                                int g, Rec rec, int* w) {
+  const int lane = threadIdx.x & 31;
+  Best c{LOWEST, NONE};
+  int cj = 0, pj = -1, nfit = 0, nfeas = 0;
+  for (int j = lane; j < C.shards; j += 32) {
+    const int* r = rec(j);
+    const Best b{__int_as_float(r[0]), r[1]};
+    if (j == lane || better(c, b).i == b.i) {  // the rows are distinct
+      c = b;
+      cj = j;
     }
     nfit += r[3];
     nfeas += r[4];
     if (r[5]) pj = j;
   }
-  const int g = C.prog0 + b;
-  const int* rb = r0 + bj * stride;
+  const Best best = warp_best(c);
+  const unsigned at = __ballot_sync(FULL, lane < C.shards && c.i == best.i);
+  const int bj = __shfl_sync(FULL, cj, __ffs(at) - 1);
+  for (int off = 16; off > 0; off >>= 1)
+    pj = max(pj, __shfl_xor_sync(FULL, pj, off));
+  nfit = warp_sum(nfit);
+  nfeas = warp_sum(nfeas);
+  const int* rb = rec(bj);
   const bool pref_ok = pj >= 0;
-  const int* rp = pref_ok ? r0 + pj * stride : rb;
+  const int* rp = pref_ok ? rec(pj) : rb;
   const int idx = pref_ok ? A.preferred_idx[C.step] : best.i;
   const bool found = (pref_ok || rb[2]) && C.step < *A.n_place;
   const size_t o = (size_t)g * C.m + C.step;
-  C.sel_idx[o] = found ? idx : -1;
-  C.sel_score[o] = found ? (pref_ok ? __int_as_float(rp[6]) : best.v) : 0.0f;
-  C.nodes_fit[o] = nfit;
-  if (C.step == 0) C.nodes_feasible[g] = nfeas;
-  int* w = C.win + (size_t)b * C.win_words;
+  if (lane == 0) {
+    C.sel_idx[o] = found ? idx : -1;
+    C.sel_score[o] =
+        found ? (pref_ok ? __int_as_float(rp[6]) : best.v) : 0.0f;
+    C.nodes_fit[o] = nfit;
+    if (C.step == 0) C.nodes_feasible[g] = nfeas;
+    w[0] = found;
+    w[1] = idx;
+  }
   const int tw = A.s + A.p;
-  w[0] = found;
-  w[1] = idx;
   const int* tok = pref_ok ? rp + 7 + tw : rb + 7;
-  for (int t = 0; t < tw; ++t) w[2 + t] = tok[t];
-  if (A.explain) combine_explain(A, C, r0, stride, g);
+  for (int t = lane; t < tw; t += 32) w[2 + t] = tok[t];
+  if (A.explain) combine_explain(A, C, rec, g);
+}
+
+// one warp a program
+__global__ void shard_combine(const PlaceArgs* progs, ShardCombine C) {
+  const int b = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (b >= C.progs) return;
+  const size_t stride = (size_t)C.progs * C.rec_words;
+  const int* r0 = C.rec + (size_t)b * C.rec_words;
+  combine_records(progs[b], C, C.prog0 + b,
+                  [&](int j) { return r0 + j * stride; },
+                  C.win + (size_t)b * C.win_words);
+}
+
+// Words of the chain kernel's own shared memory after the scan's carve:
+// a record slot a shard (read on block 0), the winner, the taken rows.
+__host__ __device__ inline int round4(int words) { return (words + 3) & ~3; }
+
+__host__ inline size_t chain_smem(const ShardChain& Q) {
+  return (size_t)Q.scan_bytes +
+         4 * (size_t)(Q.shards * round4(Q.out.rec_words) +
+                      round4(Q.out.win_words) + Q.m);
+}
+
+// A whole chain on one card, one block a node shard, the S blocks one
+// thread-block cluster: for each program, for each step 0..M, the step
+// with its record stored into the shard's slot in block 0's shared memory
+// (through distributed shared memory: remote stores, no remote loads), a
+// cluster barrier, block 0's combine over the S slots (the winner stored
+// into every block's shared memory), a cluster barrier. Every block runs
+// every barrier: the loop bounds and the step's branches are the same in
+// all of them.
+__global__ void __launch_bounds__(SCAN_THREADS, 1)
+shard_chain_cluster(ShardChain Q) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(16) PlaceArgs A;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int j = (int)cluster.block_rank(), tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int stride = round4(Q.out.rec_words);
+  int* slots = (int*)(smem_raw + Q.scan_bytes);  // [S, stride] on block 0
+  int* win = slots + Q.shards * stride;
+  int* taken = win + round4(Q.out.win_words);
+  int* rec = j == 0 ? slots : cluster.map_shared_rank(slots + j * stride, 0);
+  const int row0 = Q.row0[j];
+  float* dyn_c = Q.dyn_c[j];
+
+  for (int k = 0; k < Q.progs; ++k) {
+    __syncthreads();  // the previous program's last reads of A are done
+    load_args(&A, Q.args[j] + k);
+    Smem S = carve(A, smem_raw);
+    for (int step = 0; step <= Q.m; ++step) {
+      if (step == 0) {
+        init_counts(A, S);
+        __syncthreads();
+      }
+      step_body(A, S, step, step > 0, row0, rec, win, taken, dyn_c);
+      if (step < Q.m) {
+        cluster.sync();  // every shard's record is written
+        if (j == 0 && tid < 32) {
+          ShardCombine C = Q.out;
+          C.step = step;
+          combine_records(A, C, k,
+                          [&](int q) { return slots + q * stride; }, win);
+          __syncwarp();
+          for (int q = 1; q < Q.shards; ++q) {
+            int* wq = cluster.map_shared_rank(win, q);
+            for (int t = tid; t < Q.out.win_words; t += 32) wq[t] = win[t];
+          }
+        }
+        cluster.sync();  // the winner is in every shard
+      }
+    }
+    if (Q.snap != nullptr) {
+      float* dst = Q.snap + ((size_t)k * Q.n + row0) * A.r;
+      const int count = A.n * A.r;
+      for (int i = tid; i < count; i += nt) dst[i] = A.new_used[i];
+    }
+  }
+  // no block leaves while another may still touch its shared memory
+  cluster.sync();
 }
 
 __global__ void shard_fold(const float* new_used, const float* used,
@@ -370,11 +573,41 @@ __global__ void shard_fold(const float* new_used, const float* used,
   if (out != nullptr) out[e] = u + a;
 }
 
+// The static pass of `progs` programs of `shards` shards in chunks of
+// MAX_GRID_Y programs.
+int launch_static(const PlaceArgs& A0, const ShardProgs& P, int shards,
+                  int progs, int carry, cudaStream_t stream) {
+  const int gx = (A0.n + STATIC_THREADS - 1) / STATIC_THREADS;
+  for (int y0 = 0; y0 < progs; y0 += MAX_GRID_Y) {
+    dim3 grid(gx, progs - y0 < MAX_GRID_Y ? progs - y0 : MAX_GRID_Y, shards);
+    shard_static<<<grid, STATIC_THREADS, 0, stream>>>(P, y0, carry);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
+// The checks a chain dispatch on one card shares between its two launches.
+bool chain_ok(const PlaceArgs& A0, const ShardChain& Q) {
+  const ShardCombine& C = Q.out;
+  if (Q.shards < 1 || Q.shards > MAX_CLUSTER || Q.progs < 1 || Q.m < 1 ||
+      A0.n <= 0 || A0.r < 2 || A0.m != Q.m || Q.n != A0.n * Q.shards ||
+      C.shards != Q.shards || C.m != Q.m || C.progs != 1 || C.prog0 != 0 ||
+      C.rec_words != shard_rec_words(A0) || C.win_words != 2 + A0.s + A0.p ||
+      A0.topk > TOPK_MAX)
+    return false;
+  for (int j = 0; j < Q.shards; ++j)
+    if (Q.args[j] == nullptr || Q.dyn_c[j] == nullptr) return false;
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
 
 size_t nomad_shard_args_size() { return sizeof(PlaceArgs); }
+
+size_t nomad_shard_chain_size() { return sizeof(ShardChain); }
 
 const char* nomad_shard_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
@@ -389,15 +622,9 @@ int nomad_shard_static(const PlaceArgs* args0, const void* dev, int progs,
                        int carry, void* stream) {
   const PlaceArgs& A0 = *args0;
   if (A0.n <= 0 || A0.r < 2 || progs <= 0) return (int)cudaErrorInvalidValue;
-  const int gx = (A0.n + STATIC_THREADS - 1) / STATIC_THREADS;
-  for (int y0 = 0; y0 < progs; y0 += MAX_GRID_Y) {
-    dim3 grid(gx, progs - y0 < MAX_GRID_Y ? progs - y0 : MAX_GRID_Y);
-    shard_static<<<grid, STATIC_THREADS, 0, (cudaStream_t)stream>>>(
-        (const PlaceArgs*)dev + y0, carry);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
+  ShardProgs P = {};
+  P.p[0] = (const PlaceArgs*)dev;
+  return launch_static(A0, P, 1, progs, carry, (cudaStream_t)stream);
 }
 
 // Enqueues one step (and/or the previous step's apply) of one shard.
@@ -411,7 +638,7 @@ int nomad_shard_step(const PlaceArgs* args0, const void* dev, int progs,
       (step->dyn_c != nullptr && progs != 1))
     return (int)cudaErrorInvalidValue;
   size_t shm = smem_bytes(A0);
-  if (shm + sizeof(PlaceArgs) > 48 * 1024) {
+  if (shm + sizeof(PlaceArgs) + LIST_BYTES > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         shard_step, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
     if (err != cudaSuccess) return (int)err;
@@ -427,9 +654,63 @@ int nomad_shard_combine(const void* dev, const ShardCombine* c, void* stream) {
   if (c->progs <= 0 || c->shards <= 0 || c->step < 0 || c->step >= c->m ||
       c->prog0 < 0)
     return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  shard_combine<<<(c->progs + threads - 1) / threads, threads, 0,
+  const int threads = 128, per_block = threads / 32;
+  shard_combine<<<(c->progs + per_block - 1) / per_block, threads, 0,
                   (cudaStream_t)stream>>>((const PlaceArgs*)dev, *c);
+  return (int)cudaGetLastError();
+}
+
+// Enqueues the static pass of a chain dispatch on one card: every
+// program of every shard in one launch (blockIdx.z the shard). `args0` is
+// the host copy of shard 0's program 0. Refuses what nomad_shard_chain
+// refuses.
+int nomad_shard_static_shards(const PlaceArgs* args0, const ShardChain* q,
+                              void* stream) {
+  if (!chain_ok(*args0, *q)) return (int)cudaErrorInvalidValue;
+  ShardProgs P = {};
+  for (int j = 0; j < q->shards; ++j) P.p[j] = q->args[j];
+  return launch_static(*args0, P, q->shards, q->progs, 0,
+                       (cudaStream_t)stream);
+}
+
+// Enqueues the rest of a chain dispatch on one card: one launch of
+// shard_chain_cluster, S blocks as one cluster of S (at most 8, the
+// portable cluster size). Returns a CUDA error (0 = ok) when the
+// arguments disagree with `args0` (as nomad_shard_step checks them), when
+// the shared memory is refused, when no cluster of S such blocks fits the
+// card, or when the launch fails.
+int nomad_shard_chain(const PlaceArgs* args0, const ShardChain* q,
+                      void* stream) {
+  const PlaceArgs& A0 = *args0;
+  if (!chain_ok(A0, *q)) return (int)cudaErrorInvalidValue;
+  ShardChain Q = *q;
+  Q.scan_bytes = (int)smem_bytes(A0);
+  const size_t shm = chain_smem(Q);
+  if (shm + sizeof(PlaceArgs) + LIST_BYTES > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      shard_chain_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)shm);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(Q.shards, 1, 1);
+  cfg.blockDim = dim3(SCAN_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = shm;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = Q.shards;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(
+      &clusters, (const void*)shard_chain_cluster, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, shard_chain_cluster, Q);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -35,7 +35,13 @@ read batch row 0's shards; the view cache keeps every copy equal.
 Each route has a plain version (the same loop in PyTorch, on any devices;
 the CPU tests hold it against the reference's mesh) and a CUDA one
 (`csrc/shard.cu`, K2's `csrc/system.cu` for B12); the shards' device type
-picks.
+picks. B10 and B11 on CUDA shards take one of two launch structures, chosen
+from the layout alone (`chain_route`): when batch row 0's S ≤ 8 shards
+share one card, two launches a dispatch (the static pass of every shard,
+then one thread-block cluster of S blocks that runs every step of every
+program); otherwise launches a step per shard, records copied to the lead
+device, a combine there and the winner copied back. A failed launch
+raises; neither structure gives way to the other.
 """
 from __future__ import annotations
 
@@ -59,6 +65,7 @@ from .placement import (
     _lane_args,
     _PlaceArgs,
     _program,
+    _rows_ptrs,
     _scratch_shapes,
     _stacked_source,
     _static_plain,
@@ -352,15 +359,32 @@ class _ShardCombine(ctypes.Structure):
                     (name, _VOID) for name in _EXPLAIN_BUFS]
 
 
+#: the largest thread-block cluster of the chain kernel (csrc/shard.cu
+#: MAX_CLUSTER, the portable cluster size)
+MAX_CLUSTER = 8
+
+
+class _ShardChain(ctypes.Structure):
+    """Mirror of `ShardChain` in csrc/shard.cu."""
+
+    _fields_ = [("shards", _INT), ("progs", _INT), ("m", _INT),
+                ("scan_bytes", _INT), ("n", _INT),
+                ("args", _VOID * MAX_CLUSTER), ("row0", _INT * MAX_CLUSTER),
+                ("dyn_c", _VOID * MAX_CLUSTER), ("snap", _VOID),
+                ("out", _ShardCombine)]
+
+
 class _Launcher:
     """The shard library (csrc/shard.cu), built at first use, its count of
     K9 dispatches, the kernel launches of the sharded routes, and the
-    host calls (launches and copies) the last sharded dispatch made."""
+    host calls (launches and copies) the last sharded dispatch made, and
+    the route the last chain or single dispatch took."""
 
     def __init__(self):
         self.launches = 0
         self.routes = dict.fromkeys(ROUTES, 0)
         self.host_calls = 0
+        self.last_route = None
         self._lib = None
 
     def lib(self):
@@ -368,8 +392,9 @@ class _Launcher:
             from ._build import load_library
 
             lib = load_library("shard")
-            lib.nomad_shard_args_size.restype = ctypes.c_size_t
-            lib.nomad_shard_args_size.argtypes = []
+            for fn in ("nomad_shard_args_size", "nomad_shard_chain_size"):
+                getattr(lib, fn).restype = ctypes.c_size_t
+                getattr(lib, fn).argtypes = []
             lib.nomad_shard_error_string.restype = ctypes.c_char_p
             lib.nomad_shard_error_string.argtypes = [ctypes.c_int]
             args = ctypes.POINTER(_PlaceArgs)
@@ -381,14 +406,20 @@ class _Launcher:
                     ("nomad_shard_combine", [_VOID,
                                              ctypes.POINTER(_ShardCombine),
                                              _VOID]),
+                    ("nomad_shard_static_shards", [
+                        args, ctypes.POINTER(_ShardChain), _VOID]),
+                    ("nomad_shard_chain", [args, ctypes.POINTER(_ShardChain),
+                                           _VOID]),
                     ("nomad_shard_fold", [_VOID, _VOID, _VOID, _VOID, _INT,
                                           _INT, _VOID])):
                 getattr(lib, fn).restype = ctypes.c_int
                 getattr(lib, fn).argtypes = argtypes
-            if lib.nomad_shard_args_size() != ctypes.sizeof(_PlaceArgs):
+            if lib.nomad_shard_args_size() != ctypes.sizeof(_PlaceArgs) \
+                    or lib.nomad_shard_chain_size() != ctypes.sizeof(
+                        _ShardChain):
                 raise RuntimeError(
-                    "shard library's PlaceArgs layout differs from the "
-                    "wrapper's (rebuild csrc/shard.cu)")
+                    "shard library's PlaceArgs or ShardChain layout differs "
+                    "from the wrapper's (rebuild csrc/shard.cu)")
             self._lib = lib
         return self._lib
 
@@ -432,8 +463,8 @@ def reset_launch_count() -> None:
 def route_launch_counts() -> dict:
     """Kernel launches of the sharded chain (B10), single program (B11)
     and system masks (B12) on CUDA shards since the last reset: every
-    static, step and combine launch of a chain or single dispatch, and
-    one K2 launch a shard of a system dispatch."""
+    static, cluster, step and combine launch of a chain or single
+    dispatch, and one K2 launch a shard of a system dispatch."""
     return dict(_SHARD.routes)
 
 
@@ -447,12 +478,28 @@ def host_calls() -> int:
     return _SHARD.host_calls
 
 
+def last_chain_route() -> Optional[str]:
+    """The route the last sharded chain or single dispatch took:
+    "plain", "cluster" or "steps" (`chain_route`); None before the
+    first."""
+    return _SHARD.last_route
+
+
 def build_kernel() -> None:
     """Build (or load the cached build of) the shard library now."""
     _SHARD.lib()
 
 
 _ARG_SIZE = ctypes.sizeof(_PlaceArgs)
+
+
+def _words(dims: dict, r: int, explain: bool) -> Tuple[int, int]:
+    """A step record's and a winner's words (csrc/shard.cu
+    shard_rec_words(), 2 + s + p)."""
+    tw = dims["s"] + dims["p"]
+    rec = 7 + 2 * tw + (4 + r + 7 * dims["topk"] + 3 + dims["c"]
+                        if explain else 0)
+    return rec, 2 + tw
 
 
 class _Cell:
@@ -480,11 +527,8 @@ class _Cell:
          self.used) = _lane_args(shard, shapes, ptrs_of, lanes, per_lane,
                                  max_allocs, explain, n_global=n_global)
         d = self.dims
-        # csrc/shard.cu shard_rec_words()
-        self.rec_words = 7 + 2 * (d["s"] + d["p"]) + (
-            4 + shard.capacity.shape[1] + 7 * d["topk"] + 3 + d["c"]
-            if explain else 0)
-        self.win_words = 2 + d["s"] + d["p"]
+        self.rec_words, self.win_words = _words(d, shard.capacity.shape[1],
+                                                explain)
         i32 = torch.int32
         rows = 1 if chain else bp
         self.rec = torch.empty((rows, self.rec_words), dtype=i32,
@@ -640,23 +684,70 @@ def sharded_place(sc: ShardedCluster, batch, max_allocs: int,
 # ---- the sharded routes of the view's readers (B10, B11, B12) ------------------
 
 
-def sharded_chain_cuda(sc: ShardedCluster, batch, max_allocs: int,
-                       explain: bool = False, snapshots: bool = True,
-                       route: str = "chain"):
-    """B10 (and B11 at one program, `route` "single") on CUDA shards
-    (`csrc/shard.cu`): what `sharded_chain_plain` returns; new_used only
-    with `snapshots`. Per program: each shard's step launches, the
-    records to the lead device, the combine, the winner back, M times,
-    then the last apply with the shards' dyn_free carry update. Every
-    launch and copy is queued on the devices' current streams; nothing
-    syncs with the host. Raises when a build or launch fails."""
+def chain_route(devices) -> str:
+    """The route of a sharded chain (B10) or single program (B11) over node
+    shards on `devices` (batch row 0's): "plain" on CPU shards; "cluster"
+    when every shard is on one CUDA device and there are at most
+    MAX_CLUSTER of them (two launches a dispatch); else "steps" (launches
+    a step per shard, copies to the lead device and a combine). Raises
+    ValueError when the shards lie on more than one device type."""
+    devices = [torch.device(d) for d in devices]
+    kinds = {d.type for d in devices}
+    if kinds == {"cpu"}:
+        return "plain"
+    if kinds == {"cuda"}:
+        one_card = len(set(devices)) == 1
+        return ("cluster" if one_card and len(devices) <= MAX_CLUSTER
+                else "steps")
+    raise ValueError(f"no sharded placement for devices {sorted(kinds)}")
+
+
+def _outputs(dims: dict, n: int, r: int, n_progs: int, m: int, out,
+             explain: bool):
+    """A chain's outputs on the lead device (a leading program axis) and
+    the combine's pointers to them."""
+    i32, f32 = torch.int32, torch.float32
+    res = dict(sel_idx=torch.empty((n_progs, m), dtype=i32, device=out),
+               sel_score=torch.empty((n_progs, m), dtype=f32, device=out),
+               nodes_fit=torch.empty((n_progs, m), dtype=i32, device=out),
+               nodes_feasible=torch.zeros(n_progs, dtype=i32, device=out))
+    if explain:
+        shapes = _scratch_shapes(dims, n, r, True)["prog"]
+        for name in _EXPLAIN_BUFS:
+            shape, dt = shapes[name]
+            shape = shape if isinstance(shape, tuple) else (shape,)
+            res[name] = torch.empty((n_progs,) + shape, dtype=dt,
+                                    device=out)
+    ptrs = {k: res[k].data_ptr() if k in res else None
+            for k in ("sel_idx", "sel_score", "nodes_fit",
+                      "nodes_feasible") + _EXPLAIN_BUFS}
+    return res, ptrs
+
+
+def _chain_result(res: dict, c: int, new_used, final0, carries,
+                  explain: bool):
+    ex = _explain_out(res, c) if explain else None
+    result = PlacementResult(
+        sel_idx=res["sel_idx"], sel_score=res["sel_score"],
+        new_used=new_used, nodes_feasible=res["nodes_feasible"],
+        nodes_fit=res["nodes_fit"], final_scores0=final0, explain=ex)
+    return result, carries
+
+
+def _chain_steps(sc: ShardedCluster, batch, max_allocs: int,
+                 explain: bool = False, snapshots: bool = True,
+                 route: str = "chain"):
+    """The steps route of B10/B11, a cell a shard on any CUDA devices: per
+    program, each shard's step launches, the records to the lead device,
+    the combine, the winner back, M times, then the last apply with the
+    shards' dyn_free carry update; S + P·(M·(3S + 1) + S) launches and
+    copies."""
     _check_grid(sc, "cuda")
     if max_allocs < 1:
         raise ValueError("the sharded chain needs max_allocs >= 1")
     batch = _as_params(batch)
     shards, devs = sc.shards[0], sc.devices[0]
-    nm, ns, m = len(shards), sc.n // len(sc.row0), max_allocs
-    out = devs[0]
+    ns, m, out = sc.n // len(sc.row0), max_allocs, devs[0]
     n_progs = batch.n_place.shape[0]
     _SHARD.lib()
     _SHARD.host_calls = 0
@@ -668,26 +759,11 @@ def sharded_chain_cuda(sc: ShardedCluster, batch, max_allocs: int,
                            sc.row0[j], m, explain, chain=True,
                            n_global=sc.n, route=route))
     lead = cells[0]
-    i32, f32 = torch.int32, torch.float32
-    rec = torch.empty((nm, 1, lead.rec_words), dtype=i32, device=out)
-    win = torch.zeros((1, lead.win_words), dtype=i32, device=out)
-    res = dict(sel_idx=torch.empty((n_progs, m), dtype=i32, device=out),
-               sel_score=torch.empty((n_progs, m), dtype=f32, device=out),
-               nodes_fit=torch.empty((n_progs, m), dtype=i32, device=out),
-               nodes_feasible=torch.zeros(n_progs, dtype=i32, device=out))
-    cstride = max(lead.dims["c"], 1)
-    if explain:
-        shapes = _scratch_shapes(lead.dims, sc.n,
-                                 shards[0].capacity.shape[1], True)["prog"]
-        for name in _EXPLAIN_BUFS:
-            shape, dt = shapes[name]
-            shape = shape if isinstance(shape, tuple) else (shape,)
-            res[name] = torch.empty((n_progs,) + shape, dtype=dt,
-                                    device=out)
-    ptrs = {k: res[k].data_ptr() if k in res else None
-            for k in ("sel_idx", "sel_score", "nodes_fit",
-                      "nodes_feasible") + _EXPLAIN_BUFS}
-
+    res, ptrs = _outputs(lead.dims, sc.n, shards[0].capacity.shape[1],
+                         n_progs, m, out, explain)
+    rec = torch.empty((len(cells), 1, lead.rec_words), dtype=torch.int32,
+                      device=out)
+    win = torch.zeros((1, lead.win_words), dtype=torch.int32, device=out)
     for c in cells:
         c.static(carry=False)
     snaps = []
@@ -698,10 +774,10 @@ def sharded_chain_cuda(sc: ShardedCluster, batch, max_allocs: int,
             for j, c in enumerate(cells):
                 _SHARD.copy(rec[j], c.rec)
             comb = _ShardCombine(
-                step=step, shards=nm, progs=1, m=m,
+                step=step, shards=len(cells), progs=1, m=m,
                 rec_words=lead.rec_words, win_words=lead.win_words,
-                prog0=k, cstride=cstride, rec=rec.data_ptr(),
-                win=win.data_ptr(), **ptrs)
+                prog0=k, cstride=max(lead.dims["c"], 1),
+                rec=rec.data_ptr(), win=win.data_ptr(), **ptrs)
             _SHARD.call("nomad_shard_combine", out,
                         lead.dev_args.data_ptr() + k * _ARG_SIZE,
                         ctypes.byref(comb), route=route)
@@ -711,25 +787,132 @@ def sharded_chain_cuda(sc: ShardedCluster, batch, max_allocs: int,
             c.step(m, apply=True, k=k)
         if snapshots:
             snaps.append(torch.cat([c.used[0].to(out) for c in cells]))
-
-    ex = _explain_out(res, lead.dims["c"]) if explain else None
-    result = PlacementResult(
-        sel_idx=res["sel_idx"], sel_score=res["sel_score"],
-        new_used=torch.stack(snaps) if snapshots else None,
-        nodes_feasible=res["nodes_feasible"], nodes_fit=res["nodes_fit"],
-        final_scores0=torch.cat([c.prog["final0"].to(out) for c in cells],
-                                dim=1),
-        explain=ex)
-    return result, [(c.used[0], c.dyn) for c in cells]
+    _SHARD.last_route = "steps"
+    return _chain_result(
+        res, lead.dims["c"], torch.stack(snaps) if snapshots else None,
+        torch.cat([c.prog["final0"].to(out) for c in cells], dim=1),
+        [(c.used[0], c.dyn) for c in cells], explain)
 
 
-def _chain_impl(sc: ShardedCluster):
-    kinds = {d.type for d in sc.devices[0]}
-    if kinds == {"cpu"}:
-        return "plain"
-    if kinds == {"cuda"}:
-        return "cuda"
-    raise ValueError(f"no sharded placement for devices {sorted(kinds)}")
+def _shards_source(cluster: ClusterArrays, batch: TGParams, s: int,
+                   n: int):
+    """(b, shapes, ptrs_of, the rebased fields) of a stacked `batch` as
+    each of `s` node shards of one card sees it, shard-major (shard j's
+    program k at j·b + k): the row fields rebased for every shard at once
+    (`rebase`'s arithmetic), a node-width extra_mask split by shard, the
+    other fields shared. `cluster` is a shard (for the checks)."""
+    b, shapes, _ptrs = _stacked_source(cluster, batch)
+    ns = n // s
+    row0 = torch.arange(s, dtype=torch.int32,
+                        device=batch.n_place.device) * ns
+    own = {}
+    for name in ROW_FIELDS:
+        t = getattr(batch, name)
+        local = t.unsqueeze(0) - row0.view((s,) + (1,) * t.dim())
+        own[name] = torch.where((local >= 0) & (local < ns), local, -1)
+    if shapes["extra_mask"] == (n,) and n != 1:
+        own["extra_mask"] = batch.extra_mask.view(b, s, ns).transpose(
+            0, 1).contiguous()
+        shapes["extra_mask"] = (ns,)
+    every = np.arange(s * b)
+
+    def ptrs_of(name):
+        if name in own:
+            t = own[name]
+            return _rows_ptrs(t.view((s * b,) + tuple(t.shape[2:])), every)
+        return np.tile(_rows_ptrs(getattr(batch, name), np.arange(b)), s)
+
+    return b, shapes, ptrs_of, own
+
+
+def _chain_cluster(sc: ShardedCluster, batch, max_allocs: int,
+                   explain: bool = False, snapshots: bool = True,
+                   route: str = "chain"):
+    """The cluster route of B10/B11, every shard of batch row 0 on one
+    card: every shard's program fields and argument blocks built at once
+    (one lane a shard), the static pass of every shard in one launch, then
+    `shard_chain_cluster`, one block a shard as one thread-block cluster,
+    every step of every program inside the launch. Raises RuntimeError
+    when the library refuses either launch (more than MAX_CLUSTER shards,
+    arguments that disagree, no cluster that fits) or a launch fails."""
+    from ..convert import to_device_async
+
+    _check_grid(sc, "cuda")
+    if max_allocs < 1:
+        raise ValueError("the sharded chain needs max_allocs >= 1")
+    shards, out = sc.shards[0], sc.devices[0][0]
+    s, n, m = len(shards), sc.n, max_allocs
+    ns = n // s
+    if sc.row0 != tuple(j * ns for j in range(s)):
+        raise ValueError("the node shards must be equal and in row order")
+    for sh in shards:
+        _check_cluster(sh)
+    batch = _on(_as_params(batch), out)
+    batch = TGParams(*(t.contiguous() for t in batch))
+    _SHARD.lib()
+    _SHARD.host_calls = 0
+    # (the rebased fields are freed on return: the launches below read
+    # them first on this stream, which orders any reuse after them)
+    bp, shapes, ptrs_of, _own = _shards_source(shards[0], batch, s, n)
+    dims, args, _first_upload, prog, _lane, used = _lane_args(
+        shards[0], shapes, ptrs_of, s, bp, m, explain, n_global=n)
+    # _lane_args points every block at shard 0's rows: each shard's blocks
+    # read their own, and the records go up again
+    for j, sh in enumerate(shards[1:], 1):
+        for name, t in sh._asdict().items():
+            args[name][j * bp:(j + 1) * bp] = t.data_ptr()
+    dev_args = to_device_async(args.view(np.uint8), out)
+    torch.cat([sh.used for sh in shards], out=used.view(n, -1))
+    dyn = torch.cat([sh.dyn_free for sh in shards])
+    r = shards[0].capacity.shape[1]
+    res, ptrs = _outputs(dims, n, r, bp, m, out, explain)
+    rec_words, win_words = _words(dims, r, explain)
+    q = _ShardChain(shards=s, progs=bp, m=m, n=n)
+    for j in range(min(s, MAX_CLUSTER)):
+        q.args[j] = dev_args.data_ptr() + j * bp * _ARG_SIZE
+        q.row0[j] = sc.row0[j]
+        q.dyn_c[j] = dyn[j * ns:].data_ptr()
+    snap = None
+    if snapshots:
+        snap = torch.empty((bp, n, r), dtype=torch.float32, device=out)
+        q.snap = snap.data_ptr()
+    q.out = _ShardCombine(shards=s, progs=1, m=m, rec_words=rec_words,
+                          win_words=win_words,
+                          cstride=max(dims["c"], 1), **ptrs)
+    a0 = args_pointer(args)
+    _SHARD.call("nomad_shard_static_shards", out, a0, ctypes.byref(q),
+                route=route)
+    _SHARD.call("nomad_shard_chain", out, a0, ctypes.byref(q), route=route)
+    _SHARD.last_route = "cluster"
+    final0 = prog["final0"].view(s, bp, ns).transpose(0, 1).reshape(bp, n)
+    return _chain_result(res, dims["c"], snap, final0,
+                         [(used[j], dyn[j * ns:(j + 1) * ns])
+                          for j in range(s)], explain)
+
+
+def sharded_chain_cuda(sc: ShardedCluster, batch, max_allocs: int,
+                       explain: bool = False, snapshots: bool = True,
+                       route: str = "chain"):
+    """B10 (and B11 at one program, `route` "single") on CUDA shards
+    (`csrc/shard.cu`): what `sharded_chain_plain` returns; new_used only
+    with `snapshots`. The cluster route when `chain_route` gives it (every
+    shard of batch row 0 on one card, S ≤ MAX_CLUSTER), else the steps
+    route; the launches count to `route`. Every launch and copy is queued
+    on the devices' current streams; nothing syncs with the host. Raises
+    when a build or launch fails."""
+    if chain_route(sc.devices[0]) == "cluster":
+        return _chain_cluster(sc, batch, max_allocs, explain, snapshots,
+                              route)
+    return _chain_steps(sc, batch, max_allocs, explain, snapshots, route)
+
+
+def _dispatch(sc: ShardedCluster, batch, max_allocs: int, explain: bool,
+              snapshots: bool, route: str) -> PlacementResult:
+    if chain_route(sc.devices[0]) == "plain":
+        _SHARD.last_route = "plain"
+        return sharded_chain_plain(sc, batch, max_allocs, explain)[0]
+    return sharded_chain_cuda(sc, batch, max_allocs, explain, snapshots,
+                              route)[0]
 
 
 def sharded_chain(sc: ShardedCluster, batch, max_allocs: int,
@@ -737,9 +920,7 @@ def sharded_chain(sc: ShardedCluster, batch, max_allocs: int,
     """B10: `place_task_group_chain` on a sharded view — the programs of
     `batch` in order, new_used the carry after each program, every output
     on the grid's first device."""
-    if _chain_impl(sc) == "plain":
-        return sharded_chain_plain(sc, batch, max_allocs, explain)[0]
-    return sharded_chain_cuda(sc, batch, max_allocs, explain)[0]
+    return _dispatch(sc, batch, max_allocs, explain, True, "chain")
 
 
 def sharded_packed_chain(sc: ShardedCluster, i32buf, f32buf, u8buf, spec,
@@ -748,12 +929,8 @@ def sharded_packed_chain(sc: ShardedCluster, i32buf, f32buf, u8buf, spec,
     sel_score, nodes_feasible, nodes_fit[, explain leaves]) on the grid's
     first device, as the unsharded route does."""
     batch = _unpack_params(i32buf, f32buf, u8buf, spec)
-    if _chain_impl(sc) == "plain":
-        r = sharded_chain_plain(sc, batch, max_allocs, explain)[0]
-    else:
-        r = sharded_chain_cuda(sc, batch, max_allocs, explain,
-                               snapshots=False)[0]
-    return _flat_outputs(r, explain)
+    return _flat_outputs(_dispatch(sc, batch, max_allocs, explain, False,
+                                   "chain"), explain)
 
 
 def _first(r: PlacementResult, explain: bool) -> PlacementResult:
@@ -776,11 +953,9 @@ def sharded_task_group(sc: ShardedCluster, p: TGParams, max_allocs: int,
                        explain: bool = False) -> PlacementResult:
     """B11: `place_task_group` on a sharded view (the chain at one
     program), shaped as the unsharded route returns it."""
-    if _chain_impl(sc) == "plain":
-        return sharded_task_group_plain(sc, p, max_allocs, explain)
     batch = TGParams(*(t.unsqueeze(0) for t in p))
-    return _first(sharded_chain_cuda(sc, batch, max_allocs, explain,
-                                     route="single")[0], explain)
+    return _first(_dispatch(sc, batch, max_allocs, explain, True, "single"),
+                  explain)
 
 
 def _system_over(sc: ShardedCluster, p: TGParams, fn):
@@ -804,7 +979,7 @@ def sharded_system_feasibility(sc: ShardedCluster, p: TGParams):
     on CPU shards) on each of batch row 0's shards over its own rows, the
     program's row fields rebased, the two masks joined in global row
     order on the grid's first device."""
-    _chain_impl(sc)
+    chain_route(sc.devices[0])
 
     def k2(shard: ClusterArrays, q: TGParams):
         out = system_feasibility(shard, q)

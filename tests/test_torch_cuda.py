@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 K1, the chain and wave (K4, K5), the batch (K6), the row kernels (K7, K8),
-K2, K3, and the node-sharded step (K9) on four shards.
+K2, K3, the node-sharded step (K9) on four shards, and the sharded
+routes (B10-B13) on shards of the card — B10/B11's cluster route held
+bitwise against its steps route.
 
 Marked `cuda`: it skips without an NVIDIA card (a CUDA kernel has no CPU
 mode). It imports nothing of JAX, so it also runs where JAX is absent:
@@ -638,12 +640,27 @@ def test_packed_batch_equals_the_full_carry_route_bitwise(cuda_device):
 # ---- the sharded routes (B10-B13) on four shards of the card ------------------
 
 
-def _card_mesh(shape):
+def _card_mesh(shape, one_card=False):
+    """A mesh of shape[0] x shape[1] shards over the cards (repeating a
+    card when there are fewer), or all on cuda:0 with `one_card`."""
     from nomad_tpu_torch.parallel import make_mesh
 
-    count = torch.cuda.device_count()
-    return make_mesh(4, batch=shape[0],
-                     devices=[f"cuda:{i % count}" for i in range(4)])
+    n = shape[0] * shape[1]
+    count = 1 if one_card else torch.cuda.device_count()
+    return make_mesh(n, batch=shape[0],
+                     devices=[f"cuda:{i % count}" for i in range(n)])
+
+
+def _route_launches(ks, sc, n_prog, m):
+    """Launches of one chain dispatch of `n_prog` programs on `sc`: two on
+    the cluster route (the static pass of every shard, the cluster); on
+    the steps route a static launch a node shard, then per program M
+    steps of a launch a shard and a combine, and the last apply a
+    shard."""
+    s = len(sc.row0)
+    if ks.chain_route(sc.devices[0]) == "cluster":
+        return 2
+    return s + n_prog * (m * (s + 1) + s)
 
 
 @pytest.mark.cuda
@@ -662,11 +679,13 @@ def test_sharded_chain_matches_plain_and_k4(shape, explain, cuda_device):
     bufs = [tensor_from_numpy(b, cuda_device) for b in (ibuf, fbuf, ubuf)]
     before = ks.route_launch_counts()["chain"]
     got = kp.place_packed_chain(sc, *bufs, spec, m, explain=explain)
-    # a static launch a node shard, then per program M steps of a launch
-    # a shard and a combine, and the last apply a shard
-    n_prog, s = int(batched.n_place.shape[0]), len(sc.row0)
-    assert ks.route_launch_counts()["chain"] == before + s + n_prog * (
-        m * (s + 1) + s)
+    n_prog = int(batched.n_place.shape[0])
+    assert ks.route_launch_counts()["chain"] == before + _route_launches(
+        ks, sc, n_prog, m)
+    if torch.cuda.device_count() == 1:
+        # every shard on the one card: one static and one cluster launch
+        assert ks.last_chain_route() == "cluster"
+        assert ks.host_calls() == 2
     want = kp._flat_outputs(ks.sharded_chain_plain(
         sc, kp._unpack_params(*bufs, spec), m, explain)[0], explain)
     k4 = kp.place_packed_chain(arrays, *bufs, spec, m, explain=explain)
@@ -698,14 +717,157 @@ def test_sharded_single_matches_plain_and_k1(shape, cuda_device):
         p = kp._program(stacked, b)
         before = ks.route_launch_counts()["single"]
         got = kp.place_task_group(sc, p, m, explain=True)
-        s = len(sc.row0)
-        assert ks.route_launch_counts()["single"] == before + s + m * (
-            s + 1) + s
+        assert ks.route_launch_counts()["single"] == before + \
+            _route_launches(ks, sc, 1, m)
+        if torch.cuda.device_count() == 1:
+            assert ks.last_chain_route() == "cluster"
+            assert ks.host_calls() == 2
         want = kp.place_task_group(arrays, p, m, explain=True)
         plain = ks.sharded_task_group_plain(sc, p, m, explain=True)
         torch.cuda.synchronize()
         _assert_same(want, got)
         _assert_same(plain, got)
+
+
+def _bits(t):
+    t = t.detach().cpu().contiguous()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _assert_bitwise(want, got, what):
+    """Every leaf of two PlacementResults (explain too) bit for bit."""
+    for f in ("sel_idx", "sel_score", "nodes_feasible", "nodes_fit",
+              "new_used", "final_scores0"):
+        a, b = getattr(want, f), getattr(got, f)
+        assert a.shape == b.shape and torch.equal(_bits(a), _bits(b)), \
+            (what, f)
+    assert (want.explain is None) == (got.explain is None), what
+    if want.explain is not None:
+        for f in kp.PlacementExplain._fields:
+            a, b = getattr(want.explain, f), getattr(got.explain, f)
+            assert a.shape == b.shape and torch.equal(_bits(a), _bits(b)), \
+                (what, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2), (1, 8)],
+                         ids=["1x4", "2x2", "1x8"])
+@pytest.mark.parametrize("explain", [False, True], ids=["plain", "explain"])
+def test_sharded_chain_cluster_equals_steps_bitwise(shape, explain,
+                                                    cuda_device):
+    """B10 and B11 on shards of one card: the cluster route (two
+    launches) equals the steps route, called directly on the same shards,
+    bit for bit — outputs, snapshots, explain leaves and the shards'
+    final (used, dyn_free) carries."""
+    from nomad_tpu_torch.kernels import shard as ks
+    from nomad_tpu_torch.parallel import shard_cluster
+
+    arrays, batched, m = _batch_problem(cuda_device, n_prog=6)
+    sc = shard_cluster(arrays, _card_mesh(shape, one_card=True))
+    assert ks.chain_route(sc.devices[0]) == "cluster"
+    stacked = params_from_numpy(batched, cuda_device)
+    for what, batch in (("chain", stacked),
+                        ("single", kp.TGParams(*(t[2:3] for t in stacked)))):
+        before = ks.route_launch_counts()[what]
+        got, carry = ks.sharded_chain_cuda(sc, batch, m, explain,
+                                           route=what)
+        assert ks.last_chain_route() == "cluster" and ks.host_calls() == 2
+        assert ks.route_launch_counts()[what] == before + 2
+        want, carry_w = ks._chain_steps(sc, batch, m, explain, route=what)
+        assert ks.last_chain_route() == "steps"
+        torch.cuda.synchronize()
+        _assert_bitwise(want, got, f"{shape} {what}")
+        for (u, d), (wu, wd) in zip(carry, carry_w):
+            assert torch.equal(_bits(u), _bits(wu)), (shape, what, "used")
+            assert torch.equal(_bits(d), _bits(wd)), (shape, what, "dyn")
+        plain, _c = ks.sharded_chain_plain(sc, batch, m, explain)
+        _assert_same(plain, got)
+        packed = ks.sharded_chain_cuda(sc, batch, m, explain,
+                                       snapshots=False, route=what)[0]
+        assert packed.new_used is None
+        assert torch.equal(packed.sel_idx, got.sel_idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2), (1, 4), (1, 8)],
+                         ids=["1x2", "1x4", "1x8"])
+def test_sharded_topk_ties_and_floor_on_both_routes(shape, cuda_device):
+    """Explain's top-K across shards on its hard cases, through both CUDA
+    routes against plain (which the CPU tests hold against the
+    reference) and bitwise against each other: 40 identical nodes (every
+    score ties) with the rows below the first border masked out, so the
+    top-K straddles it and keeps the lowest global rows; and a program no
+    node can take (every row at the floor: global rows 0..4, zero
+    parts)."""
+    import numpy as np
+
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.kernels import shard as ks
+    from nomad_tpu_torch.parallel import shard_cluster
+    from nomad_tpu_torch.structs import Constraint
+    from nomad_tpu_torch.tensor import ClusterTensors
+
+    cl = ClusterTensors()
+    for i in range(40):
+        nd = mock.node()
+        nd.id = nd.name = f"node-{i:03d}"
+        cl.upsert_node(nd)
+    stack = TorchStack(cl, device=cuda_device)
+    rng = random.Random(31)
+    job = synth_service_job(rng, count=6)
+    nowhere = synth_service_job(rng, count=3)
+    nowhere.constraints.append(Constraint("${attr.kernel.name}", "windows",
+                                          "="))
+    arrays = stack.device_arrays()
+    n = int(arrays.capacity.shape[0])
+    sc = shard_cluster(arrays, _card_mesh(shape, one_card=True))
+    border = n // shape[1]
+    mask = np.ones(n, dtype=bool)
+    mask[:border - 2] = False
+    for j, tied in ((job, True), (nowhere, False)):
+        (p,), m = pad_params([stack.compile_tg(j, j.task_groups[0],
+                                               6 if tied else 3)[0]])
+        if tied:
+            p = p._replace(extra_mask=mask)
+        p = params_from_numpy(p, cuda_device)
+        batch = kp.TGParams(*(t.unsqueeze(0) for t in p))
+        want = ks.sharded_chain_plain(sc, batch, m, True)[0]
+        got = {fn.__name__: fn(sc, batch, m, True, route="single")[0]
+               for fn in (ks._chain_cluster, ks._chain_steps)}
+        torch.cuda.synchronize()
+        _assert_bitwise(got["_chain_steps"], got["_chain_cluster"],
+                        f"{shape} tied={tied}")
+        _assert_same(want, got["_chain_cluster"])
+        top = got["_chain_cluster"].explain.topk_idx[0].cpu()
+        if tied:
+            assert top[0].tolist() == list(range(border - 2, border + 3))
+        else:
+            assert (got["_chain_cluster"].sel_idx == -1).all()
+            assert all(row.tolist() == [0, 1, 2, 3, 4] for row in top)
+            assert not got["_chain_cluster"].explain.topk_parts.any()
+
+
+@pytest.mark.cuda
+def test_sharded_chain_cluster_refuses_more_than_eight_shards(cuda_device):
+    """A cluster launch with a bad argument (16 shards, past the portable
+    cluster size) raises RuntimeError and launches nothing; the entry
+    point takes the steps route for that layout, == plain."""
+    from nomad_tpu_torch.kernels import shard as ks
+    from nomad_tpu_torch.parallel import shard_cluster
+
+    arrays, batched, m = _batch_problem(cuda_device, n_prog=2)
+    sc = shard_cluster(arrays, _card_mesh((1, 16), one_card=True))
+    stacked = params_from_numpy(batched, cuda_device)
+    before = ks.route_launch_counts()["chain"]
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        ks._chain_cluster(sc, stacked, m)
+    assert ks.route_launch_counts()["chain"] == before
+    assert ks.chain_route(sc.devices[0]) == "steps"
+    got = ks.sharded_chain(sc, stacked, m)
+    assert ks.last_chain_route() == "steps"
+    want = ks.sharded_chain_plain(sc, stacked, m)[0]
+    torch.cuda.synchronize()
+    _assert_same(want, got)
 
 
 @pytest.mark.cuda

@@ -129,12 +129,14 @@ def test_sharded_packed_chain_matches_reference(mixed, shape):
     assert (got[0] >= 0).any()
 
 
-@pytest.mark.parametrize("shape", [(1, 2), (2, 4)])
+@pytest.mark.parametrize("shape", [(1, 2), (2, 4), (1, 8)])
 def test_sharded_task_group_chain_carries_like_reference(mixed, shape):
     """`place_task_group_chain` on a sharded view: each program's new_used
     is the carry after it, equal to the reference's on its sharded view;
     the plain version's final per-shard carry is the unsharded chain's
-    (used, dyn_free) split by shard."""
+    (used, dyn_free) split by shard. (1, 8) is the widest cluster the
+    CUDA chain kernel forms, so the plain version, its yardstick on the
+    card, is held here at that width too."""
     arrays, progs = mixed
     batched, m = jax_stack_params(progs)
     jmesh, mesh = _meshes(shape)
