@@ -9,8 +9,9 @@ non-zero without printing a result:
 1. The card: `torch.cuda.get_device_name()` and nvidia-smi's name and power
    limit.
 2. Build the CUDA kernels from `nomad_tpu_torch/kernels/csrc` (one nvcc
-   per source, all at once, into `build/`: placement, chain, rows,
-   system, preempt, shard), and print the build seconds.
+   per source, all at once, into `build/`: placement, chain, batch, rows,
+   system, preempt, shard), and print the build seconds and ptxas'
+   registers and spills of each kernel.
 3. Kernel against plain, at full width: the 10,000-node / 100,000-alloc
    synthetic cluster (N = 16384 rows), one program per case (binpack,
    spread algorithm, constraints, all-infeasible, affinity, spread targets,
@@ -102,13 +103,24 @@ non-zero without printing a result:
 9. The batched-eval path (K6) and the node-sharded step (K9): (a) on the
    phase-3 cluster, `place_task_group_batch` against its plain version
    for B = 64 programs of `bench.py`'s eval mix (count 8), explain off and
-   on, and one dispatch at B = 4096, bench's default batch, on both
-   routes: the packed route (`place_packed_batch`, no carry a program)
-   bitwise the full-carry route, which equals plain (indices and counts
-   equal, scores within 1e-6); both timed with their bounds, and the
-   peak device memory of each dispatch and since phase 4. (b) `bench.py` `bench_tpu`'s single-device
+   on, and both packed routes at B = 64 against it (explain off); at
+   B = 4096, bench's default batch, and B = 1024, the loop's, the two
+   packed routes — the on-chip route (`csrc/batch.cu`, one launch, which
+   `place_packed_batch` takes at N = 16384) and the pooled route
+   (`csrc/chain.cu`, two launches) — sel_idx and sel_score bitwise the
+   full-carry route's, which equals plain at B = 4096 (indices and
+   counts equal, scores within 1e-6); the two routes timed in turns
+   (host clock synced, device span, back-to-back CUDA events) with their
+   kernel launches a dispatch, peak device memory and bound. Then a view
+   past the on-chip limit (the phase-3 view padded to N = 65,536): 32
+   programs take the pooled route, equal to plain and bitwise the
+   on-chip route on the unpadded view. And phase 3's programs (ports with
+   plan releases, deltas and penalties, preferred rows, sampled
+   candidates) in one packed dispatch: both routes bitwise the
+   full-carry route, which equals plain. (b) `bench.py` `bench_tpu`'s single-device
    loop on the port (a host `compile_tg` per eval, `stack_params`,
-   `pack_params`, one `place_packed_batch` per batch, asynchronous until
+   `pack_params`, one `place_packed_batch` per batch on the on-chip
+   route, asynchronous until
    the end): 4,096 evals in batches of 1,024 (cut from bench's 16,384 /
    4,096 to keep the smoke's time); evals/s and placed/total beside the
    card's name and power limit, then every batch's sel_idx held against
@@ -120,7 +132,8 @@ non-zero without printing a result:
    then the phase-3 cluster with B = 64; each equal to its plain version
    and to K6 on the whole view (sel_idx and counts exactly, scores
    within 1e-6), the fold-in bitwise against plain; timed per dispatch
-   and per step. K6's launches are counted around (b), K9's around the
+   and per step. The on-chip K6 kernel's launches are counted around (b),
+   the pooled route's around the padded view's dispatch, K9's around the
    dry runs.
 10. The server on a device mesh (B10-B13), four shards of the card in
    meshes (1, 4) and (2, 2): (a) on the phase-3 cluster, at (1, 4),
@@ -143,7 +156,8 @@ non-zero without printing a result:
    counts are read around the meshed runs, beside the calls they were
    made in (B10 and B11 dispatches, B12 mask calls, B13 flushes); on the
    cluster route B10 and B11 launch 2 a dispatch. (d)
-   one K6 dispatch and one K9 batch row of 65,536 programs (16 tiled) on
+   one K6 dispatch on each of the full-carry and (on-chip) packed
+   routes, and one K9 batch row, of 65,536 programs (16 tiled) on
    64 rows, every copy equal to its original's plain result; the packed
    route bitwise the full-carry one. ((c), the dry run's server half, runs in 9 (c).)
 11. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
@@ -1901,6 +1915,10 @@ BENCH_EVALS, BENCH_BATCH, BENCH_COUNT = 4096, 1024, 8
 #: (c): four shards in two mesh shapes; (a) and (c): B of the small runs
 K9_SHAPES = ((2, 2), (1, 4))
 SMALL_BATCH = 64
+#: (a): dispatches a turn when the two packed routes are timed
+K6_REPS = 5
+#: a view past the on-chip route's limit (pooled route), and its B
+OVERSIZED_N, OVERSIZED_B = 65536, 32
 
 
 def _bench_jobs(state, rng, n, count):
@@ -1959,11 +1977,141 @@ def _batch_bound(torch, kp, arrays, batch, m, packed=False):
     return _bound_of(parts, arrays)
 
 
+def _onchip_ops(cluster, p, m: int) -> int:
+    """Operations of one program on K6's on-chip route (csrc/batch.cu),
+    which computes a row's score terms once and then only what a step
+    changes: every row's entry from the view once (the fit over R, the
+    score prefix, the constraint, affinity, token and port lookups); the
+    rows the program's lists name recomputed from all their terms, with
+    the repeat check; per row and step the spread table lookups and
+    adds, the distinct_property mask lookups and tests, the bit test,
+    the prefix add, the divide and the argmax compare; per step the
+    spread and distinct_property tables, and the placed row and the
+    penalty rows recomputed."""
+    n, r = cluster.capacity.shape
+    c, a = p.key_idx.shape[0], p.aff_key_idx.shape[0]
+    s, q = p.spread_key_idx.shape[0], p.dp_key_idx.shape[0]
+    sv, dv = p.spread_desired.shape[-1], p.dp_counts0.shape[-1]
+    j, j2, d = p.jc_idx.shape[0], p.jtc_idx.shape[0], p.delta_idx.shape[0]
+    pc, ps = p.pclr_idx.shape[0], p.pset_idx.shape[0]
+    pn = p.penalty_idx.shape[1]
+    row = 2 * r + 40 + c + a + s + q + p.res_ports.shape[0]
+    recompute = row + d * r + j + j2 + pc + ps
+    lists = d + j + j2 + pc + ps + p.cand_idx.shape[0]
+    return (n * row + lists * (recompute + lists)
+            + n * m * (2 * s + 2 * q + 5)
+            + m * (s * sv * 14 + q * dv * 3 + (1 + pn) * (recompute + m * r)))
+
+
+def _onchip_bound(torch, kp, arrays, batch, m):
+    """Bound of one packed K6 dispatch on the on-chip route: the bytes of
+    `_batch_bound(packed=True)`, the operations of `_onchip_ops`."""
+    cpu = kp.TGParams(*(t.cpu() for t in batch))
+    parts = []
+    for b in range(cpu.n_place.shape[0]):
+        p = kp._program(cpu, b)
+        v, pr, _o, _ops = _bound_parts(arrays, p, m)
+        parts.append((v, pr, m * 8, _onchip_ops(arrays, p, m)))
+    return _bound_of(parts, arrays)
+
+
+def _k6_samples(torch, kp, fn, reps: int):
+    """`reps` K6 packed dispatches of `fn`, one at a time: each one's host
+    clock (the card synced before and after) and device span (a CUDA
+    event on the current stream as the argument blocks' upload is
+    enqueued, so the host's fill before it is outside, and one after the
+    dispatch returns: the kernels' device time). Returns (host ms, span
+    ms) lists."""
+    first = []
+    real = kp._lane_args
+
+    def lane_args(*args, **kw):
+        out = real(*args, **kw)
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        first.append(e)
+        return out
+
+    hosts, spans = [], []
+    kp._lane_args = lane_args
+    try:
+        for _ in range(reps):
+            first.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            torch.cuda.synchronize()
+            hosts.append((time.perf_counter() - t0) * 1e3)
+            spans.append(first[0].elapsed_time(end))
+    finally:
+        kp._lane_args = real
+    return hosts, spans
+
+
+def _k6_routes(torch, kp, arrays, bufs, spec, m, pb, b, on_card):
+    """K6's two packed routes at one B: the on-chip route (by shape, as
+    `place_packed_batch` takes it) and the pooled route, each bitwise the
+    full-carry route (`place_task_group_batch`); on the card both timed
+    in turns (on-chip, pooled, pooled, on-chip) of K6_REPS dispatches:
+    medians of the host clock and the device span a dispatch, the
+    back-to-back CUDA-event time (`_time_ms`), kernel launches a dispatch
+    and the peak device memory of one dispatch. Returns route → numbers."""
+    def packed():
+        return kp.place_packed_batch(arrays, *bufs, spec, m)
+
+    def pooled():
+        return kp._packed_batch_on("pooled", arrays, *bufs, spec, m)
+
+    full = kp.place_task_group_batch(arrays, pb, m)
+    fns = {"onchip": packed, "pooled": pooled}
+    out = {}
+    for route, fn in fns.items():
+        before = (kp.onchip_launch_count(), kp.batch_launch_count())
+        if on_card:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        sel, score = fn()
+        r = out[route] = {}
+        if on_card:
+            torch.cuda.synchronize()
+            r["peak"] = torch.cuda.max_memory_allocated() - base
+            if kp.last_batch_route()[0] != route:
+                raise AssertionError(f"K6 B={b}: a {route} dispatch took "
+                                     f"the {kp.last_batch_route()[0]} route")
+            r["config"] = kp.last_batch_route()[1]
+        # kernel launches of the dispatch: the on-chip kernel counts its
+        # own; a pooled dispatch is chain_static (a launch per 65,535
+        # programs) and batch_scan
+        onchip = kp.onchip_launch_count() - before[0]
+        pooled_n = kp.batch_launch_count() - before[1]
+        r["launches"] = onchip + pooled_n * (1 + -(-b // 65535))
+        if not (torch.equal(sel, full.sel_idx) and torch.equal(
+                score.view(torch.int32), full.sel_score.view(torch.int32))):
+            raise AssertionError(f"K6 B={b}: the {route} route differs from "
+                                 "place_task_group_batch")
+    if on_card:
+        for route in ("onchip", "pooled", "pooled", "onchip"):
+            hosts, spans = _k6_samples(torch, kp, fns[route], K6_REPS)
+            r = out[route]
+            r.setdefault("host", []).extend(hosts)
+            r.setdefault("span", []).extend(spans)
+            r.setdefault("events", []).append(_time_ms(fns[route], K6_REPS))
+        for r in out.values():
+            for k in ("host", "span", "events"):
+                r[k] = statistics.median(r[k])
+    return out, full
+
+
 def _phase9_batch(torch, kp, state, rng, device=None):
     """(a) K6 against plain on the phase-3 cluster: B = 64 of bench's mix,
-    explain off and on, and one dispatch at B = 4096; K6, its plain
-    version and its bound timed at B = 4096. `device="cpu"` rehearses
-    the control flow (both sides plain, nothing timed)."""
+    explain off and on, both packed routes' sel_idx and sel_score equal
+    to plain; at B = 4096 and 1024 the on-chip and pooled packed routes
+    bitwise the full-carry route, which equals plain at B = 4096; both
+    routes timed in turns with their bounds and peaks. `device="cpu"`
+    rehearses the control flow (every side plain, nothing timed)."""
     from nomad_tpu_torch.convert import params_from_numpy, tensor_from_numpy
     from nomad_tpu_torch.parallel.pad import stack_params
     from nomad_tpu_torch.scheduler.stack import TorchStack
@@ -1984,85 +2132,198 @@ def _phase9_batch(torch, kp, state, rng, device=None):
         want = kp.place_task_group_batch_plain(arrays, p64, m, explain)
         out["err"] = max(out["err"], _compare(
             want, got, f"K6 B={SMALL_BATCH} explain={explain}"))
+        if not explain:
+            want64 = want
+    bufs64 = [tensor_from_numpy(x, dev) for x in kp.pack_params(small)[:3]]
+    spec64 = kp.pack_params(small)[3]
+    for route in ("onchip", "pooled"):
+        sel, score = (kp._packed_batch_on(route, arrays, *bufs64, spec64, m)
+                      if on_card else kp.place_packed_batch(
+                          arrays, *bufs64, spec64, m))
+        if not torch.equal(sel.cpu(), want64.sel_idx.cpu()):
+            raise AssertionError(f"K6 B={SMALL_BATCH} {route}: sel_idx "
+                                 "differs from plain")
+        out["err"] = max(out["err"], _max_diff(score, want64.sel_score))
+    if not out["err"] <= TOL:
+        raise AssertionError(f"K6 B={SMALL_BATCH}: scores differ by "
+                             f"{out['err']}")
     ms64 = (_time_ms(lambda: kp.place_task_group_batch(arrays, p64, m), 20)
             if on_card else None)
     print(f"K6==plain B={SMALL_BATCH} M={m} (bench's mix, count "
-          f"{BENCH_COUNT}), explain off and on: placed "
-          f"{int((got.sel_idx >= 0).sum())}/{got.sel_idx.numel()}; one "
-          f"dispatch (explain off) "
+          f"{BENCH_COUNT}): full-carry route explain off and on, on-chip "
+          f"and pooled packed routes (explain off), max_abs_err "
+          f"{out['err']}: placed {int((got.sel_idx >= 0).sum())}/"
+          f"{got.sel_idx.numel()}; one full-carry dispatch (explain off) "
           + (f"{ms64:.4f} ms" if ms64 is not None else "not timed"))
     out["small"] = (small, m)
 
-    big, m = stack_params(progs)
-    pb = params_from_numpy(big, dev)
-    ibuf, fbuf, ubuf, spec = kp.pack_params(big)
-    bufs = [tensor_from_numpy(b, dev) for b in (ibuf, fbuf, ubuf)]
-
-    def packed():
-        return kp.place_packed_batch(arrays, *bufs, spec, m)
-
-    def full():
-        return kp.place_task_group_batch(arrays, pb, m)
-
-    # the packed route (bench's): no carry a program; its peak alone
-    peak = {}
+    routes = {}
+    for b in (K6_BATCH, BENCH_BATCH):
+        big, m = stack_params(progs[:b])
+        pb = params_from_numpy(big, dev)
+        ibuf, fbuf, ubuf, spec = kp.pack_params(big)
+        bufs = [tensor_from_numpy(x, dev) for x in (ibuf, fbuf, ubuf)]
+        if not on_card:
+            sel, score = kp.place_packed_batch(arrays, *bufs, spec, m)
+            full = kp.place_task_group_batch(arrays, pb, m)
+            if not torch.equal(sel, full.sel_idx):
+                raise AssertionError(f"K6 B={b}: packed differs from full")
+        else:
+            routes[b], full = _k6_routes(torch, kp, arrays, bufs, spec, m,
+                                         pb, b, on_card)
+        if b == K6_BATCH:
+            got = kp.PlacementResult(*(t.cpu() for t in full[:6]))
+            want, plain_ms = _once_ms(
+                torch, lambda: kp.place_task_group_batch_plain(arrays, pb, m),
+                on_card)
+            out["err"] = max(out["err"], _compare(want, got, f"K6 B={b}"))
+            bound_ms, bound_by = _onchip_bound(torch, kp, arrays, pb, m)
+            pooled_bound = _batch_bound(torch, kp, arrays, pb, m,
+                                        packed=True)
+            full_bound = _batch_bound(torch, kp, arrays, pb, m)
+            del want, got
+        del full
     if on_card:
-        torch.cuda.synchronize()
-        # the peak since phase 4's reset, the measure this phase printed
-        # before the packed route kept no carry
-        peak["since phase 4"] = torch.cuda.max_memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-    (sel, score), _ms = _once_ms(torch, packed, on_card)
-    if on_card:
-        peak["packed"] = torch.cuda.max_memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-    got, _ms = _once_ms(torch, full, on_card)
-    if on_card:
-        peak["full"] = torch.cuda.max_memory_allocated()
-    # C2: the packed route's results bitwise those of the full route
-    if not (torch.equal(sel, got.sel_idx) and torch.equal(
-            score.view(torch.int32), got.sel_score.view(torch.int32))):
-        raise AssertionError(f"K6 B={K6_BATCH}: the packed route differs "
-                             "from place_task_group_batch")
-    got = kp.PlacementResult(*(t.cpu() for t in got[:6]))
-    want, plain_ms = _once_ms(torch, lambda: kp.place_task_group_batch_plain(
-        arrays, pb, m), on_card)
-    out["err"] = max(out["err"], _compare(want, got, f"K6 B={K6_BATCH}"))
-    del want, got
-    bound_ms, bound_by = _batch_bound(torch, kp, arrays, pb, m, packed=True)
-    full_bound = _batch_bound(torch, kp, arrays, pb, m)
-    ms = full_ms = None
-    if on_card:
-        ms = _time_ms(packed, 5)
-        full_ms = _time_ms(full, 5)
-        peak["since phase 4"] = max(torch.cuda.max_memory_allocated(),
-                                    *peak.values())
-    out["k6"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                     bound_by=bound_by, library_ms=None)
-    out["k6_full"] = dict(ms=full_ms, bound=full_bound)
-    gib = {k: f"{v / 2**30:.2f} GiB" for k, v in peak.items()}
-    print(f"K6==plain B={K6_BATCH} M={m}: packed route (place_packed_batch) "
-          + (f"{ms:.4f} ms per dispatch ({ms / K6_BATCH:.6f} a program)"
-             if ms is not None else "not timed")
-          + f", bound {bound_ms:.6f} ms ({bound_by}); full-carry route "
-          f"(place_task_group_batch) "
-          + (f"{full_ms:.4f} ms" if full_ms is not None else "not timed")
-          + f", bound {full_bound[0]:.6f} ms ({full_bound[1]}); packed "
-          f"sel_idx and sel_score bitwise the full route's; plain "
-          f"{plain_ms:.1f} ms; peak device memory: packed route "
-          f"{gib.get('packed', 'not measured')}, full-carry route "
-          f"{gib.get('full', 'not measured')}, phases 4 to 9 (a) "
-          f"{gib.get('since phase 4', 'not measured')}")
+        rs = routes[K6_BATCH]
+        # ms: back-to-back CUDA events, as every kernel is timed; beside
+        # it the device span and, on the same inputs, the pooled route
+        out["k6"] = dict(ms=rs["onchip"]["events"], plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None, span_ms=rs["onchip"]["span"],
+                         pooled_ms=rs["pooled"]["events"])
+        for b, rs in routes.items():
+            print(f"K6 packed routes B={b} M={m}: on-chip and pooled sel_idx "
+                  f"and sel_score bitwise place_task_group_batch's; ms a "
+                  f"dispatch, medians in turns (on-chip, pooled, pooled, "
+                  f"on-chip) of {K6_REPS}: " + "; ".join(
+                      f"{route} host {r['host']:.4f}, device span "
+                      f"{r['span']:.4f}, back-to-back events "
+                      f"{r['events']:.4f}, {r['launches']} kernel "
+                      f"launch(es) a dispatch, peak "
+                      f"{r['peak'] / 2**20:.2f} MiB"
+                      + (f", grid {r['config'][0]} x {r['config'][1]}"
+                         if r.get("config") else "")
+                      for route, r in rs.items()))
+    print(f"K6==plain B={K6_BATCH} M={m}: the full-carry route equals "
+          f"plain; bound on-chip route {bound_ms:.6f} ms ({bound_by}), "
+          f"pooled route {pooled_bound[0]:.6f} ms ({pooled_bound[1]}), "
+          f"full-carry {full_bound[0]:.6f} ms ({full_bound[1]}); plain "
+          f"{plain_ms:.1f} ms")
     print(f"phase 9 (a) took {time.perf_counter() - t0:.1f} s")
     return stack, arrays, out
+
+
+def _phase9_cases(torch, kp, cases, device=None):
+    """(a) K6 on phase 3's programs (ports with plan releases and
+    consumptions, deltas and penalties, preferred rows, sampled
+    candidates, every stanza), stacked into one packed dispatch on the
+    phase-3 view: the on-chip route bitwise the pooled and full-carry
+    routes, which equal plain. Returns the max error."""
+    from nomad_tpu_torch.convert import params_from_numpy, tensor_from_numpy
+    from nomad_tpu_torch.parallel.pad import stack_params
+
+    dev = torch.device(device or "cuda")
+    progs = [st.compile_tg(j, j.task_groups[0], n_place, plan,
+                           sampled_rows=rows)[0]
+             for st, j, n_place, plan, rows in cases.values()]
+    batch, m = stack_params(progs)
+    arrays = next(iter(cases.values()))[0].device_arrays()
+    pb = params_from_numpy(batch, dev)
+    bufs = [tensor_from_numpy(x, dev) for x in kp.pack_params(batch)[:3]]
+    spec = kp.pack_params(batch)[3]
+    full = kp.place_task_group_batch(arrays, pb, m)
+    want = kp.place_task_group_batch_plain(arrays, pb, m)
+    err = _compare(want, full, "K6 phase-3 cases")
+    routes = (("onchip", "pooled") if dev.type == "cuda" else (None,))
+    for route in routes:
+        sel, score = (kp._packed_batch_on(route, arrays, *bufs, spec, m)
+                      if route else kp.place_packed_batch(arrays, *bufs,
+                                                          spec, m))
+        if not (torch.equal(sel, full.sel_idx) and torch.equal(
+                score.view(torch.int32), full.sel_score.view(torch.int32))):
+            raise AssertionError(f"K6 phase-3 cases: the {route} route "
+                                 "differs from the full-carry route")
+    print(f"K6 phase-3 cases: {len(progs)} programs ({', '.join(cases)}), "
+          f"M={m}: on-chip and pooled packed routes bitwise the full-carry "
+          f"route, == plain (max_abs_err {err}); placed "
+          f"{int((full.sel_idx >= 0).sum())}/{full.sel_idx.numel()}")
+    return err
+
+
+def _phase9_oversized(torch, kp, arrays, small, device=None):
+    """A view past the on-chip limit: the phase-3 view padded to
+    OVERSIZED_N rows with copies of its last row, marked not ok. `place_packed_batch`
+    must take the pooled route there, its (sel_idx, sel_score) equal to
+    plain on the padded view and bitwise the on-chip route's on the
+    unpadded one (the pad rows are never feasible). On the card the
+    pooled route is timed there (back-to-back CUDA events), with plain
+    and the bound at that shape. Returns (pooled dispatches, max error,
+    the kernels line's numbers or None)."""
+    from nomad_tpu_torch.convert import params_from_numpy, tensor_from_numpy
+
+    dev = torch.device(device or "cuda")
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    batch, m = small
+    n0 = arrays.capacity.shape[0]
+    view = kp.ClusterArrays(*(torch.cat((t, t[-1:].expand(
+        (OVERSIZED_N - n0,) + tuple(t.shape[1:])))) for t in arrays))
+    view.node_ok[n0:] = False
+    batch = kp.TGParams(*(f[:OVERSIZED_B] for f in batch))
+    ibuf, fbuf, ubuf, spec = kp.pack_params(batch)
+    bufs = [tensor_from_numpy(x, dev) for x in (ibuf, fbuf, ubuf)]
+    shapes = {name: tuple(shape[1:]) for name, _c, _o, shape in spec}
+    route = kp.batch_route(OVERSIZED_N, kp._program_dims(
+        shapes, m, False, OVERSIZED_N))
+    if route != "pooled":
+        raise AssertionError(f"N={OVERSIZED_N}: route {route}, not pooled")
+    want = kp.place_packed_batch(arrays, *bufs, spec, m)
+    kp.reset_chain_launch_counts()
+    sel, score = kp.place_packed_batch(view, *bufs, spec, m)
+    launches = kp.batch_launch_count()
+    if on_card and (launches != 1 or kp.onchip_launch_count() != 0
+                    or kp.last_batch_route()[0] != "pooled"):
+        raise AssertionError(f"N={OVERSIZED_N}: {launches} pooled and "
+                             f"{kp.onchip_launch_count()} on-chip dispatches")
+    (plain_sel, plain_score), plain_ms = _once_ms(
+        torch, lambda: kp.place_packed_batch_plain(view, *bufs, spec, m),
+        on_card)
+    if not torch.equal(sel.cpu(), plain_sel.cpu()):
+        raise AssertionError(f"N={OVERSIZED_N}: sel_idx differs from plain")
+    err = _max_diff(score, plain_score)
+    if not err <= TOL:
+        raise AssertionError(f"N={OVERSIZED_N}: scores differ by {err}")
+    if not (torch.equal(sel, want[0]) and torch.equal(
+            score.view(torch.int32), want[1].view(torch.int32))):
+        raise AssertionError(f"N={OVERSIZED_N}: the pooled route differs "
+                             "from the on-chip route on the unpadded view")
+    nums = None
+    if on_card:
+        bound_ms, bound_by = _batch_bound(
+            torch, kp, view, params_from_numpy(batch, "cpu"), m, packed=True)
+        nums = dict(ms=_time_ms(lambda: kp.place_packed_batch(
+            view, *bufs, spec, m), K6_REPS), plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    print(f"K6 oversized view N={OVERSIZED_N} B={OVERSIZED_B} M={m}: "
+          f"place_packed_batch took the pooled route ({launches} dispatch), "
+          f"== plain (max_abs_err {err}), bitwise the on-chip route on the "
+          f"{arrays.capacity.shape[0]}-row view"
+          + (f"; pooled {nums['ms']:.4f} ms a dispatch (back-to-back "
+             f"events), plain {plain_ms:.1f} ms, bound "
+             f"{nums['bound_ms']:.6f} ms ({nums['bound_by']})"
+             if nums else "")
+          + f"; {time.perf_counter() - t0:.1f} s")
+    del view
+    return launches, err, nums
 
 
 def _phase9_bench(torch, kp, state, stack, rng, card, device=None):
     """(b) `bench.py` `bench_tpu`'s single-device loop on the port: per
     eval a host `compile_tg`, then `stack_params`, `pack_params` and one
-    `place_packed_batch` per batch, left asynchronous until the end.
-    Every batch's sel_idx is then held against the plain version on the
-    inputs it read. Returns (K6 launches in the loop, max error, line)."""
+    `place_packed_batch` per batch (the on-chip route at N = 16384), left
+    asynchronous until the end. Every batch's sel_idx is then held
+    against the plain version on the inputs it read. Returns (on-chip K6
+    launches in the loop, max error, evals/s)."""
     from nomad_tpu_torch.convert import to_device_async
     from nomad_tpu_torch.parallel.pad import stack_params
 
@@ -2090,9 +2351,11 @@ def _phase9_bench(torch, kp, state, stack, rng, card, device=None):
         results.append(dispatch(jobs[i:i + BENCH_BATCH]))
     sels = [(s.cpu(), sc.cpu()) for s, sc, _i in results]   # the sync point
     dt = time.perf_counter() - t0
-    launches = kp.batch_launch_count()
-    if on_card and launches != len(results) + 1:
-        raise AssertionError(f"{launches} K6 launches for "
+    launches = kp.onchip_launch_count()
+    if on_card and (launches != len(results) + 1
+                    or kp.batch_launch_count() != 0):
+        raise AssertionError(f"{launches} on-chip K6 launches and "
+                             f"{kp.batch_launch_count()} pooled for "
                              f"{len(results) + 1} batches")
     placed = int(sum(int((s >= 0).sum()) for s, _sc in sels))
     total = sum(s.numel() for s, _sc in sels)
@@ -2115,7 +2378,8 @@ def _phase9_bench(torch, kp, state, stack, rng, card, device=None):
             f"placed {placed}/{total}; {card}")
     print(line)
     print(f"bench loop: every batch's sel_idx equal to plain on the inputs "
-          f"it read; {launches} K6 launches")
+          f"it read; {launches} launches of the on-chip K6 kernel, one a "
+          f"batch")
     return launches, err, rate
 
 
@@ -2813,7 +3077,8 @@ def _tiled(kp, small, copies):
 
 
 def _phase10_limits(torch, kp, ks, device=None):
-    """(d) C1: one K6 dispatch and one K9 batch row of 65,536 programs on a
+    """(d) C1: one K6 dispatch (the full-carry route, and the packed one
+    on its on-chip route) and one K9 batch row of 65,536 programs on a
     64-row view (16 distinct programs tiled): every copy equal to the
     plain result of its original. C2: the packed route's (sel_idx,
     sel_score) bitwise the full-carry route's."""
@@ -2848,8 +3113,13 @@ def _phase10_limits(torch, kp, ks, device=None):
     ibuf, fbuf, ubuf, spec = kp.pack_params(big)
     bufs = [tensor_from_numpy(x, dev) for x in (ibuf, fbuf, ubuf)]
     sel, score = kp.place_packed_batch(arrays, *bufs, spec, m)
+    if dev.type == "cuda" and kp.last_batch_route()[0] != "onchip":
+        raise AssertionError(f"K6 B={b}: the packed dispatch took the "
+                             f"{kp.last_batch_route()[0]} route")
     same(want, got, ("sel_idx", "nodes_feasible", "nodes_fit", "sel_score",
                      "new_used"), f"K6 B={b}")
+    same(want, kp.PlacementResult(sel, score, None, None, None, None, None),
+         ("sel_idx", "sel_score"), f"K6 packed B={b}")
     if not (torch.equal(sel, got.sel_idx) and torch.equal(
             score.view(torch.int32), got.sel_score.view(torch.int32))):
         raise AssertionError(f"K6 B={b}: the packed route differs from the "
@@ -2860,7 +3130,9 @@ def _phase10_limits(torch, kp, ks, device=None):
     got9, _f = ks.sharded_place(sc, big, m)
     same(want9, got9, ("sel_idx", "nodes_feasible", "nodes_fit",
                        "sel_score"), f"K9 B={b}")
-    print(f"phase 10 (d) C1: K6 (both routes) and one K9 batch row of {b} "
+    print(f"phase 10 (d) C1: K6 (the full-carry route, and the packed "
+          f"dispatch on its on-chip route, grid {kp.last_batch_route()[1]}) "
+          f"and one K9 batch row of {b} "
           f"programs on {arrays.capacity.shape[0]} rows, every copy equal to "
           f"the plain result of its original; C2: the packed route's "
           f"sel_idx and sel_score bitwise the full-carry route's "
@@ -2904,10 +3176,12 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    sources = ("placement", "chain", "rows", "system", "preempt", "shard")
+    sources = ("placement", "chain", "batch", "rows", "system", "preempt",
+               "shard")
     _build.build_all(sources)
     kp.build_kernel()
     kp.build_chain_kernel()
+    kp.build_batch_kernel()
     kp.build_system_kernel()
     kpre.build_kernel()
     kr.build_kernel()
@@ -3148,6 +3422,9 @@ def main() -> int:
     stack9, arrays9, k6 = _phase9_batch(torch, kp, state, rng)
     k6_launches, bench_err, _rate = _phase9_bench(torch, kp, state, stack9,
                                                   rng, smi[0])
+    k6["err"] = max(k6["err"], _phase9_cases(torch, kp, cases))
+    k6_pooled, oversized_err, pooled_nums = _phase9_oversized(
+        torch, kp, arrays9, k6["small"])
     k9 = _phase9_shard(torch, kp, arrays9, k6["small"])
 
     # ---- 10. the server on a device mesh (B10-B13); C1 and C2 ----
@@ -3235,13 +3512,21 @@ def main() -> int:
         "max_abs_err": sys8["k3_err"],
         **sys8["k3"],
     }, {
-        "name": "place_packed_batch",
+        "name": "place_packed_batch_onchip",
         "route": "cuda",
-        "source": "nomad_tpu_torch/kernels/csrc/chain.cu",
+        "source": "nomad_tpu_torch/kernels/csrc/batch.cu",
         "replaces": "nomad_tpu/kernels/placement.py:744",
         "launches": k6_launches,
         "max_abs_err": max(k6["err"], bench_err),
         **k6["k6"],
+    }, {
+        "name": "place_packed_batch",
+        "route": "cuda",
+        "source": "nomad_tpu_torch/kernels/csrc/chain.cu",
+        "replaces": "nomad_tpu/kernels/placement.py:744",
+        "launches": k6_pooled,
+        "max_abs_err": max(k6["err"], oversized_err),
+        **pooled_nums,
     }, {
         "name": "scheduler_step",
         "route": "cuda",

@@ -359,32 +359,40 @@ __device__ Smem carve(const PlaceArgs& A, unsigned char* base) {
   return S;
 }
 
-// one row's total spread boost (spread.go:120-174 + evenSpreadScoreBoost)
+// spread row s's boost for a row whose token is `tok` (spread.go:120-174
+// + evenSpreadScoreBoost), at value counts `scounts` [s, sv] with the
+// row's min / max over seen values
+__device__ __forceinline__ float spread_term(const PlaceArgs& A,
+                                             const float* scounts, float minc,
+                                             float maxc, bool any_seen, int s,
+                                             int tok) {
+  float cur = scounts[s * A.sv + tok];
+  float desired = A.spread_desired[(size_t)s * A.sv + tok];
+  float used_count = cur + 1.0f;
+  float target = desired > 0.0f
+      ? (desired - used_count) / desired * A.spread_weight[s]
+      : -1.0f;
+  float minc_safe = minc > 0.0f ? minc : 1.0f;
+  float delta_boost = minc == 0.0f ? -1.0f : (minc - cur) / minc_safe;
+  float even;
+  if (cur != minc) even = delta_boost;
+  else if (minc == maxc) even = -1.0f;
+  else if (minc == 0.0f) even = 1.0f;
+  else even = (maxc - minc) / minc_safe * 1.0f;
+  if (tok == A.sv - 1) even = -1.0f;
+  if (!any_seen) even = 0.0f;
+  float boost = A.spread_has_targets[s] ? target : even;
+  if (!A.spread_active[s]) boost = 0.0f;
+  return boost;
+}
+
+// one row's total spread boost, summed over the spread rows in order
 __device__ float spread_boost(const PlaceArgs& A, const Smem& S, int n) {
   float total = 0.0f;
-  const int miss = A.sv - 1;
-  for (int s = 0; s < A.s; ++s) {
-    int tok = A.stok[(size_t)n * A.s + s];
-    float cur = S.scounts[s * A.sv + tok];
-    float desired = A.spread_desired[(size_t)s * A.sv + tok];
-    float used_count = cur + 1.0f;
-    float target = desired > 0.0f
-        ? (desired - used_count) / desired * A.spread_weight[s]
-        : -1.0f;
-    float minc = S.minc[s], maxc = S.maxc[s];
-    float minc_safe = minc > 0.0f ? minc : 1.0f;
-    float delta_boost = minc == 0.0f ? -1.0f : (minc - cur) / minc_safe;
-    float even;
-    if (cur != minc) even = delta_boost;
-    else if (minc == maxc) even = -1.0f;
-    else if (minc == 0.0f) even = 1.0f;
-    else even = (maxc - minc) / minc_safe * 1.0f;
-    if (tok == miss) even = -1.0f;
-    if (!S.any_seen[s]) even = 0.0f;
-    float boost = A.spread_has_targets[s] ? target : even;
-    if (!A.spread_active[s]) boost = 0.0f;
-    total = total + boost;
-  }
+  for (int s = 0; s < A.s; ++s)
+    total = total + spread_term(A, S.scounts, S.minc[s], S.maxc[s],
+                                S.any_seen[s], s,
+                                A.stok[(size_t)n * A.s + s]);
   return total;
 }
 
@@ -689,6 +697,178 @@ __device__ __forceinline__ void load_args(PlaceArgs* dst, const PlaceArgs* src) 
   uint32_t* d = (uint32_t*)dst;
   for (int i = threadIdx.x; i < ARG_WORDS; i += blockDim.x) d[i] = s[i];
   __syncthreads();
+}
+
+// ---- rows of one program kept in shared memory (K6's on-chip scan) ----
+// A step reads, of each row, only what the steps change nothing of: the
+// fit and distinct_hosts bits, the spread and distinct_property tokens,
+// and the prefix ((fit + anti) + pen) + aff of the left-to-right score sum
+// with its term count. The rows a placement or a penalty changes are
+// recomputed from the view by the functions below, with the arithmetic of
+// static_row, static_row_carry / carry_in, take_row and step_rows.
+
+// bits of a row's entry
+constexpr uint8_t R_FIT = 1;    // feas && fits
+constexpr uint8_t R_DH = 2;     // distinct_hosts collision
+constexpr uint8_t R_FEAS = 4;   // the static mask
+constexpr uint8_t R_RES = 8;    // reserved ports free before any placement
+constexpr int R_CNT_SHIFT = 4;  // bits 4-6: terms in the prefix, 1 to 4
+constexpr uint8_t R_CNT = 7 << R_CNT_SHIFT;
+
+// static_row's mask of row n: node_ok, sampled candidates, extra_mask and
+// every constraint LUT row
+__device__ __forceinline__ bool row_feasible(const PlaceArgs& A, int n) {
+  bool cand_ok = true;
+  if (A.l > 0 && *A.use_cand) {
+    cand_ok = false;
+    for (int i = 0; i < A.l; ++i)
+      if (A.cand_idx[i] == n) { cand_ok = true; break; }
+  }
+  return A.node_ok[n] && cand_ok && A.extra_mask[A.e == 1 ? 0 : n] != 0 &&
+         lut_row_ok(A, n);
+}
+
+// Row n's carry after the program placed `k` allocs on it, as the pooled
+// scan's carry would hold it: used0 plus k asks added one at a time, the
+// job and task-group counts plus k ones, splaced k ones.
+struct RowCarry {
+  float u0, u1, jc, tgc, splaced;
+  bool any_over;
+};
+
+__device__ __forceinline__ RowCarry row_carry(const PlaceArgs& A, int n,
+                                              int k) {
+  RowCarry c;
+  c.u0 = c.u1 = 0.0f;
+  c.any_over = false;
+  for (int r = 0; r < A.r; ++r) {
+    float u = used0_at(A, n, r);
+    for (int i = 0; i < k; ++i) u = u + A.ask[r];
+    if (r == 0) c.u0 = u;
+    if (r == 1) c.u1 = u;
+    c.any_over = c.any_over || u + A.ask[r] > A.capacity[(size_t)n * A.r + r];
+  }
+  float jc = 0.0f, jtc = 0.0f, sp = 0.0f;
+  for (int i = 0; i < A.j; ++i)
+    if (A.jc_idx[i] == n) jc = jc + A.jc_val[i];
+  for (int i = 0; i < A.j2; ++i)
+    if (A.jtc_idx[i] == n) jtc = jtc + A.jtc_val[i];
+  for (int i = 0; i < k; ++i) {
+    jc = jc + 1.0f;
+    jtc = jtc + 1.0f;
+    sp = sp + 1.0f;
+  }
+  c.jc = jc;
+  c.tgc = jtc;
+  c.splaced = sp;
+  return c;
+}
+
+// step_rows' fit / ports / distinct_hosts bits of a row for carry `c`,
+// with its dyn_free after the plan's port credits and debits (`dyn`,
+// adjusted_dyn's), its static mask and its reserved-port bit
+__device__ __forceinline__ uint8_t row_bits(const ScanConsts& C,
+                                            const RowCarry& c, float dyn,
+                                            bool feas, bool res_free) {
+  bool dyn_ok = (dyn - c.splaced * C.n_dyn) >= C.n_dyn;
+  bool res_ok = res_free && !(C.has_res_ask && c.splaced > 0.0f);
+  bool fits = !c.any_over && dyn_ok && res_ok;
+  return (feas && fits ? R_FIT : 0) |
+         (C.distinct_hosts && c.jc > 0.0f ? R_DH : 0) | (feas ? R_FEAS : 0) |
+         (res_free ? R_RES : 0);
+}
+
+// step_rows' score sum of row n up to its spread term, ((fit + p_anti) +
+// p_pen) + p_aff, for carry `c`; `*cnt` the terms it holds
+__device__ __forceinline__ float row_prefix(const PlaceArgs& A,
+                                            const ScanConsts& C, int n,
+                                            const RowCarry& c, bool penalty,
+                                            int* cnt) {
+  const float* cap = A.capacity + (size_t)n * A.r;
+  float total = fit_total(c.u0 + C.ask0, c.u1 + C.ask1, cap[0], cap[1]);
+  float fit = C.algorithm == 1
+      ? fminf(fmaxf(total - 2.0f, 0.0f), 18.0f) * INV_18
+      : fminf(fmaxf(20.0f - total, 0.0f), 18.0f) * INV_18;
+  float ssum = fit;
+  bool collide = c.tgc > 0.0f;
+  float anti = -(c.tgc + 1.0f) / fmaxf(C.desired_count, 1.0f);
+  ssum = ssum + (collide ? anti : 0.0f);
+  ssum = ssum + (penalty ? -1.0f : 0.0f);
+  float acc = 0.0f;
+  for (int i = 0; i < A.a; ++i) {
+    int t = norm_tok(attr_at(A, n, A.aff_key_idx[i]), A.av);
+    acc = acc + A.aff_lut[(size_t)i * A.av + t];
+  }
+  const float aff = acc * *A.aff_inv_sum;
+  bool inc_aff = aff != 0.0f;
+  ssum = ssum + (inc_aff ? aff : 0.0f);
+  *cnt = 1 + collide + penalty + inc_aff;
+  return ssum;
+}
+
+// A row's entry: its prefix and the R_* bits with the term count.
+struct RowEntry {
+  float prefix;
+  uint8_t meta;
+};
+
+// Row n's entry after `k` placements of the program on it, every term
+// from the view and the program's lists, with the row's static mask and
+// reserved-port bit (the static pass of a row a list names, and the
+// recompute of a placed row)
+__device__ __forceinline__ RowEntry row_entry(const PlaceArgs& A,
+                                              const ScanConsts& C, int n,
+                                              int k, bool feas,
+                                              bool res_free) {
+  const RowCarry c = row_carry(A, n, k);
+  int cnt;
+  RowEntry e;
+  e.prefix = row_prefix(A, C, n, c, false, &cnt);
+  e.meta = row_bits(C, c, adjusted_dyn(A, n, A.dyn_free[n]), feas,
+                    res_free) | (uint8_t)(cnt << R_CNT_SHIFT);
+  return e;
+}
+
+// Row n's static entry when no list of the program names it — no plan
+// delta, job or task-group count, port release or consumption, and (with
+// `cand_ok` false) no sampled candidate: row_entry's values at k = 0 with
+// those terms at their empty sums (used − 0, 0 + nothing, dyn ± 0), the
+// row's loads made with no list scan and no early exit between them.
+__device__ __forceinline__ RowEntry fresh_entry(const PlaceArgs& A,
+                                                const ScanConsts& C, int n,
+                                                bool cand_ok) {
+  const float* used = A.used + (size_t)n * A.r;
+  const float* cap = A.capacity + (size_t)n * A.r;
+  RowCarry c;
+  c.u0 = used[0];
+  c.u1 = used[1];
+  c.any_over = false;
+  for (int r = 0; r < A.r; ++r)
+    c.any_over = c.any_over | (used[r] + A.ask[r] > cap[r]);
+  c.jc = c.tgc = c.splaced = 0.0f;
+  bool lut_all = true;
+  for (int i = 0; i < A.c; ++i)
+    lut_all = lut_all & (A.lut[(size_t)i * A.v +
+                               norm_tok(attr_at(A, n, A.key_idx[i]), A.v)]
+                         != 0);
+  const bool feas = (A.node_ok[n] != 0) & cand_ok &
+                    (A.extra_mask[A.e == 1 ? 0 : n] != 0) & lut_all;
+  bool res_free = true;
+  for (int i = 0; i < A.pp; ++i) {
+    const int port = A.res_ports[i];
+    if (port >= 0)
+      res_free = res_free &
+                 !((A.ports_used[(size_t)n * A.port_words + (port >> 5)] >>
+                    (port & 31)) & 1u);
+  }
+  float dyn = A.dyn_free[n];
+  if (A.pc > 0) dyn = dyn + 0.0f;
+  if (A.ps > 0) dyn = dyn - 0.0f;
+  int cnt;
+  RowEntry e;
+  e.prefix = row_prefix(A, C, n, c, false, &cnt);
+  e.meta = row_bits(C, c, dyn, feas, res_free) | (uint8_t)(cnt << R_CNT_SHIFT);
+  return e;
 }
 
 }  // namespace

@@ -705,20 +705,24 @@ def _set_ptrs(a: _PlaceArgs, ptrs: dict) -> None:
         setattr(a, name, ptr)
 
 
-def _scratch_shapes(dims: dict, n: int, r: int, explain: bool) -> dict:
+def _scratch_shapes(dims: dict, n: int, r: int, explain: bool,
+                    onchip: bool = False) -> dict:
     """Per-program scratch and outputs of the kernels: name → (shape,
     dtype). The `lane` group is per lane of a chain (the carry-dependent
-    working set), the rest per program."""
+    working set), the rest per program. `onchip` (K6's on-chip route,
+    csrc/batch.cu): sel_idx and sel_score alone."""
     u8, f32, i32 = torch.uint8, torch.float32, torch.int32
     m, c, k = dims["m"], dims["c"], dims["topk"]
+    sel = dict(sel_idx=(m, i32), sel_score=(m, f32))
+    if onchip:
+        return {"prog": sel, "lane": {}}
+    out = dict(sel, nodes_feasible=((), i32), nodes_fit=(m, i32))
     prog = dict(
         feas=(n, u8), flags=(n, u8), cfail=((n, dims["cw"]), i32),
         aff=(n, f32), res_free=(n, u8), job_cnt=(n, f32),
         tg_cnt=(n, f32), splaced=(n, f32),
         stok=((n, max(dims["s"], 1)), i32),
-        dtok=((n, max(dims["p"], 1)), i32),
-        sel_idx=(m, i32), sel_score=(m, f32), nodes_feasible=((), i32),
-        nodes_fit=(m, i32), final0=(n, f32))
+        dtok=((n, max(dims["p"], 1)), i32), **out, final0=(n, f32))
     if explain:
         prog.update(
             ex_static=(3, i32), filt_constraint=(max(c, 1), i32),
@@ -1142,13 +1146,16 @@ def wave_launch_count() -> int:
 
 
 def batch_launch_count() -> int:
-    """K6 dispatches (batches of independent programs) since the last
-    reset."""
+    """K6 dispatches through csrc/chain.cu (`place_task_group_batch`, and
+    `place_packed_batch` on its pooled route) since the last reset; the
+    on-chip route counts in `onchip_launch_count`."""
     return _CHAIN.launches["batch"]
 
 
 def reset_chain_launch_counts() -> None:
+    """Zero the K4, K5 and K6 counts, the on-chip K6 kernel's too."""
     _CHAIN.launches = {"chain": 0, "wave": 0, "batch": 0}
+    _ONCHIP.launches = 0
 
 
 def build_chain_kernel() -> None:
@@ -1197,7 +1204,8 @@ def args_pointer(args: np.ndarray):
 
 def _lane_args(cluster: ClusterArrays, shapes: dict, ptrs_of, lanes: int,
                per_lane: int, max_allocs: int, explain: bool,
-               slots: Optional[int] = None, n_global: Optional[int] = None):
+               slots: Optional[int] = None, n_global: Optional[int] = None,
+               onchip: bool = False):
     """The per-program scratch and outputs (leading axis lanes·per_lane),
     the per-lane scratch and used carries (leading axis lanes), and the
     programs' PlaceArgs, on the host and copied to the cluster's device
@@ -1205,10 +1213,12 @@ def _lane_args(cluster: ClusterArrays, shapes: dict, ptrs_of, lanes: int,
     per-program shape; `ptrs_of(field)` gives every program's (lane-major)
     device pointer for that field, an int64 array. With `slots`, the lane
     buffers are a pool of that many, program k in slot k mod slots (K6's
-    packed route). `n_global` is the row count explain's top-K is sized
+    pooled route). With `onchip` (K6's on-chip route) only the outputs
+    exist: no scratch, no lane buffers, no carry, and every scratch
+    pointer is null. `n_global` is the row count explain's top-K is sized
     for (a shard's view reports its part of the global one). Returns
     (dims, host args as a PlaceArgs record array, device args,
-    per-program buffers, per-lane buffers, lane used carries)."""
+    per-program buffers, per-lane buffers, lane used carries or None)."""
     from ..convert import to_device_async
     from ..lib.transfer import default_ledger
 
@@ -1222,7 +1232,7 @@ def _lane_args(cluster: ClusterArrays, shapes: dict, ptrs_of, lanes: int,
         raise ValueError("program shapes disagree with the cluster")
     dims = _program_dims(shapes, max_allocs, explain,
                          n if n_global is None else n_global)
-    groups = _scratch_shapes(dims, n, r, explain)
+    groups = _scratch_shapes(dims, n, r, explain, onchip)
     n_lanes = lanes if slots is None else slots
     if slots is not None:
         # the pooled route returns no step-0 score vector: it is slot
@@ -1236,7 +1246,7 @@ def _lane_args(cluster: ClusterArrays, shapes: dict, ptrs_of, lanes: int,
     prog = {k: alloc(b, sh, dt) for k, (sh, dt) in groups["prog"].items()}
     lane = {k: alloc(n_lanes, sh, dt)
             for k, (sh, dt) in groups["lane"].items()}
-    used_l = alloc(n_lanes, (n, r), torch.float32)
+    used_l = None if onchip else alloc(n_lanes, (n, r), torch.float32)
 
     base = _PlaceArgs()
     _set_cluster(base, cluster)
@@ -1251,7 +1261,8 @@ def _lane_args(cluster: ClusterArrays, shapes: dict, ptrs_of, lanes: int,
         args[name] = _rows_ptrs(t, k)
     for name, t in lane.items():
         args[name] = _rows_ptrs(t, lane_of)
-    args["new_used"] = _rows_ptrs(used_l, lane_of)
+    if used_l is not None:
+        args["new_used"] = _rows_ptrs(used_l, lane_of)
     raw = args.view(np.uint8)
     with default_ledger().timed("kernels.place_args", raw.nbytes):
         dev_args = to_device_async(raw, dev)
@@ -1501,9 +1512,140 @@ def place_table_wave(cluster, ti, tf, tu, rows, di, df, du, sspec, dspec,
 # ---- batches of independent programs (K6) --------------------------------------
 # The vmap transport: B programs against one snapshot, none seeing another's
 # placements (the reference's N workers racing on one MVCC snapshot; plan
-# apply resolves conflicts). The plain version loops K1's plain version; the
-# CUDA route is a K5 wave of B one-program lanes with no fold
-# (`csrc/chain.cu` `nomad_place_batch`).
+# apply resolves conflicts). The plain version loops K1's plain version.
+# `place_task_group_batch`'s CUDA route is a K5 wave of B one-program lanes
+# with no fold (`csrc/chain.cu` `nomad_place_batch`). `place_packed_batch`
+# takes, by shape alone (`batch_route`), the on-chip route (`csrc/batch.cu`:
+# one launch, each program's rows in shared memory) when a program's row
+# state fits a block's shared memory, else the pooled route (`csrc/chain.cu`
+# `nomad_place_batch_pooled`: a static grid, then scan blocks over carry
+# slots).
+
+#: shared memory one block may use on Hopper (227 KB)
+BLOCK_SMEM = 232_448
+#: the on-chip layout's regions, in order (`onchip_offsets`, csrc/batch.cu)
+_ONCHIP_REGIONS = ("args", "red", "placed", "pen", "scounts",
+                   "dcounts", "sptab", "minmax", "seen", "dptab", "prefix",
+                   "meta", "stok", "dtok")
+#: sizeof(PenRow), sizeof(Best) in csrc/batch.cu and place_core.cuh
+_PEN_ROW_BYTES, _BEST_BYTES = 20, 8
+
+
+def _tok_bytes(v: int) -> int:
+    return 1 if v <= 256 else 2
+
+
+def onchip_layout(n: int, dims: dict) -> dict:
+    """The on-chip route's shared memory for programs of `dims`
+    (`_program_dims`) on n rows: region → (offset, bytes), each region on
+    a 16-byte boundary, and "total". Per row: the score prefix (f32), its
+    bits and term count (u8), and a token per spread row and per
+    distinct_property (u8, or u16 past 256 values)."""
+    s, sv, p, dv = dims["s"], dims["sv"], dims["p"], dims["dv"]
+    sizes = dict(
+        args=ctypes.sizeof(_PlaceArgs), red=33 * _BEST_BYTES,
+        placed=4 * dims["m"], pen=_PEN_ROW_BYTES * dims["pn"],
+        scounts=4 * s * sv, dcounts=4 * p * dv, sptab=4 * s * sv,
+        minmax=8 * s, seen=s, dptab=p * dv, prefix=4 * n, meta=n,
+        stok=s * n * _tok_bytes(sv), dtok=p * n * _tok_bytes(dv))
+    out, off = {}, 0
+    for name in _ONCHIP_REGIONS:
+        out[name] = (off, sizes[name])
+        off = (off + sizes[name] + 15) & ~15
+    out["total"] = off
+    return out
+
+
+def batch_route(n: int, dims: dict) -> str:
+    """K6's packed route for programs of `dims` on n rows, by shape alone:
+    "onchip" when the on-chip layout fits one block's shared memory (and
+    the token vocabularies fit u16), else "pooled"."""
+    if max(dims["sv"], dims["dv"]) > 65536:
+        return "pooled"
+    return ("onchip" if onchip_layout(n, dims)["total"] <= BLOCK_SMEM
+            else "pooled")
+
+
+class _OnchipLauncher:
+    """The on-chip batch library (csrc/batch.cu), built at first use; its
+    launch count, and the route and launch shape of the last packed
+    dispatch."""
+
+    def __init__(self):
+        self.launches = 0
+        self.route = None
+        self.config = None
+        self._lib = None
+
+    def lib(self):
+        if self._lib is None:
+            from ._build import load_library
+
+            lib = load_library("batch")
+            lib.nomad_batch_args_size.restype = ctypes.c_size_t
+            lib.nomad_batch_args_size.argtypes = []
+            lib.nomad_batch_onchip_smem.restype = ctypes.c_size_t
+            lib.nomad_batch_onchip_smem.argtypes = [
+                ctypes.POINTER(_PlaceArgs)]
+            lib.nomad_place_batch_onchip.restype = ctypes.c_int
+            lib.nomad_place_batch_onchip.argtypes = [
+                ctypes.POINTER(_PlaceArgs), _VOID, _INT, _INT, _VOID,
+                ctypes.POINTER(ctypes.c_int)]
+            lib.nomad_batch_error_string.restype = ctypes.c_char_p
+            lib.nomad_batch_error_string.argtypes = [ctypes.c_int]
+            if lib.nomad_batch_args_size() != ctypes.sizeof(_PlaceArgs):
+                raise RuntimeError(
+                    "batch library's PlaceArgs layout differs from the "
+                    "wrapper's (rebuild csrc/batch.cu)")
+            self._lib = lib
+        return self._lib
+
+
+_ONCHIP = _OnchipLauncher()
+
+
+def onchip_launch_count() -> int:
+    """Launches of the on-chip K6 kernel since the last reset (one a
+    packed dispatch on that route)."""
+    return _ONCHIP.launches
+
+
+def last_batch_route():
+    """(route, (blocks, threads) or None) of the last packed dispatch on
+    the card."""
+    return _ONCHIP.route, _ONCHIP.config
+
+
+def build_batch_kernel() -> None:
+    """Build (or load the cached build of) the on-chip batch library."""
+    _ONCHIP.lib()
+
+
+def _launch_onchip(cluster, shapes, ptrs_of, b, max_allocs):
+    """One launch of csrc/batch.cu's `batch_onchip` for b programs;
+    returns (sel_idx, sel_score). Raises when the library's layout
+    differs from `onchip_layout` or the launch fails."""
+    lib = _ONCHIP.lib()
+    dev = cluster.used.device
+    n = cluster.capacity.shape[0]
+    dims, args, dev_args, prog, _lane, _used = _lane_args(
+        cluster, shapes, ptrs_of, b, 1, max_allocs, False, onchip=True)
+    want = onchip_layout(n, dims)["total"]
+    got = lib.nomad_batch_onchip_smem(args_pointer(args))
+    if got != want:
+        raise RuntimeError(f"batch library's shared-memory layout ({got} B) "
+                           f"differs from onchip_layout's ({want} B)")
+    config = (ctypes.c_int * 2)()
+    err = lib.nomad_place_batch_onchip(
+        args_pointer(args), dev_args.data_ptr(), b,
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        torch.cuda.current_stream(dev).cuda_stream, config)
+    if err != 0:
+        raise RuntimeError("on-chip batch kernel launch failed: "
+                           + lib.nomad_batch_error_string(err).decode())
+    _ONCHIP.launches += 1
+    _ONCHIP.config = (config[0], config[1])
+    return prog["sel_idx"], prog["sel_score"]
 
 
 def place_task_group_batch_plain(cluster, batch, max_allocs, explain=False):
@@ -1532,14 +1674,32 @@ def place_task_group_batch_cuda(cluster, batch, max_allocs, explain=False):
                            explain=ex)
 
 
-def place_packed_batch_cuda(cluster, i32buf, f32buf, u8buf, spec,
-                            max_allocs):
+def _packed_batch_on(route, cluster, i32buf, f32buf, u8buf, spec,
+                     max_allocs):
+    """`place_packed_batch` on the card through `route` ("onchip" or
+    "pooled"); the two give bitwise the same results."""
     _check_cluster(cluster)
     b, shapes, ptrs_of = _packed_source(cluster, i32buf, f32buf, u8buf, spec)
+    _ONCHIP.route, _ONCHIP.config = route, None
+    if route == "onchip":
+        return _launch_onchip(cluster, shapes, ptrs_of, b, max_allocs)
+    if route != "pooled":
+        raise ValueError(f"no K6 route {route!r}")
     base, _ex, _lanes, _f, _s = _launch_lanes(
         cluster, shapes, ptrs_of, b, 1, max_allocs, False, fold=False,
         pooled=True)
     return base[0], base[1]
+
+
+def place_packed_batch_cuda(cluster, i32buf, f32buf, u8buf, spec,
+                            max_allocs):
+    """K6's packed route on the card, chosen by `batch_route` from the
+    row count and the programs' shapes alone."""
+    n = cluster.capacity.shape[0]
+    shapes = {name: tuple(shape[1:]) for name, _c, _o, shape in spec}
+    route = batch_route(n, _program_dims(shapes, max_allocs, False, n))
+    return _packed_batch_on(route, cluster, i32buf, f32buf, u8buf, spec,
+                            max_allocs)
 
 
 def place_task_group_batch(cluster: ClusterArrays, batch: TGParams,
@@ -1557,8 +1717,9 @@ def place_task_group_batch(cluster: ClusterArrays, batch: TGParams,
 def place_packed_batch(cluster, i32buf, f32buf, u8buf, spec, max_allocs):
     """Batched placement over field-major packed buffers; returns only
     (sel_idx, sel_score), [B, M] each, as the reference does — so the
-    kernel keeps no per-program carry (its scan runs in a pool of
-    carries, one per resident block)."""
+    kernels keep no per-program carry: on the card one launch with each
+    program's rows in shared memory where they fit (`batch_route`), else
+    a scan in a pool of carries, one per resident block."""
     return _route(cluster, place_packed_batch_plain,
                   place_packed_batch_cuda)(cluster, i32buf, f32buf, u8buf,
                                            spec, max_allocs)

@@ -160,11 +160,19 @@ def _bytes_at(ptr: int, t: torch.Tensor) -> bytes:
     return ctypes.string_at(int(ptr), n)
 
 
-@pytest.mark.parametrize("source", ["stacked", "packed", "table"])
+#: PlaceArgs' scratch and carry pointers (csrc/place_core.cuh)
+SCRATCH_FIELDS = ("feas", "flags", "cfail", "aff", "res_free", "dyn",
+                  "job_cnt", "tg_cnt", "splaced", "stok", "dtok", "mbuf",
+                  "okbuf", "parts", "new_used", "final0")
+
+
+@pytest.mark.parametrize("source", ["stacked", "packed", "table", "onchip"])
 def test_argument_blocks_point_at_each_programs_fields(source):
     """The PlaceArgs blocks a dispatch uploads (filled a field at a time
     for all programs): every program field points at that program's
-    values, every scratch pointer at that program's (or lane's) row."""
+    values, every scratch pointer at that program's (or lane's) row. The
+    on-chip route (packed programs) has sel_idx and sel_score alone: every
+    other output, scratch and carry pointer is null."""
     stack, progs = _case("chain_mix")
     cluster = cc.port_cluster(stack.device_arrays())
     batched, m = stack_params(progs)
@@ -173,7 +181,7 @@ def test_argument_blocks_point_at_each_programs_fields(source):
     if source == "stacked":
         batch = params_from_numpy(batched, "cpu")
         b, shapes, ptrs_of = tp._stacked_source(cluster, batch)
-    elif source == "packed":
+    elif source in ("packed", "onchip"):
         bufs = cc.port_bufs(*jp.pack_params(batched)[:3])
         spec = jp.pack_params(batched)[3]
         keep.append(bufs)
@@ -191,10 +199,17 @@ def test_argument_blocks_point_at_each_programs_fields(source):
         batch = tp._assemble_table_batch(*tables, prep.rows, *dyn,
                                          prep.sspec, prep.dspec)
         m = prep.m
+    onchip = source == "onchip"
     dims, args, _dev, prog, lane, used_l = tp._lane_args(
-        cluster, shapes, ptrs_of, lanes, per_lane, m, True)
+        cluster, shapes, ptrs_of, lanes, per_lane, m, not onchip,
+        onchip=onchip)
     assert args.shape == (b,) and args.dtype.itemsize == ctypes.sizeof(
         tp._PlaceArgs)
+    if onchip:
+        assert set(prog) == {"sel_idx", "sel_score"}
+        assert not lane and used_l is None
+        for name in SCRATCH_FIELDS + ("nodes_feasible", "nodes_fit"):
+            assert (args[name] == 0).all(), name
     for k in range(b):
         p = tp._program(batch, k)
         for f in tp.TGParams._fields:
@@ -205,7 +220,8 @@ def test_argument_blocks_point_at_each_programs_fields(source):
             assert args[name][k] == t[k].data_ptr(), (k, name)
         for name, t in lane.items():
             assert args[name][k] == t[k // per_lane].data_ptr(), (k, name)
-        assert args["new_used"][k] == used_l[k // per_lane].data_ptr()
+        if not onchip:
+            assert args["new_used"][k] == used_l[k // per_lane].data_ptr()
         assert args["used"][k] == cluster.used.data_ptr()
         assert args["n"][k] == cluster.used.shape[0]
         for name, val in dims.items():

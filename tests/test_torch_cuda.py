@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-K1, the chain and wave (K4, K5), the batch (K6), the row kernels (K7, K8),
+K1, the chain and wave (K4, K5), the batch (K6; its on-chip and pooled
+packed routes bitwise each other), the row kernels (K7, K8),
 K2, K3, the node-sharded step (K9) on four shards, and the sharded
 routes (B10-B13) on shards of the card — B10/B11's cluster route held
 bitwise against its steps route.
@@ -635,6 +636,213 @@ def test_packed_batch_equals_the_full_carry_route_bitwise(cuda_device):
     assert torch.equal(sel, full.sel_idx)
     assert torch.equal(score.view(torch.int32),
                        full.sel_score.view(torch.int32))
+
+
+# ---- K6's on-chip route (csrc/batch.cu) ----------------------------------------
+
+
+def _onchip_problem(cuda_device, case):
+    """(view, stacked numpy programs, m) of a case: bench.py's eval mix;
+    identical nodes, every row tied; edge programs — plan deltas,
+    penalties and preferred rows, distinct_hosts and distinct_property,
+    sampled candidates, then a program no node takes and an inert pad; or
+    wide tokens — a rack a node, so that the spread and distinct_property
+    vocabularies pass 256 values (u16 tokens on chip)."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.parallel.pad import stack_params
+    from nomad_tpu_torch.scheduler.harness import InMemState
+    from nomad_tpu_torch.server.select_batch import _inert_program
+    from nomad_tpu_torch.structs import Constraint
+    from nomad_tpu_torch.structs.job import Spread, SpreadTarget
+    from nomad_tpu_torch.synth import synth_alloc, synth_node
+    from nomad_tpu_torch.tensor import ClusterTensors
+
+    rng = random.Random(12)
+    if case == "wide_tokens":
+        state = InMemState()
+        nodes = []
+        for i in range(600):
+            node = synth_node(rng, i)
+            node.attributes["rack"] = f"r{i}"
+            nodes.append(node)
+            state.upsert_node(node)
+        # racks 400-439 fuller (a bin-packer's pick); each program's own
+        # allocs fill the even ones to its distinct_property limit
+        filler = synth_service_job(rng)
+        state.upsert_job(filler)
+        for node in nodes[400:440]:
+            for _ in range(3):
+                state.upsert_alloc(synth_alloc(rng, node, filler))
+        stack = TorchStack(state.cluster, device=cuda_device)
+        progs = []
+        for spread, targets, dp in ((True, False, False),
+                                    (False, False, True),
+                                    (True, True, True)):
+            j = synth_service_job(rng, count=8, distinct_property=dp)
+            if spread:
+                j.spreads = [Spread(
+                    attribute="${attr.rack}", weight=100,
+                    spread_target=[SpreadTarget(value="r300", percent=60),
+                                   SpreadTarget(value="r7", percent=20)]
+                    if targets else [])]
+            state.upsert_job(j)
+            for node in nodes[400:440:2]:
+                for _ in range(2):
+                    state.upsert_alloc(synth_alloc(rng, node, j))
+            progs.append(stack.compile_tg(j, j.task_groups[0], 8)[0])
+        batched, m = stack_params(progs)
+        return stack.device_arrays(), batched, m
+    if case == "ties":
+        cl = ClusterTensors()
+        for i in range(40):
+            node = mock.node()
+            node.id = f"node-{i}"
+            cl.upsert_node(node)
+        job = mock.job()
+        job.task_groups[0].networks = []
+        stack = TorchStack(cl, device=cuda_device)
+        progs = [stack.compile_tg(job, job.task_groups[0], k)[0]
+                 for k in (1, 4, 8)]
+        batched, m = stack_params(progs)
+        return stack.device_arrays(), batched, m
+    state, nodes = build_synthetic_state(300, 3000, seed=13)
+    stack = TorchStack(state.cluster, device=cuda_device)
+    progs = []
+    if case == "bench_mix":
+        for i in range(200):
+            j = synth_service_job(
+                rng, count=8, with_affinity=(i % 2 == 0),
+                with_spread=(i % 3 == 0), distinct_hosts=(i % 5 == 0),
+                with_devices=(i % 4 == 0), distinct_property=(i % 7 == 0))
+            state.upsert_job(j)
+            progs.append(stack.compile_tg(j, j.task_groups[0], 8)[0])
+    else:
+        filler = list(state._allocs.values())[:6]
+        plan = PlanContext(
+            stopped_allocs=filler,
+            penalty_node_ids=[frozenset({nodes[i].id, nodes[i + 1].id})
+                              for i in range(0, 8, 2)],
+            preferred_node_ids=[nodes[5].id, None, nodes[11].id])
+        for i, kw in enumerate((dict(), dict(with_spread=True),
+                                dict(distinct_hosts=True),
+                                dict(distinct_property=True))):
+            j = synth_service_job(rng, count=6, **kw)
+            state.upsert_job(j)
+            progs.append(stack.compile_tg(j, j.task_groups[0], 6,
+                                          plan if i < 2 else None)[0])
+        j = synth_service_job(rng, count=6, with_affinity=True)
+        state.upsert_job(j)
+        progs.append(stack.compile_tg(j, j.task_groups[0], 6, sampled_rows=
+                                      list(range(0, 300, 7)))[0])
+        j = synth_service_job(rng, count=6)
+        j.constraints.append(Constraint("${attr.kernel.name}", "windows",
+                                        "="))
+        progs.append(stack.compile_tg(j, j.task_groups[0], 6)[0])
+        progs.append(_inert_program(progs[0]))
+    batched, m = stack_params(progs)
+    return stack.device_arrays(), batched, m
+
+
+def _packed(batched, cuda_device):
+    from nomad_tpu_torch.convert import tensor_from_numpy
+
+    ibuf, fbuf, ubuf, spec = kp.pack_params(batched)
+    return [tensor_from_numpy(b, cuda_device) for b in (ibuf, fbuf, ubuf)], \
+        spec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bench_mix", "ties", "edges",
+                                  "wide_tokens"])
+def test_onchip_batch_equals_pooled_and_full_carry_bitwise(case,
+                                                           cuda_device):
+    """`place_packed_batch` takes the on-chip route at these shapes, one
+    launch a dispatch; its sel_idx and sel_score are bitwise those of the
+    pooled route and of the full-carry route, which equal plain."""
+    arrays, batched, m = _onchip_problem(cuda_device, case)
+    bufs, spec = _packed(batched, cuda_device)
+    if case == "wide_tokens":
+        shapes = {name: tuple(shape[1:]) for name, _c, _o, shape in spec}
+        dims = kp._program_dims(shapes, m, False, arrays.capacity.shape[0])
+        assert min(dims["sv"], dims["dv"]) > 256, dims
+    before = (kp.onchip_launch_count(), kp.batch_launch_count())
+    sel, score = kp.place_packed_batch(arrays, *bufs, spec, m)
+    assert kp.last_batch_route()[0] == "onchip"
+    assert (kp.onchip_launch_count(), kp.batch_launch_count()) == (
+        before[0] + 1, before[1])
+    pooled = kp._packed_batch_on("pooled", arrays, *bufs, spec, m)
+    p = params_from_numpy(batched, cuda_device)
+    full = kp.place_task_group_batch(arrays, p, m)
+    torch.cuda.synchronize()
+    for what, (s2, sc2) in (("pooled", pooled),
+                            ("full-carry", (full.sel_idx, full.sel_score))):
+        assert torch.equal(sel, s2), what
+        assert torch.equal(score.view(torch.int32), sc2.view(torch.int32)), \
+            what
+    want = kp.place_task_group_batch_plain(arrays, p, m)
+    assert torch.equal(sel, want.sel_idx)
+    torch.testing.assert_close(score, want.sel_score, rtol=0, atol=ATOL)
+    assert bool((sel >= 0).any())
+    if case == "ties":
+        assert int(sel[0, 0]) == 0, "a tie goes to the lowest row"
+    if case == "edges":
+        assert bool((sel[-2:] == -1).all()), "infeasible or inert placed"
+    if case == "wide_tokens":
+        assert bool((sel > 255).all()), "every pick on a token past u8"
+
+
+@pytest.mark.cuda
+def test_oversized_view_takes_the_pooled_route(cuda_device):
+    """Past the on-chip limit (a view padded to 65,536 rows, the pad rows
+    not ok) the packed dispatch takes the pooled route; it equals plain,
+    and bitwise the on-chip route on the unpadded view."""
+    arrays, batched, m = _onchip_problem(cuda_device, "edges")
+    bufs, spec = _packed(batched, cuda_device)
+    small = kp.place_packed_batch(arrays, *bufs, spec, m)
+    n0 = arrays.capacity.shape[0]
+    view = kp.ClusterArrays(*(torch.cat((t, t[-1:].expand(
+        (65536 - n0,) + tuple(t.shape[1:])))) for t in arrays))
+    view.node_ok[n0:] = False
+    before = (kp.onchip_launch_count(), kp.batch_launch_count())
+    sel, score = kp.place_packed_batch(view, *bufs, spec, m)
+    assert kp.last_batch_route()[0] == "pooled"
+    assert (kp.onchip_launch_count(), kp.batch_launch_count()) == (
+        before[0], before[1] + 1)
+    want_sel, want_score = kp.place_packed_batch_plain(view, *bufs, spec, m)
+    torch.cuda.synchronize()
+    assert torch.equal(sel, want_sel)
+    torch.testing.assert_close(score, want_score, rtol=0, atol=ATOL)
+    assert torch.equal(sel, small[0])
+    assert torch.equal(score.view(torch.int32), small[1].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cpu_tensors_never_launch_the_onchip_kernel_on_a_card(cuda_device):
+    arrays, batched, m = _onchip_problem(cuda_device, "ties")
+    cpu = kp.ClusterArrays(*(t.cpu() for t in arrays))
+    bufs, spec = _packed(batched, torch.device("cpu"))
+    before = (kp.onchip_launch_count(), kp.batch_launch_count())
+    sel, _score = kp.place_packed_batch(cpu, *bufs, spec, m)
+    assert sel.device.type == "cpu"
+    assert (kp.onchip_launch_count(), kp.batch_launch_count()) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,sv,dv,s,p", [(64, 32, 32, 1, 1),
+                                          (16384, 32, 32, 1, 1),
+                                          (30000, 300, 32, 2, 1),
+                                          (1000, 32, 70000, 1, 2)])
+def test_onchip_layout_matches_the_library(n, sv, dv, s, p, cuda_device):
+    """The library's shared-memory reckoning (`nomad_batch_onchip_smem`)
+    is `onchip_layout`'s total, u8 and u16 tokens alike."""
+    lib = kp._ONCHIP.lib()
+    dims = dict(m=8, pn=3, s=s, sv=sv, p=p, dv=dv)
+    a = kp._PlaceArgs()
+    a.n = n
+    for k, v in dims.items():
+        setattr(a, k, v)
+    assert lib.nomad_batch_onchip_smem(kp.ctypes.byref(a)) == \
+        kp.onchip_layout(n, dims)["total"]
 
 
 # ---- the sharded routes (B10-B13) on four shards of the card ------------------
