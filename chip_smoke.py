@@ -9,9 +9,9 @@ non-zero without printing a result:
 1. The card: `torch.cuda.get_device_name()` and nvidia-smi's name and power
    limit.
 2. Build the CUDA kernels from `nomad_tpu_torch/kernels/csrc` (one nvcc
-   per source, all at once, into `build/`: placement, chain, batch, rows,
-   system, preempt, shard), and print the build seconds and ptxas'
-   registers and spills of each kernel.
+   per source, all at once, into `build/`: placement, chain, lanes,
+   batch, rows, system, preempt, shard), and print the build seconds and
+   ptxas' registers and spills of each kernel.
 3. Kernel against plain, at full width: the 10,000-node / 100,000-alloc
    synthetic cluster (N = 16384 rows), one program per case (binpack,
    spread algorithm, constraints, all-infeasible, affinity, spread targets,
@@ -31,9 +31,17 @@ non-zero without printing a result:
 5. The chain, wave and insert kernels against their plain versions at
    full width (N = 16384): a chain of B = 8 programs of the phase-3 mix
    through the device program table (a fresh table: its commit is one
-   insert launch), explain on and off; a wave of L = 3 datacenter-pinned
-   lanes of P = 4 programs, and a built stale-footprint wave whose lanes
-   overlap (collisions > 0, equal in both); the fused insert (K8) of 8
+   insert launch), explain on and off; the same at phase 6's dispatch
+   shape, a chain of 16 programs of its mix; a wave of L = 3
+   datacenter-pinned lanes of P = 4 programs, and a built stale-footprint
+   wave whose lanes overlap (collisions > 0, equal in both). K4 and K5
+   run on the lane route (`csrc/lanes.cu`, a lane one thread-block
+   cluster of the C blocks `lane_route` picks) and on chain.cu's route:
+   outputs and carries bitwise each other and 0.0 from plain, explain off
+   and on; both timed in turns with the lane route at C = 1 (back-to-back
+   CUDA events and the device span, kernel launches a dispatch — one a
+   chain, two a wave — and peak memory), the bound by the lane route's
+   operations count beside chain.cu's. The fused insert (K8) of 8
    random rows into the table's three class tables (T = 512) bitwise
    against its plain version on the same staged buffer. Times each kernel,
    its plain version and (for the insert) `torch.index_copy`, with each
@@ -51,7 +59,9 @@ non-zero without printing a result:
    one node re-registers. Every eval must complete with all 640 allocs of
    its burst placed, distinct_hosts respected and no partial plan; the
    chain, wave, insert and view row-delta (K7) kernels must have launched,
-   K8 once an insert and K7 once a refresh that applied a row delta;
+   K8 once an insert and K7 once a refresh that applied a row delta,
+   every chain dispatch one kernel launch and every wave at most two, all
+   on the lane route;
    every chain/wave launch is held against its plain version on the inputs
    it read (a copy taken at the launch), and the view it read must be
    unchanged when its lease is released. After each burst, once quiet,
@@ -389,10 +399,46 @@ def _table_transport(torch, progs, dev):
     return prep, (ti, tf, tu), dyn
 
 
-def _chain_bound(kp, arrays, prep, tables, dyn, n_lanes=1):
-    """Bound of one chain or wave dispatch: the view read once, every
-    program's static and dynamic fields, per-step outputs, and the
-    final carry written once."""
+def _active_steps(p, sel) -> int:
+    """Steps the lane route runs of one program with selections `sel`
+    (this run's): a step past n_place after a step that placed nothing,
+    with the previous step's penalty rows, is idle (csrc/lanes.cu
+    `idle_step`) and does no row work."""
+    pen = p.penalty_idx.tolist()
+    n_place = int(p.n_place)
+    return sum(1 for s in range(len(sel))
+               if not (s > 0 and s >= n_place and int(sel[s - 1]) < 0
+                       and pen[s] == pen[s - 1]))
+
+
+def _lane_ops(cluster, p, m: int, explain: bool, steps: int) -> int:
+    """Operations of one program on the chain and wave lane route
+    (csrc/lanes.cu), `steps` of its m steps run: K6's on-chip count
+    (`_onchip_ops`: a row's terms once a program, ≈ 9 operations a row
+    step after), the new carry of the rows the program touched, and with
+    explain the static filter counts a row, the filter tests and the
+    top-K insertion a row step, and per step the top-K merges and the K
+    rows' parts recomputed."""
+    n, r = cluster.capacity.shape
+    c, d = p.key_idx.shape[0], p.delta_idx.shape[0]
+    ops = _onchip_ops(cluster, p, steps) + (d + m) * (r * (m + 2) + m + 2)
+    if explain:
+        k = min(5, n)
+        row = 2 * r + 40 + c + p.aff_key_idx.shape[0]
+        ops += (n * (c + p.cand_idx.shape[0] + 3) + n * steps * (6 + 2 * k)
+                + steps * k * (row + d * r + 16 * 8 + 5))
+    return ops
+
+
+def _chain_bound(kp, arrays, prep, tables, dyn, sel, n_lanes=1,
+                 explain=True):
+    """Bound of one chain or wave dispatch whose selections were `sel`
+    ([programs, m], this run's): the view read once, every program's
+    static and dynamic fields, per-step outputs, and the final carry
+    written once, against the operations of the lane route (`_lane_ops`,
+    the steps this run's data makes it run). Returns (bound ms, what
+    bounds it, and the same by chain.cu's count — every term of every row
+    at every step)."""
     n, r = arrays.capacity.shape
     batch = kp._assemble_table_batch(*tables, kp.host_rows(prep.rows)
                                      .reshape(-1), *(d.reshape(
@@ -401,8 +447,97 @@ def _chain_bound(kp, arrays, prep, tables, dyn, n_lanes=1):
     parts = [_bound_parts(arrays, kp._program(batch, b), prep.m,
                           own_carry=False)
              for b in range(batch.n_place.shape[0])]
-    return _bound_of(parts, arrays, extra_out=n * r * 4 + n * 4
-                     + (4 if n_lanes > 1 else 0))
+    carry = n * r * 4 + n * 4 + (4 if n_lanes > 1 else 0)
+    sel = sel.reshape(len(parts), -1).cpu()
+    lane = []
+    for b, (v, pr, o, _ops) in enumerate(parts):
+        p = kp._program(batch, b)
+        lane.append((v, pr, o, _lane_ops(arrays, p, prep.m, explain,
+                                         _active_steps(p, sel[b]))))
+    return (*_bound_of(lane, arrays, extra_out=carry),
+            *_bound_of(parts, arrays, extra_out=carry))
+
+
+#: dispatches a timing of phase 5's chain and wave routes takes a turn
+LANE_REPS = 10
+
+
+def _leaves(x) -> list:
+    """The tensors of nested tuples (outputs and carries), in order."""
+    if isinstance(x, (tuple, list)):
+        return [t for part in x for t in _leaves(part)]
+    return [x]
+
+
+def _same_bits(want, got, what: str) -> None:
+    """Two outputs or carries (nested tuples of tensors), leaf by leaf,
+    bit for bit."""
+    import torch
+
+    want, got = _leaves(want), _leaves(got)
+    if len(want) != len(got):
+        raise AssertionError(f"{what}: {len(want)} vs {len(got)} leaves")
+    for i, (a, b) in enumerate(zip(want, got)):
+        a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"{what}: leaf {i} differs")
+
+
+def _lane_routes(torch, kp, what, run, explain, bound, kind):
+    """One K4 or K5 dispatch shape on both routes: `run(clusters,
+    explain)` on the lane route at the size it picks (and, timed, at
+    C = 1) and on chain.cu's route (`clusters=0`), bitwise each other;
+    timed in turns (picked, C = 1, chain.cu, chain.cu, C = 1, picked),
+    LANE_REPS dispatches each: back-to-back CUDA events and the median
+    device span (`_k6_samples`); kernel launches a dispatch and peak
+    device memory. Prints one line a route; returns route → numbers."""
+    picked = kp.lane_route(*bound["route_args"])
+    fns = {"picked": lambda: run(None, explain),
+           "c1": lambda: run(1, explain),
+           "chain.cu": lambda: run(0, explain)}
+    outs, out = {}, {}
+    for route, fn in fns.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        k0 = kp.chain_kernel_launches()[kind]
+        outs[route] = fn()
+        torch.cuda.synchronize()
+        out[route] = {"peak": (torch.cuda.max_memory_allocated() - base)
+                      / 2 ** 20,
+                      "launches": kp.chain_kernel_launches()[kind] - k0,
+                      "route": kp.last_chain_dispatch_route()}
+    if out["picked"]["route"] != ("cluster", picked) or picked == 0:
+        raise AssertionError(f"{what}: took {out['picked']['route']}, "
+                             f"lane_route gives {picked}")
+    if out["chain.cu"]["route"] != ("lanes", None):
+        raise AssertionError(f"{what}: clusters=0 took "
+                             f"{out['chain.cu']['route']}")
+    want = {"chain": 1, "wave": 2}[kind]
+    for route in ("picked", "c1"):
+        if out[route]["launches"] != want:
+            raise AssertionError(f"{what}: {out[route]['launches']} kernel "
+                                 f"launches a dispatch on the lane route")
+        _same_bits(outs["chain.cu"], outs[route], f"{what} {route}")
+    for route in ("picked", "c1", "chain.cu", "chain.cu", "c1", "picked"):
+        r = out[route]
+        _hosts, spans = _k6_samples(torch, kp, fns[route], LANE_REPS)
+        r.setdefault("span", []).extend(spans)
+        r.setdefault("events", []).append(_time_ms(fns[route], LANE_REPS))
+    for route, r in out.items():
+        r["span"] = statistics.median(r["span"])
+        r["events"] = statistics.median(r["events"])
+        print(f"{what} explain={'on' if explain else 'off'} {route} "
+              f"(C={picked if route == 'picked' else 1 if route == 'c1' else '-'}"
+              f"): events {r['events']:.4f} ms, span {r['span']:.4f} ms, "
+              f"{r['launches']} kernel launches a dispatch, peak "
+              f"{r['peak']:.2f} MiB")
+    print(f"{what}: bound {bound['ms']:.6f} ms ({bound['by']}; chain.cu's "
+          f"count {bound['old_ms']:.6f} ms, {bound['old_by']}); lane route "
+          f"bitwise chain.cu's at C={picked} and C=1")
+    return outs["picked"], out
 
 
 def _phase5_kernels(torch, kp, kr, cases, nodes, rng):
@@ -428,26 +563,71 @@ def _phase5_kernels(torch, kp, kr, cases, nodes, rng):
     out["insert"], out["err"]["insert"] = _k8_timing(torch, kr, tables,
                                                      rng)
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n, r = arrays.capacity.shape
+
+    def bound_of(prep, tables, dyn, sel, lanes, per_lane, explain):
+        shapes = {name: tuple(shape) for name, _c, _o, shape in
+                  tuple(prep.sspec) + tuple(prep.dspec)}
+        dims = kp._program_dims(shapes, prep.m, explain, n)
+        ms, by, old_ms, old_by = _chain_bound(kp, arrays, prep, tables, dyn,
+                                              sel, lanes, explain)
+        return dict(ms=ms, by=by, old_ms=old_ms, old_by=old_by,
+                    route_args=(n, lanes, dims, r, sms))
+
+    def chain_case(what, prep, tables, dyn):
+        """K4 on one chain, explain off and on: both routes against
+        plain (0.0) and each other (bitwise), timed; the plain version
+        timed with explain on."""
+        args = (arrays, *tables, prep.rows, *dyn, prep.sspec, prep.dspec,
+                prep.m)
+        res = {}
+        sel = kp.place_table_chain_plain(*args)[0][0]
+        for explain in (False, True):
+            bound = bound_of(prep, tables, dyn, sel, 1, len(prep.rows),
+                             explain)
+            got, res[explain] = _lane_routes(
+                torch, kp, what, lambda c, ex: kp.place_table_chain_cuda(
+                    *args, explain=ex, clusters=c), explain, bound, "chain")
+            res[explain]["bound"] = bound
+            want = kp.place_table_chain_plain(*args, explain=explain)
+            err = _compare_flat(want, got, f"{what}/explain={explain}",
+                                explain)
+            if err != 0.0:
+                raise AssertionError(f"{what}: {err} from plain")
+        res["plain"] = _time_ms(
+            lambda: kp.place_table_chain_plain(*args, explain=True), 2)
+        res["placed"] = int((got[0][0] >= 0).sum())
+        return res
+
     # K4: the chain of the 8 programs, explain off and on
-    args = (arrays, *tables, prep.rows, *dyn, prep.sspec, prep.dspec, prep.m)
-    for explain in (False, True):
-        got = kp.place_table_chain_cuda(*args, explain=explain)
-        want = kp.place_table_chain_plain(*args, explain=explain)
-        torch.cuda.synchronize()
-        out["err"]["chain"] = max(out["err"]["chain"], _compare_flat(
-            want, got, f"chain/explain={explain}", explain))
-    placed = int((got[0][0][:len(mix)] >= 0).sum())
-    ms_off = _time_ms(lambda: kp.place_table_chain_cuda(*args), 20)
-    ms_on = _time_ms(lambda: kp.place_table_chain_cuda(*args, explain=True),
-                     20)
-    plain_on = _time_ms(
-        lambda: kp.place_table_chain_plain(*args, explain=True), 2)
-    bound_ms, bound_by = _chain_bound(kp, arrays, prep, tables, dyn)
-    out["chain"] = dict(ms=ms_on, plain_ms=plain_on, bound_ms=bound_ms,
-                        bound_by=bound_by, library_ms=None)
-    print(f"chain==plain B={len(mix)} M={prep.m} placed(step 0)={placed}: "
-          f"kernel {ms_on:.4f} ms (explain off {ms_off:.4f} ms), plain "
-          f"{plain_on:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    k4 = chain_case(f"K4 chain B={len(mix)} M={prep.m}", prep, tables, dyn)
+    on, off = k4[True], k4[False]
+    out["chain"] = dict(ms=on["picked"]["events"], plain_ms=k4["plain"],
+                        bound_ms=on["bound"]["ms"],
+                        bound_by=on["bound"]["by"], library_ms=None,
+                        span_ms=on["picked"]["span"],
+                        explain_off_ms=off["picked"]["events"],
+                        c1_ms=on["c1"]["events"],
+                        chain_cu_ms=on["chain.cu"]["events"],
+                        clusters=on["picked"]["route"][1])
+    print(f"chain==plain B={len(mix)} M={prep.m} placed(step 0)="
+          f"{k4['placed']}: lane route {on['picked']['events']:.4f} ms "
+          f"(explain off {off['picked']['events']:.4f} ms; C=1 "
+          f"{on['c1']['events']:.4f}), chain.cu {on['chain.cu']['events']:.4f}"
+          f" ms, plain {k4['plain']:.4f} ms, bound "
+          f"{on['bound']['ms']:.6f} ms ({on['bound']['by']})")
+
+    # K4 at phase 6's dispatch shape: a chain of 16 programs of its mix
+    jobs16, _dh = _mix(random.Random(SEED + 5), 16)
+    stack16 = cases["binpack"][0]
+    progs16 = [stack16.compile_tg(j, j.task_groups[0], 10, None)[0]
+               for j in jobs16]
+    prep16, tables16, dyn16 = _table_transport(torch, progs16, "cuda")
+    k4_16 = chain_case(f"K4 chain B=16 M={prep16.m}", prep16, tables16,
+                       dyn16)
+    out["chain16"] = {ex: k4_16[ex]["picked"]["events"]
+                      for ex in (False, True)}
 
     # K5: three datacenter-pinned lanes of four programs
     stack = cases["binpack"][0]
@@ -464,12 +644,21 @@ def _phase5_kernels(torch, kp, kr, cases, nodes, rng):
     wargs = (arrays, *tables, prep.rows.reshape(lanes, per_lane),
              *(d.reshape(lanes, per_lane, -1) for d in dyn), prep.sspec,
              prep.dspec, prep.m)
+    k5 = {}
+    sel = kp.place_table_wave_plain(*wargs)[0][0]
     for explain in (False, True):
-        got = kp.place_table_wave_cuda(*wargs, explain=explain)
+        bound = bound_of(prep, tables, dyn, sel, lanes, per_lane, explain)
+        got, k5[explain] = _lane_routes(
+            torch, kp, f"K5 wave L={lanes} P={per_lane} M={prep.m}",
+            lambda c, ex: kp.place_table_wave_cuda(*wargs, explain=ex,
+                                                   clusters=c),
+            explain, bound, "wave")
+        k5[explain]["bound"] = bound
         want = kp.place_table_wave_plain(*wargs, explain=explain)
         torch.cuda.synchronize()
-        out["err"]["wave"] = max(out["err"]["wave"], _compare_flat(
-            want, got, f"wave/explain={explain}", explain))
+        err = _compare_flat(want, got, f"wave/explain={explain}", explain)
+        if err != 0.0:
+            raise AssertionError(f"wave: {err} from plain")
         if int(got[0][-1]) != 0:
             raise AssertionError("disjoint lanes reported collisions")
     chain = kp.place_table_chain_cuda(arrays, *tables, prep.rows, *dyn,
@@ -478,20 +667,26 @@ def _phase5_kernels(torch, kp, kr, cases, nodes, rng):
                                                              got[1])):
         if not torch.equal(a, b):
             raise AssertionError("disjoint wave differs from the chain")
-    w_ms = _time_ms(lambda: kp.place_table_wave_cuda(*wargs, explain=True),
-                    20)
     w_plain = _time_ms(
         lambda: kp.place_table_wave_plain(*wargs, explain=True), 2)
     c_ms = _time_ms(lambda: kp.place_table_chain_cuda(
         arrays, *tables, prep.rows, *dyn, prep.sspec, prep.dspec, prep.m,
         True), 20)
-    bound_ms, bound_by = _chain_bound(kp, arrays, prep, tables, dyn, lanes)
-    out["wave"] = dict(ms=w_ms, plain_ms=w_plain, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=None)
+    on, off = k5[True], k5[False]
+    out["wave"] = dict(ms=on["picked"]["events"], plain_ms=w_plain,
+                       bound_ms=on["bound"]["ms"], bound_by=on["bound"]["by"],
+                       library_ms=None, span_ms=on["picked"]["span"],
+                       explain_off_ms=off["picked"]["events"],
+                       c1_ms=on["c1"]["events"],
+                       chain_cu_ms=on["chain.cu"]["events"],
+                       clusters=on["picked"]["route"][1])
     print(f"wave==plain L={lanes} P={per_lane} M={prep.m}, disjoint lanes "
-          f"== chain of the same 12 programs: wave {w_ms:.4f} ms, chain "
-          f"{c_ms:.4f} ms, plain wave {w_plain:.4f} ms, bound "
-          f"{bound_ms:.6f} ms ({bound_by})")
+          f"== chain of the same 12 programs: wave "
+          f"{on['picked']['events']:.4f} ms (explain off "
+          f"{off['picked']['events']:.4f}; chain.cu "
+          f"{on['chain.cu']['events']:.4f}), chain {c_ms:.4f} ms, plain "
+          f"wave {w_plain:.4f} ms, bound {on['bound']['ms']:.6f} ms "
+          f"({on['bound']['by']})")
 
     # a stale footprint: two unpinned lanes that pick the same nodes
     stale = []
@@ -504,15 +699,19 @@ def _phase5_kernels(torch, kp, kr, cases, nodes, rng):
              *(d.reshape(2, 2, -1) for d in dyn), prep.sspec, prep.dspec,
              prep.m)
     got = kp.place_table_wave_cuda(*sargs, explain=True)
+    old = kp.place_table_wave_cuda(*sargs, explain=True, clusters=0)
     want = kp.place_table_wave_plain(*sargs, explain=True)
     torch.cuda.synchronize()
-    out["err"]["wave"] = max(out["err"]["wave"], _compare_flat(
-        want, got, "stale wave", True))
+    _same_bits(old, got, "stale wave")
+    err = _compare_flat(want, got, "stale wave", True)
+    if err != 0.0:
+        raise AssertionError(f"stale wave: {err} from plain")
     coll = int(got[0][-1])
     if coll <= 0 or coll != int(want[0][-1]):
         raise AssertionError(f"stale wave collisions {coll} vs "
                              f"{int(want[0][-1])}")
-    print(f"stale-footprint wave: {coll} collision rows, equal to plain")
+    print(f"stale-footprint wave: {coll} collision rows, equal to plain and "
+          "bitwise chain.cu's route")
     out["max_err"] = max(out["err"].values())
     return out
 
@@ -829,10 +1028,26 @@ def _phase6_server(torch, kp, kr, rng, device=None, then=None):
                     "single": kp.launch_count(),
                     "k7": k7}
         out["launches"] = launches
+        out["kernels"] = kernels = kp.chain_kernel_launches()
+        routes = kp.chain_route_counts()
         for k in ("chain", "wave", "insert", "k7"):
             if launches[k] == 0:
                 raise AssertionError(f"the {k} kernel never launched on the "
                                      f"server path: {launches}")
+        # K4 and K5 on the lane route: one kernel launch a chain dispatch,
+        # at most two a wave
+        if s.device.type == "cuda" and (
+                routes["lanes"] != 0
+                or kernels["chain"] != launches["chain"]
+                or kernels["wave"] > 2 * launches["wave"]):
+            raise AssertionError(
+                f"chain/wave dispatches {launches['chain']}/"
+                f"{launches['wave']} took {kernels} kernel launches, routes "
+                f"{routes}: not one a chain and at most two a wave on the "
+                "lane route")
+        print(f"server: K4 {launches['chain']} chain dispatches in "
+              f"{kernels['chain']} kernel launches, K5 {launches['wave']} "
+              f"waves in {kernels['wave']} (routes {routes})")
         if s.device.type == "cuda" and (launches["insert"] != inserts
                                         or k7 != refreshes):
             raise AssertionError(
@@ -3176,11 +3391,12 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    sources = ("placement", "chain", "batch", "rows", "system", "preempt",
-               "shard")
+    sources = ("placement", "chain", "lanes", "batch", "rows", "system",
+               "preempt", "shard")
     _build.build_all(sources)
     kp.build_kernel()
     kp.build_chain_kernel()
+    kp.build_lanes_kernel()
     kp.build_batch_kernel()
     kp.build_system_kernel()
     kpre.build_kernel()
@@ -3466,17 +3682,19 @@ def main() -> int:
     }, {
         "name": "place_table_chain",
         "route": "cuda",
-        "source": "nomad_tpu_torch/kernels/csrc/chain.cu",
+        "source": "nomad_tpu_torch/kernels/csrc/lanes.cu",
         "replaces": "nomad_tpu/kernels/placement.py:754",
-        "launches": server["launches"]["chain"],
+        "calls": server["launches"]["chain"],
+        "launches": server["kernels"]["chain"],
         "max_abs_err": max(k5["err"]["chain"], server["err"]["chain"]),
         **k5["chain"],
     }, {
         "name": "place_table_wave",
         "route": "cuda",
-        "source": "nomad_tpu_torch/kernels/csrc/chain.cu",
+        "source": "nomad_tpu_torch/kernels/csrc/lanes.cu",
         "replaces": "nomad_tpu/kernels/placement.py:878",
-        "launches": server["launches"]["wave"],
+        "calls": server["launches"]["wave"],
+        "launches": server["kernels"]["wave"],
         "max_abs_err": max(k5["err"]["wave"], server["err"]["wave"]),
         **k5["wave"],
     }, {

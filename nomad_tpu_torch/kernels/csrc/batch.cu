@@ -49,9 +49,11 @@
 // Every score is the pooled route's f32 expression on the same values in
 // the same order (built with -fmad=false), so the results are bitwise
 // those of `nomad_place_batch_pooled`. The view (used, dyn_free) is read,
-// never copied; no scratch, carry or slot is allocated.
+// never copied; no scratch, carry or slot is allocated. The on-chip scan
+// itself (the static pass, a step's start, a row's value) is onchip.cuh's,
+// which the chain and wave lane route (lanes.cu) shares.
 
-#include "place_core.cuh"
+#include "onchip.cuh"
 
 namespace {
 
@@ -60,18 +62,6 @@ enum OnchipRegion {
   O_ARGS, O_RED, O_PLACED, O_PEN, O_SCOUNTS, O_DCOUNTS, O_SPTAB,
   O_MINMAX, O_SEEN, O_DPTAB, O_PREFIX, O_META, O_STOK, O_DTOK, O_END
 };
-
-// one penalty row of a step: the entry it takes for the step, and the one
-// it gives back after
-struct PenRow {
-  int row;  // −1: a pad, out of range, or a repeat of an earlier entry
-  float prefix;
-  int meta;
-  float save_prefix;
-  int save_meta;
-};
-
-__host__ __device__ inline int tok_bytes(int v) { return v <= 256 ? 1 : 2; }
 
 // The byte offset of each region (off[O_END]: the whole layout); every
 // region starts on a 16-byte boundary. `onchip_layout` in
@@ -102,24 +92,6 @@ __host__ __device__ inline void onchip_offsets(const PlaceArgs& A,
   off[O_END] = b;
 }
 
-struct OnchipSmem {
-  Best* red;          // [33] block_argmax
-  int* placed;        // [m] the row each step placed on, −1 none
-  PenRow* pen;        // [pn] this step's penalty rows
-  float* scounts;     // [s, sv]
-  float* dcounts;     // [p, dv]
-  float* sptab;       // [s, sv] spread boost of each (spread row, token)
-  float* minc;        // [s]
-  float* maxc;        // [s]
-  uint8_t* seen;      // [s]
-  uint8_t* dptab;     // [p, dv] distinct_property mask of each token
-  float* prefix;      // [n]
-  uint8_t* meta;      // [n] R_* bits and the term count
-  unsigned char* stok;  // [s][n] u8 or u16
-  unsigned char* dtok;  // [p][n]
-  bool swide, dwide;
-};
-
 __device__ OnchipSmem onchip_carve(const PlaceArgs& A, unsigned char* base) {
   size_t off[O_END + 1];
   onchip_offsets(A, off);
@@ -140,193 +112,13 @@ __device__ OnchipSmem onchip_carve(const PlaceArgs& A, unsigned char* base) {
   S.dtok = base + off[O_DTOK];
   S.swide = tok_bytes(A.sv) == 2;
   S.dwide = tok_bytes(A.dv) == 2;
+  S.exh = nullptr;
+  S.row0 = 0;
+  S.rows = A.n;
+  S.overlay = nullptr;
+  S.carry_used = S.carry_dyn = nullptr;
+  S.spec = nullptr;
   return S;
-}
-
-__device__ __forceinline__ int tok_get(const unsigned char* t, bool wide,
-                                       size_t i) {
-  return wide ? (int)((const uint16_t*)t)[i] : (int)t[i];
-}
-
-__device__ __forceinline__ void tok_set(unsigned char* t, bool wide, size_t i,
-                                        int v) {
-  if (wide) ((uint16_t*)t)[i] = (uint16_t)v;
-  else t[i] = (uint8_t)v;
-}
-
-// placements the program made on row n in steps [0, step)
-__device__ __forceinline__ int placed_on(const OnchipSmem& S, int n,
-                                         int step) {
-  int k = 0;
-  for (int i = 0; i < step; ++i) k += S.placed[i] == n;
-  return k;
-}
-
-// Entry t of the program's row lists taken in order — plan deltas, job
-// counts, task-group counts, port releases, port consumptions, and the
-// first `lc` sampled candidates — as a row index (−1 pads stay −1).
-__device__ __forceinline__ int list_row(const PlaceArgs& A, int t) {
-  if (t < A.d) return A.delta_idx[t];
-  t -= A.d;
-  if (t < A.j) return A.jc_idx[t];
-  t -= A.j;
-  if (t < A.j2) return A.jtc_idx[t];
-  t -= A.j2;
-  if (t < A.pc) return A.pclr_idx[t];
-  t -= A.pc;
-  if (t < A.ps) return A.pset_idx[t];
-  return A.cand_idx[t - A.ps];
-}
-
-// The static pass of one program over this block's rows, straight into
-// shared memory, with the counts the scan starts from: every row as if no
-// list named it (fresh_entry), then the rows the lists name, each once,
-// from all its terms (row_entry). Ends with a barrier.
-__device__ void onchip_static(const PlaceArgs& A, const ScanConsts& C,
-                              const OnchipSmem& S) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const size_t N = (size_t)A.n;
-  for (int i = tid; i < A.s * A.sv; i += nt) S.scounts[i] = A.spread_counts0[i];
-  for (int i = tid; i < A.p * A.dv; i += nt) S.dcounts[i] = A.dp_counts0[i];
-  const bool cand_ok = !(A.l > 0 && *A.use_cand);
-  for (int n = tid; n < A.n; n += nt) {
-    const RowEntry e = fresh_entry(A, C, n, cand_ok);
-    S.prefix[n] = e.prefix;
-    S.meta[n] = e.meta;
-    for (int i = 0; i < A.s; ++i)
-      tok_set(S.stok, S.swide, i * N + n,
-              norm_tok(attr_at(A, n, A.spread_key_idx[i]), A.sv));
-    for (int i = 0; i < A.p; ++i)
-      tok_set(S.dtok, S.dwide, i * N + n,
-              norm_tok(attr_at(A, n, A.dp_key_idx[i]), A.dv));
-  }
-  __syncthreads();
-  const int lists = A.d + A.j + A.j2 + A.pc + A.ps + (cand_ok ? 0 : A.l);
-  for (int t = tid; t < lists; t += nt) {
-    const int row = list_row(A, t);
-    if (row < 0 || row >= A.n) continue;
-    bool first = true;
-    for (int q = 0; q < t && first; ++q) first = list_row(A, q) != row;
-    if (!first) continue;
-    const RowEntry e = row_entry(A, C, row, 0, row_feasible(A, row),
-                                 ports_free_row(A, row));
-    S.prefix[row] = e.prefix;
-    S.meta[row] = e.meta;
-  }
-  __syncthreads();
-}
-
-// The start of a step. Phase one, each part on its own threads: the
-// previous step's penalty rows get their entries back and the row it
-// placed on is recomputed (one thread); the spread min / max over the
-// counts (warp 0); this step's penalty rows recomputed with the penalty
-// (warp 2, a thread a row, repeats dropped); the distinct_property table.
-// Phase two: the spread table, and the penalty rows' entries swapped in.
-// Ends with a barrier.
-__device__ void onchip_begin_step(const PlaceArgs& A, const ScanConsts& C,
-                                  const OnchipSmem& S, int step) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  if (warp == 0) {
-    for (int s = lane; s < A.s; s += 32) {
-      float mn = BIG, mx = -BIG;
-      bool seen = false;
-      for (int t = 0; t < A.sv; ++t) {
-        float c = S.scounts[s * A.sv + t];
-        if (c > 0.0f) {
-          seen = true;
-          mn = fminf(mn, c);
-          mx = fmaxf(mx, c);
-        }
-      }
-      S.minc[s] = mn;
-      S.maxc[s] = mx;
-      S.seen[s] = seen;
-    }
-  } else if (tid == 32 && step > 0) {
-    for (int q = 0; q < A.pn; ++q) {
-      const PenRow& pr = S.pen[q];
-      if (pr.row < 0) continue;
-      S.prefix[pr.row] = pr.save_prefix;
-      S.meta[pr.row] = (uint8_t)pr.save_meta;
-    }
-    const int row = S.placed[step - 1];
-    if (row >= 0) {
-      const uint8_t m = S.meta[row];
-      const RowEntry e = row_entry(A, C, row, placed_on(S, row, step),
-                                   (m & R_FEAS) != 0, (m & R_RES) != 0);
-      S.prefix[row] = e.prefix;
-      S.meta[row] = e.meta;
-    }
-  } else if (warp == 2) {
-    const int* pen = A.penalty_idx + (size_t)step * A.pn;
-    for (int q = lane; q < A.pn; q += 32) {
-      int row = pen[q];
-      bool use = row >= 0 && row < A.n;
-      for (int i = 0; i < q && use; ++i) use = pen[i] != row;
-      PenRow pr{use ? row : -1, 0.0f, 0, 0.0f, 0};
-      if (use) {
-        int cnt;
-        pr.prefix = row_prefix(A, C, row, row_carry(A, row,
-                                                   placed_on(S, row, step)),
-                               true, &cnt);
-        pr.meta = cnt;
-      }
-      S.pen[q] = pr;
-    }
-  } else if (tid >= 96) {
-    for (int i = tid - 96; i < A.p * A.dv; i += nt - 96) {
-      const int q = i / A.dv, t = i - q * A.dv;
-      S.dptab[i] = (S.dcounts[i] < A.dp_allowed[q] && t != A.dv - 1) ||
-                   !A.dp_active[q];
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < A.s * A.sv; i += nt) {
-    const int s = i / A.sv;
-    S.sptab[i] = spread_term(A, S.scounts, S.minc[s], S.maxc[s], S.seen[s],
-                             s, i - s * A.sv);
-  }
-  if (warp == 2) {
-    for (int q = lane; q < A.pn; q += 32) {
-      PenRow& pr = S.pen[q];
-      if (pr.row < 0) continue;
-      const uint8_t m = S.meta[pr.row];
-      pr.save_prefix = S.prefix[pr.row];
-      pr.save_meta = m;
-      S.prefix[pr.row] = pr.prefix;
-      S.meta[pr.row] = (uint8_t)((m & ~R_CNT) | (pr.meta << R_CNT_SHIFT));
-    }
-  }
-  __syncthreads();
-}
-
-struct RowVal {
-  bool ok;
-  float masked;
-};
-
-// step_rows' ok and masked score of row n from its entry and the step's
-// tables: the spread boost summed over the spread rows in order, added to
-// the prefix, divided by the term count
-__device__ __forceinline__ RowVal onchip_value(const PlaceArgs& A,
-                                               const OnchipSmem& S, int n) {
-  const size_t N = (size_t)A.n;
-  const uint8_t m = S.meta[n];
-  bool ok = (m & (R_FIT | R_DH)) == R_FIT;
-  for (int q = 0; q < A.p && ok; ++q)
-    ok = S.dptab[q * A.dv + tok_get(S.dtok, S.dwide, q * N + n)] != 0;
-  float masked = NEG_INF;
-  if (ok) {
-    float sp = 0.0f;
-    for (int s = 0; s < A.s; ++s)
-      sp = sp + S.sptab[s * A.sv + tok_get(S.stok, S.swide, s * N + n)];
-    bool inc = sp != 0.0f;
-    float ssum = S.prefix[n] + (inc ? sp : 0.0f);
-    float scnt = (float)(((m & R_CNT) >> R_CNT_SHIFT) + (inc ? 1 : 0));
-    masked = ssum / scnt;
-  }
-  return RowVal{ok, masked};
 }
 
 // K6's packed route: `gridDim.x` blocks (the resident ones), block g

@@ -1,5 +1,10 @@
 // Chain and wave placement kernels for Hopper (sm_90a), hand-written CUDA C++.
 //
+// The table and packed chains and the wave run on the lane route
+// (lanes.cu) where its layout fits; this file's `nomad_place_lanes` runs
+// them past it, and always `place_task_group_chain`, which returns the
+// carry after every program.
+//
 // Replaces the jitted TPU kernels of the batched server path
 // (nomad_tpu/kernels/placement.py):
 //   K4  `_chain_with_carry` (:754) with its callers `place_task_group_chain`

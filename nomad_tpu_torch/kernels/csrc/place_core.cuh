@@ -1,12 +1,14 @@
 // Shared device code of the placement kernels for Hopper (sm_90a):
 // the argument block of one placement program (`PlaceArgs`), the per-row
 // static pass, the carry-dependent half of it against a chain's carry
-// (`carry_in`, `carry_out_dyn`), the block-wide argmax and the M-step scan
-// of one program. `placement.cu` (K1, one program), `chain.cu` (K4/K5,
-// chains of programs in lanes; K6) and `shard.cu` (K9 and the sharded
-// chain B10/B11) include it, and `system.cu` (K2) and `preempt.cu` (K3)
-// reuse its per-row helpers. What each computes, and what bounds it, is
-// told in those files.
+// (`carry_in`, `carry_out_dyn`), the block-wide argmax, the M-step scan
+// of one program, and the row helpers of the on-chip scan (onchip.cuh).
+// `placement.cu` (K1, one program), `chain.cu` (K4/K5 past the on-chip
+// limit, chains of programs in lanes; K6), `batch.cu` (K6 on chip),
+// `lanes.cu` (K4/K5 on chip) and `shard.cu` (K9 and the sharded chain
+// B10/B11) include it, and `system.cu` (K2) and `preempt.cu` (K3) reuse
+// its per-row helpers. What each computes, and what bounds it, is told in
+// those files.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,6 +26,7 @@ constexpr float LOWEST = -3.4028234663852886e38f;
 constexpr float INV_18 = (float)(1.0 / 18.0);
 constexpr int SCAN_THREADS = 1024;
 constexpr int N_PARTS = 5;
+constexpr unsigned FULL = 0xffffffffu;  // every lane of a warp
 
 }  // namespace
 
@@ -117,14 +120,21 @@ __device__ __forceinline__ bool ports_free_row(const PlaceArgs& A, int n) {
 }
 
 // used0[n, r] = used − Σ_d delta_res[d, r] over the row's deltas (summed
-// first, in delta order, then subtracted once).
-__device__ __forceinline__ float used0_at(const PlaceArgs& A, int n, int r) {
-  float u = A.used[(size_t)n * A.r + r];
+// first, in delta order, then subtracted once), `used` row n's R values
+// (the view's, or a chain's carried ones).
+__device__ __forceinline__ float used0_of(const PlaceArgs& A,
+                                          const float* used, int n, int r) {
+  float u = used[r];
   if (A.d == 0) return u;
   float dsum = 0.0f;
   for (int i = 0; i < A.d; ++i)
     if (A.delta_idx[i] == n) dsum = dsum + A.delta_res[(size_t)i * A.r + r];
   return u - dsum;
+}
+
+// used0_of on the view's row
+__device__ __forceinline__ float used0_at(const PlaceArgs& A, int n, int r) {
+  return used0_of(A, A.used + (size_t)n * A.r, n, r);
 }
 
 // fit_scores' shared term: 10^free_cpu + 10^free_ram at utilization
@@ -699,13 +709,15 @@ __device__ __forceinline__ void load_args(PlaceArgs* dst, const PlaceArgs* src) 
   __syncthreads();
 }
 
-// ---- rows of one program kept in shared memory (K6's on-chip scan) ----
+// ---- rows of one program kept in shared memory (the on-chip scan) ----
 // A step reads, of each row, only what the steps change nothing of: the
 // fit and distinct_hosts bits, the spread and distinct_property tokens,
 // and the prefix ((fit + anti) + pen) + aff of the left-to-right score sum
 // with its term count. The rows a placement or a penalty changes are
-// recomputed from the view by the functions below, with the arithmetic of
-// static_row, static_row_carry / carry_in, take_row and step_rows.
+// recomputed by the functions below, with the arithmetic of static_row,
+// static_row_carry / carry_in, take_row and step_rows, from the row's
+// `used` (its R values) and `dyn` (its dyn_free): the view's, or a
+// chain's carried ones (onchip.cuh).
 
 // bits of a row's entry
 constexpr uint8_t R_FIT = 1;    // feas && fits
@@ -730,37 +742,69 @@ __device__ __forceinline__ bool row_feasible(const PlaceArgs& A, int n) {
 
 // Row n's carry after the program placed `k` allocs on it, as the pooled
 // scan's carry would hold it: used0 plus k asks added one at a time, the
-// job and task-group counts plus k ones, splaced k ones.
+// job and task-group counts plus k ones, splaced k ones; `first_over` the
+// first dimension over capacity (step_rows' exh_dim index).
 struct RowCarry {
   float u0, u1, jc, tgc, splaced;
   bool any_over;
+  int first_over;
 };
 
+// dimension r of row n's used after `k` placements: used0 plus k asks
+// added one at a time (take_row's)
+__device__ __forceinline__ float carried_used(const PlaceArgs& A,
+                                              const float* used, int n,
+                                              int r, int k) {
+  float u = used0_of(A, used, n, r);
+  for (int i = 0; i < k; ++i) u = u + A.ask[r];
+  return u;
+}
+
+// a count list's sum for row n (in list order) plus k ones (take_row's
+// job and task-group counts)
+__device__ __forceinline__ float row_count(const int* idx, const float* val,
+                                           int len, int n, int k) {
+  float c = 0.0f;
+  for (int i = 0; i < len; ++i)
+    if (idx[i] == n) c = c + val[i];
+  for (int i = 0; i < k; ++i) c = c + 1.0f;
+  return c;
+}
+
+// k ones added one at a time (take_row's splaced)
+__device__ __forceinline__ float ones(int k) {
+  float s = 0.0f;
+  for (int i = 0; i < k; ++i) s = s + 1.0f;
+  return s;
+}
+
+// row n's affinity: its LUT values summed in row order, then scaled
+__device__ __forceinline__ float row_aff(const PlaceArgs& A, int n) {
+  float acc = 0.0f;
+  for (int i = 0; i < A.a; ++i) {
+    int tok = norm_tok(attr_at(A, n, A.aff_key_idx[i]), A.av);
+    acc = acc + A.aff_lut[(size_t)i * A.av + tok];
+  }
+  return acc * *A.aff_inv_sum;
+}
+
 __device__ __forceinline__ RowCarry row_carry(const PlaceArgs& A, int n,
-                                              int k) {
+                                              int k, const float* used) {
   RowCarry c;
   c.u0 = c.u1 = 0.0f;
   c.any_over = false;
+  c.first_over = 0;
   for (int r = 0; r < A.r; ++r) {
-    float u = used0_at(A, n, r);
-    for (int i = 0; i < k; ++i) u = u + A.ask[r];
+    const float u = carried_used(A, used, n, r, k);
     if (r == 0) c.u0 = u;
     if (r == 1) c.u1 = u;
-    c.any_over = c.any_over || u + A.ask[r] > A.capacity[(size_t)n * A.r + r];
+    const bool over = u + A.ask[r] > A.capacity[(size_t)n * A.r + r];
+    if (over && !c.any_over) c.first_over = r;
+    c.any_over = c.any_over || over;
   }
-  float jc = 0.0f, jtc = 0.0f, sp = 0.0f;
-  for (int i = 0; i < A.j; ++i)
-    if (A.jc_idx[i] == n) jc = jc + A.jc_val[i];
-  for (int i = 0; i < A.j2; ++i)
-    if (A.jtc_idx[i] == n) jtc = jtc + A.jtc_val[i];
-  for (int i = 0; i < k; ++i) {
-    jc = jc + 1.0f;
-    jtc = jtc + 1.0f;
-    sp = sp + 1.0f;
-  }
-  c.jc = jc;
-  c.tgc = jtc;
-  c.splaced = sp;
+  c.jc = row_count(A.jc_idx, A.jc_val, A.j, n, k);
+  c.tgc = row_count(A.jtc_idx, A.jtc_val, A.j2, n, k);
+  c.splaced = ones(k);
   return c;
 }
 
@@ -778,54 +822,92 @@ __device__ __forceinline__ uint8_t row_bits(const ScanConsts& C,
          (res_free ? R_RES : 0);
 }
 
+// Explain's exhaustion code of a row for carry `c` (step_rows' order of
+// the checks): 0 it fits, 1 + r dimension r the first over capacity,
+// r_dims + 1 no dynamic port left, r_dims + 2 a reserved port taken.
+__device__ __forceinline__ uint8_t row_exh(const ScanConsts& C,
+                                           const RowCarry& c, float dyn,
+                                           bool res_free, int r_dims) {
+  bool dyn_ok = (dyn - c.splaced * C.n_dyn) >= C.n_dyn;
+  bool res_ok = res_free && !(C.has_res_ask && c.splaced > 0.0f);
+  if (c.any_over) return (uint8_t)(1 + c.first_over);
+  if (!dyn_ok) return (uint8_t)(r_dims + 1);
+  if (!res_ok) return (uint8_t)(r_dims + 2);
+  return 0;
+}
+
+// step_rows' score parts of row n up to its spread term for carry `c`:
+// the fit, and the anti-affinity, penalty and affinity parts (0.0f where
+// the term is absent), with the count of terms present.
+struct RowTerms {
+  float fit, anti, pen, aff;
+  int cnt;
+};
+
+// row_terms from the row's first two capacities and its affinity
+__device__ __forceinline__ RowTerms row_terms_of(const ScanConsts& C,
+                                                 float cap0, float cap1,
+                                                 const RowCarry& c,
+                                                 bool penalty, float aff) {
+  float total = fit_total(c.u0 + C.ask0, c.u1 + C.ask1, cap0, cap1);
+  RowTerms t;
+  t.fit = C.algorithm == 1
+      ? fminf(fmaxf(total - 2.0f, 0.0f), 18.0f) * INV_18
+      : fminf(fmaxf(20.0f - total, 0.0f), 18.0f) * INV_18;
+  bool collide = c.tgc > 0.0f;
+  float anti = -(c.tgc + 1.0f) / fmaxf(C.desired_count, 1.0f);
+  t.anti = collide ? anti : 0.0f;
+  t.pen = penalty ? -1.0f : 0.0f;
+  bool inc_aff = aff != 0.0f;
+  t.aff = inc_aff ? aff : 0.0f;
+  t.cnt = 1 + collide + penalty + inc_aff;
+  return t;
+}
+
+__device__ __forceinline__ RowTerms row_terms(const PlaceArgs& A,
+                                              const ScanConsts& C, int n,
+                                              const RowCarry& c,
+                                              bool penalty) {
+  const float* cap = A.capacity + (size_t)n * A.r;
+  return row_terms_of(C, cap[0], cap[1], c, penalty, row_aff(A, n));
+}
+
 // step_rows' score sum of row n up to its spread term, ((fit + p_anti) +
 // p_pen) + p_aff, for carry `c`; `*cnt` the terms it holds
 __device__ __forceinline__ float row_prefix(const PlaceArgs& A,
                                             const ScanConsts& C, int n,
                                             const RowCarry& c, bool penalty,
                                             int* cnt) {
-  const float* cap = A.capacity + (size_t)n * A.r;
-  float total = fit_total(c.u0 + C.ask0, c.u1 + C.ask1, cap[0], cap[1]);
-  float fit = C.algorithm == 1
-      ? fminf(fmaxf(total - 2.0f, 0.0f), 18.0f) * INV_18
-      : fminf(fmaxf(20.0f - total, 0.0f), 18.0f) * INV_18;
-  float ssum = fit;
-  bool collide = c.tgc > 0.0f;
-  float anti = -(c.tgc + 1.0f) / fmaxf(C.desired_count, 1.0f);
-  ssum = ssum + (collide ? anti : 0.0f);
-  ssum = ssum + (penalty ? -1.0f : 0.0f);
-  float acc = 0.0f;
-  for (int i = 0; i < A.a; ++i) {
-    int t = norm_tok(attr_at(A, n, A.aff_key_idx[i]), A.av);
-    acc = acc + A.aff_lut[(size_t)i * A.av + t];
-  }
-  const float aff = acc * *A.aff_inv_sum;
-  bool inc_aff = aff != 0.0f;
-  ssum = ssum + (inc_aff ? aff : 0.0f);
-  *cnt = 1 + collide + penalty + inc_aff;
-  return ssum;
+  const RowTerms t = row_terms(A, C, n, c, penalty);
+  *cnt = t.cnt;
+  return ((t.fit + t.anti) + t.pen) + t.aff;
 }
 
-// A row's entry: its prefix and the R_* bits with the term count.
+// A row's entry: its prefix, the R_* bits with the term count, and
+// explain's exhaustion code (row_exh).
 struct RowEntry {
   float prefix;
   uint8_t meta;
+  uint8_t exh;
 };
 
 // Row n's entry after `k` placements of the program on it, every term
-// from the view and the program's lists, with the row's static mask and
-// reserved-port bit (the static pass of a row a list names, and the
-// recompute of a placed row)
+// from its carry (`used`, `dyn`) and the program's lists, with the row's
+// static mask and reserved-port bit (the static pass of a row a list
+// names, and the recompute of a placed row)
 __device__ __forceinline__ RowEntry row_entry(const PlaceArgs& A,
                                               const ScanConsts& C, int n,
                                               int k, bool feas,
-                                              bool res_free) {
-  const RowCarry c = row_carry(A, n, k);
+                                              bool res_free,
+                                              const float* used, float dyn) {
+  const RowCarry c = row_carry(A, n, k, used);
+  const float adj = adjusted_dyn(A, n, dyn);
   int cnt;
   RowEntry e;
   e.prefix = row_prefix(A, C, n, c, false, &cnt);
-  e.meta = row_bits(C, c, adjusted_dyn(A, n, A.dyn_free[n]), feas,
-                    res_free) | (uint8_t)(cnt << R_CNT_SHIFT);
+  e.meta = row_bits(C, c, adj, feas, res_free) |
+           (uint8_t)(cnt << R_CNT_SHIFT);
+  e.exh = row_exh(C, c, adj, res_free, A.r);
   return e;
 }
 
@@ -836,15 +918,20 @@ __device__ __forceinline__ RowEntry row_entry(const PlaceArgs& A,
 // row's loads made with no list scan and no early exit between them.
 __device__ __forceinline__ RowEntry fresh_entry(const PlaceArgs& A,
                                                 const ScanConsts& C, int n,
-                                                bool cand_ok) {
-  const float* used = A.used + (size_t)n * A.r;
+                                                bool cand_ok,
+                                                const float* used,
+                                                float dyn) {
   const float* cap = A.capacity + (size_t)n * A.r;
   RowCarry c;
   c.u0 = used[0];
   c.u1 = used[1];
   c.any_over = false;
-  for (int r = 0; r < A.r; ++r)
-    c.any_over = c.any_over | (used[r] + A.ask[r] > cap[r]);
+  c.first_over = 0;
+  for (int r = 0; r < A.r; ++r) {
+    const bool over = used[r] + A.ask[r] > cap[r];
+    if (over && !c.any_over) c.first_over = r;
+    c.any_over = c.any_over | over;
+  }
   c.jc = c.tgc = c.splaced = 0.0f;
   bool lut_all = true;
   for (int i = 0; i < A.c; ++i)
@@ -861,13 +948,13 @@ __device__ __forceinline__ RowEntry fresh_entry(const PlaceArgs& A,
                  !((A.ports_used[(size_t)n * A.port_words + (port >> 5)] >>
                     (port & 31)) & 1u);
   }
-  float dyn = A.dyn_free[n];
   if (A.pc > 0) dyn = dyn + 0.0f;
   if (A.ps > 0) dyn = dyn - 0.0f;
   int cnt;
   RowEntry e;
   e.prefix = row_prefix(A, C, n, c, false, &cnt);
   e.meta = row_bits(C, c, dyn, feas, res_free) | (uint8_t)(cnt << R_CNT_SHIFT);
+  e.exh = row_exh(C, c, dyn, res_free, A.r);
   return e;
 }
 

@@ -53,7 +53,6 @@ constexpr float INF_PRIO = 1e9f;
 // structs/funcs.py PREEMPTION_SCORE_RATE / _ORIGIN, as f32
 constexpr float SCORE_RATE = 0.0048f;
 constexpr float SCORE_ORIGIN = 2048.0f;
-constexpr unsigned FULL = 0xffffffffu;
 
 // Step 1: the placement kernel's mask without the scan's carry.
 __device__ bool preempt_row_feasible(const PlaceArgs& A, int n) {

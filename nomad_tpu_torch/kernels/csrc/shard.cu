@@ -34,7 +34,8 @@
 // explain the record adds the step's filter counts, the shard's own top-K
 // (K rounds of the argmax over its rows, as K1's scan; fewer rows than K
 // leave empty entries) and at step 0 the static filter counts. The
-// combine of the shards' records (`combine_records`, one warp a program):
+// combine of the shards' records (`combine_records`, one warp a program;
+// the record format and the combine are cluster_core.cuh's):
 // the max score, the lowest global row among equal scores
 // (jnp.argmax's first index): every row at the −1e30 floor gives global
 // row 0, not found. The preferred-row override with the owner's ok, the
@@ -93,17 +94,9 @@
 
 #include <cooperative_groups.h>
 
-#include "place_core.cuh"
+#include "cluster_core.cuh"
 
 namespace cg = cooperative_groups;
-
-namespace {
-
-// the largest thread-block cluster the chain kernel forms: the portable
-// cluster size of sm_90
-constexpr int MAX_CLUSTER = 8;
-
-}  // namespace
 
 extern "C" {
 
@@ -119,30 +112,6 @@ struct ShardStep {
   float* counts;   // [progs, s·sv + p·dv] this shard's replicated counts
   float* dyn_c;    // a chain's [n] dyn_free carry (one program), else null
   int* taken;      // a chain's [m] local rows it placed on (−1: none)
-};
-
-// The combine of the shards' records on the lead device.
-struct ShardCombine {
-  int step, shards, progs, m, rec_words, win_words;
-  int prog0;            // the first program's index in the outputs
-  int cstride;          // row width of filt_constraint
-  const int* rec;       // [shards, progs, rec_words]
-  int* win;             // [progs, win_words]
-  int* sel_idx;         // [P, m]
-  float* sel_score;     // [P, m]
-  int* nodes_fit;       // [P, m]
-  int* nodes_feasible;  // [P]
-  // explain (the lead program's PlaceArgs.explain), leading axis P
-  int* ex_static;        // [P, 3]: evaluated, filt_lut, filt_extra
-  int* filt_constraint;  // [P, cstride]
-  int* filt_distinct;    // [P, m]
-  int* filt_dp;          // [P, m]
-  int* exh_dim;          // [P, m, r]
-  int* exh_dyn;          // [P, m]
-  int* exh_res;          // [P, m]
-  int* topk_idx;         // [P, m, topk]
-  float* topk_score;     // [P, m, topk]
-  float* topk_parts;     // [P, m, topk, 5]
 };
 
 // A whole chain dispatch on one card: the static pass of every shard and
@@ -164,26 +133,6 @@ struct ShardChain {
 
 namespace {
 
-constexpr int NONE = 0x7fffffff;  // an empty top-K entry's row
-constexpr int TOPK_MAX = 8;
-constexpr int TOPK_WORDS = 2 + N_PARTS;  // score bits, global row, parts
-
-// A record: [0] best score bits, [1] best global row, [2] its ok flag,
-// [3] fit count, [4] feasible count (step 0), [5] preferred ok,
-// [6] preferred score bits, [7, 7 + tw) best row's tokens, [7 + tw,
-// 7 + 2 tw) preferred row's tokens (tw = s + p). With explain, from
-// shard_ex(): 4 + r filter counts (distinct, dp, dyn ports, reserved
-// ports, dims), topk entries of TOPK_WORDS, then (step 0) evaluated,
-// filt_lut, filt_extra and c per-constraint counts.
-__host__ __device__ inline int shard_ex(const PlaceArgs& A) {
-  return 7 + 2 * (A.s + A.p);
-}
-
-__host__ __device__ inline int shard_rec_words(const PlaceArgs& A) {
-  return shard_ex(A) +
-         (A.explain ? 4 + A.r + TOPK_WORDS * A.topk + 3 + A.c : 0);
-}
-
 // The programs of up to MAX_CLUSTER shards of one device.
 struct ShardProgs {
   const PlaceArgs* p[MAX_CLUSTER];
@@ -199,27 +148,9 @@ __global__ void shard_static(ShardProgs P, int y0, int carry) {
   if (carry) static_row_carry(A, n);
 }
 
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = SCAN_THREADS / 32;
 // the static shared memory of explain_record's per-warp top-K lists
 constexpr size_t LIST_BYTES = sizeof(Best) * WARPS * TOPK_MAX;
-
-// The best (value, row) of the warp, on every lane (the rows unique, so
-// every order of the shuffles picks the same one).
-__device__ __forceinline__ Best warp_best(Best b) {
-  for (int off = 16; off > 0; off >>= 1) {
-    Best o;
-    o.v = __shfl_xor_sync(FULL, b.v, off);
-    o.i = __shfl_xor_sync(FULL, b.i, off);
-    b = better(b, o);
-  }
-  return b;
-}
-
-__device__ __forceinline__ int warp_sum(int v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
-  return v;
-}
 
 // `c` comes after `last` in top-K order (value descending, then row
 // ascending): the entries left once `last` is taken, the rows unique.
@@ -368,120 +299,6 @@ shard_step(const PlaceArgs* progs, ShardStep T) {
   for (int i = tid; i < dc; i += nt) counts[sc + i] = S.dcounts[i];
 }
 
-// The explain outputs of program `g` at this step from its shards'
-// records (`rec(j)` shard j's), by one warp: the counts summed over the
-// shards (i32, exact in any order), and the global top-K, K rounds of the
-// warp's best entry after the last pick over the shards' lists (each in
-// lax.top_k order; entries without a row skipped).
-template <class Rec>
-__device__ void combine_explain(const PlaceArgs& A, const ShardCombine& C,
-                                Rec rec, int g) {
-  const int lane = threadIdx.x & 31;
-  const int ex = shard_ex(A), K = A.topk, R = A.r;
-  const size_t o = (size_t)g * C.m + C.step;
-  for (int q = lane; q < 4 + R; q += 32) {
-    int v = 0;
-    for (int j = 0; j < C.shards; ++j) v += rec(j)[ex + q];
-    if (q == 0) C.filt_distinct[o] = v;
-    else if (q == 1) C.filt_dp[o] = v;
-    else if (q == 2) C.exh_dyn[o] = v;
-    else if (q == 3) C.exh_res[o] = v;
-    else C.exh_dim[o * R + q - 4] = v;
-  }
-  Best last{LOWEST, NONE};
-  for (int k = 0; k < K; ++k) {
-    Best c{LOWEST, NONE};
-    const int* from = nullptr;
-    for (int j = lane; j < C.shards; j += 32) {
-      const int* tk = rec(j) + ex + 4 + R;
-      for (int e = 0; e < K; ++e) {
-        const int* en = tk + TOPK_WORDS * e;
-        const Best b{__int_as_float(en[0]), en[1]};
-        if (b.i == NONE || (k > 0 && !after(b, last))) continue;
-        if (from == nullptr || b.v > c.v || (b.v == c.v && b.i < c.i)) {
-          c = b;
-          from = en;
-        }
-      }
-    }
-    last = warp_best(c);
-    // the entry's parts from the lane that offered it (none: zeros)
-    const unsigned at = __ballot_sync(FULL, from != nullptr && c.i == last.i);
-    const int* pick = nullptr;
-    if (at != 0) {
-      const int src = __ffs(at) - 1;
-      pick = (const int*)__shfl_sync(FULL, (unsigned long long)from, src);
-    }
-    const size_t t = o * K + k;
-    if (lane == 0) {
-      C.topk_idx[t] = last.i;
-      C.topk_score[t] = last.v;
-    }
-    // (the shards offer min(K, rows) entries each, at least K in all)
-    if (lane < N_PARTS)
-      C.topk_parts[t * N_PARTS + lane] =
-          pick != nullptr ? __int_as_float(pick[2 + lane]) : 0.0f;
-  }
-  if (C.step == 0) {
-    const int st = ex + 4 + R + TOPK_WORDS * K;
-    for (int q = lane; q < 3 + A.c; q += 32) {
-      int v = 0;
-      for (int j = 0; j < C.shards; ++j) v += rec(j)[st + q];
-      if (q < 3) C.ex_static[(size_t)g * 3 + q] = v;
-      else C.filt_constraint[(size_t)g * C.cstride + q - 3] = v;
-    }
-  }
-}
-
-// The combine of program `g`'s step C.step by one warp: its outputs from
-// the shards' records (`rec(j)` shard j's), the winner into `w`. The best
-// (score, global row) over the shards, the fit and feasible counts summed,
-// the preferred row from the (one) shard that owns it and found it ok.
-template <class Rec>
-__device__ void combine_records(const PlaceArgs& A, const ShardCombine& C,
-                                int g, Rec rec, int* w) {
-  const int lane = threadIdx.x & 31;
-  Best c{LOWEST, NONE};
-  int cj = 0, pj = -1, nfit = 0, nfeas = 0;
-  for (int j = lane; j < C.shards; j += 32) {
-    const int* r = rec(j);
-    const Best b{__int_as_float(r[0]), r[1]};
-    if (j == lane || better(c, b).i == b.i) {  // the rows are distinct
-      c = b;
-      cj = j;
-    }
-    nfit += r[3];
-    nfeas += r[4];
-    if (r[5]) pj = j;
-  }
-  const Best best = warp_best(c);
-  const unsigned at = __ballot_sync(FULL, lane < C.shards && c.i == best.i);
-  const int bj = __shfl_sync(FULL, cj, __ffs(at) - 1);
-  for (int off = 16; off > 0; off >>= 1)
-    pj = max(pj, __shfl_xor_sync(FULL, pj, off));
-  nfit = warp_sum(nfit);
-  nfeas = warp_sum(nfeas);
-  const int* rb = rec(bj);
-  const bool pref_ok = pj >= 0;
-  const int* rp = pref_ok ? rec(pj) : rb;
-  const int idx = pref_ok ? A.preferred_idx[C.step] : best.i;
-  const bool found = (pref_ok || rb[2]) && C.step < *A.n_place;
-  const size_t o = (size_t)g * C.m + C.step;
-  if (lane == 0) {
-    C.sel_idx[o] = found ? idx : -1;
-    C.sel_score[o] =
-        found ? (pref_ok ? __int_as_float(rp[6]) : best.v) : 0.0f;
-    C.nodes_fit[o] = nfit;
-    if (C.step == 0) C.nodes_feasible[g] = nfeas;
-    w[0] = found;
-    w[1] = idx;
-  }
-  const int tw = A.s + A.p;
-  const int* tok = pref_ok ? rp + 7 + tw : rb + 7;
-  for (int t = lane; t < tw; t += 32) w[2 + t] = tok[t];
-  if (A.explain) combine_explain(A, C, rec, g);
-}
-
 // one warp a program
 __global__ void shard_combine(const PlaceArgs* progs, ShardCombine C) {
   const int b = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
@@ -490,13 +307,11 @@ __global__ void shard_combine(const PlaceArgs* progs, ShardCombine C) {
   const int* r0 = C.rec + (size_t)b * C.rec_words;
   combine_records(progs[b], C, C.prog0 + b,
                   [&](int j) { return r0 + j * stride; },
-                  C.win + (size_t)b * C.win_words);
+                  C.win + (size_t)b * C.win_words, *progs[b].n_place);
 }
 
 // Words of the chain kernel's own shared memory after the scan's carve:
 // a record slot a shard (read on block 0), the winner, the taken rows.
-__host__ __device__ inline int round4(int words) { return (words + 3) & ~3; }
-
 __host__ inline size_t chain_smem(const ShardChain& Q) {
   return (size_t)Q.scan_bytes +
          4 * (size_t)(Q.shards * round4(Q.out.rec_words) +
@@ -542,7 +357,8 @@ shard_chain_cluster(ShardChain Q) {
           ShardCombine C = Q.out;
           C.step = step;
           combine_records(A, C, k,
-                          [&](int q) { return slots + q * stride; }, win);
+                          [&](int q) { return slots + q * stride; }, win,
+                          *A.n_place);
           __syncwarp();
           for (int q = 1; q < Q.shards; ++q) {
             int* wq = cluster.map_shared_rank(win, q);

@@ -26,8 +26,13 @@ CUDA → the kernel (or raise). There is no fallback between the two.
 
 The batched server path runs programs in chains and waves (K4, K5):
 `place_table_chain`, `place_table_wave`, `place_task_group_chain` and
-`place_packed_chain`, each with a plain version and a CUDA route
-(`csrc/chain.cu`, which shares K1's device code, `csrc/place_core.cuh`).
+`place_packed_chain`, each with a plain version and a CUDA route. The
+table and packed chains and the wave take, by shape (`lane_route`), the
+lane route (`csrc/lanes.cu`: a lane one thread-block cluster with its
+rows in shared memory, one launch a chain, two a wave), or past its
+layout `csrc/chain.cu`, which also runs `place_task_group_chain` (it
+returns the carry after every program); both share K1's device code
+(`csrc/place_core.cuh`).
 The system scheduler's masks (K2) are `system_feasibility`, its plain
 version beside it and the kernel in `csrc/system.cu`. The vmap transport
 (K6), independent programs against one snapshot, is
@@ -706,29 +711,33 @@ def _set_ptrs(a: _PlaceArgs, ptrs: dict) -> None:
 
 
 def _scratch_shapes(dims: dict, n: int, r: int, explain: bool,
-                    onchip: bool = False) -> dict:
+                    onchip: bool = False, flat: bool = False) -> dict:
     """Per-program scratch and outputs of the kernels: name → (shape,
     dtype). The `lane` group is per lane of a chain (the carry-dependent
     working set), the rest per program. `onchip` (K6's on-chip route,
-    csrc/batch.cu): sel_idx and sel_score alone."""
+    csrc/batch.cu): sel_idx and sel_score alone. `flat` (the chain and
+    wave lane route, csrc/lanes.cu): the flat outputs alone, no scratch."""
     u8, f32, i32 = torch.uint8, torch.float32, torch.int32
     m, c, k = dims["m"], dims["c"], dims["topk"]
     sel = dict(sel_idx=(m, i32), sel_score=(m, f32))
     if onchip:
         return {"prog": sel, "lane": {}}
     out = dict(sel, nodes_feasible=((), i32), nodes_fit=(m, i32))
+    ex = {}
+    if explain:
+        ex = dict(
+            ex_static=(3, i32), filt_constraint=(max(c, 1), i32),
+            filt_distinct=(m, i32), filt_dp=(m, i32), exh_dim=((m, r), i32),
+            exh_dyn=(m, i32), exh_res=(m, i32), topk_idx=((m, k), i32),
+            topk_score=((m, k), f32), topk_parts=((m, k, 5), f32))
+    if flat:
+        return {"prog": dict(out, **ex), "lane": {}}
     prog = dict(
         feas=(n, u8), flags=(n, u8), cfail=((n, dims["cw"]), i32),
         aff=(n, f32), res_free=(n, u8), job_cnt=(n, f32),
         tg_cnt=(n, f32), splaced=(n, f32),
         stok=((n, max(dims["s"], 1)), i32),
-        dtok=((n, max(dims["p"], 1)), i32), **out, final0=(n, f32))
-    if explain:
-        prog.update(
-            ex_static=(3, i32), filt_constraint=(max(c, 1), i32),
-            filt_distinct=(m, i32), filt_dp=(m, i32), exh_dim=((m, r), i32),
-            exh_dyn=(m, i32), exh_res=(m, i32), topk_idx=((m, k), i32),
-            topk_score=((m, k), f32), topk_parts=((m, k, 5), f32))
+        dtok=((n, max(dims["p"], 1)), i32), **out, final0=(n, f32), **ex)
     lane = dict(dyn=(n, f32), mbuf=(n, f32), okbuf=(n, u8),
                 parts=((n, 5) if explain else 1, f32))
     return {"prog": prog, "lane": lane}
@@ -954,7 +963,8 @@ def system_feasibility(cluster: ClusterArrays, p: TGParams):
 #     dynamic rows: `place_table_chain` and `place_table_wave`.
 # Each has a plain PyTorch version (a Python loop over
 # `place_task_group_plain` with the carry update and fold written in torch)
-# and a CUDA route (`csrc/chain.cu`), chosen by the device of cluster.used.
+# and a CUDA route, chosen by the device of cluster.used: the lane route
+# (`csrc/lanes.cu`, below) by shape, else `csrc/chain.cu`.
 
 
 def _field_views(bufs: dict, spec) -> dict:
@@ -1094,10 +1104,15 @@ class _ChainLaneArgs(ctypes.Structure):
 
 class _ChainLauncher:
     """The chain/wave library (csrc/chain.cu), built at first use, and
-    the launch counts of K4 (chains), K5 (waves) and K6 (batches)."""
+    the dispatch counts of K4 (chains), K5 (waves) and K6 (batches); the
+    kernel launches of K4's and K5's dispatches on either route, and the
+    route each took (chain.cu's "lanes", or lanes.cu's "cluster")."""
 
     def __init__(self):
         self.launches = {"chain": 0, "wave": 0, "batch": 0}
+        self.kernels = {"chain": 0, "wave": 0}
+        self.routes = {"cluster": 0, "lanes": 0}
+        self.last_route = None
         self._lib = None
 
     def lib(self):
@@ -1152,9 +1167,32 @@ def batch_launch_count() -> int:
     return _CHAIN.launches["batch"]
 
 
+def chain_kernel_launches() -> dict:
+    """Kernel launches of the K4 and K5 dispatches since the last reset,
+    on either route: {"chain": ..., "wave": ...}. The lane route
+    (csrc/lanes.cu) launches one kernel a chain and two a wave; chain.cu's
+    two and three."""
+    return dict(_CHAIN.kernels)
+
+
+def chain_route_counts() -> dict:
+    """K4 and K5 dispatches since the last reset by route: {"cluster":
+    the lane route, "lanes": chain.cu's}."""
+    return dict(_CHAIN.routes)
+
+
+def last_chain_dispatch_route():
+    """(route, cluster size or None) of the last K4 or K5 dispatch on the
+    card: ("cluster", C) on the lane route, ("lanes", None) on chain.cu's."""
+    return _CHAIN.last_route
+
+
 def reset_chain_launch_counts() -> None:
-    """Zero the K4, K5 and K6 counts, the on-chip K6 kernel's too."""
+    """Zero the K4, K5 and K6 counts (dispatches, kernel launches and
+    routes), the on-chip K6 kernel's too."""
     _CHAIN.launches = {"chain": 0, "wave": 0, "batch": 0}
+    _CHAIN.kernels = {"chain": 0, "wave": 0}
+    _CHAIN.routes = {"cluster": 0, "lanes": 0}
     _ONCHIP.launches = 0
 
 
@@ -1205,7 +1243,7 @@ def args_pointer(args: np.ndarray):
 def _lane_args(cluster: ClusterArrays, shapes: dict, ptrs_of, lanes: int,
                per_lane: int, max_allocs: int, explain: bool,
                slots: Optional[int] = None, n_global: Optional[int] = None,
-               onchip: bool = False):
+               onchip: bool = False, flat: bool = False):
     """The per-program scratch and outputs (leading axis lanes·per_lane),
     the per-lane scratch and used carries (leading axis lanes), and the
     programs' PlaceArgs, on the host and copied to the cluster's device
@@ -1215,7 +1253,8 @@ def _lane_args(cluster: ClusterArrays, shapes: dict, ptrs_of, lanes: int,
     buffers are a pool of that many, program k in slot k mod slots (K6's
     pooled route). With `onchip` (K6's on-chip route) only the outputs
     exist: no scratch, no lane buffers, no carry, and every scratch
-    pointer is null. `n_global` is the row count explain's top-K is sized
+    pointer is null; with `flat` (the lane route) only the flat outputs
+    exist. `n_global` is the row count explain's top-K is sized
     for (a shard's view reports its part of the global one). Returns
     (dims, host args as a PlaceArgs record array, device args,
     per-program buffers, per-lane buffers, lane used carries or None)."""
@@ -1232,7 +1271,7 @@ def _lane_args(cluster: ClusterArrays, shapes: dict, ptrs_of, lanes: int,
         raise ValueError("program shapes disagree with the cluster")
     dims = _program_dims(shapes, max_allocs, explain,
                          n if n_global is None else n_global)
-    groups = _scratch_shapes(dims, n, r, explain, onchip)
+    groups = _scratch_shapes(dims, n, r, explain, onchip, flat)
     n_lanes = lanes if slots is None else slots
     if slots is not None:
         # the pooled route returns no step-0 score vector: it is slot
@@ -1246,7 +1285,8 @@ def _lane_args(cluster: ClusterArrays, shapes: dict, ptrs_of, lanes: int,
     prog = {k: alloc(b, sh, dt) for k, (sh, dt) in groups["prog"].items()}
     lane = {k: alloc(n_lanes, sh, dt)
             for k, (sh, dt) in groups["lane"].items()}
-    used_l = None if onchip else alloc(n_lanes, (n, r), torch.float32)
+    used_l = (None if onchip or flat
+              else alloc(n_lanes, (n, r), torch.float32))
 
     base = _PlaceArgs()
     _set_cluster(base, cluster)
@@ -1323,8 +1363,12 @@ def _launch_lanes(cluster: ClusterArrays, shapes: dict, ptrs_of, lanes: int,
     if err != 0:
         raise RuntimeError("chain kernel launch failed: "
                            + lib.nomad_chain_error_string(err).decode())
-    _CHAIN.launches["batch" if batch or pooled else "wave" if fold
-                    else "chain"] += 1
+    kind = "batch" if batch or pooled else "wave" if fold else "chain"
+    _CHAIN.launches[kind] += 1
+    if kind != "batch":
+        _CHAIN.kernels[kind] += 3 if fold else 2
+        _CHAIN.routes["lanes"] += 1
+        _CHAIN.last_route = ("lanes", None)
     # dev_args and the scratch may be freed now: the caching allocator
     # hands their memory only to work queued after this launch on the
     # same stream
@@ -1333,6 +1377,254 @@ def _launch_lanes(cluster: ClusterArrays, shapes: dict, ptrs_of, lanes: int,
     ex = _explain_out(prog, dims["c"]) if explain else None
     lanes_out = None if pooled else (used_l, dyn_l)
     return base, ex, lanes_out, out_f, (prog.get("final0"), snap)
+
+
+# ---- the lane route of chains and waves (K4, K5; csrc/lanes.cu) --------------
+# A lane is one thread-block cluster of C blocks, block j keeping rows
+# [j·rows, (j + 1)·rows) of the view in shared memory; every lane of a
+# dispatch is one launch, a wave's fold a second. The carry is the view
+# plus the lane's overlay (the rows a program held a delta for or placed
+# on). C is chosen by shape alone (`lane_route`); where no layout fits,
+# the dispatch takes chain.cu's `nomad_place_lanes`, as
+# `place_task_group_chain` (which returns every program's carry) always
+# does.
+
+#: the largest thread-block cluster (the portable size of sm_90)
+MAX_CLUSTER = 8
+#: rows a block of the lane route keeps at the least before the rows are
+#: split over more blocks: below it a cluster's barriers cost more than
+#: the rows a block gives away
+LANE_SLICE_ROWS = 2048
+#: threads of a lane block, the top-K lists of a warp (slots) and of a
+#: thread (K at most), and the words of a top-K entry (csrc/lanes.cu,
+#: csrc/cluster_core.cuh)
+_LANE_THREADS, _TOPK_MAX, _LANE_TOPK, _TOPK_WORDS = 512, 8, 5, 7
+#: fixed counters of a lane block before exh_dim and filt_constraint
+_CNT_FIXED = 9
+#: the lane layout's regions, in order (`lane_offsets`, csrc/lanes.cu)
+_LANE_REGIONS = ("args", "red", "cnt", "placed", "pen", "scounts",
+                 "dcounts", "sptab", "minmax", "seen", "dptab", "consts",
+                 "lists", "slots", "win", "spec", "overlay", "prefix", "meta",
+                 "exh", "stok", "dtok")
+#: sizeof(SpecRow) in csrc/onchip.cuh
+_SPEC_ROW_BYTES = 16
+
+
+def record_words(dims: dict, r: int) -> int:
+    """Words of a block's step record (`shard_rec_words`,
+    csrc/cluster_core.cuh)."""
+    base = 7 + 2 * (dims["s"] + dims["p"])
+    if dims["explain"]:
+        base += 4 + r + _TOPK_WORDS * dims["topk"] + 3 + dims["c"]
+    return base
+
+
+def lane_rows(n: int, clusters: int) -> int:
+    """Rows a block of a C-block lane keeps: n / C rounded up to 32, so
+    that no two blocks share a word of the overlay bitmap."""
+    per = -(-n // clusters)
+    return -(-per // 32) * 32
+
+
+def lane_layout(rows: int, dims: dict, r: int, clusters: int) -> dict:
+    """A lane block's shared memory for programs of `dims`
+    (`_program_dims`) on `rows` rows, R = r, in clusters of `clusters`:
+    region → (offset, bytes), each on a 16-byte boundary, and "total".
+    Per row: the score prefix (f32), its bits (u8), its exhaustion code
+    with explain (u8), an overlay bit and a token per spread row and per
+    distinct_property (u8, or u16 past 256 values); two sets of C record
+    slots (by step parity)."""
+    s, sv, p, dv = dims["s"], dims["sv"], dims["p"], dims["dv"]
+    ex = dims["explain"]
+    sizes = dict(
+        args=ctypes.sizeof(_PlaceArgs), red=33 * _BEST_BYTES,
+        cnt=4 * (_CNT_FIXED + r + dims["c"]), placed=4 * dims["m"],
+        pen=_PEN_ROW_BYTES * dims["pn"], scounts=4 * s * sv,
+        dcounts=4 * p * dv, sptab=4 * s * sv, minmax=8 * s, seen=s,
+        dptab=p * dv,
+        consts=4 * (s * sv + s + p + dims["m"] * dims["pn"]) + 2 * s + p,
+        lists=(_LANE_THREADS // 32) * _TOPK_MAX * _BEST_BYTES if ex else 0,
+        slots=2 * clusters * 4 * (-(-record_words(dims, r) // 4) * 4),
+        win=4 * (-(-(2 + s + p) // 4) * 4), spec=_SPEC_ROW_BYTES,
+        overlay=4 * -(-rows // 32),
+        prefix=4 * rows, meta=rows, exh=rows if ex else 0,
+        stok=s * rows * _tok_bytes(sv), dtok=p * rows * _tok_bytes(dv))
+    out, off = {}, 0
+    for name in _LANE_REGIONS:
+        out[name] = (off, sizes[name])
+        off = (off + sizes[name] + 15) & ~15
+    out["total"] = off
+    return out
+
+
+def lane_route(n: int, lanes: int, dims: dict, r: int, sms: int) -> int:
+    """The cluster size C of a dispatch of `lanes` lanes of programs of
+    `dims` on n rows, by shape alone, or 0 for chain.cu's route. C is the
+    largest power of two ≤ 8 with L·C ≤ the card's SMs (every lane's
+    cluster resident at once) and at least LANE_SLICE_ROWS rows a block;
+    where that block's layout exceeds 227 KB, C doubles (the clusters may
+    then queue) until it fits. 0 where none fits, where a vocabulary
+    passes u16 tokens, or where a program has no step."""
+    if (dims["m"] < 1 or max(dims["sv"], dims["dv"]) > 65536
+            or dims["topk"] > _LANE_TOPK):
+        return 0
+    c = 1
+    while (c < MAX_CLUSTER and lanes * c * 2 <= sms
+           and n // (c * 2) >= LANE_SLICE_ROWS):
+        c *= 2
+    while lane_layout(lane_rows(n, c), dims, r, c)["total"] > BLOCK_SMEM:
+        if c == MAX_CLUSTER:
+            return 0
+        c *= 2
+    return c
+
+
+class _LaneRun(ctypes.Structure):
+    """Mirror of `LaneRun` in csrc/lanes.cu."""
+
+    _fields_ = [("lanes", _INT), ("per_lane", _INT), ("clusters", _INT),
+                ("rows", _INT), ("n", _INT), ("r", _INT), ("fold", _INT),
+                ("used0", _VOID), ("dyn0", _VOID), ("carry_used", _VOID),
+                ("carry_dyn", _VOID), ("overlay", _VOID),
+                ("out_used", _VOID), ("out_dyn", _VOID),
+                ("collisions", _VOID)]
+
+
+class _LaneLauncher:
+    """The lane-route library (csrc/lanes.cu), built at first use."""
+
+    def __init__(self):
+        self._lib = None
+
+    def lib(self):
+        if self._lib is None:
+            from ._build import load_library
+
+            lib = load_library("lanes")
+            for fn in ("nomad_lanes_args_size", "nomad_lanes_run_size"):
+                getattr(lib, fn).restype = ctypes.c_size_t
+                getattr(lib, fn).argtypes = []
+            lib.nomad_lanes_smem.restype = ctypes.c_size_t
+            lib.nomad_lanes_smem.argtypes = [ctypes.POINTER(_PlaceArgs),
+                                             _INT, _INT]
+            lib.nomad_place_lane_clusters.restype = ctypes.c_int
+            lib.nomad_place_lane_clusters.argtypes = [
+                ctypes.POINTER(_PlaceArgs), _VOID, ctypes.POINTER(_LaneRun),
+                _VOID, ctypes.POINTER(ctypes.c_int)]
+            lib.nomad_lanes_error_string.restype = ctypes.c_char_p
+            lib.nomad_lanes_error_string.argtypes = [ctypes.c_int]
+            if (lib.nomad_lanes_args_size() != ctypes.sizeof(_PlaceArgs)
+                    or lib.nomad_lanes_run_size()
+                    != ctypes.sizeof(_LaneRun)):
+                raise RuntimeError(
+                    "lanes library's argument layout differs from the "
+                    "wrapper's (rebuild csrc/lanes.cu)")
+            self._lib = lib
+        return self._lib
+
+
+_LANES = _LaneLauncher()
+
+
+def build_lanes_kernel() -> None:
+    """Build (or load the cached build of) the lane-route library now."""
+    _LANES.lib()
+
+
+def _launch_lane_clusters(cluster: ClusterArrays, shapes: dict, ptrs_of,
+                          lanes: int, per_lane: int, max_allocs: int,
+                          explain: bool, fold: bool, carry: bool,
+                          clusters: int):
+    """One dispatch of `lanes` chains of `per_lane` programs on the lane
+    route at cluster size `clusters`: one launch, and for a wave (`fold`)
+    the fold's. Returns the per-program outputs (leading axis
+    lanes·per_lane), the explain buffers, the final (used, dyn_free)
+    carry (a chain with `carry`) or the folded one (a wave), and the
+    collision count (a wave). Raises when the library's layout differs
+    from `lane_layout` or a launch fails."""
+    lib = _LANES.lib()
+    dev = cluster.used.device
+    n, r = cluster.capacity.shape
+    dims, args, dev_args, prog, _lane, _used = _lane_args(
+        cluster, shapes, ptrs_of, lanes, per_lane, max_allocs, explain,
+        flat=True)
+    rows = lane_rows(n, clusters)
+    want = lane_layout(rows, dims, r, clusters)["total"]
+    got = lib.nomad_lanes_smem(args_pointer(args), rows, clusters)
+    if got != want:
+        raise RuntimeError(f"lanes library's shared-memory layout ({got} B) "
+                           f"differs from lane_layout's ({want} B)")
+
+    def empty(shape, dt=torch.float32):
+        return torch.empty(shape, dtype=dt, device=dev)
+
+    run = _LaneRun(lanes=lanes, per_lane=per_lane, clusters=clusters,
+                   rows=rows, n=n, r=r, fold=int(fold))
+    run.used0, run.dyn0 = cluster.used.data_ptr(), cluster.dyn_free.data_ptr()
+    out, coll = None, None
+    if fold:
+        carry_l = (empty((lanes, n, r)), empty((lanes, n)))
+        bits = empty((lanes, -(-n // 32)), torch.int32)
+        out = (empty((n, r)), empty(n))
+        coll = empty(1, torch.int32)
+        run.overlay, run.collisions = bits.data_ptr(), coll.data_ptr()
+    elif carry:
+        out = (empty((n, r)), empty(n))
+        carry_l = out   # the chain's carry buffers are its outputs
+    else:
+        carry_l = (empty((n, r)), empty(n))
+    run.carry_used, run.carry_dyn = (t.data_ptr() for t in carry_l)
+    if out is not None:
+        run.out_used, run.out_dyn = (t.data_ptr() for t in out)
+    launches = ctypes.c_int(0)
+    err = lib.nomad_place_lane_clusters(
+        args_pointer(args), dev_args.data_ptr(), ctypes.byref(run),
+        torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launches))
+    kind = "wave" if fold else "chain"
+    _CHAIN.kernels[kind] += launches.value
+    if err != 0:
+        raise RuntimeError("lane-route kernel launch failed: "
+                           + lib.nomad_lanes_error_string(err).decode())
+    _CHAIN.launches[kind] += 1
+    _CHAIN.routes["cluster"] += 1
+    _CHAIN.last_route = ("cluster", clusters)
+    # the scratch may be freed now: the caching allocator hands its memory
+    # only to work queued after these launches on the same stream
+    base = (prog["sel_idx"], prog["sel_score"], prog["nodes_feasible"],
+            prog["nodes_fit"])
+    ex = _explain_out(prog, dims["c"]) if explain else None
+    return base, ex, out, coll
+
+
+def _chain_dispatch(cluster: ClusterArrays, shapes: dict, ptrs_of,
+                    lanes: int, per_lane: int, max_allocs: int,
+                    explain: bool, fold: bool, carry: bool,
+                    clusters: Optional[int] = None):
+    """One K4 (`fold` False, one lane) or K5 dispatch on the card.
+    `clusters` None: the route by shape (`lane_route`); 0: chain.cu's
+    `nomad_place_lanes`; C > 0: the lane route at cluster size C (the
+    card tests and chip_smoke.py hold the routes and sizes against each
+    other). Returns (flat outputs, explain, carry or None, collisions or
+    None)."""
+    if clusters is None:
+        n, r = cluster.capacity.shape
+        dims = _program_dims(shapes, max_allocs, explain, n)
+        sms = torch.cuda.get_device_properties(
+            cluster.used.device).multi_processor_count
+        clusters = lane_route(n, lanes, dims, r, sms)
+    if clusters:
+        return _launch_lane_clusters(cluster, shapes, ptrs_of, lanes,
+                                     per_lane, max_allocs, explain, fold,
+                                     carry, clusters)
+    base, ex, lanes_out, out_f, _s = _launch_lanes(
+        cluster, shapes, ptrs_of, lanes, per_lane, max_allocs, explain,
+        fold=fold)
+    if fold:
+        return base, ex, out_f[:2], out_f[2]
+    if not carry:
+        return base, ex, None, None
+    used_l, dyn_l = lanes_out
+    return base, ex, (used_l[0], dyn_l[0]), None
 
 
 def _table_source(ti, tf, tu, rows, di, df, du, sspec, dspec, b):
@@ -1363,28 +1655,33 @@ def _table_source(ti, tf, tu, rows, di, df, du, sspec, dspec, b):
 
 
 def place_table_chain_cuda(cluster, ti, tf, tu, rows, di, df, du, sspec,
-                           dspec, max_allocs, explain=False):
+                           dspec, max_allocs, explain=False, clusters=None):
+    """`place_table_chain` on the card; `clusters` as `_chain_dispatch`
+    takes it."""
     _check_cluster(cluster)
     b = int(host_rows(rows).size)
     shapes, ptrs_of = _table_source(ti, tf, tu, rows, di, df, du, sspec,
                                     dspec, b)
-    base, ex, (used_l, dyn_l), _f, _s = _launch_lanes(
-        cluster, shapes, ptrs_of, 1, b, max_allocs, explain, fold=False)
+    base, ex, carry, _coll = _chain_dispatch(
+        cluster, shapes, ptrs_of, 1, b, max_allocs, explain, fold=False,
+        carry=True, clusters=clusters)
     out = base + tuple(ex) if explain else base
-    return out, (used_l[0], dyn_l[0])
+    return out, carry
 
 
 def place_table_wave_cuda(cluster, ti, tf, tu, rows, di, df, du, sspec,
-                          dspec, max_allocs, explain=False):
+                          dspec, max_allocs, explain=False, clusters=None):
+    """`place_table_wave` on the card; `clusters` as `_chain_dispatch`
+    takes it."""
     _check_cluster(cluster)
     lanes, per_lane = host_rows(rows).shape
     shapes, ptrs_of = _table_source(ti, tf, tu, rows, di, df, du, sspec,
                                     dspec, lanes * per_lane)
-    base, ex, _lanes, (used_f, dyn_f, coll), _s = _launch_lanes(
+    base, ex, carry, coll = _chain_dispatch(
         cluster, shapes, ptrs_of, lanes, per_lane, max_allocs, explain,
-        fold=True)
+        fold=True, carry=True, clusters=clusters)
     out = base + tuple(ex) if explain else base
-    return out + (coll.reshape(()),), (used_f, dyn_f)
+    return out + (coll.reshape(()),), carry
 
 
 def _stacked_source(cluster, batch):
@@ -1439,11 +1736,14 @@ def place_task_group_chain_cuda(cluster, batch, max_allocs, explain=False):
 
 
 def place_packed_chain_cuda(cluster, i32buf, f32buf, u8buf, spec,
-                            max_allocs, explain=False):
+                            max_allocs, explain=False, clusters=None):
+    """`place_packed_chain` on the card; `clusters` as `_chain_dispatch`
+    takes it."""
     _check_cluster(cluster)
     b, shapes, ptrs_of = _packed_source(cluster, i32buf, f32buf, u8buf, spec)
-    base, ex, _lanes, _f, _s = _launch_lanes(
-        cluster, shapes, ptrs_of, 1, b, max_allocs, explain, fold=False)
+    base, ex, _carry, _coll = _chain_dispatch(
+        cluster, shapes, ptrs_of, 1, b, max_allocs, explain, fold=False,
+        carry=False, clusters=clusters)
     return base + tuple(ex) if explain else base
 
 

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-K1, the chain and wave (K4, K5), the batch (K6; its on-chip and pooled
+K1, the chain and wave (K4, K5; the lane route bitwise chain.cu's, at
+several cluster sizes), the batch (K6; its on-chip and pooled
 packed routes bitwise each other), the row kernels (K7, K8),
 K2, K3, the node-sharded step (K9) on four shards, and the sharded
 routes (B10-B13) on shards of the card — B10/B11's cluster route held
@@ -210,6 +211,158 @@ def test_packed_and_stacked_chains_match_plain(cuda_device):
     want = kp.place_task_group_chain_plain(arrays, p, m)
     torch.cuda.synchronize()
     _assert_same(want, got)
+
+
+# ---- K4 and K5 on the lane route (csrc/lanes.cu) -----------------------------
+
+#: cluster sizes the lane route is held at beside the one it picks
+LANE_SIZES = (1, 2, 8)
+
+
+def _same_bits(want, got, what):
+    """Flat outputs or carries, leaf by leaf, bit for bit."""
+    assert len(want) == len(got), what
+    for i, (a, b) in enumerate(zip(want, got)):
+        assert a.shape == b.shape and torch.equal(_bits(a), _bits(b)), \
+            (what, i)
+
+
+def _zero_from_plain(want, got, what):
+    """Flat outputs or carries equal to plain's: integers equal, floats
+    0.0 apart."""
+    for i, (a, b) in enumerate(zip(want, got)):
+        a, b = a.cpu(), b.cpu()
+        assert a.shape == b.shape and torch.equal(a.to(b.dtype), b), \
+            (what, i)
+
+
+def _lane_sizes(run, kind, what):
+    """`run(clusters)` at the picked size and at LANE_SIZES, each on the
+    lane route with its launches (one a chain, two a wave); returns the
+    outputs by size."""
+    outs = {}
+    for c in (None,) + LANE_SIZES:
+        k0 = kp.chain_kernel_launches()[kind]
+        outs[c] = run(c)
+        route, size = kp.last_chain_dispatch_route()
+        assert route == "cluster" and (c is None or size == c), (what, c)
+        assert kp.chain_kernel_launches()[kind] == k0 + (
+            2 if kind == "wave" else 1), (what, c)
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("explain", [False, True], ids=["plain", "explain"])
+def test_lane_route_equals_chain_cu_bitwise(explain, cuda_device):
+    """K4 and K5 on the lane route, at the cluster size it picks and at
+    C = 1, 2 and 8: the table chain (one program with plan deltas, an
+    inert pad), the packed chain and a wave of three lanes whose first two
+    overlap — outputs, explain leaves and carries bitwise chain.cu's
+    route (`nomad_place_lanes`) and 0.0 from plain; one launch a chain,
+    two a wave."""
+    from nomad_tpu_torch.convert import tensor_from_numpy
+    from nomad_tpu_torch.parallel.pad import stack_params
+
+    arrays, prep, tables, dyn = _table_dispatch(cuda_device)
+    args = (arrays, *tables, prep.rows, *dyn, prep.sspec, prep.dspec,
+            prep.m)
+    ref = kp.place_table_chain_cuda(*args, explain=explain, clusters=0)
+    assert kp.last_chain_dispatch_route() == ("lanes", None)
+    want = kp.place_table_chain_plain(*args, explain=explain)
+    outs = _lane_sizes(lambda c: kp.place_table_chain_cuda(
+        *args, explain=explain, clusters=c), "chain", "table chain")
+    torch.cuda.synchronize()
+    for c, got in outs.items():
+        for part in range(2):
+            _same_bits(ref[part], got[part], ("table chain", c, part))
+            _zero_from_plain(want[part], got[part], ("table chain", c, part))
+    assert (outs[None][0][0][-1] == -1).all(), "the inert pad placed"
+
+    wrows = prep.rows.reshape(3, 2)
+    wdyn = [d.reshape(3, 2, -1) for d in dyn]
+    wargs = (arrays, *tables, wrows, *wdyn, prep.sspec, prep.dspec, prep.m)
+    ref = kp.place_table_wave_cuda(*wargs, explain=explain, clusters=0)
+    want = kp.place_table_wave_plain(*wargs, explain=explain)
+    outs = _lane_sizes(lambda c: kp.place_table_wave_cuda(
+        *wargs, explain=explain, clusters=c), "wave", "wave")
+    torch.cuda.synchronize()
+    for c, got in outs.items():
+        for part in range(2):
+            _same_bits(ref[part], got[part], ("wave", c, part))
+            _zero_from_plain(want[part], got[part], ("wave", c, part))
+
+    rng = random.Random(6)
+    state, _nodes = build_synthetic_state(300, 3000, seed=5)
+    stack = TorchStack(state.cluster, device=cuda_device)
+    progs = [stack.compile_tg(j, j.task_groups[0], 3, None)[0] for j in (
+        synth_service_job(rng, count=3, **_KINDS[k]) for k in sorted(_KINDS))]
+    batched, m = stack_params(progs)
+    parrays = stack.device_arrays()
+    ibuf, fbuf, ubuf, spec = kp.pack_params(batched)
+    bufs = [tensor_from_numpy(b, cuda_device) for b in (ibuf, fbuf, ubuf)]
+    ref = kp.place_packed_chain_cuda(parrays, *bufs, spec, m, explain,
+                                     clusters=0)
+    want = kp.place_packed_chain_plain(parrays, *bufs, spec, m, explain)
+    outs = _lane_sizes(lambda c: kp.place_packed_chain_cuda(
+        parrays, *bufs, spec, m, explain, clusters=c), "chain",
+        "packed chain")
+    torch.cuda.synchronize()
+    for c, got in outs.items():
+        _same_bits(ref, got, ("packed chain", c))
+        _zero_from_plain(want, got, ("packed chain", c))
+
+
+@pytest.mark.cuda
+def test_lane_route_past_the_layout_limit_takes_chain_cu(cuda_device,
+                                                         monkeypatch):
+    """Where no layout fits a block (here a block's shared memory taken
+    as 4 KB, so that even C = 8 does not fit), the dispatch takes
+    chain.cu's route by shape, and its outputs equal the lane route's."""
+    arrays, prep, tables, dyn = _table_dispatch(cuda_device)
+    args = (arrays, *tables, prep.rows, *dyn, prep.sspec, prep.dspec,
+            prep.m)
+    lane = kp.place_table_chain(*args, explain=True)
+    assert kp.last_chain_dispatch_route()[0] == "cluster"
+    monkeypatch.setattr(kp, "BLOCK_SMEM", 4096)
+    before = kp.chain_route_counts()
+    old = kp.place_table_chain(*args, explain=True)
+    assert kp.last_chain_dispatch_route() == ("lanes", None)
+    assert kp.chain_route_counts()["lanes"] == before["lanes"] + 1
+    torch.cuda.synchronize()
+    for part in range(2):
+        _same_bits(old[part], lane[part], ("past the limit", part))
+
+
+@pytest.mark.cuda
+def test_lane_route_counts_stale_footprint_collisions_like_plain(
+        cuda_device):
+    """Two unpinned lanes of the same two programs (a stale footprint):
+    the same rows change in both, and the lane route's collision count
+    and fold equal plain's, at every size."""
+    from nomad_tpu_torch.convert import tensor_from_numpy
+    from nomad_tpu_torch.lib.transfer import default_ledger
+    from nomad_tpu_torch.server.program_table import DeviceProgramTable
+
+    state, _nodes = build_synthetic_state(300, 3000, seed=7)
+    rng = random.Random(8)
+    stack = TorchStack(state.cluster, device=cuda_device)
+    progs = [stack.compile_tg(j, j.task_groups[0], 4, None)[0]
+             for j in (synth_service_job(rng, count=4) for _ in range(2))]
+    table = DeviceProgramTable(device=cuda_device)
+    prep = table.prepare(progs + progs)
+    ti, tf, tu, _nb, _count = table.commit(prep, default_ledger())
+    dyn = [tensor_from_numpy(d, cuda_device).reshape(2, 2, -1)
+           for d in (prep.dyn_i, prep.dyn_f, prep.dyn_u)]
+    args = (stack.device_arrays(), ti, tf, tu, prep.rows.reshape(2, 2),
+            *dyn, prep.sspec, prep.dspec, prep.m)
+    want = kp.place_table_wave_plain(*args, explain=True)
+    outs = _lane_sizes(lambda c: kp.place_table_wave_cuda(
+        *args, explain=True, clusters=c), "wave", "stale wave")
+    torch.cuda.synchronize()
+    assert int(want[0][-1]) > 0
+    for c, got in outs.items():
+        for part in range(2):
+            _zero_from_plain(want[part], got[part], ("stale wave", c, part))
 
 
 @pytest.mark.cuda
