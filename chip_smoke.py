@@ -460,6 +460,105 @@ def _chain_bound(kp, arrays, prep, tables, dyn, sel, n_lanes=1,
 
 #: dispatches a timing of phase 5's chain and wave routes takes a turn
 LANE_REPS = 10
+#: programs a timing of phase 3's K1 routes takes a turn
+K1_REPS = 30
+
+
+def _launch_spans(torch, fn, reps: int, hooks):
+    """`reps` calls of `fn`, one at a time: each one's device span, from a
+    CUDA event recorded just before its first kernel launch (`hooks`:
+    (launcher, method name) pairs, patched for the calls) to one recorded
+    when it returns — the kernels' device time, without the host's
+    set-up before the launch. Returns the spans (ms)."""
+    first = []
+
+    def wrap(real):
+        def call(*args, **kw):
+            if not first:
+                e = torch.cuda.Event(enable_timing=True)
+                e.record()
+                first.append(e)
+            return real(*args, **kw)
+        return call
+
+    for obj, name in hooks:
+        setattr(obj, name, wrap(getattr(obj, name)))
+    spans = []
+    try:
+        for _ in range(reps):
+            first.clear()
+            torch.cuda.synchronize()
+            fn()
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            torch.cuda.synchronize()
+            spans.append(first[0].elapsed_time(end))
+    finally:
+        for obj, name in hooks:
+            delattr(obj, name)   # the class's method again
+    return spans
+
+
+def _k1_leaves(r) -> list:
+    """A K1 result's tensors: outputs, carry, step-0 scores, explain."""
+    return list(r[:6]) + (list(r.explain) if r.explain is not None else [])
+
+
+def _k1_routes(torch, kp, arrays, p, m, explain, card=""):
+    """K1 (one program) on its two CUDA routes — the lane route at the
+    size it picks and placement.cu's (`clusters=0`) — bitwise each
+    other; timed in turns (lane, placement.cu, placement.cu, lane),
+    K1_REPS programs each: back-to-back CUDA events and the median device
+    span from the first launch (`_launch_spans`); kernel launches a
+    program and peak device memory. Returns (the lane route's result,
+    route → numbers)."""
+    fns = {"lane": lambda: kp.place_task_group_cuda(arrays, p, m, explain),
+           "placement.cu": lambda: kp.place_task_group_cuda(
+               arrays, p, m, explain, clusters=0)}
+    hooks = ((kp._LANES, "launch"), (kp._LAUNCHER, "launch"))
+    res, out = {}, {}
+    for route, fn in fns.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        k0 = kp.single_kernel_launches()
+        res[route] = fn()
+        torch.cuda.synchronize()
+        out[route] = dict(peak=(torch.cuda.max_memory_allocated() - base)
+                          / 2 ** 20,
+                          launches=kp.single_kernel_launches() - k0,
+                          route=kp.last_single_route())
+    if out["lane"]["route"][0] != "cluster" or out["lane"]["launches"] != 1:
+        raise AssertionError(f"K1: the lane route took {out['lane']}")
+    if out["placement.cu"]["route"] != ("scan", None) \
+            or out["placement.cu"]["launches"] != 2:
+        raise AssertionError(f"K1: clusters=0 took {out['placement.cu']}")
+    _same_bits(_k1_leaves(res["placement.cu"]), _k1_leaves(res["lane"]),
+               f"K1 explain={explain} lane route vs placement.cu")
+    for route in ("lane", "placement.cu", "placement.cu", "lane"):
+        r = out[route]
+        r.setdefault("events", []).append(_time_ms(fns[route], K1_REPS))
+        r.setdefault("span", []).extend(
+            _launch_spans(torch, fns[route], K1_REPS, hooks))
+    for route, r in out.items():
+        r["events"] = statistics.median(r["events"])
+        r["span"] = statistics.median(r["span"])
+        print(f"K1 explain={'on' if explain else 'off'} {route} (C="
+              f"{r['route'][1] or '-'}): events {r['events']:.4f} ms a "
+              f"program, span {r['span']:.4f} ms, {r['launches']} kernel "
+              f"launches a program, peak {r['peak']:.2f} MiB; {card}")
+    return res["lane"], out
+
+
+def _k1_bound(kp, arrays, p, m, sel, explain):
+    """Bound of one K1 program on the lane route: the view read once, the
+    program's fields, its outputs with new_used and final_scores0, against
+    the lane route's operations (`_lane_ops`, the steps this run's data
+    runs). Returns (ms, what bounds it)."""
+    cpu = kp.TGParams(*(t.cpu() for t in p))
+    v, pr, o, _ops = _bound_parts(arrays, cpu, m)
+    ops = _lane_ops(arrays, cpu, m, explain, _active_steps(cpu, sel.cpu()))
+    return _bound_of([(v, pr, o, ops)], arrays)
 
 
 def _leaves(x) -> list:
@@ -2618,32 +2717,108 @@ def _k9_against(torch, ks, mesh, sc, batched, m, want6, what, on_card):
     return err
 
 
-def _phase9_shard(torch, kp, arrays, small, device=None):
+#: synced dispatches a timing of phase 9 (c)'s K9 routes takes a turn
+K9_REPS = 5
+
+
+def _k9_bound(kp, arrays, batch, m, sel):
+    """Bound of one K9 dispatch on the cluster route: the bytes of
+    `_batch_bound` (the view once, every program's fields and outputs,
+    new_used [B, N, R] among them), against the lane route's operations a
+    program (`_lane_ops`, the steps this run's data runs) and the fold's
+    two a carry element."""
+    cpu = kp.TGParams(*(t.cpu() for t in batch))
+    n, r = arrays.capacity.shape
+    parts = []
+    for b in range(cpu.n_place.shape[0]):
+        p = kp._program(cpu, b)
+        v, pr, o, _ops = _bound_parts(arrays, p, m)
+        parts.append((v, pr, o, _lane_ops(arrays, p, m, False, _active_steps(
+            p, sel[b].cpu())) + 2 * n * r))
+    return _bound_of(parts, arrays)
+
+
+def _k9_routes(torch, kp, ks, sc, batched, m, what, card=""):
+    """K9 with the fold on both CUDA routes of one sharded view: the
+    cluster route (by shape) and the steps route (`route="steps"`),
+    bitwise each other (outputs and the folded view); timed in turns
+    (cluster, steps, steps, cluster), K9_REPS synced dispatches each:
+    the host clock a dispatch (every card synced before and after) and
+    the device span from the first launch (`_launch_spans`); host calls
+    and kernel launches of a dispatch, peak device memory. Returns (the
+    cluster route's result, route → numbers)."""
+    fns = {"cluster": lambda: ks.sharded_place_cuda(sc, batched, m,
+                                                    fold=True),
+           "steps": lambda: ks.sharded_place_cuda(sc, batched, m, fold=True,
+                                                  route="steps")}
+    hooks = ((ks._SHARD, "call"), (kp._LANES, "launch"))
+    res, out = {}, {}
+    for route, fn in fns.items():
+        _sync_all(torch)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        k0 = ks.step_kernel_launches()
+        res[route] = fn()
+        _sync_all(torch)
+        out[route] = dict(peak=(torch.cuda.max_memory_allocated() - base)
+                          / 2 ** 20,
+                          launches=ks.step_kernel_launches() - k0,
+                          calls=ks.host_calls(), route=ks.last_step_route())
+        if out[route]["route"] != route:
+            raise AssertionError(f"K9 {what}: the {route} dispatch took "
+                                 f"{out[route]['route']}")
+    if out["cluster"]["launches"] > 3 or out["cluster"]["calls"] > 5:
+        raise AssertionError(f"K9 {what}: the cluster route took "
+                             f"{out['cluster']}")
+    _same_bits(list(res["steps"][0][:6]) + list(res["steps"][1]),
+               list(res["cluster"][0][:6]) + list(res["cluster"][1]),
+               f"K9 {what} cluster route vs steps route")
+    for route in ("cluster", "steps", "steps", "cluster"):
+        r = out[route]
+        r.setdefault("host", []).append(_host_ms(torch, fns[route],
+                                                 K9_REPS))
+        r.setdefault("span", []).extend(
+            _launch_spans(torch, fns[route], K9_REPS, hooks))
+    for route, r in out.items():
+        r["host"] = statistics.median(r["host"])
+        r["span"] = statistics.median(r["span"])
+        print(f"K9 {what} {route}: {r['host']:.4f} ms a synced dispatch "
+              f"(host clock), span {r['span']:.4f} ms, {r['calls']} host "
+              f"calls, {r['launches']} kernel launches a dispatch, peak "
+              f"{r['peak']:.2f} MiB; {card}")
+    return res["cluster"], out
+
+
+def _phase9_shard(torch, kp, arrays, small, device=None, card=""):
     """(c) K9 on four shards, meshes (2, 2) and (1, 4) over the cards
     (repeating a card when there are fewer than four): through
     `entry.dryrun_multichip(4, ...)` at its own size (the main path: the
-    launch counts are read around it), then on the phase-3 cluster with
-    B = 64; each against its plain version and K6, timed per dispatch
-    and per step."""
+    launch counts are read around it; on one card the cluster route, one
+    lane-kernel launch and the fold's a dispatch), then on the phase-3
+    cluster with B = 64; each against its plain version and K6, and on
+    the card both CUDA routes bitwise each other, timed in turns."""
     from nomad_tpu_torch import entry
     from nomad_tpu_torch.convert import params_from_numpy
     from nomad_tpu_torch.kernels import shard as ks
-    from nomad_tpu_torch.parallel import (make_mesh, scheduler_step,
-                                          shard_cluster)
+    from nomad_tpu_torch.parallel import make_mesh, shard_cluster
 
     on_card = device is None or torch.device(device).type == "cuda"
     count = torch.cuda.device_count() if on_card else 4
     devs = ([f"cuda:{i % count}" for i in range(4)] if on_card
             else [device] * 4)
-    out = {"err": 0.0, "launches": 0}
+    out = {"err": 0.0, "launches": 0, "calls": 0}
     t0 = time.perf_counter()
     for shape in K9_SHAPES:
         ks.reset_launch_count()
         run = entry.dryrun_multichip(4, devices=devs, batch=shape[0])
-        launches = ks.launch_count()
+        calls, launches = ks.launch_count(), ks.step_kernel_launches()
+        route = ks.last_step_route()
+        out["calls"] += calls
         out["launches"] += launches
-        if on_card and launches != 1:
-            raise AssertionError(f"dry run {shape}: {launches} K9 launches")
+        if on_card and (calls != 1 or (count == 1 and (
+                route != "cluster" or launches != 2))):
+            raise AssertionError(f"dry run {shape}: {calls} K9 dispatches, "
+                                 f"{launches} kernel launches, route {route}")
         whole = run.cluster.full()
         want6 = kp.place_task_group_batch(
             whole, params_from_numpy(run.batch, whole.used.device),
@@ -2652,13 +2827,14 @@ def _phase9_shard(torch, kp, arrays, small, device=None):
             torch, ks, run.mesh, run.cluster, run.batch, run.max_allocs,
             want6, f"dry run {shape}", on_card))
         print(f"K9 dry run {shape}: == plain == K6 on the whole view, fold "
-              f"bitwise; {launches} K9 launch")
+              f"bitwise; {calls} K9 dispatch, {launches} kernel launches, "
+              f"{route} route")
     batched, m = small
     want6 = kp.place_task_group_batch(arrays,
                                       params_from_numpy(batched,
                                                         arrays.used.device),
                                       m)
-    bound_ms, bound_by = _batch_bound(
+    old_bound, old_by = _batch_bound(
         torch, kp, arrays, params_from_numpy(batched, "cpu"), m)
     for shape in K9_SHAPES:
         mesh = make_mesh(4, batch=shape[0], devices=devs)
@@ -2668,17 +2844,34 @@ def _phase9_shard(torch, kp, arrays, small, device=None):
             f"phase-3 cluster {shape}", on_card))
         _w, plain_ms = _once_ms(torch, lambda: ks.sharded_place_plain(
             sc, batched, m, fold=True), on_card)
-        step = scheduler_step(mesh, m)
-        ms = (_host_ms(torch, lambda: step(sc, batched), 5) if on_card
-              else None)
-        out[shape] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=None)
+        nums = dict(ms=None, plain_ms=plain_ms, bound_ms=old_bound,
+                    bound_by=old_by, library_ms=None)
+        if on_card and count == 1:
+            got, rs = _k9_routes(torch, kp, ks, sc, batched, m,
+                                 f"B={SMALL_BATCH} {shape}", card)
+            bound_ms, bound_by = _k9_bound(kp, arrays, params_from_numpy(
+                batched, "cpu"), m, got[0].sel_idx)
+            c, st = rs["cluster"], rs["steps"]
+            nums.update(
+                ms=c["host"], bound_ms=bound_ms, bound_by=bound_by,
+                span_ms=c["span"], host_calls=c["calls"],
+                kernel_launches=c["launches"], peak_mib=c["peak"],
+                steps_ms=st["host"], steps_span_ms=st["span"],
+                steps_host_calls=st["calls"],
+                steps_kernel_launches=st["launches"],
+                steps_peak_mib=st["peak"], steps_bound_ms=old_bound)
+        elif on_card:
+            nums["ms"] = _host_ms(torch, lambda: ks.sharded_place(
+                sc, batched, m, fold=True), K9_REPS)
+        out[shape] = nums
+        ms = nums["ms"]
         print(f"K9 phase-3 cluster {shape} B={SMALL_BATCH} M={m}: == plain "
               f"== K6, fold bitwise; "
-              + (f"{ms:.4f} ms per dispatch, {ms / m:.4f} ms per step"
+              + (f"{ms:.4f} ms a dispatch, {ms / m:.4f} ms a step"
                  if ms is not None else "not timed")
-              + f"; plain {plain_ms:.1f} ms; bound {bound_ms:.6f} ms "
-              f"({bound_by}); shards on {sorted(set(devs))}")
+              + f"; plain {plain_ms:.1f} ms; bound {nums['bound_ms']:.6f} ms "
+              f"({nums['bound_by']}; the steps route's count "
+              f"{old_bound:.6f} ms, {old_by}); shards on {sorted(set(devs))}")
     print(f"phase 9 (c) took {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -3291,12 +3484,69 @@ def _tiled(kp, small, copies):
         np.asarray(f).ndim - 1)) for f in small))
 
 
+def _wave_past_grid_y(torch, kp, arrays, progs, dev):
+    """C1: a wave of 16 · TILED_COPIES one-program lanes (65,536, past
+    gridDim.y's 65,535) from the program table: on the card the lane
+    route, one launch and the fold's, bitwise chain.cu's route; every
+    lane equal to the plain result of its original, the fold the plain
+    fold of the 16, and every row a lane changed a collision (all its
+    lanes' copies change it). Returns the lane count."""
+    import numpy as np
+
+    from nomad_tpu_torch.convert import tensor_from_numpy
+    from nomad_tpu_torch.lib.transfer import default_ledger
+    from nomad_tpu_torch.server.program_table import DeviceProgramTable
+
+    table = DeviceProgramTable(device=dev)
+    prep = table.prepare(progs)
+    ti, tf, tu, _nb, _count = table.commit(prep, default_ledger())
+    dyn = [tensor_from_numpy(d, dev)
+           for d in (prep.dyn_i, prep.dyn_f, prep.dyn_u)]
+    k = len(progs)
+    rows = np.tile(np.asarray(prep.rows).reshape(k, 1), (TILED_COPIES, 1))
+    wdyn = [d.reshape(k, 1, -1).repeat(TILED_COPIES, 1, 1) for d in dyn]
+    args = (arrays, ti, tf, tu, rows, *wdyn, prep.sspec, prep.dspec, prep.m)
+    k0 = kp.chain_kernel_launches()["wave"]
+    out, carry = kp.place_table_wave(*args)
+    if dev.type == "cuda":
+        launches = kp.chain_kernel_launches()["wave"] - k0
+        if kp.last_chain_dispatch_route()[0] != "cluster" or launches != 2:
+            raise AssertionError(f"wave of {rows.shape[0]} lanes: "
+                                 f"{kp.last_chain_dispatch_route()}, "
+                                 f"{launches} kernel launches")
+        ref = kp.place_table_wave_cuda(*args, clusters=0)
+        _same_bits(ref, (out, carry), f"wave of {rows.shape[0]} lanes: "
+                   "lane route vs chain.cu")
+    want_out, want_carry = kp.place_table_wave_plain(
+        arrays, ti, tf, tu, np.asarray(prep.rows).reshape(k, 1),
+        *[d.reshape(k, 1, -1) for d in dyn], prep.sspec, prep.dspec, prep.m)
+    for i, (w, g) in enumerate(zip(want_out[:-1], out[:-1])):
+        w, g = w.cpu(), g.cpu()
+        g = g.reshape((TILED_COPIES,) + tuple(w.shape))
+        if not torch.equal(g, w.expand_as(g).to(g.dtype)):
+            raise AssertionError(f"wave of {rows.shape[0]} lanes: output "
+                                 f"{i} of a lane differs from its "
+                                 "original's plain result")
+    for w, g, name in zip(want_carry, carry, ("used", "dyn_free")):
+        if not torch.equal(w.cpu(), g.cpu()):
+            raise AssertionError(f"wave of {rows.shape[0]} lanes: the "
+                                 f"folded {name} differs from plain's")
+    changed = ((want_carry[0] != arrays.used).any(dim=1)
+               | (want_carry[1] != arrays.dyn_free))
+    if int(changed.sum()) == 0 or int(out[-1]) != int(changed.sum()):
+        raise AssertionError(f"wave of {rows.shape[0]} lanes: "
+                             f"{int(out[-1])} collisions, "
+                             f"{int(changed.sum())} rows changed")
+    return rows.shape[0]
+
+
 def _phase10_limits(torch, kp, ks, device=None):
     """(d) C1: one K6 dispatch (the full-carry route, and the packed one
-    on its on-chip route) and one K9 batch row of 65,536 programs on a
-    64-row view (16 distinct programs tiled): every copy equal to the
-    plain result of its original. C2: the packed route's (sel_idx,
-    sel_score) bitwise the full-carry route's."""
+    on its on-chip route), one K9 batch row (its cluster route on the
+    card) and one K5 wave of 65,536 programs on a 64-row view (16
+    distinct programs tiled): every copy equal to the plain result of its
+    original. C2: the packed route's (sel_idx, sel_score) bitwise the
+    full-carry route's."""
     from nomad_tpu_torch.convert import params_from_numpy, tensor_from_numpy
     from nomad_tpu_torch.parallel import shard_cluster
     from nomad_tpu_torch.parallel.pad import stack_params
@@ -3308,8 +3558,8 @@ def _phase10_limits(torch, kp, ks, device=None):
     state, _nodes = build_synthetic_state(48, 200, seed=SEED)
     stack = TorchStack(state.cluster, device=dev)
     jobs = _bench_jobs(state, random.Random(SEED + 9), 16, 3)
-    small, m = stack_params([stack.compile_tg(j, j.task_groups[0], 3)[0]
-                             for j in jobs])
+    progs = [stack.compile_tg(j, j.task_groups[0], 3)[0] for j in jobs]
+    small, m = stack_params(progs)
     big = _tiled(kp, small, TILED_COPIES)
     arrays = stack.device_arrays()
     b = TILED_COPIES * 16
@@ -3343,13 +3593,19 @@ def _phase10_limits(torch, kp, ks, device=None):
     sc = shard_cluster(arrays, _mesh(torch, (1, 4), device))
     want9, _f = ks.sharded_place_plain(sc, small, m)
     got9, _f = ks.sharded_place(sc, big, m)
+    if dev.type == "cuda" and ks.last_step_route() != "cluster":
+        raise AssertionError(f"K9 B={b}: the {ks.last_step_route()} route")
     same(want9, got9, ("sel_idx", "nodes_feasible", "nodes_fit",
-                       "sel_score"), f"K9 B={b}")
+                       "sel_score", "final_scores0", "new_used"),
+         f"K9 B={b}")
+    del got9
+    lanes = _wave_past_grid_y(torch, kp, arrays, progs, dev)
     print(f"phase 10 (d) C1: K6 (the full-carry route, and the packed "
-          f"dispatch on its on-chip route, grid {kp.last_batch_route()[1]}) "
-          f"and one K9 batch row of {b} "
-          f"programs on {arrays.capacity.shape[0]} rows, every copy equal to "
-          f"the plain result of its original; C2: the packed route's "
+          f"dispatch on its on-chip route, grid {kp.last_batch_route()[1]}), "
+          f"one K9 batch row of {b} programs ({ks.last_step_route()} route) "
+          f"and one wave of {lanes} lanes (the lane route, bitwise "
+          f"chain.cu's) on {arrays.capacity.shape[0]} rows, every copy equal "
+          f"to the plain result of its original; C2: the packed route's "
           f"sel_idx and sel_score bitwise the full-carry route's "
           f"({time.perf_counter() - t0:.1f} s)")
 
@@ -3504,30 +3760,42 @@ def main() -> int:
         p = params_from_numpy(padded, "cuda")
         placed = None
         for explain in (False, True):
+            # K1 by shape (the lane route, csrc/lanes.cu), and placement.cu
             got = kp.place_task_group_cuda(arrays, p, m, explain)
+            route = kp.last_single_route()
+            scan = kp.place_task_group_cuda(arrays, p, m, explain,
+                                            clusters=0)
             want = kp.place_task_group_plain(arrays, p, m, explain)
             torch.cuda.synchronize()
             max_err = max(max_err, _compare(want, got, f"{name}/{explain}"))
+            _same_bits(_k1_leaves(scan), _k1_leaves(got),
+                       f"{name}/{explain} lane route vs placement.cu")
             placed = int((got.sel_idx >= 0).sum())
         print(f"kernel==plain {name:18s} M={m:2d} placed={placed:2d} "
-              f"feasible={int(got.nodes_feasible)}")
+              f"feasible={int(got.nodes_feasible)}; route {route}, "
+              f"bitwise placement.cu's")
         if name == "affinity":
             timing_inputs = (arrays, p, m)
     if placed is None:
         raise AssertionError("no case ran")
+    print(f"K1: every phase-3 case, explain off and on, on the lane route "
+          f"bitwise placement.cu's; max abs error against plain {max_err}")
 
     arrays, p, m = timing_inputs
-    kernel_ms = _time_ms(lambda: kp.place_task_group_cuda(arrays, p, m, True),
-                         30)
+    k1_res, k1 = _k1_routes(torch, kp, arrays, p, m, True, smi[0])
+    _res_off, k1_off = _k1_routes(torch, kp, arrays, p, m, False, smi[0])
+    kernel_ms = k1["lane"]["events"]
     plain_ms = _time_ms(lambda: kp.place_task_group_plain(arrays, p, m, True),
                         5)
-    kernel_noex_ms = _time_ms(
-        lambda: kp.place_task_group_cuda(arrays, p, m, False), 30)
-    bound_ms, bound_by = _bound(arrays, p, m)
-    print(f"timing (N={arrays.capacity.shape[0]}, M={m}, explain on): "
-          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.6f} ms ({bound_by}); kernel with explain off "
-          f"{kernel_noex_ms:.4f} ms")
+    bound_ms, bound_by = _k1_bound(kp, arrays, p, m, k1_res.sel_idx, True)
+    old_bound, old_by = _bound(arrays, p, m)
+    print(f"timing (N={arrays.capacity.shape[0]}, M={m}, explain on; "
+          f"{smi[0]}): lane route {kernel_ms:.4f} ms, placement.cu "
+          f"{k1['placement.cu']['events']:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.6f} ms ({bound_by}; placement.cu's count "
+          f"{old_bound:.6f} ms, {old_by}); explain off: lane route "
+          f"{k1_off['lane']['events']:.4f} ms, placement.cu "
+          f"{k1_off['placement.cu']['events']:.4f} ms")
 
     # ---- 4. the slice through Harness on the card ----
     calls = []
@@ -3561,7 +3829,7 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats()
     stack_mod.place_task_group = recording_place
-    kp.reset_launch_count()
+    kp.reset_launch_count()     # K1's programs, kernel launches and routes
     gc.callbacks.append(on_gc)
     try:
         for j in jobs:
@@ -3576,11 +3844,17 @@ def main() -> int:
         stack_mod.place_task_group = real_place
         gc.callbacks.remove(on_gc)
     launches = kp.launch_count()
+    k1_kernels = kp.single_kernel_launches()
+    k1_routes = kp.single_route_counts()
     peak = torch.cuda.max_memory_allocated()
 
     if launches != len(calls) or launches == 0:
         raise AssertionError(f"{launches} kernel launches for "
                              f"{len(calls)} selects")
+    if k1_routes["cluster"] != launches or k1_kernels != launches:
+        raise AssertionError(f"K1 on the Harness path: {k1_routes}, "
+                             f"{k1_kernels} kernel launches for {launches} "
+                             "selects (one lane-route launch each)")
     placed = {}
     for plan in h.plans:
         for node_id, allocs in plan.node_allocation.items():
@@ -3599,7 +3873,8 @@ def main() -> int:
         max_err = max(max_err, _compare(want, res, f"select {i}"))
     torch.cuda.synchronize()
     print(f"slice: {len(jobs)} evals, {sum(map(len, placed.values()))} allocs "
-          f"placed, {len(calls)} selects, {launches} kernel launches")
+          f"placed, {len(calls)} selects, {launches} programs on the card in "
+          f"{k1_kernels} kernel launches, all on the lane route")
     print(f"slice: per-eval wall median {statistics.median(walls) * 1e3:.1f} "
           f"ms, max {max(walls) * 1e3:.1f} ms; kernel {kernel_ms:.4f} "
           f"ms/launch, plain {plain_ms:.4f} ms/launch; peak device memory "
@@ -3641,7 +3916,7 @@ def main() -> int:
     k6["err"] = max(k6["err"], _phase9_cases(torch, kp, cases))
     k6_pooled, oversized_err, pooled_nums = _phase9_oversized(
         torch, kp, arrays9, k6["small"])
-    k9 = _phase9_shard(torch, kp, arrays9, k6["small"])
+    k9 = _phase9_shard(torch, kp, arrays9, k6["small"], card=smi[0])
 
     # ---- 10. the server on a device mesh (B10-B13); C1 and C2 ----
     t0 = time.perf_counter()
@@ -3670,7 +3945,7 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "place_task_group",
         "route": "cuda",
-        "source": "nomad_tpu_torch/kernels/csrc/placement.cu",
+        "source": "nomad_tpu_torch/kernels/csrc/lanes.cu",
         "replaces": "nomad_tpu/kernels/placement.py:345",
         "launches": k1_launches,
         "max_abs_err": max_err,
@@ -3679,6 +3954,16 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "span_ms": k1["lane"]["span"],
+        "explain_off_ms": k1_off["lane"]["events"],
+        "clusters": k1["lane"]["route"][1],
+        "kernel_launches_per_program": k1["lane"]["launches"],
+        "peak_mib": k1["lane"]["peak"],
+        "placement_cu_ms": k1["placement.cu"]["events"],
+        "placement_cu_span_ms": k1["placement.cu"]["span"],
+        "placement_cu_explain_off_ms": k1_off["placement.cu"]["events"],
+        "placement_cu_peak_mib": k1["placement.cu"]["peak"],
+        "placement_cu_bound_ms": old_bound,
     }, {
         "name": "place_table_chain",
         "route": "cuda",
@@ -3748,11 +4033,14 @@ def main() -> int:
     }, {
         "name": "scheduler_step",
         "route": "cuda",
-        "source": "nomad_tpu_torch/kernels/csrc/shard.cu",
+        "source": "nomad_tpu_torch/kernels/csrc/lanes.cu",
         "replaces": "nomad_tpu/parallel/mesh.py:287",
+        "calls": k9["calls"],
         "launches": k9["launches"],
         "max_abs_err": k9["err"],
         **k9[(1, 4)],
+        "mesh_2x2_ms": k9[(2, 2)]["ms"],
+        "mesh_2x2_steps_ms": k9[(2, 2)].get("steps_ms"),
     }, {
         "name": "place_packed_chain_sharded",
         "route": "cuda",

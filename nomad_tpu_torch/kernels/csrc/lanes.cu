@@ -1,6 +1,7 @@
 // Chain and wave placement on Hopper (sm_90a), the lane route:
 // hand-written CUDA C++, each lane one thread-block cluster with its rows
-// in shared memory.
+// in shared memory. The single program and the sharded step run on it
+// too (below).
 //
 // Replaces the jitted TPU kernels of the batched server path
 // (nomad_tpu/kernels/placement.py):
@@ -12,9 +13,16 @@
 //   K5  `place_table_wave` (:878): L lanes of such chains, the lane
 //       carries folded by the owner-lane select of :918-931, and the rows
 //       more than one lane changed counted as collisions.
+//   K1  `place_task_group` (:345): one lane of one program, with the
+//       program's step-0 scores (final0) and its carry (new_used) out;
+//   K9  `_batch_place` / `_step` (nomad_tpu/parallel/mesh.py:287, :303) on
+//       S ≤ 8 node shards of one card: one lane a program, block j node
+//       shard j (`shards`), each lane's carry out, then `lane_shard_fold`.
 // `place_task_group_chain` (:778), which returns the carry after every
 // program, stays on chain.cu's `nomad_place_lanes`, as do programs whose
-// rows do not fit this route's layout (kernels/placement.py `lane_route`).
+// rows do not fit this route's layout (kernels/placement.py `lane_route`,
+// `shard.py` `step_route`); K1 past it stays on placement.cu, K9 on
+// shard.cu's steps.
 //
 // What bounds it: latency. A lane's P·M steps depend on each other, and
 // each ends in an argmax over every row. The work is small: a program
@@ -76,11 +84,25 @@
 //     penalty rows, has the previous step's state: no block runs it, and
 //     block 0 copies the previous step's outputs (a count-10 program
 //     padded to M = 16 steps runs 10);
-// One launch a chain, two a wave. Every score is chain.cu's f32
+//   - a node shard (K9) is a block: block j of lane l reads argument block
+//     l·S + j, whose cluster pointers are node shard j's, each moved back
+//     by j·rows rows, so that the kernel indexes every shard by global
+//     row exactly as it indexes one view, and reads through them only its
+//     own rows [j·rows, (j + 1)·rows); its program fields are the
+//     program's (global rows, no rebase). Each lane writes its carry once
+//     (the view's rows from its shard, the overlay rows from the carry),
+//     and `lane_shard_fold` folds every lane into every node shard in one
+//     launch;
+//   - lanes past gridDim.y's 65,535 run in turns on the clusters
+//     (cluster y takes lanes y, y + gridDim.y, ...): one launch for any
+//     lane count.
+// One launch a chain or single program, two a wave or sharded step.
+// Every score is chain.cu's f32
 // expression on the same values in the same order (built with
 // -fmad=false, the `+ 0.0f` of absent terms kept, a row's deltas summed
 // in delta order and subtracted once), so the outputs and the carry are
-// bitwise those of `nomad_place_lanes`.
+// bitwise those of `nomad_place_lanes`, of placement.cu (K1) and of
+// shard.cu's steps route (K9).
 
 #include <cooperative_groups.h>
 
@@ -89,6 +111,13 @@
 
 namespace cg = cooperative_groups;
 
+namespace {
+
+// shard copies (batch rows × node shards) K9's fold on one card takes
+constexpr int MAX_FOLD_COPIES = 64;
+
+}  // namespace
+
 extern "C" {
 
 // One dispatch of the lane route.
@@ -96,17 +125,37 @@ struct LaneRun {
   int lanes;          // L lanes, one cluster each
   int per_lane;       // P programs a lane, in order
   int clusters;       // C blocks a lane
-  int rows;           // rows a block keeps (a multiple of 32)
+  int rows;           // rows a block keeps (a multiple of 32 in a wave)
   int n, r;           // the view's rows and resource dims
   int fold;           // a wave: write the overlay bitmaps, then fold
-  const float* used0;  // [n, r] the view
+  int shards;         // 1: block j of lane l reads its own arguments,
+                      // progs[l·C + j] (node shard j of program l, K9);
+                      // 0: the lane's programs, progs[l·P + k]
+  const float* used0;  // [n, r] the view (the fold's)
   const float* dyn0;   // [n]
   float* carry_used;   // [lanes, n, r] the lane carries (overlay rows only)
-  float* carry_dyn;    // [lanes, n]
+  float* carry_dyn;    // [lanes, n]; null: none (one program, no fold)
   uint32_t* overlay;   // [lanes, (n + 31) / 32] overlay bitmaps (waves)
-  float* out_used;     // [n, r] the chain's final carry or the fold, or null
-  float* out_dyn;      // [n]
+  // without fold: [lanes, n, r] each lane's final carry, or null; a
+  // wave: [n, r] the fold
+  float* out_used;
+  float* out_dyn;      // [lanes, n] or [n] as out_used, or null
   int* collisions;     // [1] waves: zeroed by the lane kernel
+};
+
+// The fold of K9's cluster route, node shards of one card: every
+// program's carry (the lane route's out_used, global rows) folded into
+// each node shard's view, used + Σ_b (new_used_b − used) in ascending b,
+// the partial sum passing from batch row to batch row in order.
+struct LaneShardFold {
+  int shards;      // S node shards, equal and in row order
+  int batch_rows;  // the mesh's batch rows
+  int per_row;     // programs a batch row
+  int count;       // floats of a node shard: rows · r
+  const float* new_used;  // [batch_rows · per_row, shards · count]
+  const float* used[MAX_FOLD_COPIES];  // [batch_rows · shards] each shard
+                                       // copy's view
+  float* out[MAX_CLUSTER];             // [shards] each node shard's fold
 };
 
 }  // extern "C"
@@ -435,38 +484,42 @@ __device__ void lane_carry_out(const PlaceArgs& A, const LaneSmem& G,
       carry_used[(size_t)row * R + r] = carried_used(A, su, row, r, k);
     __syncwarp();  // every lane has read the row's carry before it moves
     if (lane == 0) {
-      const float sd = src_dyn(A, S, row);
-      float placed = 0.0f;
-      for (int q = 0; q < A.m; ++q)
-        if (S.placed[q] == row) placed = placed + 1.0f;
-      carry_dyn[row] = k > 0 ? sd - placed * *A.n_dyn : sd;
+      if (carry_dyn != nullptr) {
+        const float sd = src_dyn(A, S, row);
+        float placed = 0.0f;
+        for (int q = 0; q < A.m; ++q)
+          if (S.placed[q] == row) placed = placed + 1.0f;
+        carry_dyn[row] = k > 0 ? sd - placed * *A.n_dyn : sd;
+      }
       const int i = row - S.row0;
       atomicOr(&G.overlay[i >> 5], 1u << (i & 31));
     }
   }
 }
 
-// One lane's chain a cluster: grid (C, L), cluster (C, 1, 1), block j of
-// cluster l keeping rows [j·rows, (j + 1)·rows) of the view for lane l's
-// programs. Every block runs every barrier: the loop bounds and the
-// step's branches are the same in all of them.
-__global__ void __launch_bounds__(LANE_THREADS, 1)
-lane_cluster(const PlaceArgs* progs, LaneRun L) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// Lane `lane_id`'s chain on the cluster, block j keeping rows [j·rows,
+// (j + 1)·rows) of the view for the lane's programs. Every block runs
+// every barrier: the loop bounds and the step's branches are the same in
+// all of them. Ends with a cluster barrier, so that the next lane may
+// reuse the shared memory.
+__device__ void lane_run(const PlaceArgs* progs, const LaneRun& L,
+                         int lane_id, unsigned char* smem_raw) {
   PlaceArgs& A = *(PlaceArgs*)smem_raw;
   cg::cluster_group cluster = cg::this_cluster();
-  const int j = (int)cluster.block_rank(), lane_id = blockIdx.y;
+  const int j = (int)cluster.block_rank();
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int N = L.n, R = L.r;
   const int row0 = j * L.rows;
   const int rows = max(0, min(N - row0, L.rows));
   float* carry_used = L.carry_used + (size_t)lane_id * N * R;
-  float* carry_dyn = L.carry_dyn + (size_t)lane_id * N;
-  if (L.fold && blockIdx.x == 0 && blockIdx.y == 0 && tid == 0)
-    *L.collisions = 0;
+  float* carry_dyn =
+      L.carry_dyn == nullptr ? nullptr : L.carry_dyn + (size_t)lane_id * N;
 
-  const PlaceArgs* lane_progs = progs + (size_t)lane_id * L.per_lane;
+  // a node shard's block its own arguments (K9), else the lane's
+  const PlaceArgs* lane_progs =
+      L.shards ? progs + (size_t)lane_id * L.clusters + j
+               : progs + (size_t)lane_id * L.per_lane;
   load_args(&A, lane_progs);  // the programs share their shapes: carve once
   const LaneSmem G = lane_carve(A, L, smem_raw, row0, rows, carry_used,
                                 carry_dyn);
@@ -505,9 +558,13 @@ lane_cluster(const PlaceArgs* progs, LaneRun L) {
 
       Best best{LOWEST, NONE};
       int nfit = 0;
+      // step 0's masked score of every row, where the program returns it
+      float* const final0 = step == 0 ? A.final0 : nullptr;
       if (!A.explain) {
         for (int i = tid; i < rows; i += nt) {
-          best = better(best, Best{onchip_value(A, S, i).masked, row0 + i});
+          const float v = onchip_value(A, S, i).masked;
+          if (final0 != nullptr) final0[row0 + i] = v;
+          best = better(best, Best{v, row0 + i});
           nfit += (S.meta[i] & R_FIT) != 0;
         }
         nfit = warp_sum(nfit);
@@ -523,6 +580,7 @@ lane_cluster(const PlaceArgs* progs, LaneRun L) {
           const bool dp_mask = onchip_dp_ok(A, S, i);
           const bool ok = (m & (R_FIT | R_DH)) == R_FIT && dp_mask;
           const Best b{ok ? onchip_score(A, S, i, m) : NEG_INF, row0 + i};
+          if (final0 != nullptr) final0[b.i] = b.v;
           best = better(best, b);
           topk_insert(tk, b);
           nfit += (m & R_FIT) != 0;
@@ -737,27 +795,43 @@ lane_cluster(const PlaceArgs* progs, LaneRun L) {
     for (int w = tid; w < (rows + 31) / 32; w += nt)
       L.overlay[(size_t)lane_id * words + row0 / 32 + w] = G.overlay[w];
   } else if (L.out_used != nullptr) {
-    // the chain's final carry: the view's rows, the overlay rows' carry
+    // the lane's final carry: the view's rows (the block's own view: a
+    // node shard's is its shard), the overlay rows' carry
+    float* out_used = L.out_used + (size_t)lane_id * N * R;
     for (int t = tid; t < rows * R; t += nt) {
       const int i = t / R;
       const size_t e = (size_t)(row0 + i) * R + (t - i * R);
       if (in_overlay(S, row0 + i)) {
-        if (L.out_used != carry_used) L.out_used[e] = carry_used[e];
+        if (out_used != carry_used) out_used[e] = carry_used[e];
       } else {
-        L.out_used[e] = L.used0[e];
+        out_used[e] = A.used[e];
       }
     }
-    for (int i = tid; i < rows; i += nt) {
+    float* out_dyn =
+        L.out_dyn == nullptr ? nullptr : L.out_dyn + (size_t)lane_id * N;
+    for (int i = tid; i < rows && out_dyn != nullptr; i += nt) {
       const int n = row0 + i;
       if (in_overlay(S, n)) {
-        if (L.out_dyn != carry_dyn) L.out_dyn[n] = carry_dyn[n];
+        if (out_dyn != carry_dyn) out_dyn[n] = carry_dyn[n];
       } else {
-        L.out_dyn[n] = L.dyn0[n];
+        out_dyn[n] = A.dyn_free[n];
       }
     }
   }
-  // no block leaves while another may still touch its shared memory
+  // no block goes on while another may still touch its shared memory
   cluster.sync();
+}
+
+// One lane's chain a cluster: grid (C, min(L, MAX_GRID_Y)), cluster (C, 1,
+// 1); cluster y runs lanes y, y + gridDim.y, ... in turn, so that a
+// dispatch takes any lane count in one launch.
+__global__ void __launch_bounds__(LANE_THREADS, 1)
+lane_cluster(const PlaceArgs* progs, LaneRun L) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (L.fold && blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)
+    *L.collisions = 0;
+  for (int lane_id = blockIdx.y; lane_id < L.lanes; lane_id += gridDim.y)
+    lane_run(progs, L, lane_id, smem_raw);
 }
 
 // The wave's fold, one thread a row: a lane changed the row if its overlay
@@ -788,6 +862,26 @@ __global__ void lane_fold(LaneRun L) {
   L.out_dyn[n] = owner >= 0 ? L.carry_dyn[(size_t)owner * N + n] : L.dyn0[n];
 }
 
+// K9's fold, one thread an element of the S node shards: acc = 0, then
+// for each batch row in order and each of its programs in order, acc +=
+// new_used_b − used (the row's copy of the shard), and the shard's folded
+// view = used + acc (the last batch row's copy) — shard.cu shard_fold's
+// arithmetic in its order, over every shard and batch row in one launch.
+__global__ void lane_shard_fold(LaneShardFold F) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t stride = (size_t)F.shards * F.count;
+  if (e >= (long long)stride) return;
+  const int j = (int)(e / F.count);
+  const int el = (int)(e - (long long)j * F.count);
+  float a = 0.0f, u = 0.0f;
+  for (int i = 0; i < F.batch_rows; ++i) {
+    u = F.used[i * F.shards + j][el];
+    const float* nu = F.new_used + (size_t)i * F.per_row * stride + e;
+    for (int b = 0; b < F.per_row; ++b) a = a + (nu[(size_t)b * stride] - u);
+  }
+  F.out[j][el] = u + a;
+}
+
 }  // namespace
 
 extern "C" {
@@ -808,13 +902,15 @@ size_t nomad_lanes_smem(const PlaceArgs* args0, int rows, int clusters) {
   return off[G_END];
 }
 
-// Enqueues one chain or wave dispatch of the lane route on `stream`:
-// lane_cluster over every lane, then (waves) lane_fold. `args0` is the
-// host copy of program 0's arguments (every program shares its shapes);
-// `progs` the device array of lanes·per_lane arguments, lane-major.
-// `launches` gets the kernels launched. Returns a CUDA error (0 = ok)
-// when the arguments disagree, when the shared memory is refused, when no
-// cluster of C such blocks fits the card, or when a launch fails.
+// Enqueues one dispatch of the lane route on `stream`: lane_cluster over
+// every lane (one launch, whatever the lane count), then (waves)
+// lane_fold. `args0` is the host copy of program 0's arguments (every
+// program shares its shapes); `progs` the device array of lanes·per_lane
+// arguments, lane-major, or with `shards` of lanes·clusters, a block's
+// own. `launches` gets the kernels launched. Returns a CUDA error (0 =
+// ok) when the arguments disagree, when the shared memory is refused,
+// when no cluster of C such blocks fits the card, or when a launch
+// fails.
 int nomad_place_lane_clusters(const PlaceArgs* args0, const void* progs,
                               const LaneRun* run, void* stream,
                               int* launches) {
@@ -822,16 +918,21 @@ int nomad_place_lane_clusters(const PlaceArgs* args0, const void* progs,
   const LaneRun L = *run;
   cudaStream_t st = (cudaStream_t)stream;
   *launches = 0;
+  // a wave's blocks write words of one overlay bitmap: rows a multiple of
+  // 32; a lane without a dyn_free carry has one program and no fold; the
+  // node shards of K9 are equal and cover the view, one program each
   if (L.clusters < 1 || L.clusters > MAX_CLUSTER || L.rows <= 0 ||
-      L.rows % 32 != 0 || (long long)L.rows * L.clusters < L.n ||
+      (L.fold && L.rows % 32 != 0) || (long long)L.rows * L.clusters < L.n ||
       L.n != A0.n || L.r != A0.r || A0.r < 2 || A0.m < 1 ||
       A0.topk > LANE_TOPK || A0.sv > 65536 || A0.dv > 65536 ||
-      L.lanes < 1 || L.lanes > 65535 || L.per_lane < 1 ||
-      L.carry_used == nullptr || L.carry_dyn == nullptr ||
+      L.lanes < 1 || L.per_lane < 1 || L.carry_used == nullptr ||
+      (L.carry_dyn == nullptr &&
+       (L.per_lane != 1 || L.fold || L.out_dyn != nullptr)) ||
+      (L.shards && (L.per_lane != 1 || L.fold ||
+                    (long long)L.rows * L.clusters != L.n)) ||
       (L.fold && (L.overlay == nullptr || L.out_used == nullptr ||
                   L.out_dyn == nullptr || L.collisions == nullptr)) ||
-      (!L.fold && L.out_used != nullptr && L.lanes != 1) ||
-      ((L.out_used == nullptr) != (L.out_dyn == nullptr)))
+      (L.out_dyn != nullptr && L.out_used == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t shm = nomad_lanes_smem(args0, L.rows, L.clusters);
   if (shm > 227 * 1024) return (int)cudaErrorInvalidValue;
@@ -839,7 +940,8 @@ int nomad_place_lane_clusters(const PlaceArgs* args0, const void* progs,
       lane_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(L.clusters, L.lanes, 1);
+  cfg.gridDim =
+      dim3(L.clusters, L.lanes < MAX_GRID_Y ? L.lanes : MAX_GRID_Y, 1);
   cfg.blockDim = dim3(LANE_THREADS, 1, 1);
   cfg.dynamicSmemBytes = shm;
   cfg.stream = st;
@@ -867,6 +969,22 @@ int nomad_place_lane_clusters(const PlaceArgs* args0, const void* progs,
   if (err != cudaSuccess) return (int)err;
   *launches = 2;
   return 0;
+}
+
+size_t nomad_lanes_fold_size() { return sizeof(LaneShardFold); }
+
+// Enqueues K9's fold over every node shard of one card (lane_shard_fold,
+// one launch). Returns a CUDA error (0 = ok).
+int nomad_lanes_shard_fold(const LaneShardFold* fold, void* stream) {
+  const LaneShardFold F = *fold;
+  if (F.shards < 1 || F.shards > MAX_CLUSTER || F.batch_rows < 1 ||
+      F.batch_rows * F.shards > MAX_FOLD_COPIES || F.per_row < 0 || F.count <= 0 ||
+      F.new_used == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long total = (long long)F.shards * F.count;
+  lane_shard_fold<<<(unsigned)((total + FOLD_THREADS - 1) / FOLD_THREADS),
+                    FOLD_THREADS, 0, (cudaStream_t)stream>>>(F);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

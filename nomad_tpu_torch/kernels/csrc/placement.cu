@@ -8,7 +8,10 @@
 // explain reductions (stage counts, first-exhausted dimension, top-5 with
 // their five score parts).
 //
-// Two launches per program:
+// K1 takes this route only where the lane route (csrc/lanes.cu, one
+// launch, the program's rows in shared memory over a thread-block
+// cluster) does not fit: kernels/placement.py `lane_route`. The two are
+// bitwise equal. Two launches per program:
 //   1. static_pass: one thread per node row. Constraint and affinity LUT
 //      lookups (token −1 → V−1, clamped to V−1), node_ok/extra_mask/
 //      sampled-candidate membership, the reserved-port bits with the

@@ -46,8 +46,10 @@
 // and the lowest global row first among equal scores — lax.top_k's order,
 // also for the many rows at the −1e30 floor.
 //
-// Two launch structures run those functions:
-//   steps (K9 always; B10/B11 when the shards span devices or S > 8): per
+// Two launch structures run those functions (K9 on S ≤ 8 node shards of
+// one card takes a third, csrc/lanes.cu's lane route: kernels/shard.py
+// `step_route`):
+//   steps (K9, B10/B11 when the shards span devices or S > 8): per
 //      dispatch and batch row of Bp programs (K9), or per program of a
 //      chain, with S shards:
 //      1. shard_static (per shard): grid (shard rows / 256, Bp), in chunks

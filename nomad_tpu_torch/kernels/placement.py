@@ -631,12 +631,35 @@ def _check_inputs(cluster: ClusterArrays, p: TGParams, max_allocs: int):
 
 
 class _Launcher:
-    """Builds and loads the CUDA library at first use, and keeps the
-    count of kernel runs on the main path."""
+    """Builds and loads the CUDA library (csrc/placement.cu) at first use,
+    and keeps K1's counts: programs placed on the card (one a select on
+    the main path), the kernel launches they took, the programs by route
+    ("cluster", csrc/lanes.cu; "scan", placement.cu) and the last one's
+    route."""
 
     def __init__(self):
         self.launches = 0
+        self.kernels = 0
+        self.routes = {"cluster": 0, "scan": 0}
+        self.last_route = None
         self._lib = None
+
+    def launch(self, a: _PlaceArgs, dev) -> None:
+        """placement.cu's two launches of one program on the device's
+        current stream; raises when either is refused."""
+        lib = self.lib()
+        err = lib.nomad_place_task_group(
+            ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError("placement kernel launch failed: "
+                               + lib.nomad_cuda_error_string(err).decode())
+        self.kernels += 2
+        self.dispatched("scan", None)
+
+    def dispatched(self, route: str, clusters: Optional[int]) -> None:
+        self.launches += 1
+        self.routes[route] += 1
+        self.last_route = (route, clusters)
 
     def lib(self):
         if self._lib is None:
@@ -662,12 +685,32 @@ _LAUNCHER = _Launcher()
 
 
 def launch_count() -> int:
-    """Kernel runs since the last reset (one per placement program)."""
+    """K1 programs placed on the card since the last reset (one a select,
+    on either route)."""
     return _LAUNCHER.launches
 
 
 def reset_launch_count() -> None:
-    _LAUNCHER.launches = 0
+    """Zero K1's counts (programs, kernel launches, routes)."""
+    _LAUNCHER.launches = _LAUNCHER.kernels = 0
+    _LAUNCHER.routes = {"cluster": 0, "scan": 0}
+
+
+def single_kernel_launches() -> int:
+    """Kernel launches of K1's programs since the last reset: one a
+    program on the lane route, two on placement.cu's."""
+    return _LAUNCHER.kernels
+
+
+def single_route_counts() -> dict:
+    """K1 programs since the last reset by route: {"cluster": the lane
+    route (csrc/lanes.cu), "scan": placement.cu}."""
+    return dict(_LAUNCHER.routes)
+
+
+def last_single_route():
+    """(route, cluster size or None) of the last K1 program on the card."""
+    return _LAUNCHER.last_route
 
 
 def build_kernel() -> None:
@@ -758,26 +801,37 @@ def _explain_out(ex: dict, c: int) -> PlacementExplain:
 
 
 def place_task_group_cuda(cluster: ClusterArrays, p: TGParams,
-                          max_allocs: int,
-                          explain: bool = False) -> PlacementResult:
-    """Run the hand-written kernel on CUDA tensors: a static pass over the
-    node rows, then the M-step scan in one block. Raises when the build or
-    the launch fails; never falls back."""
+                          max_allocs: int, explain: bool = False,
+                          clusters: Optional[int] = None) -> PlacementResult:
+    """Run a hand-written kernel on CUDA tensors. `clusters` None: the
+    route by shape — the lane route (csrc/lanes.cu, one launch: the
+    program as one lane of `lane_route(n, 1, ...)` blocks, its rows in
+    shared memory) where its layout fits, else placement.cu (a static
+    pass over the rows, then the M-step scan in one block); 0:
+    placement.cu; C > 0: the lane route at cluster size C (the card tests
+    and chip_smoke.py hold the routes against each other). The two routes
+    are bitwise equal. Raises when the build or the launch fails; never
+    falls back."""
     if cluster.used.device.type != "cuda":
         raise ValueError("place_task_group_cuda needs CUDA tensors")
     _check_inputs(cluster, p, max_allocs)
-    lib = _LAUNCHER.lib()
     cluster = ClusterArrays(*(t.contiguous() for t in cluster))
     p = TGParams(*(t.contiguous() for t in p))
     dev = cluster.used.device
     n, r = cluster.capacity.shape
     dims = _program_dims({f: tuple(t.shape) for f, t in p._asdict().items()},
                          max_allocs, explain, n)
-    shapes = _scratch_shapes(dims, n, r, explain)
+    if clusters is None:
+        clusters = lane_route(n, 1, dims, r, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+    # the lane route's outputs alone; placement.cu's scratch besides
+    shapes = _scratch_shapes(dims, n, r, explain, flat=bool(clusters))
     bufs = {name: torch.empty(shape, dtype=dt, device=dev)
             for group in shapes.values()
             for name, (shape, dt) in group.items()}
     bufs["new_used"] = torch.empty((n, r), dtype=torch.float32, device=dev)
+    if clusters:
+        bufs["final0"] = torch.empty(n, dtype=torch.float32, device=dev)
 
     a = _PlaceArgs()
     _set_cluster(a, cluster)
@@ -786,18 +840,44 @@ def place_task_group_cuda(cluster: ClusterArrays, p: TGParams,
     for name, val in dims.items():
         setattr(a, name, val)
 
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.nomad_place_task_group(ctypes.byref(a), stream)
-    if err != 0:
-        raise RuntimeError("placement kernel launch failed: "
-                           + lib.nomad_cuda_error_string(err).decode())
-    _LAUNCHER.launches += 1
+    if clusters:
+        _launch_single_lane(a, cluster, bufs["new_used"], dims, clusters)
+    else:
+        _LAUNCHER.launch(a, dev)
 
     return PlacementResult(
         sel_idx=bufs["sel_idx"], sel_score=bufs["sel_score"],
         new_used=bufs["new_used"], nodes_feasible=bufs["nodes_feasible"],
         nodes_fit=bufs["nodes_fit"], final_scores0=bufs["final0"],
         explain=_explain_out(bufs, dims["c"]) if explain else None)
+
+
+def _launch_single_lane(a: _PlaceArgs, cluster: ClusterArrays,
+                        new_used: torch.Tensor, dims: dict,
+                        clusters: int) -> None:
+    """K1's program `a` (its outputs, final0 and new_used among them) as
+    one lane of the lane route at cluster size `clusters`: its argument
+    block staged to the card, one launch; the kernel writes the carry's
+    used into `new_used` and keeps no dyn_free carry (K1 returns none)."""
+    from ..convert import to_device_async
+
+    dev = cluster.used.device
+    n, r = cluster.capacity.shape
+    rows = lane_rows(n, clusters)
+    host = np.frombuffer(bytearray(a), dtype=_ARGS_DTYPE)
+    _LANES.check_layout(host, rows, dims, r, clusters)
+    dev_args = to_device_async(host.view(np.uint8), dev)
+    run = _LaneRun(lanes=1, per_lane=1, clusters=clusters, rows=rows, n=n,
+                   r=r, fold=0, used0=cluster.used.data_ptr(),
+                   dyn0=cluster.dyn_free.data_ptr(),
+                   carry_used=new_used.data_ptr(),
+                   out_used=new_used.data_ptr())
+
+    def count(k):
+        _LAUNCHER.kernels += k
+
+    _LANES.launch(host, dev_args.data_ptr(), run, dev, count)
+    _LAUNCHER.dispatched("cluster", clusters)
 
 
 def place_task_group(cluster: ClusterArrays, p: TGParams, max_allocs: int,
@@ -1484,10 +1564,25 @@ class _LaneRun(ctypes.Structure):
 
     _fields_ = [("lanes", _INT), ("per_lane", _INT), ("clusters", _INT),
                 ("rows", _INT), ("n", _INT), ("r", _INT), ("fold", _INT),
+                ("shards", _INT),
                 ("used0", _VOID), ("dyn0", _VOID), ("carry_used", _VOID),
                 ("carry_dyn", _VOID), ("overlay", _VOID),
                 ("out_used", _VOID), ("out_dyn", _VOID),
                 ("collisions", _VOID)]
+
+
+#: shard copies (batch rows × node shards) K9's fold on one card takes
+#: (csrc/lanes.cu MAX_FOLD_COPIES)
+MAX_FOLD_COPIES = 64
+
+
+class _LaneShardFold(ctypes.Structure):
+    """Mirror of `LaneShardFold` in csrc/lanes.cu (K9's fold)."""
+
+    _fields_ = [("shards", _INT), ("batch_rows", _INT), ("per_row", _INT),
+                ("count", _INT), ("new_used", _VOID),
+                ("used", _VOID * MAX_FOLD_COPIES),
+                ("out", _VOID * MAX_CLUSTER)]
 
 
 class _LaneLauncher:
@@ -1501,7 +1596,8 @@ class _LaneLauncher:
             from ._build import load_library
 
             lib = load_library("lanes")
-            for fn in ("nomad_lanes_args_size", "nomad_lanes_run_size"):
+            for fn in ("nomad_lanes_args_size", "nomad_lanes_run_size",
+                       "nomad_lanes_fold_size"):
                 getattr(lib, fn).restype = ctypes.c_size_t
                 getattr(lib, fn).argtypes = []
             lib.nomad_lanes_smem.restype = ctypes.c_size_t
@@ -1511,16 +1607,59 @@ class _LaneLauncher:
             lib.nomad_place_lane_clusters.argtypes = [
                 ctypes.POINTER(_PlaceArgs), _VOID, ctypes.POINTER(_LaneRun),
                 _VOID, ctypes.POINTER(ctypes.c_int)]
+            lib.nomad_lanes_shard_fold.restype = ctypes.c_int
+            lib.nomad_lanes_shard_fold.argtypes = [
+                ctypes.POINTER(_LaneShardFold), _VOID]
             lib.nomad_lanes_error_string.restype = ctypes.c_char_p
             lib.nomad_lanes_error_string.argtypes = [ctypes.c_int]
             if (lib.nomad_lanes_args_size() != ctypes.sizeof(_PlaceArgs)
-                    or lib.nomad_lanes_run_size()
-                    != ctypes.sizeof(_LaneRun)):
+                    or lib.nomad_lanes_run_size() != ctypes.sizeof(_LaneRun)
+                    or lib.nomad_lanes_fold_size()
+                    != ctypes.sizeof(_LaneShardFold)):
                 raise RuntimeError(
                     "lanes library's argument layout differs from the "
                     "wrapper's (rebuild csrc/lanes.cu)")
             self._lib = lib
         return self._lib
+
+    def check_layout(self, args: np.ndarray, rows: int, dims: dict, r: int,
+                     clusters: int) -> None:
+        """Raises unless the library's shared-memory layout for blocks of
+        `rows` rows in clusters of `clusters` is `lane_layout`'s."""
+        want = lane_layout(rows, dims, r, clusters)["total"]
+        got = self.lib().nomad_lanes_smem(args_pointer(args), rows, clusters)
+        if got != want:
+            raise RuntimeError(f"lanes library's shared-memory layout "
+                               f"({got} B) differs from lane_layout's "
+                               f"({want} B)")
+
+    def launch(self, args: np.ndarray, dev_args: int, run: _LaneRun, dev,
+               count) -> None:
+        """One `nomad_place_lane_clusters` call on the device's current
+        stream; `count(k)` gets the kernels it launched, then it raises
+        when the call failed."""
+        lib = self.lib()
+        launches = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            err = lib.nomad_place_lane_clusters(
+                args_pointer(args), dev_args, ctypes.byref(run),
+                torch.cuda.current_stream(dev).cuda_stream,
+                ctypes.byref(launches))
+        count(launches.value)
+        if err != 0:
+            raise RuntimeError("lane-route kernel launch failed: "
+                               + lib.nomad_lanes_error_string(err).decode())
+
+    def shard_fold(self, fold: _LaneShardFold, dev) -> None:
+        """K9's fold (`nomad_lanes_shard_fold`, one launch) on the
+        device's current stream; raises when it is refused."""
+        lib = self.lib()
+        with torch.cuda.device(dev):
+            err = lib.nomad_lanes_shard_fold(
+                ctypes.byref(fold), torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError("K9 fold launch failed: "
+                               + lib.nomad_lanes_error_string(err).decode())
 
 
 _LANES = _LaneLauncher()
@@ -1542,18 +1681,13 @@ def _launch_lane_clusters(cluster: ClusterArrays, shapes: dict, ptrs_of,
     carry (a chain with `carry`) or the folded one (a wave), and the
     collision count (a wave). Raises when the library's layout differs
     from `lane_layout` or a launch fails."""
-    lib = _LANES.lib()
     dev = cluster.used.device
     n, r = cluster.capacity.shape
     dims, args, dev_args, prog, _lane, _used = _lane_args(
         cluster, shapes, ptrs_of, lanes, per_lane, max_allocs, explain,
         flat=True)
     rows = lane_rows(n, clusters)
-    want = lane_layout(rows, dims, r, clusters)["total"]
-    got = lib.nomad_lanes_smem(args_pointer(args), rows, clusters)
-    if got != want:
-        raise RuntimeError(f"lanes library's shared-memory layout ({got} B) "
-                           f"differs from lane_layout's ({want} B)")
+    _LANES.check_layout(args, rows, dims, r, clusters)
 
     def empty(shape, dt=torch.float32):
         return torch.empty(shape, dtype=dt, device=dev)
@@ -1576,15 +1710,12 @@ def _launch_lane_clusters(cluster: ClusterArrays, shapes: dict, ptrs_of,
     run.carry_used, run.carry_dyn = (t.data_ptr() for t in carry_l)
     if out is not None:
         run.out_used, run.out_dyn = (t.data_ptr() for t in out)
-    launches = ctypes.c_int(0)
-    err = lib.nomad_place_lane_clusters(
-        args_pointer(args), dev_args.data_ptr(), ctypes.byref(run),
-        torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launches))
     kind = "wave" if fold else "chain"
-    _CHAIN.kernels[kind] += launches.value
-    if err != 0:
-        raise RuntimeError("lane-route kernel launch failed: "
-                           + lib.nomad_lanes_error_string(err).decode())
+
+    def count(k):
+        _CHAIN.kernels[kind] += k
+
+    _LANES.launch(args, dev_args.data_ptr(), run, dev, count)
     _CHAIN.launches[kind] += 1
     _CHAIN.routes["cluster"] += 1
     _CHAIN.last_route = ("cluster", clusters)
@@ -1704,23 +1835,30 @@ def _stacked_source(cluster, batch):
         ptrs_of
 
 
-def _packed_source(cluster, i32buf, f32buf, u8buf, spec):
+def packed_ptrs(starts: dict, spec):
     """(b, shapes, ptrs_of) for field-major packed buffers (`pack_params`
-    of a stacked batch)."""
-    bufs = {"i": i32buf, "f": f32buf, "u": u8buf}
-    for cls in "ifu":
-        _check_class_buf(f"packed[{cls}]", bufs[cls], cls,
-                         cluster.used.device)
+    of a stacked batch) whose class buffers lie at device addresses
+    `starts` ("i", "f", "u")."""
     where = {name: (cls, off, tuple(shape)) for name, cls, off, shape in spec}
     b = where["n_place"][2][0]
 
     def ptrs_of(name):
         cls, off, shape = where[name]
         size = int(np.prod(shape[1:])) if len(shape) > 1 else 1
-        return bufs[cls].data_ptr() + (off + np.arange(b, dtype=np.int64)
-                                       * size) * _ESIZE[cls]
+        return starts[cls] + (off + np.arange(b, dtype=np.int64)
+                              * size) * _ESIZE[cls]
 
     return b, {name: w[2][1:] for name, w in where.items()}, ptrs_of
+
+
+def _packed_source(cluster, i32buf, f32buf, u8buf, spec):
+    """(b, shapes, ptrs_of) for field-major packed buffers on the
+    cluster's device."""
+    bufs = {"i": i32buf, "f": f32buf, "u": u8buf}
+    for cls in "ifu":
+        _check_class_buf(f"packed[{cls}]", bufs[cls], cls,
+                         cluster.used.device)
+    return packed_ptrs({cls: t.data_ptr() for cls, t in bufs.items()}, spec)
 
 
 def place_task_group_chain_cuda(cluster, batch, max_allocs, explain=False):

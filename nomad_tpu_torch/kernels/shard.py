@@ -34,14 +34,18 @@ read batch row 0's shards; the view cache keeps every copy equal.
 
 Each route has a plain version (the same loop in PyTorch, on any devices;
 the CPU tests hold it against the reference's mesh) and a CUDA one
-(`csrc/shard.cu`, K2's `csrc/system.cu` for B12); the shards' device type
-picks. B10 and B11 on CUDA shards take one of two launch structures, chosen
-from the layout alone (`chain_route`): when batch row 0's S ≤ 8 shards
-share one card, two launches a dispatch (the static pass of every shard,
-then one thread-block cluster of S blocks that runs every step of every
-program); otherwise launches a step per shard, records copied to the lead
-device, a combine there and the winner copied back. A failed launch
-raises; neither structure gives way to the other.
+(`csrc/shard.cu`, K2's `csrc/system.cu` for B12, `csrc/lanes.cu` for K9
+on one card); the shards' device type picks. On CUDA shards each of B10,
+B11 and K9 takes one of two launch structures, chosen from the devices
+and the layout alone (`chain_route`, `step_route`): when the S ≤ 8 node
+shards share one card, thread-block clusters of S blocks, one a shard —
+B10/B11 two launches a dispatch (the static pass of every shard, then one
+cluster that runs every step of every program), K9 one cluster a program
+(csrc/lanes.cu's lane route, each shard's rows in shared memory) in one
+launch and the fold in a second; otherwise launches a step per shard,
+records copied to the lead device, a combine there and the winner copied
+back. A failed launch raises; neither structure gives way to the other,
+and the two are bitwise equal.
 """
 from __future__ import annotations
 
@@ -52,7 +56,11 @@ import numpy as np
 import torch
 
 from .placement import (
+    _ARGS_DTYPE,
+    _LANES,
+    BLOCK_SMEM,
     EXPLAIN_TOPK,
+    MAX_FOLD_COPIES,
     ClusterArrays,
     PlacementExplain,
     PlacementResult,
@@ -63,16 +71,23 @@ from .placement import (
     _explain_step,
     _flat_outputs,
     _lane_args,
+    _LaneRun,
+    _LaneShardFold,
     _PlaceArgs,
     _program,
+    _program_dims,
     _rows_ptrs,
     _scratch_shapes,
+    _set_cluster,
     _stacked_source,
     _static_plain,
     _step_plain,
     _take_plain,
     _unpack_params,
     args_pointer,
+    lane_layout,
+    pack_params,
+    packed_ptrs,
     system_feasibility,
     system_feasibility_plain,
 )
@@ -124,14 +139,19 @@ def _as_params(batch) -> TGParams:
     return batch
 
 
-def _split(sc: ShardedCluster, batch) -> Tuple[TGParams, int, int]:
-    """The batch as CPU/torch tensors, and (programs per batch row, rows
-    per shard). Raises ValueError when the batch rows do not divide B."""
-    batch = _as_params(batch)
+def _per_row(sc: ShardedCluster, batch) -> int:
+    """Programs per batch row of a stacked batch (numpy or tensors).
+    Raises ValueError when the batch rows do not divide B."""
     b, bm = batch.n_place.shape[0], len(sc.devices)
     if b % bm:
         raise ValueError(f"{b} programs do not split over {bm} batch rows")
-    return batch, b // bm, sc.n // len(sc.row0)
+    return b // bm
+
+
+def _split(sc: ShardedCluster, batch) -> Tuple[TGParams, int, int]:
+    """The batch as CPU/torch tensors, and (programs per batch row, rows
+    per shard). Raises ValueError when the batch rows do not divide B."""
+    return _as_params(batch), _per_row(sc, batch), sc.n // len(sc.row0)
 
 
 def _row_programs(batch: TGParams, i: int, bp: int, dev) -> TGParams:
@@ -376,15 +396,18 @@ class _ShardChain(ctypes.Structure):
 
 class _Launcher:
     """The shard library (csrc/shard.cu), built at first use, its count of
-    K9 dispatches, the kernel launches of the sharded routes, and the
-    host calls (launches and copies) the last sharded dispatch made, and
-    the route the last chain or single dispatch took."""
+    K9 dispatches and their kernel launches on either route, the kernel
+    launches of the sharded routes, the host calls (launches and copies)
+    the last sharded dispatch made, and the route the last chain or
+    single dispatch and the last K9 dispatch took."""
 
     def __init__(self):
         self.launches = 0
+        self.step_kernels = 0
         self.routes = dict.fromkeys(ROUTES, 0)
         self.host_calls = 0
         self.last_route = None
+        self.last_step_route = None
         self._lib = None
 
     def lib(self):
@@ -435,7 +458,9 @@ class _Launcher:
         if err != 0:
             raise RuntimeError(f"shard kernel {fn} failed: "
                                + lib.nomad_shard_error_string(err).decode())
-        if route is not None:
+        if route == STEP:
+            self.step_kernels += 1
+        elif route is not None:
             self.routes[route] += 1
 
     def copy(self, dst: torch.Tensor, src: torch.Tensor) -> None:
@@ -447,6 +472,8 @@ class _Launcher:
 
 #: the sharded routes with a launch count of their own
 ROUTES = ("chain", "single", "system")
+#: K9's launches count to `step_kernel_launches`
+STEP = "step"
 
 _SHARD = _Launcher()
 
@@ -457,7 +484,22 @@ def launch_count() -> int:
 
 
 def reset_launch_count() -> None:
-    _SHARD.launches = 0
+    """Zero K9's dispatch and kernel-launch counts."""
+    _SHARD.launches = _SHARD.step_kernels = 0
+
+
+def step_kernel_launches() -> int:
+    """Kernel launches of K9's dispatches on CUDA shards since the last
+    reset: on the cluster route one (`lane_cluster`) and, with the fold,
+    a second; on the steps route every static, step, combine and fold
+    launch."""
+    return _SHARD.step_kernels
+
+
+def last_step_route() -> Optional[str]:
+    """The route the last K9 dispatch took: "plain", "cluster" or "steps"
+    (`step_route`); None before the first."""
+    return _SHARD.last_step_route
 
 
 def route_launch_counts() -> dict:
@@ -570,14 +612,222 @@ class _Cell:
                     route=self.route)
 
 
+def _step_dims(batch: TGParams, max_allocs: int, n: int) -> dict:
+    """`_program_dims` of K9's programs (explain off) on n global rows."""
+    return _program_dims({f: tuple(t.shape[1:])
+                          for f, t in batch._asdict().items()},
+                         max_allocs, False, n)
+
+
+def step_route(devices, n: int, dims: dict, r: int) -> str:
+    """K9's route over the grid `devices` ([batch rows][node shards]) for
+    programs of `dims` (`_program_dims`) on n rows, R = r, from the devices
+    and the layout alone: "plain" on CPU shards; "cluster" (csrc/lanes.cu:
+    one thread-block cluster a program, one block a node shard, then one
+    fold launch) when every shard of every batch row lies on one CUDA
+    device, there are at most MAX_CLUSTER node shards and MAX_FOLD_COPIES
+    shards in all, and a node shard's rows fit a block of the lane route
+    (`lane_layout`; programs with a step, vocabularies within u16
+    tokens); else "steps" (csrc/shard.cu: launches a step per shard,
+    records copied to the lead device, a combine there). Raises
+    ValueError when the shards lie on more than one device type."""
+    grid = [torch.device(d) for row in devices for d in row]
+    kinds = {d.type for d in grid}
+    if kinds == {"cpu"}:
+        return "plain"
+    if kinds != {"cuda"}:
+        raise ValueError(f"no sharded placement for devices {sorted(kinds)}")
+    s = len(devices[0])
+    if (len(set(grid)) != 1 or s > MAX_CLUSTER or len(grid) > MAX_FOLD_COPIES
+            or n % s or dims["m"] < 1
+            or max(dims["sv"], dims["dv"]) > 65536):
+        return "steps"
+    fits = lane_layout(n // s, dims, r, s)["total"] <= BLOCK_SMEM
+    return "cluster" if fits else "steps"
+
+
+def _staged(parts, dev):
+    """One device buffer holding `parts` (numpy arrays, each on a 16-byte
+    boundary): (the buffer, each part's device address, a function that
+    fills the pinned host copy and enqueues the one copy on the device's
+    current stream). Addresses are known before the bytes are, so that
+    argument blocks can point into the buffer."""
+    offs, total = [], 0
+    for a in parts:
+        offs.append(total)
+        total = (total + a.nbytes + 15) & ~15
+    buf = torch.empty(total, dtype=torch.uint8, device=dev)
+    base = buf.data_ptr()
+
+    def upload(filled):
+        host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+        h = host.numpy()
+        for off, a in zip(offs, filled):
+            h[off:off + a.nbytes] = np.ascontiguousarray(a).view(
+                np.uint8).reshape(-1)
+        with torch.cuda.device(dev):
+            buf.copy_(host, non_blocking=True)
+        _SHARD.host_calls += 1
+
+    return buf, [base + o for o in offs], upload
+
+
+def _step_outputs(b: int, n: int, r: int, m: int, dev) -> dict:
+    """K9's outputs of b programs on n rows, by PlaceArgs field name."""
+    i32, f32 = torch.int32, torch.float32
+    return dict(sel_idx=torch.empty((b, m), dtype=i32, device=dev),
+                sel_score=torch.empty((b, m), dtype=f32, device=dev),
+                nodes_feasible=torch.empty(b, dtype=i32, device=dev),
+                nodes_fit=torch.empty((b, m), dtype=i32, device=dev),
+                final0=torch.empty((b, n), dtype=f32, device=dev),
+                new_used=torch.empty((b, n, r), dtype=f32, device=dev))
+
+
+def cluster_args(sc: ShardedCluster, dims: dict, bp: int, ptrs_of,
+                 outputs: dict) -> np.ndarray:
+    """The argument blocks of K9's cluster route, block (l, j) at l·S + j
+    for program l (of batch row l // bp) and node shard j: the program's
+    fields (`ptrs_of(field)`, one pointer a program) and its rows of
+    `outputs` ([B, ...] tensors by field name), the dims of `dims` with n
+    the global rows, and the cluster fields of its batch row's shard j,
+    each moved back j·(N / S) rows, so that global row g of the shard
+    lies g rows past the pointer (csrc/lanes.cu)."""
+    bm, s, n = len(sc.devices), len(sc.row0), sc.n
+    ns, b = n // s, bm * bp
+    base = _PlaceArgs()
+    _set_cluster(base, sc.shards[0][0])
+    base.n = n
+    for name, val in dims.items():
+        setattr(base, name, val)
+    # a program's block first, then S copies of it (the shards' differ in
+    # their cluster pointers alone)
+    args = np.repeat(np.frombuffer(bytearray(base), dtype=_ARGS_DTYPE), b)
+    for f in TGParams._fields:
+        args[f] = ptrs_of(f)
+    for name, t in outputs.items():
+        args[name] = _rows_ptrs(t, np.arange(b))
+    args = np.repeat(args, s)
+    for name in ClusterArrays._fields:
+        col = np.empty((bm, s), dtype=np.int64)
+        for i, row in enumerate(sc.shards):
+            for j, sh in enumerate(row):
+                t = getattr(sh, name)
+                col[i, j] = (t.data_ptr()
+                             - j * ns * t.stride(0) * t.element_size())
+        args[name] = np.repeat(col, bp, axis=0).reshape(-1)
+    return args
+
+
+def _place_cluster(sc: ShardedCluster, batch, bp: int, max_allocs: int,
+                   fold: bool, dims: dict):
+    """K9's cluster route (every shard on one card): the B = rows · bp
+    programs (of `dims`, `_step_dims`) as B lanes of csrc/lanes.cu's
+    `lane_cluster`, S blocks each, block j node shard j with its rows in
+    shared memory — one launch — each program's carry written once into
+    new_used [B, N, R]; then, with `fold`, `lane_shard_fold` over every
+    node shard (one launch). The argument blocks (lane l, shard j at l·S
+    + j) and, for programs not on the card (numpy, or tensors elsewhere),
+    their fields packed as `pack_params` packs them, go to the card in
+    one staged copy. A block's cluster pointers are its shard's, moved
+    back by its first row (csrc/lanes.cu), its program fields the
+    program's own: no rebase. Raises RuntimeError when the library
+    refuses or a launch fails."""
+    shards = [sh for row in sc.shards for sh in row]
+    for sh in shards:
+        _check_cluster(sh)
+    out = sc.devices[0][0]
+    bm, s, n, m = len(sc.devices), len(sc.row0), sc.n, max_allocs
+    ns = n // s
+    if sc.row0 != tuple(j * ns for j in range(s)):
+        raise ValueError("the node shards must be equal and in row order")
+    b = bm * bp
+    shard0 = sc.shards[0][0]
+    r = shard0.capacity.shape[1]
+    _SHARD.host_calls = 0
+    if all(isinstance(t, torch.Tensor) and t.device == out for t in batch):
+        _b, _shapes, ptrs_of = _stacked_source(shard0, batch)
+        packed, parts = None, []
+    else:
+        packed = pack_params(TGParams(*(
+            t.cpu() if isinstance(t, torch.Tensor) else t for t in batch)))
+        parts = list(packed[:3])
+    res = _step_outputs(b, n, r, m, out)
+    buf, addr, upload = _staged([np.empty(b * s, _ARGS_DTYPE)] + parts, out)
+    if packed is not None:
+        _b, _shapes, ptrs_of = packed_ptrs(dict(zip("ifu", addr[1:])),
+                                           packed[3])
+
+    args = cluster_args(sc, dims, bp, ptrs_of, res)
+    _LANES.check_layout(args, ns, dims, r, s)
+    upload([args] + parts)
+    run = _LaneRun(lanes=b, per_lane=1, clusters=s, rows=ns, n=n, r=r,
+                   fold=0, shards=1, used0=shard0.used.data_ptr(),
+                   dyn0=shard0.dyn_free.data_ptr(),
+                   carry_used=res["new_used"].data_ptr(),
+                   out_used=res["new_used"].data_ptr())
+
+    def count(k):
+        _SHARD.step_kernels += k
+        _SHARD.host_calls += 1
+
+    _LANES.launch(args, addr[0], run, out, count)
+    folded = None
+    if fold:
+        folded = [torch.empty_like(sh.used) for sh in sc.shards[0]]
+        f = _LaneShardFold(shards=s, batch_rows=bm, per_row=bp,
+                           count=ns * r,
+                           new_used=res["new_used"].data_ptr())
+        for i, row in enumerate(sc.shards):
+            for j, sh in enumerate(row):
+                f.used[i * s + j] = sh.used.data_ptr()
+        for j, t in enumerate(folded):
+            f.out[j] = t.data_ptr()
+        _SHARD.host_calls += 1
+        _LANES.shard_fold(f, out)
+        _SHARD.step_kernels += 1
+    # the staged buffer may be freed now: the caching allocator hands its
+    # memory only to work queued after these launches on the same stream
+    del buf
+    result = PlacementResult(
+        sel_idx=res["sel_idx"], sel_score=res["sel_score"],
+        new_used=res["new_used"], nodes_feasible=res["nodes_feasible"],
+        nodes_fit=res["nodes_fit"], final_scores0=res["final0"])
+    return result, folded
+
+
 def sharded_place_cuda(sc: ShardedCluster, batch, max_allocs: int,
-                       fold: bool = False):
-    """K9 on CUDA shards (`csrc/shard.cu`); returns what
-    `sharded_place_plain` returns. Every launch and copy is queued on the
+                       fold: bool = False, route: Optional[str] = None):
+    """K9 on CUDA shards; returns what `sharded_place_plain` returns.
+    `route` None: `step_route`'s by the devices and the layout; "cluster"
+    or "steps" forces one (the card tests and chip_smoke.py hold the two
+    against each other, bitwise). Every launch and copy is queued on the
     devices' current streams (cross-device copies wait on both); nothing
-    syncs with the host. Raises when a build or launch fails."""
+    syncs with the host. Raises when a build or launch fails; never falls
+    back."""
     _check_grid(sc, "cuda")
-    batch, bp, ns = _split(sc, batch)
+    bp = _per_row(sc, batch)
+    dims = _step_dims(batch, max_allocs, sc.n)
+    if route is None:
+        route = step_route(sc.devices, sc.n, dims,
+                           sc.shards[0][0].capacity.shape[1])
+    if route == "cluster":
+        out = _place_cluster(sc, batch, bp, max_allocs, fold, dims)
+    elif route == "steps":
+        out = _place_steps(sc, _as_params(batch), bp, sc.n // len(sc.row0),
+                           max_allocs, fold)
+    else:
+        raise ValueError(f"no K9 route {route!r} on CUDA shards")
+    _SHARD.launches += 1
+    _SHARD.last_step_route = route
+    return out
+
+
+def _place_steps(sc: ShardedCluster, batch: TGParams, bp: int, ns: int,
+                 max_allocs: int, fold: bool):
+    """K9's steps route (`csrc/shard.cu`), a cell a shard on any CUDA
+    devices: the static pass of every shard, then per step each shard's
+    step launch, the records to the lead device, the combine there and
+    the winner back; then the fold a shard. 3S + 1 host calls a step."""
     bm, nm = len(sc.devices), len(sc.row0)
     m = max_allocs
     _SHARD.lib()
@@ -591,7 +841,7 @@ def sharded_place_cuda(sc: ShardedCluster, batch, max_allocs: int,
                 on_dev[dev] = _row_programs(batch, i, bp, dev)
             row.append(_Cell(sc.shards[i][j],
                              rebase(on_dev[dev], sc.row0[j], ns, sc.n),
-                             sc.row0[j], m))
+                             sc.row0[j], m, route=STEP))
         lead = row[0]
         i32 = torch.int32
         leads.append(dict(
@@ -626,7 +876,8 @@ def sharded_place_cuda(sc: ShardedCluster, batch, max_allocs: int,
                     "rec", "win", "sel_idx", "sel_score", "nodes_fit",
                     "nodes_feasible")})
             _SHARD.call("nomad_shard_combine", row[0].dev,
-                        row[0].dev_args.data_ptr(), ctypes.byref(comb))
+                        row[0].dev_args.data_ptr(), ctypes.byref(comb),
+                        route=STEP)
             for c in row:
                 _SHARD.copy(c.win, lead["win"])
     # (d) the last step's winner
@@ -634,7 +885,6 @@ def sharded_place_cuda(sc: ShardedCluster, batch, max_allocs: int,
         for row in cells:
             for c in row:
                 c.step(m, apply=True)
-    _SHARD.launches += 1
 
     out = sc.devices[0][0]
     result = PlacementResult(
@@ -662,7 +912,7 @@ def sharded_place_cuda(sc: ShardedCluster, batch, max_allocs: int,
                 _SHARD.call("nomad_shard_fold", c.dev, c.used.data_ptr(),
                             used.data_ptr(), acc.data_ptr(),
                             None if new is None else new.data_ptr(), bp,
-                            used.numel())
+                            used.numel(), route=STEP)
             folded.append(new)
     return result, folded
 
@@ -675,6 +925,7 @@ def sharded_place(sc: ShardedCluster, batch, max_allocs: int,
     device, the folded used per node shard when `fold`, else None)."""
     kinds = {d.type for row in sc.devices for d in row}
     if kinds == {"cpu"}:
+        _SHARD.last_step_route = "plain"
         return sharded_place_plain(sc, batch, max_allocs, fold)
     if kinds == {"cuda"}:
         return sharded_place_cuda(sc, batch, max_allocs, fold)

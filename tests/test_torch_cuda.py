@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-K1, the chain and wave (K4, K5; the lane route bitwise chain.cu's, at
-several cluster sizes), the batch (K6; its on-chip and pooled
-packed routes bitwise each other), the row kernels (K7, K8),
-K2, K3, the node-sharded step (K9) on four shards, and the sharded
+K1 (its lane route bitwise placement.cu's), the chain and wave (K4, K5;
+the lane route bitwise chain.cu's, at several cluster sizes, waves past
+65,535 lanes), the batch (K6; its on-chip and pooled packed routes
+bitwise each other), the row kernels (K7, K8), K2, K3, the node-sharded
+step (K9; its cluster route bitwise its steps route), and the sharded
 routes (B10-B13) on shards of the card — B10/B11's cluster route held
 bitwise against its steps route.
 
@@ -55,6 +56,8 @@ def _assert_same(want, got):
                 assert torch.equal(a.to(b.dtype), b), f
 
 
+LANE_SIZES = (1, 2, 8)
+
 _KINDS = {
     "binpack": dict(),
     "affinity_spread": dict(with_affinity=True, with_spread=True),
@@ -91,6 +94,75 @@ def test_kernel_matches_plain(kind, algorithm, cuda_device):
             want = kp.place_task_group_plain(arrays, p, m, explain)
             torch.cuda.synchronize()
             _assert_same(want, got)
+
+
+def _single_bits(want, got, what):
+    """Two K1 results, every output and explain leaf bit for bit."""
+    for f in ("sel_idx", "sel_score", "nodes_feasible", "nodes_fit",
+              "new_used", "final_scores0"):
+        a, b = getattr(want, f), getattr(got, f)
+        assert a.shape == b.shape and torch.equal(_bits(a), _bits(b)), \
+            (what, f)
+    assert (want.explain is None) == (got.explain is None), what
+    for f in kp.PlacementExplain._fields if want.explain else ():
+        a, b = getattr(want.explain, f), getattr(got.explain, f)
+        assert a.shape == b.shape and torch.equal(_bits(a), _bits(b)), \
+            (what, f)
+
+
+def _single_zero(want, got, what):
+    """A K1 result 0.0 from plain: every leaf equal."""
+    for f in ("sel_idx", "sel_score", "nodes_feasible", "nodes_fit",
+              "new_used", "final_scores0"):
+        a, b = getattr(want, f).cpu(), getattr(got, f).cpu()
+        assert torch.equal(a.to(b.dtype), b), (what, f)
+    for f in kp.PlacementExplain._fields if want.explain else ():
+        a = getattr(want.explain, f).cpu()
+        b = getattr(got.explain, f).cpu()
+        assert torch.equal(a.to(b.dtype), b), (what, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(_KINDS))
+def test_single_lane_route_equals_placement_cu_bitwise(kind, cuda_device):
+    """K1 on the lane route (one launch: the program as one lane of the
+    cluster size it picks, and of 1, 2 and 8 blocks) is placement.cu's
+    route (two launches) bit for bit — outputs, explain leaves, new_used
+    and final_scores0 — and 0.0 from plain, with plan deltas, penalties,
+    a preferred node and sampled candidates, explain off and on."""
+    state, nodes = build_synthetic_state(300, 3000, seed=1)
+    rng = random.Random(2)
+    job = synth_service_job(rng, count=10, **_KINDS[kind])
+    stack = TorchStack(state.cluster, device=cuda_device)
+    filler = list(state._allocs.values())[:5]
+    plan = PlanContext(
+        stopped_allocs=filler,
+        penalty_node_ids=[frozenset({nodes[i].id}) for i in range(4)],
+        preferred_node_ids=[None, nodes[3].id])
+    for p_ctx, rows in ((None, None), (plan, None),
+                        (None, list(range(0, 300, 7)))):
+        params, m = stack.compile_tg(job, job.task_groups[0], 10, p_ctx,
+                                     sampled_rows=rows)
+        (padded,), _ = pad_params([params])
+        arrays = stack.device_arrays()
+        p = params_from_numpy(padded, cuda_device)
+        for explain in (False, True):
+            k0 = kp.single_kernel_launches()
+            ref = kp.place_task_group_cuda(arrays, p, m, explain, clusters=0)
+            assert kp.last_single_route() == ("scan", None)
+            assert kp.single_kernel_launches() == k0 + 2
+            want = kp.place_task_group_plain(arrays, p, m, explain)
+            for c in (None,) + LANE_SIZES:
+                k0, n0 = kp.single_kernel_launches(), kp.launch_count()
+                got = kp.place_task_group_cuda(arrays, p, m, explain,
+                                               clusters=c)
+                route, size = kp.last_single_route()
+                assert route == "cluster" and (c is None or size == c)
+                assert kp.single_kernel_launches() == k0 + 1
+                assert kp.launch_count() == n0 + 1
+                torch.cuda.synchronize()
+                _single_bits(ref, got, (kind, explain, c))
+                _single_zero(want, got, (kind, explain, c))
 
 
 # ---- the chain, wave and row-scatter kernels (K4, K5, K8) -------------------
@@ -216,9 +288,6 @@ def test_packed_and_stacked_chains_match_plain(cuda_device):
 # ---- K4 and K5 on the lane route (csrc/lanes.cu) -----------------------------
 
 #: cluster sizes the lane route is held at beside the one it picks
-LANE_SIZES = (1, 2, 8)
-
-
 def _same_bits(want, got, what):
     """Flat outputs or carries, leaf by leaf, bit for bit."""
     assert len(want) == len(got), what
@@ -768,6 +837,134 @@ def test_shard_kernel_takes_65536_programs_a_batch_row(cuda_device):
     torch.cuda.synchronize()
     assert got.sel_idx.shape[0] == 65536
     _assert_tiled(want, got)
+
+
+@pytest.mark.cuda
+def test_wave_takes_65536_lanes(cuda_device):
+    """C1: a wave of 65,536 one-program lanes (past gridDim.y's 65,535)
+    on a 64-row view runs on the lane route, one launch and its fold's:
+    bitwise chain.cu's route on the same inputs; every lane equal to the
+    plain result of its original (16 distinct lanes, tiled), the folded
+    carry the plain fold of the 16, and every row a lane changed counted
+    as a collision (each is changed by all 4,096 copies of its lanes)."""
+    import numpy as np
+
+    from nomad_tpu_torch.convert import tensor_from_numpy
+    from nomad_tpu_torch.lib.transfer import default_ledger
+    from nomad_tpu_torch.server.program_table import DeviceProgramTable
+
+    state, _nodes = build_synthetic_state(48, 200, seed=9)
+    rng = random.Random(10)
+    stack = TorchStack(state.cluster, device=cuda_device)
+    progs = []
+    for i in range(16):
+        j = synth_service_job(rng, count=3,
+                              **_KINDS[sorted(_KINDS)[i % len(_KINDS)]])
+        state.upsert_job(j)
+        progs.append(stack.compile_tg(j, j.task_groups[0], 3, None)[0])
+    table = DeviceProgramTable(device=cuda_device)
+    prep = table.prepare(progs)
+    ti, tf, tu, _nb, _count = table.commit(prep, default_ledger())
+    dyn = [tensor_from_numpy(d, cuda_device)
+           for d in (prep.dyn_i, prep.dyn_f, prep.dyn_u)]
+    arrays = stack.device_arrays()
+    assert arrays.capacity.shape[0] == 64
+    copies = 4096
+    lanes = 16 * copies
+    rows = np.tile(np.asarray(prep.rows).reshape(16, 1), (copies, 1))
+    wdyn = [d.reshape(16, 1, -1).repeat(copies, 1, 1) for d in dyn]
+    args = (arrays, ti, tf, tu, rows, *wdyn, prep.sspec, prep.dspec, prep.m)
+    k0 = kp.chain_kernel_launches()["wave"]
+    got = kp.place_table_wave(*args)
+    assert kp.last_chain_dispatch_route()[0] == "cluster"
+    assert kp.chain_kernel_launches()["wave"] == k0 + 2
+    ref = kp.place_table_wave_cuda(*args, clusters=0)
+    assert kp.last_chain_dispatch_route() == ("lanes", None)
+    torch.cuda.synchronize()
+    for part in range(2):
+        _same_bits(ref[part], got[part], ("wave of 65536", part))
+    small = (arrays, ti, tf, tu, np.asarray(prep.rows).reshape(16, 1),
+             *[d.reshape(16, 1, -1) for d in dyn], prep.sspec, prep.dspec,
+             prep.m)
+    want_out, want_carry = kp.place_table_wave_plain(*small)
+    out, carry = got
+    assert out[0].shape[0] == lanes
+    for i, (w, g) in enumerate(zip(want_out[:-1], out[:-1])):
+        w, g = w.cpu(), g.cpu()
+        g = g.reshape((copies,) + tuple(w.shape))
+        assert torch.equal(g, w.expand_as(g).to(g.dtype)), ("lane", i)
+    _zero_from_plain(want_carry, carry, "wave of 65536 fold")
+    changed = ((want_carry[0] != arrays.used).any(dim=1)
+               | (want_carry[1] != arrays.dyn_free))
+    assert int(changed.sum()) > 0
+    assert int(out[-1]) == int(changed.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2), (1, 8)],
+                         ids=["1x4", "2x2", "1x8"])
+def test_shard_step_cluster_equals_steps_bitwise(shape, cuda_device):
+    """K9 on shards of one card: the cluster route (the lane kernel, one
+    launch a dispatch, and the fold's; three host calls) bit for bit the
+    steps route forced on the same shards — sel_idx, sel_score,
+    nodes_feasible, nodes_fit, final_scores0, new_used and the folded
+    view — and 0.0 from plain; the entry point takes the cluster route."""
+    from nomad_tpu_torch.kernels import shard as ks
+    from nomad_tpu_torch.parallel import scheduler_step, shard_cluster
+
+    arrays, batched, m = _batch_problem(cuda_device, n_prog=8)
+    mesh = _card_mesh(shape, one_card=True)
+    sc = shard_cluster(arrays, mesh)
+    k0, n0 = ks.step_kernel_launches(), ks.launch_count()
+    got, got_f = ks.sharded_place_cuda(sc, batched, m, fold=True)
+    assert ks.last_step_route() == "cluster"
+    assert ks.step_kernel_launches() == k0 + 2
+    assert ks.launch_count() == n0 + 1
+    assert ks.host_calls() <= 5
+    want, want_f = ks.sharded_place_cuda(sc, batched, m, fold=True,
+                                         route="steps")
+    assert ks.last_step_route() == "steps"
+    torch.cuda.synchronize()
+    _assert_bitwise(want, got, f"K9 {shape}")
+    for j, (a, b) in enumerate(zip(want_f, got_f)):
+        assert torch.equal(_bits(a), _bits(b)), (shape, "fold", j)
+    plain, plain_f = ks.sharded_place_plain(sc, batched, m, fold=True)
+    _single_zero(plain, got, f"K9 {shape} plain")
+    for j, (a, b) in enumerate(zip(plain_f, got_f)):
+        assert torch.equal(a.cpu(), b.cpu()), (shape, "plain fold", j)
+    assert (got.sel_idx >= 0).any()
+    new_cluster, res = scheduler_step(mesh, m)(sc, batched)
+    assert ks.last_step_route() == "cluster"
+    torch.cuda.synchronize()
+    _assert_bitwise(got, res, f"K9 {shape} entry")
+    for row in new_cluster.shards:
+        for j, shard in enumerate(row):
+            assert torch.equal(_bits(shard.used), _bits(got_f[j])), j
+
+
+@pytest.mark.cuda
+def test_shard_step_routes_take_65536_programs_bitwise(cuda_device):
+    """K9 with one batch row of 65,536 programs (past gridDim.y) on four
+    shards of one card: the cluster route bitwise the steps route, fold
+    included, and every copy equal to the plain K9 result of its
+    original."""
+    from nomad_tpu_torch.kernels import shard as ks
+    from nomad_tpu_torch.parallel import make_mesh, shard_cluster
+
+    arrays, small, tiled, m = _tiled_problem(cuda_device)
+    sc = shard_cluster(arrays, make_mesh(4, batch=1,
+                                         devices=["cuda:0"] * 4))
+    got, got_f = ks.sharded_place_cuda(sc, tiled, m, fold=True)
+    assert ks.last_step_route() == "cluster"
+    want, want_f = ks.sharded_place_cuda(sc, tiled, m, fold=True,
+                                         route="steps")
+    torch.cuda.synchronize()
+    _assert_bitwise(want, got, "K9 65536")
+    for j, (a, b) in enumerate(zip(want_f, got_f)):
+        assert torch.equal(_bits(a), _bits(b)), ("fold", j)
+    plain, _f = ks.sharded_place_plain(sc, small, m)
+    _assert_tiled(plain, got, floats=("sel_score", "final_scores0",
+                                      "new_used"))
 
 
 # ---- C2: the packed K6 equals the full-carry route ---------------------------

@@ -37,7 +37,7 @@ import torch
 
 import torch_chain_cases as cc
 from torch_chain_cases import one_torch_thread  # noqa: F401
-from torch_onchip_model import carry, spread_table, terms
+from torch_onchip_model import lane_chain_model, wave_model
 from nomad_tpu.kernels import placement as jp
 from nomad_tpu.parallel.mesh import stack_params
 from nomad_tpu.scheduler.harness import InMemState
@@ -49,281 +49,6 @@ from nomad_tpu.synth import synth_alloc, synth_node, synth_service_job
 
 from nomad_tpu_torch.convert import params_from_numpy
 from nomad_tpu_torch.kernels import placement as tp
-
-NEG_INF = tp.NEG_INF
-LOWEST = -3.4028234663852886e38
-NONE = 0x7FFFFFFF
-
-
-# ---- the model -----------------------------------------------------------------
-
-
-def _exh(cluster, p, st, used, splaced):
-    """Every row's exhaustion code for the carry given (`row_exh`): 0 it
-    fits, 1 + r dimension r the first over capacity, R + 1 no dynamic
-    port, R + 2 a reserved port taken."""
-    r_dims = cluster.capacity.shape[1]
-    over = (used + p.ask[None, :]) > cluster.capacity
-    first = torch.argmax(over.to(torch.uint8), dim=1)
-    dyn_ok = (st["dyn_free"] - splaced * p.n_dyn) >= p.n_dyn
-    res_ok = st["res_free"] & ~(st["has_res_ask"] & (splaced > 0))
-    code = torch.where(~res_ok, r_dims + 2, 0)
-    code = torch.where(~dyn_ok, r_dims + 1, code)
-    return torch.where(over.any(dim=1), 1 + first, code)
-
-
-def _parts(cluster, p, st, used, tgc, penalty, sp):
-    """Every row's five score parts (step_rows' `parts`)."""
-    binpack, spreadfit = tp.fit_scores(used + p.ask[None, :],
-                                       cluster.capacity)
-    fit = torch.where(p.algorithm == 1, spreadfit, binpack)
-    anti = -(tgc + 1.0) / torch.clamp(p.desired_count, min=1.0)
-    aff = st["aff_score"]
-    return torch.stack((fit, torch.where(tgc > 0, anti, 0.0),
-                        torch.where(penalty, -1.0, 0.0),
-                        torch.where(aff != 0.0, aff, 0.0),
-                        torch.where(sp != 0.0, sp, 0.0)), dim=1)
-
-
-def _static_rows(cluster, p):
-    """Per row: the node is evaluated (node_ok and a sampled candidate),
-    every constraint LUT row accepts it, the extra mask, and which
-    constraints fail (static_row's bits)."""
-    n = cluster.capacity.shape[0]
-    v = p.lut.shape[1]
-    fails = (~tp._lookup(p.lut, tp._tokens(cluster.attrs, p.key_idx, v))
-             if p.lut.shape[0] else torch.zeros((n, 0), dtype=torch.bool))
-    base = cluster.node_ok.clone()
-    if p.cand_idx.shape[0]:
-        in_cand = tp._scatter(p.cand_idx, torch.ones(p.cand_idx.shape[0]),
-                              n) > 0
-        base = base & (in_cand | ~p.use_cand)
-    extra = p.extra_mask.expand(n)
-    return base, ~fails.any(dim=1), extra, fails
-
-
-def program_model(cluster, p, m, slices, explain):
-    """One program on the blocks' row slices (`cluster` holding the
-    lane's carry for every row): (per-step outputs, the rows it placed
-    on). Every block's record is built from its rows alone and the
-    records are combined."""
-    i32 = torch.int32
-    n = cluster.capacity.shape[0]
-    k_top = min(tp.EXPLAIN_TOPK, n)
-    st = tp._static_plain(cluster, p, False)
-    zero = torch.zeros(n)
-    no_pen = torch.zeros(n, dtype=torch.bool)
-    prefix, cnt, fit_bit, dh = terms(cluster, p, st, st["used"],
-                                     st["job_cnt"], st["tg_cnt"], zero, no_pen)
-    exh = _exh(cluster, p, st, st["used"], zero)
-    feas, stok, dtok = st["feas"], st["stok"], st["dtok"]
-    scounts, dcounts = p.spread_counts0.clone(), p.dp_counts0.clone()
-    dv, r_dims = dcounts.shape[1], cluster.capacity.shape[1]
-    base, lut_all, extra, fails = _static_rows(cluster, p)
-    out = dict(sel=[], score=[], fit=[], ex=[])
-    out["feasible"] = sum(int(feas[a:b].sum()) for a, b in slices)
-    if explain:
-        st_counts = [sum(int(x[a:b].sum()) for a, b in slices) for x in (
-            base, base & ~lut_all, base & lut_all & ~extra)]
-        out["static"] = st_counts + [
-            (fails[a:b] & base[a:b, None]).sum(dim=0) for a, b in slices]
-    placed = []
-    found = False
-    for step in range(m):
-        pens = p.penalty_idx[step].tolist()
-        if (step > 0 and step >= int(p.n_place) and not found
-                and pens == p.penalty_idx[step - 1].tolist()):
-            # an idle step: the previous step's state, so its outputs
-            out["sel"].append(-1)
-            out["score"].append(torch.tensor(0.0))
-            out["fit"].append(out["fit"][-1])
-            if explain:
-                out["ex"].append(out["ex"][-1])
-            continue
-        sptab = spread_table(scounts, p)
-        dptab = (((dcounts < p.dp_allowed[:, None])
-                  & (torch.arange(dv)[None, :] != dv - 1))
-                 | ~p.dp_active[:, None])
-        pen_mask = no_pen.clone()
-        saved = {}
-        for row in pens:
-            if row < 0 or row >= n or row in saved:
-                continue
-            pen = no_pen.clone()
-            pen[row] = True
-            pen_mask[row] = True
-            pp, pc, _f, _d = terms(cluster, p, st, *carry(st, p, placed, n),
-                                   pen)
-            saved[row] = (prefix[row].clone(), cnt[row].clone())
-            prefix[row], cnt[row] = pp[row], pc[row]
-        dp_ok = torch.ones(n, dtype=torch.bool)
-        for q in range(dtok.shape[1]):
-            dp_ok = dp_ok & dptab[q][dtok[:, q]]
-        ok = fit_bit & ~dh & dp_ok
-        sp = torch.zeros(n)
-        for s in range(stok.shape[1]):
-            sp = sp + sptab[s][stok[:, s]]
-        inc = sp != 0.0
-        masked = torch.where(
-            ok, (prefix + torch.where(inc, sp, 0.0)) / (cnt + inc.int())
-            .float(), NEG_INF)
-        pref = int(p.preferred_idx[step])
-        # each block's record
-        recs = []
-        for a, b in slices:
-            rec = dict(best=(LOWEST, NONE), ok=False, fit=0, pref=None,
-                       top=[], counts=np.zeros(4 + r_dims, np.int64))
-            if b > a:
-                li = int(torch.argmax(masked[a:b]))
-                rec["best"] = (float(masked[a + li]), a + li)
-                rec["ok"] = bool(ok[a + li])
-                rec["fit"] = int(fit_bit[a:b].sum())
-            if a <= pref < b and bool(ok[pref]):
-                rec["pref"] = masked[pref]
-            if explain and b > a:
-                f, d_, dpm = feas[a:b], dh[a:b], dp_ok[a:b]
-                dh_fail = f & d_
-                dp_fail = (f & ~dh_fail & ~dpm if dtok.shape[1]
-                           else torch.zeros_like(f))
-                cand_m = f & ~dh_fail & ~dp_fail
-                code = exh[a:b]
-                rec["counts"] = np.array(
-                    [int(dh_fail.sum()), int(dp_fail.sum()),
-                     int((cand_m & (code == r_dims + 1)).sum()),
-                     int((cand_m & (code == r_dims + 2)).sum())]
-                    + [int((cand_m & (code == 1 + q)).sum())
-                       for q in range(r_dims)])
-                order = torch.sort(masked[a:b], descending=True,
-                                   stable=True).indices[:k_top]
-                rec["top"] = [(float(masked[a + i]), a + int(i))
-                              for i in order]
-            recs.append(rec)
-        # the combine
-        best = max((rc["best"] for rc in recs), key=lambda e: (e[0], -e[1]))
-        best_rec = next(rc for rc in recs if rc["best"] == best)
-        pref_recs = [rc for rc in recs if rc["pref"] is not None]
-        found = (bool(pref_recs) or best_rec["ok"]) and step < int(p.n_place)
-        idx = pref if pref_recs else best[1]
-        out["sel"].append(idx if found else -1)
-        out["score"].append((pref_recs[0]["pref"] if pref_recs
-                             else masked[best[1]]) if found
-                            else torch.tensor(0.0))
-        out["fit"].append(sum(rc["fit"] for rc in recs))
-        if explain:
-            counts = sum(rc["counts"] for rc in recs)
-            top = sorted((e for rc in recs for e in rc["top"]),
-                         key=lambda e: (-e[0], e[1]))[:k_top]
-            parts = _parts(cluster, p, st, carry(st, p, placed, n)[0],
-                           carry(st, p, placed, n)[2], pen_mask, sp)
-            rows = torch.tensor([e[1] for e in top])
-            keep = masked[rows] > NEG_INF / 2
-            out["ex"].append((counts, rows, masked[rows],
-                              parts[rows] * keep[:, None]))
-        for row, (pv, cv) in saved.items():
-            prefix[row], cnt[row] = pv, cv
-        if found:
-            placed.append(idx)
-            for s in range(stok.shape[1]):
-                t = int(stok[idx, s])
-                if t != scounts.shape[1] - 1:
-                    scounts[s, t] += 1.0
-            for q in range(dtok.shape[1]):
-                t = int(dtok[idx, q])
-                if t != dv - 1:
-                    dcounts[q, t] += 1.0
-            c_used, c_jc, c_tgc, c_sp = carry(st, p, placed, n)
-            pv, cv, fv, dv_ = terms(cluster, p, st, c_used, c_jc, c_tgc,
-                                    c_sp, no_pen)
-            prefix[idx], cnt[idx] = pv[idx], cv[idx]
-            fit_bit[idx], dh[idx] = fv[idx], dv_[idx]
-            exh[idx] = _exh(cluster, p, st, c_used, c_sp)[idx]
-    return out, placed, st["used"]
-
-
-def _program_outputs(out, m, explain, c):
-    """One program's flat outputs, with explain its PlacementExplain."""
-    i32 = torch.int32
-    base = (torch.tensor(out["sel"], dtype=i32),
-            torch.stack([torch.as_tensor(x) for x in out["score"]]).float(),
-            torch.tensor(out["feasible"], dtype=i32),
-            torch.tensor(out["fit"], dtype=i32))
-    if not explain:
-        return base
-    st = out["static"]
-    cols = list(zip(*out["ex"]))
-    counts = np.stack(cols[0])
-    ex = tp.PlacementExplain(
-        nodes_evaluated=torch.tensor(st[0], dtype=i32),
-        filt_constraint=sum(st[3:]).to(i32).reshape(c),
-        filt_lut=torch.tensor(st[1], dtype=i32),
-        filt_extra=torch.tensor(st[2], dtype=i32),
-        filt_distinct=torch.tensor(counts[:, 0], dtype=i32),
-        filt_dp=torch.tensor(counts[:, 1], dtype=i32),
-        exh_dim=torch.tensor(counts[:, 4:], dtype=i32),
-        exh_dyn_ports=torch.tensor(counts[:, 2], dtype=i32),
-        exh_res_ports=torch.tensor(counts[:, 3], dtype=i32),
-        topk_idx=torch.stack(cols[1]).to(i32),
-        topk_score=torch.stack(cols[2]),
-        topk_parts=torch.stack(cols[3]))
-    return base + tuple(ex)
-
-
-def lane_chain_model(cluster, batch, m, clusters, explain):
-    """One lane's chain on C = `clusters` blocks: (flat outputs, the
-    final (used, dyn_free) carry — the view with the overlay rows
-    replaced — and the overlay)."""
-    n = cluster.capacity.shape[0]
-    rows = tp.lane_rows(n, clusters)
-    slices = [(min(n, j * rows), min(n, (j + 1) * rows))
-              for j in range(clusters)]
-    view_u, view_d = cluster.used, cluster.dyn_free
-    carry_u, carry_d = torch.zeros_like(view_u), torch.zeros_like(view_d)
-    overlay = torch.zeros(n, dtype=torch.bool)
-    outs = []
-    for b in range(batch.n_place.shape[0]):
-        p = tp._program(batch, b)
-        src_u = torch.where(overlay[:, None], carry_u, view_u)
-        src_d = torch.where(overlay, carry_d, view_d)
-        out, placed, used0 = program_model(
-            cluster._replace(used=src_u, dyn_free=src_d), p, m, slices,
-            explain)
-        outs.append(_program_outputs(out, m, explain, p.key_idx.shape[0]))
-        touched = [x for x in p.delta_idx.tolist() if 0 <= x < n] + placed
-        for row in dict.fromkeys(touched):
-            u = used0[row].clone()
-            for _ in range(placed.count(row)):
-                u = u + p.ask
-            carry_u[row] = u
-            k = placed.count(row)
-            carry_d[row] = (src_d[row] - torch.tensor(float(k)) * p.n_dyn
-                            if k else src_d[row])
-            overlay[row] = True
-    flat = tuple(torch.stack(leaf) for leaf in zip(*outs))
-    final = (torch.where(overlay[:, None], carry_u, view_u),
-             torch.where(overlay, carry_d, view_d))
-    return flat, final, overlay
-
-
-def wave_model(cluster, lanes, m, clusters, explain):
-    """L lane chains (stacked TGParams each) and the fold by value."""
-    view_u, view_d = cluster.used, cluster.dyn_free
-    outs, finals, overlays = [], [], []
-    for batch in lanes:
-        flat, final, overlay = lane_chain_model(cluster, batch, m, clusters,
-                                                explain)
-        outs.append(flat)
-        finals.append(final)
-        overlays.append(overlay)
-    changed = [ov & ((u != view_u).any(dim=1) | (d != view_d))
-               for ov, (u, d) in zip(overlays, finals)]
-    count = torch.stack(changed).int().sum(dim=0)
-    used, dyn = view_u.clone(), view_d.clone()
-    for ch, (u, d) in zip(changed, finals):
-        used[ch], dyn[ch] = u[ch], d[ch]
-    flat = tuple(torch.cat(leaf) for leaf in zip(*outs))
-    return (flat + (((count > 1).sum()).to(torch.int32),), (used, dyn),
-            overlays, changed)
-
 
 # ---- the cases -----------------------------------------------------------------
 
@@ -570,6 +295,20 @@ def test_route_past_the_layout_takes_chain_cu():
     # vocabularies past u16, and programs without a step, never go on chip
     assert tp.lane_route(256, 1, dict(MIX_DIMS, sv=70000), 8, 132) == 0
     assert tp.lane_route(256, 1, dict(MIX_DIMS, m=0), 8, 132) == 0
+
+
+@pytest.mark.parametrize("lanes", [65535, 65536, 200_000])
+def test_route_takes_any_lane_count(lanes):
+    """A wave past gridDim.y's 65,535 lanes stays on the lane route: the
+    launch's clusters run the lanes past it in turns (csrc/lanes.cu), so
+    the route by shape never turns a wave away for its lane count and the
+    library refuses none."""
+    assert tp.lane_route(64, lanes, MIX_DIMS, 8, 132) == 1
+    assert tp.lane_route(16384, lanes, MIX_DIMS, 8, 132) == 1
+    src = (Path(tp.__file__).parent / "csrc" / "lanes.cu").read_text()
+    assert "65535" not in src
+    assert "lane_id += gridDim.y" in src
+    assert "L.lanes < MAX_GRID_Y ? L.lanes : MAX_GRID_Y" in src
 
 
 def test_lane_rows_are_words_of_the_overlay():
