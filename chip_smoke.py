@@ -90,9 +90,16 @@ non-zero without printing a result:
 8. The system scheduler (K2) and preemption (K3) at full width, N = 16384:
    (a) on a synthetic BASELINE state of its own (config 4 mutates the
    cluster; every node is given at least one filler alloc), K2 on the
-   leased device view against its plain version, both masks equal, for
-   `synth_system_job`'s program and a variant with plan deltas and a
-   reserved plus a dynamic port ask; (b) K3 against its plain version on
+   leased device view against its plain version and its old pass
+   (`system_pass_cuda`), fed the program as tensors and as numpy, both
+   masks equal bit for bit, for `synth_system_job`'s program and a
+   variant with plan deltas and a reserved plus a dynamic port ask; K2
+   (csrc/system.cu `system_rows`, one argument block) and the old pass
+   timed in turns on the same tensors (back-to-back CUDA events), and the
+   route from host arrays (numpy program in, masks on the host: one
+   staged copy, one launch, one copy back) against the route the system
+   scheduler took before (a copy a field, the old pass, a copy a mask),
+   in turns on the host clock; (b) K3 against its plain version on
    the candidate table the retry's host code builds from the filler
    allocs for a priority-100 ask one cpu above any node's free room, and
    on one of all-equal priorities with pads: indices, k, order and
@@ -103,7 +110,9 @@ non-zero without printing a result:
    scalar recomputation; every preemption-backed placement is on a
    feasible-but-full node, evicts only lower-priority allocs and fits
    afterwards); evals/s, placements/s, preemption placements, K2
-   launches and the host time per eval. (d) runs on phase 6's server
+   launches and the host time per eval, split into compile_tg, K2 with
+   its staged copy, and the rest (the masks' copy back, the per-node
+   decode loop). (d) runs on phase 6's server
    after its bursts (so it prints before phase 7): a system job's eval
    completes through the worker's system route (K2 launched, no nack);
    then, with service preemption on, a priority-100 service job whose ask
@@ -153,7 +162,11 @@ non-zero without printing a result:
    and the unsharded K4, K1 and K2; B10 and B11 through their cluster
    route (two launches a dispatch when the shards share the card) and
    their steps route, bitwise equal, both timed in turns (host clock and
-   device span a dispatch) with their host calls and launches; then two
+   device span a dispatch) with their host calls and launches; B12
+   through its cards route (one `system_rows` launch a card, 2 host
+   calls; also from a numpy program) and its shards route (K2's old pass
+   a shard, rebased), bitwise equal, timed in turns on the host clock
+   with their launches, host calls and torch operations a call; then two
    churn rounds through
    the view cache under a (2, 2) mesh, every flush replayed on CPU copies
    of the shards (plain) and on an unsharded copy (K7), every copy equal
@@ -165,11 +178,15 @@ non-zero without printing a result:
    alloc; evals/s, latency and dispatches printed; the B10-B13 launch
    counts are read around the meshed runs, beside the calls they were
    made in (B10 and B11 dispatches, B12 mask calls, B13 flushes); on the
-   cluster route B10 and B11 launch 2 a dispatch. (d)
+   cluster route B10 and B11 launch 2 a dispatch, B12 one a card a mask
+   call. (d)
    one K6 dispatch on each of the full-carry and (on-chip) packed
    routes, and one K9 batch row, of 65,536 programs (16 tiled) on
    64 rows, every copy equal to its original's plain result; the packed
-   route bitwise the full-carry one. ((c), the dry run's server half, runs in 9 (c).)
+   route bitwise the full-carry one; B12 on that view's four shards of 16
+   rows equal to K2; and B12 over 64 shards of 256 rows of the phase-3
+   view (one launch) equal to K2 on the whole view and to the shards
+   route, both timed. ((c), the dry run's server half, runs in 9 (c).)
 11. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
 """
 from __future__ import annotations
@@ -1861,8 +1878,24 @@ def _system_program_variants(stack, state, nodes, rng):
     yield "deltas + ports", stack.compile_tg(job, tg, len(nodes), plan)[0]
 
 
+def _turns(fns: dict, timer, reps: int) -> dict:
+    """Two routes timed in turns (a, b, b, a) by `timer(fn, reps)`: the
+    mean of each route's two turns."""
+    a, b = fns
+    times = {a: [], b: []}
+    for name in (a, b, b, a):
+        times[name].append(timer(fns[name], reps))
+    return {k: statistics.mean(v) for k, v in times.items()}
+
+
 def _k2_against_plain(torch, kp, state, nodes, rng, out, device):
-    """(a): K2 on the leased view against its plain version; timed."""
+    """(a): K2 on the leased view against its plain version and its old
+    pass, fed the program as tensors on the card and as numpy (both masks
+    equal, bit for bit); timed: the new route and the old pass on the
+    same tensors in turns (back-to-back CUDA events), and the route from
+    host arrays (numpy program in, both masks on the host) against the
+    route the system scheduler took before it (`params_from_numpy`'s copy
+    a field, the old pass, a copy a mask)."""
     from nomad_tpu_torch.convert import params_from_numpy
     from nomad_tpu_torch.scheduler import stack as stack_mod
 
@@ -1875,30 +1908,73 @@ def _k2_against_plain(torch, kp, state, nodes, rng, out, device):
             arrays = stack.device_arrays(lease_token=token)
             p = params_from_numpy(params, dev)
             got = _snap(torch, kp.system_feasibility(arrays, p))
+            routes = {"numpy program": kp.system_feasibility(arrays, params)}
+            if dev.type == "cuda":
+                routes["old pass"] = kp.system_pass_cuda(arrays, p)
             want = kp.system_feasibility_plain(arrays, p)
-            for name, g, w in zip(("feasible", "fits"), got, want):
-                if g.dtype != torch.bool or not torch.equal(g.cpu(),
-                                                            w.cpu()):
-                    raise AssertionError(f"K2 {label}: {name} differs")
-                out["k2_err"] = max(out.get("k2_err", 0.0), float(
-                    (g.cpu().float() - w.cpu().float()).abs().max()))
+            for what, other in [("plain", want)] + list(routes.items()):
+                for name, g, w in zip(("feasible", "fits"), got, other):
+                    if g.dtype != torch.bool or not torch.equal(g.cpu(),
+                                                                w.cpu()):
+                        raise AssertionError(f"K2 {label}: {name} differs "
+                                             f"from {what}")
+                    out["k2_err"] = max(out.get("k2_err", 0.0),
+                                        _max_diff(g, w))
             n_feas, n_fit = int(got[0].sum()), int(got[1].sum())
             if not 0 < n_fit < n_feas:
                 raise AssertionError(f"K2 {label}: {n_fit} of {n_feas}")
-            line = (f"phase 8 (a) K2==plain {label}: feasible {n_feas}, "
-                    f"fits {n_fit}")
+            line = (f"phase 8 (a) K2==plain==old pass, from tensors and "
+                    f"from numpy, {label}: feasible {n_feas}, fits {n_fit}")
             if dev.type == "cuda":
-                ms = _time_ms(lambda: kp.system_feasibility_cuda(arrays, p),
-                              200)
+                ev = _turns({
+                    "new": lambda: kp.system_feasibility_cuda(arrays, p),
+                    "old": lambda: kp.system_pass_cuda(arrays, p)},
+                    _time_ms, 200)
+
+                def today():
+                    q = params_from_numpy(params, dev)
+                    m = kp.system_pass_cuda(arrays, q)
+                    return m[0].cpu(), m[1].cpu()
+
+                host = _turns({
+                    "new": lambda: kp.system_feasibility(arrays,
+                                                         params).cpu(),
+                    "old": today}, lambda f, n: _host_ms(torch, f, n), 50)
+                before = kp.system_launch_count()
+                kp.system_feasibility(arrays, params).cpu()
+                launches = kp.system_launch_count() - before
+                n = arrays.capacity.shape[0]
+
+                def set_up(q):
+                    parts, blocks = kp.system_stage([arrays], [0], n, q)
+                    blocks(kp.stage_offsets(parts)[0])
+
+                setup = {k: _wall_ms(lambda q=q: set_up(q), 200)
+                         for k, q in (("tensors", p), ("numpy", params))}
                 plain_ms = _time_ms(
                     lambda: kp.system_feasibility_plain(arrays, p), 50)
                 bound_ms, bound_by = _k2_bound(arrays, p)
-                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                         f"bound {bound_ms:.7f} ms ({bound_by})")
+                line += (f"; kernel {ev['new']:.4f} ms a call (old pass "
+                         f"{ev['old']:.4f}; back-to-back CUDA events, 200 "
+                         f"calls in turns new, old, old, new), route from "
+                         f"host arrays {host['new']:.4f} ms (the old "
+                         f"route's field copies, pass and two mask copies "
+                         f"{host['old']:.4f}; host clock, synced, 50 calls "
+                         f"in turns), {launches} launch a call; the "
+                         f"host set-up alone (program checked or packed, "
+                         f"argument block built) {setup['tensors']:.4f} ms "
+                         f"from tensors, {setup['numpy']:.4f} from numpy; "
+                         f"plain "
+                         f"{plain_ms:.4f} ms, bound {bound_ms:.7f} ms "
+                         f"({bound_by})")
                 if label == "system job":
-                    out["k2"] = dict(ms=ms, plain_ms=plain_ms,
+                    out["k2"] = dict(ms=ev["new"], plain_ms=plain_ms,
                                      bound_ms=bound_ms, bound_by=bound_by,
-                                     library_ms=None)
+                                     library_ms=None, old_pass_ms=ev["old"],
+                                     host_route_ms=host["new"],
+                                     old_host_route_ms=host["old"],
+                                     setup_ms=setup["tensors"],
+                                     numpy_setup_ms=setup["numpy"])
             print(line)
         finally:
             stack_mod.release_view(cl, token)
@@ -1996,6 +2072,7 @@ def _config4(torch, kp, kpre, state, nodes, rng, out, device):
     is on a feasible-but-full node, names only lower-priority victims and
     fits after the eviction."""
     from nomad_tpu_torch.mock import alloc_resources
+    from nomad_tpu_torch.scheduler import stack as stack_mod
     from nomad_tpu_torch.scheduler import system as system_mod
     from nomad_tpu_torch.scheduler.harness import Harness
     from nomad_tpu_torch.scheduler.oracle import driver_ok, meets_constraints
@@ -2006,9 +2083,26 @@ def _config4(torch, kp, kpre, state, nodes, rng, out, device):
     if device is None and h.device.type != "cuda":
         raise AssertionError(f"Harness default device is {h.device}")
     cuda = h.device.type == "cuda"
-    walls, k2_walls, compute = [], [], []
+    walls, k2_walls, compute, compiles, compile_s = [], [], [], [], []
     real_k2 = kp.system_feasibility
     real_cp = system_mod.SystemScheduler._compute_placements
+    real_compile = stack_mod.TorchStack.compile_tg
+
+    def timed_compile(self, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real_compile(self, *a, **kw)
+        finally:
+            compiles.append(time.perf_counter() - t0)
+
+    def timed_cp(self, place):
+        compiles.clear()
+        t0 = time.perf_counter()
+        try:
+            return real_cp(self, place)
+        finally:
+            compute.append(time.perf_counter() - t0)
+            compile_s.append(sum(compiles))
 
     def timed_k2(*a, **kw):
         t0 = time.perf_counter()
@@ -2018,18 +2112,12 @@ def _config4(torch, kp, kpre, state, nodes, rng, out, device):
         k2_walls.append(time.perf_counter() - t0)
         return res
 
-    def timed_cp(self, place):
-        t0 = time.perf_counter()
-        try:
-            return real_cp(self, place)
-        finally:
-            compute.append(time.perf_counter() - t0)
-
     placements = preempt_placements = 0
     kp.reset_system_launch_count()
     kpre.reset_launch_count()
     kp.system_feasibility = timed_k2
     system_mod.SystemScheduler._compute_placements = timed_cp
+    stack_mod.TorchStack.compile_tg = timed_compile
     try:
         for i in range(SYSTEM_EVALS):
             job = synth_system_job(rng)
@@ -2096,6 +2184,7 @@ def _config4(torch, kp, kpre, state, nodes, rng, out, device):
     finally:
         kp.system_feasibility = real_k2
         system_mod.SystemScheduler._compute_placements = real_cp
+        stack_mod.TorchStack.compile_tg = real_compile
     k2, k3 = kp.system_launch_count(), kpre.launch_count()
     if cuda and k2 != SYSTEM_EVALS:
         raise AssertionError(f"{k2} K2 launches for {SYSTEM_EVALS} evals")
@@ -2112,6 +2201,18 @@ def _config4(torch, kp, kpre, state, nodes, rng, out, device):
         f"{w:.3f}" for w in walls) + "; compile + K2 + per-node decode "
         + " ".join(f"{c:.3f}" for c in compute) + "; K2 call with outputs "
         "on the host (ms) " + " ".join(f"{k * 1e3:.3f}" for k in k2_walls))
+    # the placements' share of an eval: the compile_tg calls inside them,
+    # the K2 calls (synced), and the rest — the masks' one copy back, the
+    # lease and the per-node decode loop
+    n = len(compute)
+    spent, comp, k2s = sum(compute), sum(compile_s), sum(k2_walls)
+    print(f"phase 8 (c) placements per eval: {spent / n * 1e3:.3f} ms = "
+          f"compile_tg {comp / n * 1e3:.3f} ms ({comp / spent:.2%}) + K2 "
+          f"with its staged copy {k2s / n * 1e3:.3f} ms ({k2s / spent:.3%}) "
+          f"+ the rest (the masks' copy back, per-node decode) "
+          f"{(spent - comp - k2s) / n * 1e3:.3f} ms "
+          f"({(spent - comp - k2s) / spent:.2%}); no per-field upload "
+          f"(0 ms: the program goes in K2's staged copy)")
 
 
 def _phase8_system(torch, kp, kpre, device=None):
@@ -2893,6 +2994,8 @@ MESH_EVALS = 64
 TILED_COPIES = 4096
 #: (a): dispatches timed a route
 ROUTE_REPS = 10
+#: (d): node shards of the phase-3 view for B12's many small shards
+MANY_SHARDS = 64
 
 
 def _mesh(torch, shape, device=None):
@@ -2973,8 +3076,47 @@ def _route_times(torch, ks, what, fns, on_card):
     return out
 
 
+def _torch_ops(fn) -> int:
+    """The torch operations (aten calls: kernels, copies, allocations) one
+    call of `fn` dispatches, counted by a TorchDispatchMode."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def _b12_routes(torch, ks, kp, sc, sysp):
+    """B12's two CUDA routes on one sharded view, in turns (cards, shards,
+    shards, cards) of ROUTE_REPS calls each on the host clock, every card
+    synced before and after (`_host_ms`): per route the mean of its two
+    turns, and for one call its kernel launches, its library host calls
+    (`ks.host_calls()`: staged copies, launches, copies between cards)
+    and the torch operations it dispatches."""
+    fns = {"cards": lambda: kp.system_feasibility(sc, sysp),
+           "shards": lambda: kp.system_feasibility(sc, sysp,
+                                                   route="shards")}
+    out = {k: dict(ms=v) for k, v in _turns(
+        fns, lambda f, n: _host_ms(torch, f, n), ROUTE_REPS).items()}
+    for route, fn in fns.items():
+        before = ks.route_launch_counts()["system"]
+        fn()
+        out[route]["launches"] = ks.route_launch_counts()["system"] - before
+        out[route]["calls"] = ks.host_calls()
+        out[route]["torch_ops"] = _torch_ops(fn)
+    _sync_all(torch)
+    return out
+
+
 def _phase10_routes(torch, kp, ks, arrays, chain, single, sysp, device=None,
-                    card=""):
+                    card="", sys_np=None):
     """(a) B10, B11 and B12 on sharded views of the card, meshes (1, 4),
     (2, 2) and (1, 8): each against its plain version on the same shards
     and against the unsharded kernel on the whole view (K4, K1, K2);
@@ -2985,7 +3127,11 @@ def _phase10_routes(torch, kp, ks, arrays, chain, single, sysp, device=None,
     turns on the host clock and as a device span between CUDA events,
     with their host calls and launches. `chain` = (packed buffers, spec,
     max_allocs, stacked programs), `single` = (program, max_allocs),
-    `sysp` a system program."""
+    `sysp` a system program (tensors; `sys_np` the same as numpy). B12's
+    cards route (one launch a card) must equal its shards route (K2's old
+    pass a shard, rebased), plain and K2 bit for bit, from tensors and
+    from numpy; the two are timed in turns with their launches, host
+    calls and torch operations a call."""
     from nomad_tpu_torch.parallel import shard_cluster
 
     on_card = device is None or torch.device(device).type == "cuda"
@@ -3040,9 +3186,27 @@ def _phase10_routes(torch, kp, ks, arrays, chain, single, sysp, device=None,
                     z = ks._chain_steps(sc, b, mm, explain, route=what)
                     _bitwise(torch, a, z, f"{what} {shape} cluster vs "
                              f"steps, explain {explain}")
+        before = ks.route_launch_counts()["system"]
         got = kp.system_feasibility(sc, sysp)
-        for want, what in ((ks.sharded_system_plain(sc, sysp), "plain"),
-                           (kp.system_feasibility(arrays, sysp), "K2")):
+        b12_launches = ks.route_launch_counts()["system"] - before
+        calls["system"] = ks.host_calls()
+        wants = [(ks.sharded_system_plain(sc, sysp), "plain"),
+                 (kp.system_feasibility(arrays, sysp), "K2")]
+        if on_card:
+            cards = len(ks.card_groups([sh.used.device
+                                        for sh in sc.shards[0]]))
+            lead = sc.shards[0][0].used.device
+            off = sum(sh.used.device != lead for sh in sc.shards[0])
+            if b12_launches != cards or calls["system"] != 2 * cards + off:
+                raise AssertionError(
+                    f"B12 {shape}: {b12_launches} launches and "
+                    f"{calls['system']} host calls on {cards} card(s)")
+            wants += [(kp.system_feasibility(sc, sysp, route="shards"),
+                       "the shards route")]
+            if sys_np is not None:
+                wants += [(kp.system_feasibility(sc, sys_np),
+                           "the cards route from numpy")]
+        for want, what in wants:
             for a, b, name in zip(want, got, ("feasible", "fits")):
                 if b.dtype != torch.bool or not torch.equal(a.cpu(), b.cpu()):
                     raise AssertionError(f"B12 {shape}: {name} differs from "
@@ -3075,6 +3239,17 @@ def _phase10_routes(torch, kp, ks, arrays, chain, single, sysp, device=None,
                      if route in two and layout == "cluster" else {})
             entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=None)
+            b12 = (_b12_routes(torch, ks, kp, sc, sysp)
+                   if route == "system" and on_card else None)
+            if b12:
+                entry.update(cards_ms=b12["cards"]["ms"],
+                             shards_ms=b12["shards"]["ms"],
+                             launches_per_call=b12["cards"]["launches"],
+                             shards_launches_per_call=b12["shards"][
+                                 "launches"],
+                             host_calls=b12["cards"]["calls"],
+                             torch_ops=b12["cards"]["torch_ops"],
+                             shards_torch_ops=b12["shards"]["torch_ops"])
             if times:
                 entry.update(steps_ms=times["steps"]["host_ms"],
                              span_ms=times["cluster"]["span_ms"],
@@ -3092,11 +3267,17 @@ def _phase10_routes(torch, kp, ks, arrays, chain, single, sysp, device=None,
                   + (f"{ms:.4f} ms a dispatch" if ms is not None
                      else "not timed")
                   + f"; plain {plain_ms:.1f} ms; bound {bound_ms:.6f} ms "
-                  f"({bound_by}); host calls a dispatch "
-                  f"{calls.get(route, 'one K2 launch a shard')}"
+                  f"({bound_by}); host calls a dispatch {calls[route]}"
                   + (f"; route {layout}" if route in two else "")
                   + (f"; the {shape[0] * shape[1]} shards share one card"
                      if on_card and torch.cuda.device_count() == 1 else ""))
+            for name, t in (b12 or {}).items():
+                print(f"phase 10 (a) system {shape} {name} route: "
+                      f"{t['ms']:.4f} ms a call (host clock, every card "
+                      f"synced; mean of two turns of {ROUTE_REPS} calls, "
+                      f"cards, shards, shards, cards); {t['launches']} "
+                      f"kernel launches, {t['calls']} library host calls, "
+                      f"{t['torch_ops']} torch operations a call; {card}")
             for name, t in times.items():
                 print(f"phase 10 (a) {route} {shape} {name} route: host "
                       f"clock {t['host_ms']:.4f} ms, device span from the "
@@ -3441,6 +3622,12 @@ def _phase10_server(torch, kp, ks, kr, device=None):
         if on_card and not all(run_counts.values()):
             raise AssertionError(f"{label}: a sharded route never launched "
                                  f"on the meshed server: {run_counts}")
+        cards = len(ks.card_groups(mesh.grid()[0]))
+        if on_card and run_counts["system"] != cards * run_calls["system"]:
+            raise AssertionError(
+                f"{label}: {run_counts['system']} B12 launches for "
+                f"{run_calls['system']} mask calls on {cards} card(s), the "
+                "cards route makes one a card")
         if on_card and ks.chain_route(mesh.grid()[0]) == "cluster":
             # every chain and single dispatch: one static, one cluster launch
             for route in ("chain", "single"):
@@ -3540,6 +3727,53 @@ def _wave_past_grid_y(torch, kp, arrays, progs, dev):
     return rows.shape[0]
 
 
+def _phase10_many_shards(torch, kp, ks, arrays, sysp, sys_np, device=None,
+                         card=""):
+    """(d) B12 over many small shards: the phase-3 view as MANY_SHARDS
+    node shards (256 rows each at N = 16384), one launch a card; both
+    masks, from numpy and from tensors, equal K2 on the whole view and
+    (on the card) the shards route, bit for bit; the two routes timed in
+    turns. Returns the max error."""
+    from nomad_tpu_torch.parallel import shard_cluster
+
+    on_card = device is None or torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    sc = shard_cluster(arrays, _mesh(torch, (1, MANY_SHARDS), device))
+    rows = sc.n // MANY_SHARDS
+    before = ks.route_launch_counts()["system"]
+    got = kp.system_feasibility(sc, sys_np)
+    launches = ks.route_launch_counts()["system"] - before
+    wants = [(kp.system_feasibility(arrays, sysp), "K2 on the whole view"),
+             (kp.system_feasibility(sc, sysp), "the cards route from "
+              "tensors")]
+    cards = len(ks.card_groups([sh.used.device for sh in sc.shards[0]]))
+    if on_card:
+        if launches != cards:
+            raise AssertionError(f"B12 over {MANY_SHARDS} shards: "
+                                 f"{launches} launches on {cards} card(s)")
+        wants.append((kp.system_feasibility(sc, sysp, route="shards"),
+                      "the shards route"))
+    err = 0.0
+    for want, what in wants:
+        for a, b, name in zip(want, got, ("feasible", "fits")):
+            if b.dtype != torch.bool or not torch.equal(a.cpu(), b.cpu()):
+                raise AssertionError(f"B12 over {MANY_SHARDS} shards: "
+                                     f"{name} differs from {what}")
+            err = max(err, _max_diff(a, b))
+    line = (f"phase 10 (d) B12 over {MANY_SHARDS} shards of {rows} rows: "
+            f"== K2 on the whole view, == the cards route from tensors"
+            + (" and the shards route" if on_card else "")
+            + f", bit for bit; {launches} launch on {cards} card(s)")
+    if on_card:
+        t = _b12_routes(torch, ks, kp, sc, sysp)
+        line += "; " + ", ".join(
+            f"{k} route {v['ms']:.4f} ms a call ({v['launches']} launches, "
+            f"{v['calls']} library host calls, {v['torch_ops']} torch "
+            f"operations)" for k, v in t.items()) + f"; {card}"
+    print(line + f" ({time.perf_counter() - t0:.1f} s)")
+    return err
+
+
 def _phase10_limits(torch, kp, ks, device=None):
     """(d) C1: one K6 dispatch (the full-carry route, and the packed one
     on its on-chip route), one K9 batch row (its cluster route on the
@@ -3599,13 +3833,29 @@ def _phase10_limits(torch, kp, ks, device=None):
                        "sel_score", "final_scores0", "new_used"),
          f"K9 B={b}")
     del got9
+    # B12 on the same (1, 4) view: shards of 16 rows, one launch a card
+    from nomad_tpu_torch.synth import synth_system_job
+
+    sysj = synth_system_job(random.Random(SEED + 10))
+    psys = stack.compile_tg(sysj, sysj.task_groups[0], len(_nodes))[0]
+    before = ks.route_launch_counts()["system"]
+    masks = kp.system_feasibility(sc, psys)
+    b12 = ks.route_launch_counts()["system"] - before
+    whole = kp.system_feasibility(arrays, psys)
+    if not torch.equal(masks.cpu(), whole.cpu()) or not masks[0].any():
+        raise AssertionError("B12 on 16-row shards differs from K2")
+    if dev.type == "cuda" and b12 != len(
+            ks.card_groups([sh.used.device for sh in sc.shards[0]])):
+        raise AssertionError(f"B12 on 16-row shards: {b12} launches")
     lanes = _wave_past_grid_y(torch, kp, arrays, progs, dev)
     print(f"phase 10 (d) C1: K6 (the full-carry route, and the packed "
           f"dispatch on its on-chip route, grid {kp.last_batch_route()[1]}), "
           f"one K9 batch row of {b} programs ({ks.last_step_route()} route) "
           f"and one wave of {lanes} lanes (the lane route, bitwise "
           f"chain.cu's) on {arrays.capacity.shape[0]} rows, every copy equal "
-          f"to the plain result of its original; C2: the packed route's "
+          f"to the plain result of its original; B12 on those four "
+          f"shards of {sc.n // 4} rows == K2, {b12} launch; C2: the packed "
+          f"route's "
           f"sel_idx and sel_score bitwise the full-carry route's "
           f"({time.perf_counter() - t0:.1f} s)")
 
@@ -3936,10 +4186,13 @@ def main() -> int:
         torch, kp, ks, binpack.device_arrays(),
         (bufs10, spec10, m10, params_from_numpy(stacked, "cuda")),
         (params_from_numpy(p_aff, "cuda"), m_aff),
-        params_from_numpy(p_sys, "cuda"), card=smi[0])
+        params_from_numpy(p_sys, "cuda"), card=smi[0], sys_np=p_sys)
     view13, view_err = _phase10_view(torch, kr, cl, nodes, rng)
     counts10, server10, calls10 = _phase10_server(torch, kp, ks, kr)
     _phase10_limits(torch, kp, ks)
+    many_err = _phase10_many_shards(
+        torch, kp, ks, binpack.device_arrays(),
+        params_from_numpy(p_sys, "cuda"), p_sys, card=smi[0])
     print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -4066,8 +4319,12 @@ def main() -> int:
         "source": "nomad_tpu_torch/kernels/csrc/system.cu",
         "replaces": "nomad_tpu/kernels/placement.py:957",
         "launches": counts10["system"],
-        "max_abs_err": routes["err"]["system"],
+        "max_abs_err": max(routes["err"]["system"], many_err),
         **routes[MESH_SHAPES[0]]["system"],
+        "mesh_2x2_ms": routes[(2, 2)]["system"]["ms"],
+        "mesh_2x2_shards_ms": routes[(2, 2)]["system"].get("shards_ms"),
+        "mesh_1x8_ms": routes[(1, 8)]["system"]["ms"],
+        "mesh_1x8_shards_ms": routes[(1, 8)]["system"].get("shards_ms"),
     }, {
         "name": "view_row_delta_sharded",
         "route": "cuda",

@@ -34,8 +34,10 @@ layout `csrc/chain.cu`, which also runs `place_task_group_chain` (it
 returns the carry after every program); both share K1's device code
 (`csrc/place_core.cuh`).
 The system scheduler's masks (K2) are `system_feasibility`, its plain
-version beside it and the kernel in `csrc/system.cu`. The vmap transport
-(K6), independent programs against one snapshot, is
+version beside it and the kernel in `csrc/system.cu` (`system_rows`: one
+launch a card over every node shard it holds — one argument block for an
+unsharded view — fed by one staged copy, `system_masks_on`). The vmap
+transport (K6), independent programs against one snapshot, is
 `place_task_group_batch` and `place_packed_batch`, its kernel a wave of
 one-program lanes in `csrc/chain.cu`. The node-sharded form of K6 (K9) is
 `kernels/shard.py`.
@@ -48,6 +50,7 @@ read by the kernel as bytes.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -982,11 +985,61 @@ class _RowLauncher:
         self.launches += 1
 
 
-_SYSTEM = _RowLauncher("system", "nomad_system_feasibility", [_VOID, _VOID])
+class _SystemRun(ctypes.Structure):
+    """Mirror of `SystemRun` in csrc/system.cu."""
+
+    _fields_ = [("run_size", _INT), ("args_size", _INT), ("blocks", _INT),
+                ("rows", _INT), ("n", _INT), ("row0", _VOID), ("out", _VOID)]
+
+
+class _SystemLauncher(_RowLauncher):
+    """csrc/system.cu: the masks kernel over argument blocks
+    (`nomad_system_masks`, K2 and B12) beside the old one-program pass
+    (`nomad_system_feasibility`); one launch count for both."""
+
+    def lib(self):
+        if self._lib is None:
+            lib = super().lib()
+            lib.nomad_system_run_size.restype = ctypes.c_size_t
+            lib.nomad_system_run_size.argtypes = []
+            if lib.nomad_system_run_size() != ctypes.sizeof(_SystemRun):
+                raise RuntimeError(
+                    "system library's SystemRun layout differs from the "
+                    "wrapper's (rebuild csrc/system.cu)")
+            lib.nomad_system_masks.restype = ctypes.c_int
+            lib.nomad_system_masks.argtypes = [
+                _INT, _VOID, _VOID, _VOID, ctypes.c_size_t, _VOID,
+                ctypes.POINTER(_SystemRun), _VOID, _VOID]
+        return self._lib
+
+    def masks(self, index: int, args: np.ndarray, src: int, dst: int,
+              nbytes: int, run: _SystemRun, done) -> None:
+        """One `nomad_system_masks` call on CUDA device `index`'s current
+        stream: the staged copy of `nbytes` from pinned `src` to `dst`,
+        `system_rows` over the argument blocks at the start of `dst`
+        (`args` their host copy), then event `done`. Raises when the
+        library refuses it (the run carries the wrapper's struct sizes,
+        checked at every launch)."""
+        lib = self.lib()
+        # the device's current stream, as torch.cuda.current_stream(dev)
+        # .cuda_stream reads it, without building a Stream object
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        err = lib.nomad_system_masks(
+            index, args.ctypes.data, src, dst, nbytes, dst,
+            ctypes.byref(run), stream, done.cuda_event)
+        if err != 0:
+            raise RuntimeError("system masks kernel launch failed: "
+                               + lib.nomad_system_error_string(err).decode())
+        self.launches += 1
+
+
+_SYSTEM = _SystemLauncher("system", "nomad_system_feasibility",
+                          [_VOID, _VOID])
 
 
 def system_launch_count() -> int:
-    """K2 launches since the last reset."""
+    """Launches of csrc/system.cu since the last reset: K2's and B12's
+    (one a card a call) and the old pass's."""
     return _SYSTEM.launches
 
 
@@ -999,33 +1052,234 @@ def build_system_kernel() -> None:
     _SYSTEM.lib()
 
 
-def system_feasibility_cuda(cluster: ClusterArrays, p: TGParams):
-    """K2 on CUDA tensors (`csrc/system.cu`): one thread per node row.
-    Raises when the build or the launch fails; never falls back."""
+def _tensor_program(p, dev) -> TGParams:
+    """Program `p` as tensors: as given when every field is one, else the
+    numpy program (`compile_tg`'s) converted onto `dev`."""
+    if all(isinstance(t, torch.Tensor) for t in p):
+        return p
+    from ..convert import params_from_numpy
+
+    return params_from_numpy(p, dev)
+
+
+def _check_program(shapes: dict, n: int, r: int) -> None:
+    """Raises unless the shapes of the fields the masks kernel reads agree
+    with each other and with a view of n rows of R resources."""
+    if shapes["ask"] != (r,):
+        raise ValueError(f"the program's ask has shape {shapes['ask']}, "
+                         f"the view R = {r}")
+    if len(shapes["extra_mask"]) != 1 or shapes["extra_mask"][0] not in (
+            1, n):
+        raise ValueError("extra_mask must have 1 or N entries")
+    if (len(shapes["lut"]) != 2
+            or shapes["key_idx"] != shapes["lut"][:1]
+            or shapes["delta_res"] != shapes["delta_idx"] + (r,)
+            or shapes["pclr_port"] != shapes["pclr_idx"]
+            or shapes["pset_port"] != shapes["pset_idx"]):
+        raise ValueError("the program's constraint, delta or port fields "
+                         "disagree in shape")
+
+
+#: PlaceArgs' byte offset of every member (csrc/place_core.cuh)
+_ARG_OFFSETS = {name: getattr(_PlaceArgs, name).offset
+                for name, _t in _PlaceArgs._fields_}
+#: the program fields the masks kernel reads (csrc/system.cu with its
+#: place_core.cuh row helpers): only these are checked, staged and
+#: pointed at; an argument block's other program pointers stay null
+SYSTEM_FIELDS = ("ask", "n_dyn", "key_idx", "lut", "extra_mask",
+                 "delta_idx", "delta_res", "res_ports", "pclr_idx",
+                 "pclr_port", "pset_idx", "pset_port")
+#: 8-byte words of those pointers and of the cluster's in a block
+_SYSTEM_WORDS = np.array([_ARG_OFFSETS[f] // 8 for f in SYSTEM_FIELDS])
+_CLUSTER_WORDS = np.array([_ARG_OFFSETS[f] // 8
+                           for f in ClusterArrays._fields])
+#: the fields whose shapes give the program's dims (`_program_dims`) or
+#: are checked (`_check_program`)
+_DIM_FIELDS = ("lut", "aff_lut", "penalty_idx", "extra_mask", "jc_idx",
+               "jtc_idx", "delta_idx", "cand_idx", "dp_key_idx",
+               "dp_counts0", "res_ports", "pclr_idx", "pset_idx",
+               "spread_key_idx", "spread_desired", "ask", "key_idx",
+               "delta_res", "pclr_port", "pset_port")
+#: each read field's kernel type, as a tensor and on the host
+_SYSTEM_TYPES = tuple(PARAM_TYPES[f] for f in SYSTEM_FIELDS)
+_SYSTEM_NP = tuple(np.dtype({torch.float32: np.float32,
+                             torch.int32: np.int32,
+                             torch.bool: np.bool_}[t]) for t in _SYSTEM_TYPES)
+_PAD = bytes(16)
+_ARG_WORDS = ctypes.sizeof(_PlaceArgs) // 8
+#: the int members a launch fills: `_program_dims`' keys in its order,
+#: then the cluster's
+_DIM_INTS = np.array([_ARG_OFFSETS[k] // 4 for k in (
+    *_program_dims({f: (1, 1) for f in TGParams._fields}, 1, False, 1),
+    "n", "r", "k_cols", "port_words", "attrs_i32")])
+
+
+def system_args(shards, row0s, n: int, ptrs, shapes: dict) -> np.ndarray:
+    """The argument blocks of one `system_rows` launch, one a node shard,
+    as uint64 words [S, sizeof(PlaceArgs) / 8] (`.view(_ARGS_DTYPE)`
+    reads them as PlaceArgs records): the pointers `ptrs` of the program
+    fields the kernel reads (`SYSTEM_FIELDS` order; the others null), the
+    program's dims (from `shapes`, no leading axis) with n the global
+    rows, and shard k's cluster pointers moved back row0s[k] rows, so that
+    global row g of the shard lies g rows past each of them
+    (csrc/system.cu). Filled a column at a time."""
+    first = shards[0]
+    words = np.zeros((len(shards), _ARG_WORDS), dtype=np.uint64)
+    words[:, _SYSTEM_WORDS] = ptrs
+    row = [t.stride(0) * t.element_size() for t in first]
+    words[:, _CLUSTER_WORDS] = [[t.data_ptr() - r0 * b
+                                 for t, b in zip(sh, row)]
+                                for sh, r0 in zip(shards, row0s)]
+    dims = _program_dims(shapes, shapes["penalty_idx"][0], False, n)
+    words.view(np.int32)[:, _DIM_INTS] = list(dims.values()) + [
+        n, first.capacity.shape[1], first.attrs.shape[1],
+        first.ports_used.shape[1], int(first.attrs.dtype == torch.int32)]
+    return words
+
+
+def _shape(v) -> tuple:
+    return tuple(v.shape) if isinstance(v, torch.Tensor) else np.shape(v)
+
+
+def program_bytes(p):
+    """The fields of program `p` that the masks kernel reads
+    (`SYSTEM_FIELDS`; numpy, as `compile_tg` returns them, or tensors,
+    brought to the host) as one byte string for the staged copy: each in
+    its kernel type at a 16-byte boundary. Returns (the bytes as uint8,
+    each field's offset)."""
+    chunks, offs, at = [], [], 0
+    for name, dt in zip(SYSTEM_FIELDS, _SYSTEM_NP):
+        v = getattr(p, name)
+        a = np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+        b = (a if a.dtype == dt else a.astype(dt)).tobytes()
+        offs.append(at)
+        pad = -len(b) % 16
+        chunks += (b, _PAD[:pad])
+        at += len(b) + pad
+    return np.frombuffer(b"".join(chunks), dtype=np.uint8), offs
+
+
+def system_stage(shards, row0s, n: int, p):
+    """One `system_rows` launch's staged copy over node shards `shards`
+    (first global rows `row0s`) of a view of `n` rows: (parts, blocks).
+    `parts` are numpy arrays — room for the argument blocks, one a shard;
+    the shards' first rows (int32); and, unless the fields the kernel
+    reads are tensors on the shards' device (then read in place), those
+    fields as one byte string (`program_bytes`). `blocks(addr)`, given
+    each part's device address, returns the argument blocks
+    (`system_args`), which point at the program. Raises when the program
+    does not fit the view."""
+    first = shards[0]
+    index = first.used.get_device()
+    tensors, ptrs = [getattr(p, f) for f in SYSTEM_FIELDS], []
+    for i, (t, dt) in enumerate(zip(tensors, _SYSTEM_TYPES)):
+        if not isinstance(t, torch.Tensor) or t.get_device() != index:
+            break
+        if t.dtype is not dt:
+            raise TypeError(f"params.{SYSTEM_FIELDS[i]} must be {dt}")
+        if not t.is_contiguous():
+            t = tensors[i] = t.contiguous()
+        ptrs.append(t.data_ptr())
+    in_place = len(ptrs) == len(tensors)
+    parts = [np.empty((len(shards), _ARG_WORDS), dtype=np.uint64),
+             np.asarray(row0s, dtype=np.int32)]
+    if not in_place:
+        blob, offs = program_bytes(p)
+        parts.append(blob)
+    shapes = {f: _shape(getattr(p, f)) for f in _DIM_FIELDS}
+    _check_program(shapes, n, first.capacity.shape[1])
+
+    def blocks(addr, _keep=tensors) -> np.ndarray:
+        return system_args(shards, row0s, n, ptrs if in_place
+                           else [addr[2] + o for o in offs], shapes)
+
+    return parts, blocks
+
+
+def system_masks_on(shards, row0s, n: int, p) -> torch.Tensor:
+    """csrc/system.cu's `system_rows` in one launch over the node shards
+    `shards` (ClusterArrays on one CUDA device, contiguous, of equal rows;
+    their first global rows `row0s`) of a view of `n` rows: bool [2, n] on
+    that device, row 0 constraint-feasible, row 1 feasible-and-fits,
+    written at the shards' rows. Program `p` as tensors on the device is
+    read in place; otherwise (the numpy `TGParams` that `compile_tg`
+    returns, or tensors elsewhere) the fields the kernel reads go as one
+    byte string (`program_bytes`). The argument blocks and those bytes go
+    to the card in one staged copy (`system_stage`), enqueued with the
+    launch in one library call. Raises when the build or the launch
+    fails; never falls back."""
+    first = shards[0]
+    _check_cluster(first)
+    index = first.used.get_device()
+    like = [(t.dtype, t.shape) for t in first]
+    for sh in shards[1:]:
+        for t, (dt, shape) in zip(sh, like):
+            if (t.get_device() != index or t.dtype != dt or t.shape != shape
+                    or not t.is_contiguous()):
+                raise ValueError("the node shards of one launch must share "
+                                 "a device, types and shapes, contiguous")
+    parts, blocks = system_stage(shards, row0s, n, p)
+    dev = first.used.device
+    buf, addr, upload = _staged(parts, dev)
+    args = blocks(addr)
+    out = torch.empty((2, n), dtype=torch.bool, device=dev)
+    run = _SystemRun(run_size=ctypes.sizeof(_SystemRun),
+                     args_size=ctypes.sizeof(_PlaceArgs), blocks=len(shards),
+                     rows=first.capacity.shape[0], n=n, row0=addr[1],
+                     out=out.data_ptr())
+    # the staged copy, the launch and the ring's event in one library call
+    upload([args] + parts[1:], lambda host, total, done: _SYSTEM.masks(
+        index, args, host.data_ptr(), addr[0], total, run, done))
+    # the staged buffer may be freed now: the caching allocator hands its
+    # memory only to work queued after this launch on the same stream
+    del buf
+    return out
+
+
+def system_feasibility_cuda(cluster: ClusterArrays, p) -> torch.Tensor:
+    """K2 on CUDA tensors: `system_masks_on` with one argument block at
+    row 0 (`csrc/system.cu` `system_rows`). bool [2, N]."""
     if cluster.used.device.type != "cuda":
         raise ValueError("system_feasibility_cuda needs CUDA tensors")
+    return system_masks_on([cluster], [0], cluster.capacity.shape[0], p)
+
+
+def system_pass_cuda(cluster: ClusterArrays, p: TGParams) -> torch.Tensor:
+    """K2's old route, kept to hold and time `system_feasibility_cuda`
+    against: `csrc/system.cu` `system_pass` (the PlaceArgs by value, a
+    fixed 256-thread block, every program field read from global memory)
+    on a program of tensors on the cluster's card. bool [2, N]; raises
+    when the build or the launch fails."""
+    if cluster.used.device.type != "cuda":
+        raise ValueError("system_pass_cuda needs CUDA tensors")
     _check_inputs(cluster, p, p.penalty_idx.shape[0])
     cluster = ClusterArrays(*(t.contiguous() for t in cluster))
     p = TGParams(*(t.contiguous() for t in p))
     dev = cluster.used.device
-    n = cluster.capacity.shape[0]
-    feas = torch.empty(n, dtype=torch.bool, device=dev)
-    fit = torch.empty(n, dtype=torch.bool, device=dev)
-    _SYSTEM.launch(program_args(cluster, p), feas.data_ptr(), fit.data_ptr(),
-                   device=dev)
-    return feas, fit
+    out = torch.empty((2, cluster.capacity.shape[0]), dtype=torch.bool,
+                      device=dev)
+    _SYSTEM.launch(program_args(cluster, p), out[0].data_ptr(),
+                   out[1].data_ptr(), device=dev)
+    return out
 
 
-def system_feasibility(cluster: ClusterArrays, p: TGParams):
-    """(constraint-feasible, feasible-and-fits) bool[N]: the plain version
-    for CPU tensors, the K2 kernel for CUDA tensors; on a sharded view K2
-    per shard (B12, kernels/shard.py)."""
+def system_feasibility(cluster, p, route: Optional[str] = None):
+    """(constraint-feasible, feasible-and-fits) as one bool [2, N] (rows 0
+    and 1; it unpacks as the pair): the plain version for CPU tensors, K2
+    (`system_feasibility_cuda`) for CUDA tensors, and on a sharded view
+    B12 (`kernels/shard.py` `sharded_system_feasibility`, which alone
+    takes a `route`). `p` is the program as tensors or as the numpy
+    `TGParams` that `compile_tg` returns: on the card it goes in K2's one
+    staged copy, on the CPU it is converted."""
     shard = _sharded_routes(cluster)
     if shard is not None:
-        return shard.sharded_system_feasibility(cluster, p)
+        return shard.sharded_system_feasibility(cluster, p, route)
+    if route is not None:
+        raise ValueError(f"route {route!r} needs a sharded view")
     kind = cluster.used.device.type
     if kind == "cpu":
-        return system_feasibility_plain(cluster, p)
+        return torch.stack(system_feasibility_plain(
+            cluster, _tensor_program(p, "cpu")))
     if kind == "cuda":
         return system_feasibility_cuda(cluster, p)
     raise ValueError(f"no system_feasibility implementation for {kind!r}")
@@ -1318,6 +1572,93 @@ def _rows_ptrs(t: torch.Tensor, index) -> np.ndarray:
 def args_pointer(args: np.ndarray):
     """ctypes pointer to the first PlaceArgs block of `args`."""
     return args.ctypes.data_as(ctypes.POINTER(_PlaceArgs))
+
+
+class _PinnedRing:
+    """Pinned host buffers for staged copies, kept across calls and used
+    in turn. A buffer is refilled only once the work last enqueued from it
+    has run (an event recorded after it, one kept a buffer and device),
+    so a caller waits at most on the copy SLOTS calls back, never on its
+    own; a lock keeps two threads out of one buffer."""
+
+    SLOTS = 4
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._host = [None] * self.SLOTS
+        self._np = [None] * self.SLOTS
+        self._done = [None] * self.SLOTS
+        self._events: dict = {}
+        self._next = 0
+
+    def send(self, total: int, offs, parts, dev, enqueue) -> None:
+        """Fill a kept buffer with `parts` at byte offsets `offs` (`total`
+        bytes), then `enqueue(host, total, done)`: enqueue the copy of the
+        first `total` bytes of pinned tensor `host` on the device's
+        current stream and record event `done` there after it."""
+        with self._lock:
+            k = self._next
+            self._next = (k + 1) % self.SLOTS
+            if self._done[k] is not None:
+                self._done[k].synchronize()
+            host = self._host[k]
+            if host is None or host.numel() < total:
+                host = self._host[k] = torch.empty(
+                    1 << max(12, (total - 1).bit_length()),
+                    dtype=torch.uint8, pin_memory=True)
+                self._np[k] = host.numpy()
+            fill_stage(self._np[k], offs, parts)
+            done = self._events.get((k, dev))
+            if done is None:
+                # recorded once here so that its handle exists on `dev`
+                done = self._events[(k, dev)] = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
+            enqueue(host, total, done)
+            self._done[k] = done
+
+
+_PINNED = _PinnedRing()
+
+
+def stage_offsets(parts):
+    """(byte offset of each of `parts`, total bytes): each part on a
+    16-byte boundary, as one staged copy lays them out."""
+    offs, total = [], 0
+    for a in parts:
+        offs.append(total)
+        total = (total + a.nbytes + 15) & ~15
+    return offs, total
+
+
+def fill_stage(h: np.ndarray, offs, parts) -> None:
+    """Write `parts` (numpy arrays) into the uint8 buffer `h` at `offs`."""
+    for off, a in zip(offs, parts):
+        h[off:off + a.nbytes] = np.ascontiguousarray(a).view(
+            np.uint8).reshape(-1)
+
+
+def _staged(parts, dev):
+    """One device buffer holding `parts` (numpy arrays, `stage_offsets`):
+    (the buffer, each part's device address, a function that fills a kept
+    pinned host buffer (`_PinnedRing`) with the parts and enqueues the one
+    copy on the device's current stream). Addresses are known before the
+    bytes are, so that argument blocks can point into the buffer.
+    `upload(filled, enqueue)` takes the ring's `enqueue(host, total,
+    done)` in place of the torch copy (the system masks copy and launch in one
+    library call)."""
+    offs, total = stage_offsets(parts)
+    buf = torch.empty(total, dtype=torch.uint8, device=dev)
+    base = buf.data_ptr()
+
+    def copy(host, size, done):
+        with torch.cuda.device(dev):
+            buf.copy_(host[:size], non_blocking=True)
+            done.record()
+
+    def upload(filled, enqueue=copy):
+        _PINNED.send(total, offs, filled, dev, enqueue)
+
+    return buf, [base + o for o in offs], upload
 
 
 def _lane_args(cluster: ClusterArrays, shapes: dict, ptrs_of, lanes: int,

@@ -23,8 +23,8 @@ of the replicated counts. The routes:
   (used, dyn_free) carry from program to program.
 - B11, `sharded_task_group` (`place_task_group`, `:345`): B10 at one
   program.
-- B12, `sharded_system_feasibility` (`system_feasibility`, `:957`): K2 on
-  each shard's rows, the masks joined in global row order.
+- B12, `sharded_system_feasibility` (`system_feasibility`, `:957`): K2's
+  two masks over every shard's rows, in global row order.
 
 With explain (B10, B11) each shard reduces its own rows and the combine
 sums the counts and merges the shards' top-K into the global one (score
@@ -35,7 +35,10 @@ read batch row 0's shards; the view cache keeps every copy equal.
 Each route has a plain version (the same loop in PyTorch, on any devices;
 the CPU tests hold it against the reference's mesh) and a CUDA one
 (`csrc/shard.cu`, K2's `csrc/system.cu` for B12, `csrc/lanes.cu` for K9
-on one card); the shards' device type picks. On CUDA shards each of B10,
+on one card); the shards' device type picks. B12 on CUDA shards is one
+`system_rows` launch a card over every shard it holds, each shard's
+argument block pointing at its rows moved back by its first row, the
+program's fields global (no rebase). On CUDA shards each of B10,
 B11 and K9 takes one of two launch structures, chosen from the devices
 and the layout alone (`chain_route`, `step_route`): when the S ≤ 8 node
 shards share one card, thread-block clusters of S blocks, one a shard —
@@ -80,6 +83,7 @@ from .placement import (
     _scratch_shapes,
     _set_cluster,
     _stacked_source,
+    _staged,
     _static_plain,
     _step_plain,
     _take_plain,
@@ -88,8 +92,9 @@ from .placement import (
     lane_layout,
     pack_params,
     packed_ptrs,
-    system_feasibility,
     system_feasibility_plain,
+    system_masks_on,
+    system_pass_cuda,
 )
 
 _VOID = ctypes.c_void_p
@@ -506,7 +511,8 @@ def route_launch_counts() -> dict:
     """Kernel launches of the sharded chain (B10), single program (B11)
     and system masks (B12) on CUDA shards since the last reset: every
     static, cluster, step and combine launch of a chain or single
-    dispatch, and one K2 launch a shard of a system dispatch."""
+    dispatch; a launch a card of a system call (a shard on its shards
+    route)."""
     return dict(_SHARD.routes)
 
 
@@ -516,7 +522,8 @@ def reset_route_launch_counts() -> None:
 
 def host_calls() -> int:
     """Host calls (kernel launches and copies) of the last CUDA sharded
-    chain or single dispatch."""
+    chain, single, step or system dispatch (on B12's shards route its K2
+    launches alone)."""
     return _SHARD.host_calls
 
 
@@ -646,32 +653,6 @@ def step_route(devices, n: int, dims: dict, r: int) -> str:
     return "cluster" if fits else "steps"
 
 
-def _staged(parts, dev):
-    """One device buffer holding `parts` (numpy arrays, each on a 16-byte
-    boundary): (the buffer, each part's device address, a function that
-    fills the pinned host copy and enqueues the one copy on the device's
-    current stream). Addresses are known before the bytes are, so that
-    argument blocks can point into the buffer."""
-    offs, total = [], 0
-    for a in parts:
-        offs.append(total)
-        total = (total + a.nbytes + 15) & ~15
-    buf = torch.empty(total, dtype=torch.uint8, device=dev)
-    base = buf.data_ptr()
-
-    def upload(filled):
-        host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
-        h = host.numpy()
-        for off, a in zip(offs, filled):
-            h[off:off + a.nbytes] = np.ascontiguousarray(a).view(
-                np.uint8).reshape(-1)
-        with torch.cuda.device(dev):
-            buf.copy_(host, non_blocking=True)
-        _SHARD.host_calls += 1
-
-    return buf, [base + o for o in offs], upload
-
-
 def _step_outputs(b: int, n: int, r: int, m: int, dev) -> dict:
     """K9's outputs of b programs on n rows, by PlaceArgs field name."""
     i32, f32 = torch.int32, torch.float32
@@ -760,6 +741,7 @@ def _place_cluster(sc: ShardedCluster, batch, bp: int, max_allocs: int,
     args = cluster_args(sc, dims, bp, ptrs_of, res)
     _LANES.check_layout(args, ns, dims, r, s)
     upload([args] + parts)
+    _SHARD.host_calls += 1
     run = _LaneRun(lanes=b, per_lane=1, clusters=s, rows=ns, n=n, r=r,
                    fold=0, shards=1, used0=shard0.used.data_ptr(),
                    dyn0=shard0.dyn_free.data_ptr(),
@@ -1209,33 +1191,118 @@ def sharded_task_group(sc: ShardedCluster, p: TGParams, max_allocs: int,
                   explain)
 
 
-def _system_over(sc: ShardedCluster, p: TGParams, fn):
+def system_route(devices) -> str:
+    """B12's route over node shards on `devices` (batch row 0's), from the
+    devices alone: "plain" on CPU shards; "cards" on CUDA shards, one
+    `system_rows` launch a card over every shard it holds
+    (csrc/system.cu). Raises ValueError when the shards lie on more than
+    one device type."""
+    kinds = {torch.device(d).type for d in devices}
+    if kinds == {"cpu"}:
+        return "plain"
+    if kinds == {"cuda"}:
+        return "cards"
+    raise ValueError(f"no sharded placement for devices {sorted(kinds)}")
+
+
+def card_groups(devices) -> dict:
+    """{device: the indices of the node shards on it, ascending}, the
+    devices in order of their first shard: the cards route's launches."""
+    groups: dict = {}
+    for j, d in enumerate(devices):
+        groups.setdefault(torch.device(d), []).append(j)
+    return groups
+
+
+def _system_over(sc: ShardedCluster, p, fn) -> torch.Tensor:
     shards, devs = sc.shards[0], sc.devices[0]
     ns = sc.n // len(sc.row0)
+    p = _as_params(p)
     feas, fit = [], []
     for sh, d, r0 in zip(shards, devs, sc.row0):
         f, g = fn(sh, rebase(_on(p, d), r0, ns, sc.n))
         feas.append(f.to(devs[0]))
         fit.append(g.to(devs[0]))
-    return torch.cat(feas), torch.cat(fit)
+    return torch.stack((torch.cat(feas), torch.cat(fit)))
 
 
-def sharded_system_plain(sc: ShardedCluster, p: TGParams):
-    """Plain B12: K2's plain version on each shard (any devices)."""
+def sharded_system_plain(sc: ShardedCluster, p) -> torch.Tensor:
+    """Plain B12: K2's plain version on each shard's rows (any devices),
+    the program's row fields rebased; bool [2, N] on the grid's first
+    device."""
     return _system_over(sc, p, system_feasibility_plain)
 
 
-def sharded_system_feasibility(sc: ShardedCluster, p: TGParams):
-    """B12: `system_feasibility` on a sharded view — K2 (its plain version
-    on CPU shards) on each of batch row 0's shards over its own rows, the
-    program's row fields rebased, the two masks joined in global row
-    order on the grid's first device."""
-    chain_route(sc.devices[0])
+def _system_cards(sc: ShardedCluster, p) -> torch.Tensor:
+    """B12's cards route: batch row 0's node shards grouped by the card
+    that holds them, one `system_masks_on` launch a card (its argument
+    blocks and, for a program not on that card, the packed program in one
+    staged copy), then every other card's shard rows copied into the first
+    shard's card's [2, N] buffer. Host calls: a staged copy and a launch a
+    card, a copy a shard off the first card."""
+    shards = sc.shards[0]
+    rows = sc.n // len(sc.row0)
+    for j, sh in enumerate(shards):
+        if sh.capacity.shape[0] != rows or sc.row0[j] != j * rows:
+            raise ValueError("the node shards must be equal and in row order")
+    groups = card_groups([sh.used.device for sh in shards])
+    lead = shards[0].used.device
+    _SHARD.host_calls = 0
+    out, others = None, []
+    for dev, js in groups.items():
+        buf = system_masks_on([shards[j] for j in js],
+                              [sc.row0[j] for j in js], sc.n, p)
+        _SHARD.routes["system"] += 1
+        _SHARD.host_calls += 2
+        if dev == lead:
+            out = buf
+        else:
+            others.append((buf, js))
+    for buf, js in others:
+        for j in js:
+            r0 = sc.row0[j]
+            out[:, r0:r0 + rows].copy_(buf[:, r0:r0 + rows])
+            _SHARD.host_calls += 1
+    return out
+
+
+def _system_shards(sc: ShardedCluster, p) -> torch.Tensor:
+    """B12's shards route, kept to hold and time the cards route against:
+    per shard the program moved to the shard's device and its row fields
+    rebased (`rebase`), K2's old pass on the shard's rows
+    (`system_pass_cuda`), the two masks copied to the first device; then
+    joined. Counts a launch a shard to `route_launch_counts()["system"]`
+    and to `host_calls()` (its torch operations are not counted there)."""
+    _SHARD.host_calls = 0
 
     def k2(shard: ClusterArrays, q: TGParams):
-        out = system_feasibility(shard, q)
-        if shard.used.device.type == "cuda":
-            _SHARD.routes["system"] += 1    # the K2 launch on this shard
+        out = system_pass_cuda(shard, q)
+        _SHARD.routes["system"] += 1
+        _SHARD.host_calls += 1
         return out
 
     return _system_over(sc, p, k2)
+
+
+def sharded_system_feasibility(sc: ShardedCluster, p,
+                               route: Optional[str] = None) -> torch.Tensor:
+    """B12: `system_feasibility` on a sharded view — the two masks over
+    batch row 0's node shards in global row order, bool [2, N] on the
+    first shard's device. `p` as tensors or as the numpy `TGParams` of
+    `compile_tg`. The route follows the devices alone (`system_route`):
+    the plain version on CPU shards, the cards route on CUDA shards (one
+    launch a card, no field rebased). `route="shards"` forces the old
+    route (K2's old pass a shard, `_system_shards`), kept so that the card
+    tests and chip_smoke.py hold the two bitwise and time them in turns.
+    A refused build or launch raises; neither route gives way to the
+    other."""
+    layout = system_route(sc.devices[0])
+    if layout == "plain":
+        if route not in (None, "plain"):
+            raise ValueError(f"no B12 route {route!r} on CPU shards")
+        return sharded_system_plain(sc, p)
+    if route in (None, "cards"):
+        return _system_cards(sc, p)
+    if route == "shards":
+        return _system_shards(sc, p)
+    raise ValueError(f"no B12 route {route!r} on CUDA shards")

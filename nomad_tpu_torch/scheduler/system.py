@@ -224,7 +224,7 @@ class SystemScheduler:
         (replaces the reference's per-node SystemStack.Select loop,
         system_sched.go:268)."""
         from ..kernels.placement import system_feasibility
-        from .stack import _DISPATCH_TOKENS, _to_device, release_view
+        from .stack import _DISPATCH_TOKENS, release_view
 
         by_tg: Dict[str, List[Tuple[str, Optional[Allocation]]]] = {}
         tg_map: Dict[str, TaskGroup] = {}
@@ -240,13 +240,14 @@ class SystemScheduler:
             params, _m = self.stack.compile_tg(self.job, tg, len(entries), plan_ctx)
             # the launch leases the view it reads until both masks are on
             # the host: a concurrent refresh writes copies meanwhile, never
-            # these tensors (PyTorch has no buffer donation to catch it)
+            # these tensors (PyTorch has no buffer donation to catch it).
+            # The numpy program goes to the card in the kernel's one staged
+            # copy; the [2, N] masks come back in one copy.
             token = next(_DISPATCH_TOKENS)
             try:
                 arrays = self.stack.device_arrays(lease_token=token)
-                feas_mask, mask = system_feasibility(
-                    arrays, _to_device(params, self.device))
-                feas_mask, mask = feas_mask.cpu().numpy(), mask.cpu().numpy()
+                feas_mask, mask = system_feasibility(arrays,
+                                                     params).cpu().numpy()
             finally:
                 release_view(self.cluster, token)
 

@@ -2,10 +2,11 @@
 K1 (its lane route bitwise placement.cu's), the chain and wave (K4, K5;
 the lane route bitwise chain.cu's, at several cluster sizes, waves past
 65,535 lanes), the batch (K6; its on-chip and pooled packed routes
-bitwise each other), the row kernels (K7, K8), K2, K3, the node-sharded
-step (K9; its cluster route bitwise its steps route), and the sharded
-routes (B10-B13) on shards of the card — B10/B11's cluster route held
-bitwise against its steps route.
+bitwise each other), the row kernels (K7, K8), K2 (from numpy and
+from tensors, bitwise its old pass), K3, the node-sharded step (K9; its
+cluster route bitwise its steps route), and the sharded routes (B10-B13)
+on shards of the card — B10/B11's cluster route held bitwise against
+its steps route, B12's cards route against its shards route.
 
 Marked `cuda`: it skips without an NVIDIA card (a CUDA kernel has no CPU
 mode). It imports nothing of JAX, so it also runs where JAX is absent:
@@ -618,6 +619,33 @@ def test_system_kernel_matches_plain(cuda_device):
             assert g.dtype == torch.bool and torch.equal(g.cpu(), w.cpu())
         assert 0 < int(got[1].sum()) < int(got[0].sum())
     assert kp.system_launch_count() == before + 2
+
+
+@pytest.mark.cuda
+def test_system_kernel_from_numpy_equals_tensors_and_the_old_pass(
+        cuda_device):
+    """K2 fed the numpy program (`compile_tg`'s, packed into the one
+    staged copy with the argument block) equals K2 fed tensors on the
+    card, the old pass (`system_pass_cuda`) and plain, bit for bit; one
+    launch a call either way."""
+    state, nodes = build_synthetic_state(2000, 20000, seed=3)
+    stack = TorchStack(state.cluster, device=cuda_device)
+    for params in _system_programs(stack, nodes, state):
+        arrays = stack.device_arrays()
+        p = params_from_numpy(params, cuda_device)
+        before = kp.system_launch_count()
+        from_np = kp.system_feasibility(arrays, params)
+        from_t = kp.system_feasibility(arrays, p)
+        assert kp.system_launch_count() == before + 2
+        old = kp.system_pass_cuda(arrays, p)
+        want = kp.system_feasibility_plain(arrays, p)
+        torch.cuda.synchronize()
+        assert from_np.shape == (2, arrays.capacity.shape[0])
+        for got in (from_np, from_t, old):
+            assert got.dtype == torch.bool
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w.cpu())
+        assert 0 < int(from_np[1].sum()) < int(from_np[0].sum())
 
 
 @pytest.mark.cuda
@@ -1437,14 +1465,48 @@ def test_sharded_system_matches_k2(cuda_device):
     arrays, batched, _m = _batch_problem(cuda_device, n_prog=3)
     sc = shard_cluster(arrays, _card_mesh((1, 4)))
     stacked = params_from_numpy(batched, cuda_device)
+    cards = len(ks.card_groups([sh.used.device for sh in sc.shards[0]]))
     for b in range(3):
         p = kp._program(stacked, b)
         before = ks.route_launch_counts()["system"]
         got = kp.system_feasibility(sc, p)
-        assert ks.route_launch_counts()["system"] == before + 4  # a shard
+        assert ks.route_launch_counts()["system"] == before + cards  # a card
         want = kp.system_feasibility(arrays, p)
         for w, g in zip(want, got):
             assert torch.equal(w.cpu(), g.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2), (1, 8), (1, 64)],
+                         ids=["1x4", "2x2", "1x8", "1x64"])
+def test_sharded_system_cards_equal_shards_bitwise(shape, cuda_device):
+    """B12's cards route (one launch a card, no rebase) against its old
+    shards route (K2's old pass a shard, rebased), plain and K2 on the
+    whole view, bit for bit: programs as tensors and as numpy, shards of
+    the 300-node view down to 8 rows (1 x 64)."""
+    from nomad_tpu_torch.kernels import shard as ks
+    from nomad_tpu_torch.parallel import shard_cluster
+
+    state, nodes = build_synthetic_state(300, 3000, seed=3)
+    stack = TorchStack(state.cluster, device=cuda_device)
+    for params in _system_programs(stack, nodes, state):
+        arrays = stack.device_arrays()
+        sc = shard_cluster(arrays, _card_mesh(shape, one_card=True))
+        p = params_from_numpy(params, cuda_device)
+        before = ks.route_launch_counts()["system"]
+        cards = kp.system_feasibility(sc, p)
+        assert ks.route_launch_counts()["system"] == before + 1
+        assert ks.host_calls() == 2     # the staged copy, the launch
+        from_np = kp.system_feasibility(sc, params)
+        shards = kp.system_feasibility(sc, p, route="shards")
+        assert ks.route_launch_counts()["system"] == before + 2 + shape[1]
+        plain = ks.sharded_system_plain(sc, p)
+        whole = kp.system_feasibility(arrays, p)
+        torch.cuda.synchronize()
+        assert cards.shape == (2, sc.n) and cards.dtype == torch.bool
+        for other in (from_np, shards, plain, whole):
+            assert torch.equal(cards.cpu(), other.cpu())
+        assert 0 < int(cards[1].sum()) < int(cards[0].sum())
 
 
 @pytest.mark.cuda
