@@ -99,12 +99,23 @@ non-zero without printing a result:
    route from host arrays (numpy program in, masks on the host: one
    staged copy, one launch, one copy back) against the route the system
    scheduler took before (a copy a field, the old pass, a copy a mask),
-   in turns on the host clock; (b) K3 against its plain version on
-   the candidate table the retry's host code builds from the filler
-   allocs for a priority-100 ask one cpu above any node's free room, and
-   on one of all-equal priorities with pads: indices, k, order and
-   feasible equal, scores within 1e-6; K2, K3, their plain versions, the
-   table build and the four-tensor upload timed; (c) BASELINE config 4:
+   in turns on the host clock; (b) K3 (`csrc/preempt.cu` `rank_block`,
+   one launch a call) against its plain version and its old two-launch
+   route on the candidate table the retry's host code builds from the
+   filler allocs for a priority-100 ask one cpu above any node's free
+   room, and on one of all-equal priorities with pads, from dense
+   tensors, from a compact table of tensors and from the retry's host
+   arrays (snapshot, numpy program, compact table in one staged copy):
+   bitwise the old route, indices, k, order and feasible equal to plain,
+   scores within 1e-6, one launch a call against two; timed: new and
+   old on the same tensors in turns (back-to-back CUDA events), the
+   route from host arrays against the retry's old route (a copy a field,
+   the dense table and four snapshot tensors, two launches, two syncs)
+   in turns on the host clock, the host set-up alone, the plain version,
+   the table build and the old four-tensor upload; counted a call:
+   launches, library host calls, torch operations, bytes staged against
+   bytes uploaded; the bound on the dense and the compact table; (c)
+   BASELINE config 4:
    two `synth_system_job` evals through the port's `Harness`, with
    `bench.py` `bench_system`'s checks (the placed node set equals a
    scalar recomputation; every preemption-backed placement is on a
@@ -117,8 +128,10 @@ non-zero without printing a result:
    completes through the worker's system route (K2 launched, no nack);
    then, with service preemption on, a priority-100 service job whose ask
    fits no node without eviction is placed by evicting lower-priority
-   allocs (K3 launched), its plan applied, `carry_exact` False, the node
-   fitting afterwards.
+   allocs (K3 launched once a retry, its old route never), its plan
+   applied, `carry_exact` False, the node fitting afterwards; the eval's
+   wall split into the victim table's build, the K3 route, the Preemptor
+   and the rest.
 9. The batched-eval path (K6) and the node-sharded step (K9): (a) on the
    phase-3 cluster, `place_task_group_batch` against its plain version
    for B = 64 programs of `bench.py`'s eval mix (count 8), explain off and
@@ -1786,16 +1799,20 @@ def _k3_walk(torch, kpre, arrays, p, cand, order):
     return int(walked.sum())
 
 
-def _k3_bound(torch, kpre, arrays, p, cand, order):
+def _k3_bound(torch, kpre, arrays, p, cand, order, entries=None):
     """K3 reads every row's priorities (the rank sort), the usage rows its
     walk reaches, capacity, used, node_ok, the referenced attribute
     columns; writes order, feasible, scores and the three scalars. Its
-    operations: A² rank compares a row, R per walked slot."""
+    operations: A² rank compares a row, R per walked slot. On the dense
+    table the priorities are N·A words; on the compact table of `entries`
+    real victims they are the row offsets and each entry's slot and
+    priority (the absent slots are pads the kernel writes itself)."""
     n, a = cand.prio.shape
     r = arrays.capacity.shape[1]
     walked = _k3_walk(torch, kpre, arrays, p, cand, order)
     cols = p.key_idx.shape[0] + p.dp_key_idx.shape[0]
-    bytes_ = (n * a * 4 + walked * r * 4 + n * r * 4 * 2 + n
+    table = n * a * 4 if entries is None else 4 * (n + 1) + 8 * entries
+    bytes_ = (table + walked * r * 4 + n * r * 4 * 2 + n
               + n * cols * arrays.attrs.element_size()
               + n * a * 4 + n + n * 4 + 12
               + _nbytes(p.ask, p.key_idx, p.lut, p.extra_mask, p.jc_idx,
@@ -1980,23 +1997,87 @@ def _k2_against_plain(torch, kp, state, nodes, rng, out, device):
             stack_mod.release_view(cl, token)
 
 
+def _k3_same(torch, kpre, label, got, old, want, what):
+    """`got` bit for bit the old route `old` (None off the card), and the
+    plain version `want` on indices, order and feasible, scores within
+    TOL; returns the largest score difference from plain."""
+    err = 0.0
+    for f in kpre.PreemptionResult._fields:
+        g = getattr(got, f).cpu()
+        if old is not None:
+            o = getattr(old, f).cpu()
+            if g.dtype != o.dtype or not torch.equal(g, o):
+                raise AssertionError(f"K3 {label}, {what}: {f} differs from "
+                                     "the old route")
+        w = getattr(want, f).cpu()
+        if f in ("scores", "best_score"):
+            d = float((g - w).abs().max())
+            if not d <= TOL:
+                raise AssertionError(f"K3 {label}, {what}: {f} differs by "
+                                     f"{d}")
+            err = max(err, d)
+        elif g.shape != w.shape or not torch.equal(g, w.to(g.dtype)):
+            raise AssertionError(f"K3 {label}, {what}: {f} differs")
+    return err
+
+
+def _k3_launch_ms(torch, kpre, arrays, p, cand, reps: int) -> float:
+    """Back-to-back CUDA-event time of `nomad_preempt_stage_rank` alone:
+    one `preempt_rank_cuda` call's library call (its staged copy of the
+    argument block and ticket, the `rank_block` launch, the ring's event)
+    repeated `reps` times on that call's staged inputs and outputs, so
+    the host's share is one ctypes call and the time the device's when
+    that is longer. The call's staged buffer and outputs are held until
+    the end."""
+    held = {}
+    real, real_staged = kpre._PREEMPT.rank, kpre._staged
+
+    def grab(*call):
+        held["call"] = call
+        real(*call)
+
+    def staged(parts, dev):
+        out = real_staged(parts, dev)
+        held["buf"] = out[0]
+        return out
+
+    kpre._PREEMPT.rank, kpre._staged = grab, staged
+    try:
+        held["result"] = kpre.preempt_rank_cuda(arrays, p, cand)
+    finally:
+        del kpre._PREEMPT.rank
+        kpre._staged = real_staged
+    return _time_ms(lambda: real(*held["call"]), reps)
+
+
 def _k3_against_plain(torch, kpre, state, rng, out, device):
     """(b): K3 on a candidate table the retry's own host code builds from
     the filler allocs, and on one of all-equal priorities with pads,
-    against its plain version; K3, the plain version, the table build and
-    the four-tensor upload timed."""
+    against its plain version and its old two-launch route, from dense
+    tensors, a compact table of tensors and the retry's host arrays; one
+    launch a call. Timed: the new kernel and the old route on the same
+    tensors in turns (back-to-back CUDA events); the route from host
+    arrays against the one the retry took before (a copy a program field,
+    the dense table and the four snapshot tensors, two launches, two
+    syncs) in turns on the host clock; the host set-up alone; the plain
+    version; the table build and the old four-tensor upload. Counted a
+    call: kernel launches, library host calls, torch operations, bytes
+    staged against bytes uploaded."""
     import numpy as np
 
     from nomad_tpu_torch.convert import (candidates_from_numpy,
                                          params_from_numpy)
     from nomad_tpu_torch.device import resolve_device
+    from nomad_tpu_torch.kernels import placement as kp
     from nomad_tpu_torch.scheduler.preemption import (candidate_table,
-                                                      ranked_cluster)
+                                                      ranked_cluster,
+                                                      ranked_snapshot)
     from nomad_tpu_torch.scheduler.stack import TorchStack
     from nomad_tpu_torch.structs import Plan
 
     cl = state.cluster
     dev = resolve_device(device)
+    cuda = dev.type == "cuda"
     job = _preempt_job(rng, cl)
     params, _m = TorchStack(cl, device=dev).compile_tg(
         job, job.task_groups[0], 1)
@@ -2006,61 +2087,144 @@ def _k3_against_plain(torch, kpre, state, rng, out, device):
         table = candidate_table(state, cl, job, Plan())
         builds.append(time.perf_counter() - t0)
     for _ in range(5):
-        if dev.type == "cuda":
+        if cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
         arrays = ranked_cluster(cl, dev)
-        if dev.type == "cuda":
+        if cuda:
             torch.cuda.synchronize()
         uploads.append(time.perf_counter() - t0)
-    prio, usage = table
+    prio, usage = kpre.dense_candidates(table)
     n, a = prio.shape
     gen = np.random.default_rng(SEED)
     equal = np.where(prio < kpre.INF_PRIO, 50.0, kpre.INF_PRIO).astype(
         np.float32)
     equal[gen.random(prio.shape) < 0.1] = kpre.INF_PRIO   # pads between
     p = params_from_numpy(params, dev)
+    snap = ranked_snapshot(cl)
     err = 0.0
     for label, tab in (("filler allocs", (prio, usage)),
                        ("equal priorities + pads", (equal, usage))):
         cand = candidates_from_numpy(*tab, dev)
-        got = _snap(torch, kpre.preempt_rank(arrays, p, cand))
+        compact = kpre.compact_candidates(*tab)
+        compact_t = kpre.CompactCandidates(
+            *(torch.from_numpy(np.asarray(t)).to(dev) for t in compact[:4]),
+            compact.slots)
+        kpre.reset_launch_count()
+        routes = {"dense tensors": kpre.preempt_rank(arrays, p, cand),
+                  "compact tensors": kpre.preempt_rank(arrays, p, compact_t),
+                  "host arrays": kpre.preempt_rank_compact(
+                      snap, params, compact, device=dev)}
+        launches = kpre.launch_count()
+        old = kpre.preempt_rank_two_pass_cuda(arrays, p, cand) \
+            if cuda else None
         want = kpre.preempt_rank_plain(arrays, p, cand)
-        for f in ("best_row", "best_k", "order", "feasible"):
-            g, w = getattr(got, f).cpu(), getattr(want, f).cpu()
-            if g.shape != w.shape or not torch.equal(g, w.to(g.dtype)):
-                raise AssertionError(f"K3 {label}: {f} differs")
-        for f in ("scores", "best_score"):
-            d = float((getattr(got, f).cpu() - getattr(want, f).cpu())
-                      .abs().max())
-            if not d <= TOL:
-                raise AssertionError(f"K3 {label}: {f} differs by {d}")
-            err = max(err, d)
-        best = int(got.best_row)
+        if cuda and (launches, kpre.two_pass_launch_count()) != (3, 2):
+            raise AssertionError(f"K3 {label}: {launches} launches for 3 "
+                                 "calls, the old route "
+                                 f"{kpre.two_pass_launch_count()} for 1")
+        for what, got in routes.items():
+            err = max(err, _k3_same(torch, kpre, label, got, old, want,
+                                    what))
+        got = routes["dense tensors"]
+        best, k, score = kpre.preempt_best(routes["host arrays"])
         if best < 0:
             raise AssertionError(f"K3 {label}: no node admits the ask")
-        line = (f"phase 8 (b) K3==plain {label}: A={a}, feasible "
-                f"{int(got.feasible.sum())}, best row {best} "
-                f"(cpu {float(arrays.capacity[best, 0]):.0f}), k "
-                f"{int(got.best_k)}, score {float(got.best_score):.6f}")
-        if dev.type == "cuda":
-            ms = _time_ms(lambda: kpre.preempt_rank_cuda(arrays, p, cand),
-                          200)
+        line = (f"phase 8 (b) K3==plain==old route {label}, from dense and "
+                f"compact tensors and from host arrays: A={a}, entries "
+                f"{int(compact.offsets[-1])}, feasible "
+                f"{int(got.feasible.sum())}, best row {best} (cpu "
+                f"{float(arrays.capacity[best, 0]):.0f}), k {k}, score "
+                f"{score:.6f}")
+        if cuda:
+            ev = _turns({
+                "new": lambda: kpre.preempt_rank_cuda(arrays, p, cand),
+                "old": lambda: kpre.preempt_rank_two_pass_cuda(arrays, p,
+                                                               cand)},
+                _time_ms, 200)
+            compact_ms = _time_ms(
+                lambda: kpre.preempt_rank_cuda(arrays, p, compact_t), 200)
+            launch_ms = _k3_launch_ms(torch, kpre, arrays, p, cand, 200)
+
+            def new_route():
+                return kpre.preempt_best(kpre.preempt_rank_compact(
+                    ranked_snapshot(cl), params, compact, device=dev))
+
+            def old_route():
+                r = kpre.preempt_rank_two_pass_cuda(
+                    ranked_cluster(cl, dev), params_from_numpy(params, dev),
+                    candidates_from_numpy(*tab, dev))
+                return int(r.best_row), float(r.best_score)
+
+            host = _turns({"new": new_route, "old": old_route},
+                          lambda f, m: _host_ms(torch, f, m), 50)
+            counts = {}
+            for what, fn in (("new", new_route), ("old", old_route)):
+                kpre.reset_launch_count()
+                fn()
+                counts[what] = (kpre.launch_count()
+                                + kpre.two_pass_launch_count(),
+                                kpre.host_calls(), _torch_ops(fn))
+            index = dev.index or 0
+
+            def set_up(*inputs):
+                parts, finish, (n_, a_, r_) = kpre.preempt_stage(*inputs,
+                                                                 index)
+                finish(kp.stage_offsets(parts)[0])
+                kpre.preempt_layout(n_, a_, r_, 132)
+                return parts
+
+            setup = {k: _wall_ms(lambda v=v: set_up(*v), 200) for k, v in (
+                ("tensors", (arrays, p, cand)),
+                ("host", (ranked_snapshot(cl), params, compact)))}
+            staged = sum(x.nbytes for x in set_up(snap, params, compact))
+            uploaded = (_nbytes(*params_from_numpy(params, "cpu"))
+                        + tab[0].nbytes + tab[1].nbytes
+                        + _nbytes(*(t for t in arrays if t is not None)))
             plain_ms = _time_ms(
                 lambda: kpre.preempt_rank_plain(arrays, p, cand), 20)
             (bound_ms, bound_by), walked = _k3_bound(
                 torch, kpre, arrays, p, cand, got.order)
-            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                     f"{bound_ms:.7f} ms ({bound_by}; {walked} slots "
-                     "walked)")
+            (cbound_ms, cbound_by), _w = _k3_bound(
+                torch, kpre, arrays, p, cand, got.order,
+                entries=int(compact.offsets[-1]))
+            line += (f"; kernel {ev['new']:.4f} ms a call from dense "
+                     f"tensors (old route {ev['old']:.4f}; back-to-back "
+                     f"CUDA events, 200 calls in turns new, old, old, new), "
+                     f"{compact_ms:.4f} from compact tensors, "
+                     f"{launch_ms:.4f} a library call alone (the staged "
+                     f"copy of the argument block and the launch, 200 "
+                     f"calls on one call's staged inputs); route from "
+                     f"host arrays {host['new']:.4f} ms (the old route's "
+                     f"uploads, two launches and two syncs "
+                     f"{host['old']:.4f}; host clock, synced, 50 calls in "
+                     f"turns); a call from host arrays: launches, library "
+                     f"host calls, torch operations {counts['new']} (old "
+                     f"{counts['old']}), {staged / 2**20:.3f} MiB staged in "
+                     f"one copy (old {uploaded / 2**20:.3f} MiB uploaded); "
+                     f"host set-up alone {setup['tensors']:.4f} ms from "
+                     f"tensors, {setup['host']:.4f} from host arrays; plain "
+                     f"{plain_ms:.4f} ms; bound {bound_ms:.7f} ms "
+                     f"({bound_by}) on the dense table, {cbound_ms:.7f} "
+                     f"({cbound_by}) on the compact; {walked} slots walked")
             if label == "filler allocs":
-                out["k3"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by, library_ms=None)
+                out["k3"] = dict(
+                    ms=ev["new"], plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=None,
+                    old_route_ms=ev["old"], compact_ms=compact_ms,
+                    launch_ms=launch_ms,
+                    compact_bound_ms=cbound_ms, host_route_ms=host["new"],
+                    old_host_route_ms=host["old"],
+                    setup_ms=setup["tensors"], host_setup_ms=setup["host"],
+                    kernel_launches_per_call=counts["new"][0],
+                    old_route_launches_per_call=counts["old"][0],
+                    staged_bytes=staged, old_uploaded_bytes=uploaded)
         print(line)
     out["k3_err"] = err
     print(f"phase 8 (b) host: candidate table (proposed_allocs over "
-          f"{len(cl.row_of)} nodes) " + " ".join(
-              f"{t * 1e3:.1f}" for t in builds) + " ms; four-tensor upload "
+          f"{len(cl.row_of)} nodes, compact) " + " ".join(
+              f"{t * 1e3:.1f}" for t in builds) + " ms; the old route's "
+          f"four-tensor upload "
           f"({_nbytes(*(t for t in arrays if t is not None)) / 2**20:.2f} "
           "MiB) " + " ".join(f"{t * 1e3:.3f}" for t in uploads) + " ms")
 
@@ -2237,13 +2401,57 @@ def _phase8_system(torch, kp, kpre, device=None):
     return out
 
 
+def _k3_server_routes(torch, kpre, s, job):
+    """The retry's K3 route again on the server's state after (d)'s eval,
+    from this thread while the server runs: the new route (snapshot,
+    staged copy and launch, one copy back) and the old one (a copy a
+    program field, the dense table and four snapshot tensors, two
+    launches, two syncs) on one victim table, 5 calls each in turns on
+    the host clock, synced."""
+    from nomad_tpu_torch.convert import (candidates_from_numpy,
+                                         params_from_numpy)
+    from nomad_tpu_torch.scheduler import preemption as tpre
+    from nomad_tpu_torch.scheduler.stack import TorchStack
+    from nomad_tpu_torch.structs import Plan
+
+    cl, dev = s.state.cluster, s.device
+    params, _m = TorchStack(cl, device=dev).compile_tg(
+        job, job.task_groups[0], 1)
+    table = tpre.candidate_table(s.state, cl, job, Plan())
+    dense = kpre.dense_candidates(table)
+
+    def new():
+        return kpre.preempt_best(kpre.preempt_rank_compact(
+            tpre.ranked_snapshot(cl), params, table, device=dev))
+
+    def old():
+        r = kpre.preempt_rank_two_pass_cuda(
+            tpre.ranked_cluster(cl, dev), params_from_numpy(params, dev),
+            candidates_from_numpy(*dense, dev))
+        return int(r.best_row), float(r.best_score)
+
+    if new()[0] != old()[0]:
+        raise AssertionError("K3 on the server's state: the routes differ")
+    ms = _turns({"new": new, "old": old},
+                lambda f, n: _host_ms(torch, f, n), 5)
+    print(f"phase 8 (d) K3 route on the server's state after the eval "
+          f"(this thread, the server running; {int(table.offsets[-1])} "
+          f"victims, A={table.slots}): {ms['new']:.4f} ms a call against "
+          f"the old route's {ms['old']:.4f} (host clock, synced, 5 calls "
+          f"in turns)")
+
+
 def _phase8_server(torch, kp, kpre, s, rng):
     """(d): on a started Server at full width, a system job's eval
     completes through the worker's system route (K2 launched, no nack);
     then, with service preemption on, a priority-100 service job whose
     ask fits no node without eviction places by evicting lower-priority
-    allocs (K3 launched), its plan applied and marked inexact for carry
-    adoption, and the node fits afterwards."""
+    allocs (K3 launched once, its old route never), its plan applied and
+    marked inexact for carry adoption, and the node fits afterwards. The
+    preemption eval's wall is split into the victim table's build, the
+    K3 route (the snapshot, the staged copy and launch, the one copy
+    back), the Preemptor and the rest."""
+    from nomad_tpu_torch.scheduler import preemption as tpre
     from nomad_tpu_torch.scheduler.util import SchedulerConfiguration
     from nomad_tpu_torch.structs import allocs_fit
     from nomad_tpu_torch.synth import synth_system_job
@@ -2285,18 +2493,65 @@ def _phase8_server(torch, kp, kpre, s, rng):
         kpre.reset_launch_count()
         pj = _preempt_job(rng, s.state.cluster)
         plans.clear()
-        t0 = time.perf_counter()
-        ev = s.job_register(pj)
-        got = s.wait_for_eval(ev.id, statuses=final, timeout=600.0)
-        pre_s = time.perf_counter() - t0
+        spent = {"table": [], "snapshot": [], "rank": [], "best": [],
+                 "preemptor": [], "ring": [], "library": []}
+        real = {"table": tpre.candidate_table,
+                "snapshot": tpre.ranked_snapshot,
+                "rank": tpre.preempt_rank_compact, "best": tpre.preempt_best,
+                "preemptor": tpre.Preemptor.preempt_for_task_group}
+
+        inside = []   # set while the K3 route stages and launches
+
+        def timed(key, fn):
+            def call(*a, **kw):
+                t1 = time.perf_counter()
+                if key == "rank":
+                    inside.append(1)
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    if key == "rank":
+                        inside.pop()
+                    if key not in ("ring", "library") or inside:
+                        spent[key].append(time.perf_counter() - t1)
+            return call
+
+        # inside the staged copy and launch: the pinned ring's fill and
+        # wait (which enqueues through the library call) and the library
+        # call alone (the copy, the launch and the event enqueued)
+        kp._PINNED.send = timed("ring", kp._PINNED.send)
+        kpre._PREEMPT.rank = timed("library", kpre._PREEMPT.rank)
+
+        tpre.candidate_table = timed("table", real["table"])
+        tpre.ranked_snapshot = timed("snapshot", real["snapshot"])
+        tpre.preempt_rank_compact = timed("rank", real["rank"])
+        tpre.preempt_best = timed("best", real["best"])
+        tpre.Preemptor.preempt_for_task_group = timed("preemptor",
+                                                      real["preemptor"])
+        try:
+            t0 = time.perf_counter()
+            ev = s.job_register(pj)
+            got = s.wait_for_eval(ev.id, statuses=final, timeout=600.0)
+            pre_s = time.perf_counter() - t0
+        finally:
+            tpre.candidate_table = real["table"]
+            tpre.ranked_snapshot = real["snapshot"]
+            tpre.preempt_rank_compact = real["rank"]
+            tpre.preempt_best = real["best"]
+            tpre.Preemptor.preempt_for_task_group = real["preemptor"]
+            del kp._PINNED.send, kpre._PREEMPT.rank
         if got is None or got.status != "complete":
             raise AssertionError(f"preemption eval through the server: {got}")
         k3 = kpre.launch_count()
+        retries = len(spent["table"])
         allocs = s.state.allocs_by_job("default", pj.id)
-        if (cuda and k3 < 1) or nacks or len(allocs) != 1 \
+        if (cuda and (k3 != retries or kpre.two_pass_launch_count())) \
+                or retries < 1 or nacks or len(allocs) != 1 \
                 or not allocs[0].preempted_allocations:
-            raise AssertionError(f"preemption eval: K3 launches {k3}, "
-                                 f"nacks {nacks}, allocs {allocs}")
+            raise AssertionError(f"preemption eval: K3 launches {k3} in "
+                                 f"{retries} retries (old route "
+                                 f"{kpre.two_pass_launch_count()}), nacks "
+                                 f"{nacks}, allocs {allocs}")
         a = allocs[0]
         plan = next(p for p in plans for v in p.node_allocation.values()
                     for x in v if x.id == a.id)
@@ -2314,7 +2569,22 @@ def _phase8_server(torch, kp, kpre, s, rng):
               f"{pj.task_groups[0].tasks[0].resources.cpu}): placed on "
               f"{node.name} evicting {len(victims)} lower-priority allocs, "
               f"the node fits after, plan carry_exact False; K3 launches "
-              f"{k3}, nacks 0")
+              f"{k3} in {retries} retry, nacks 0")
+        parts = {k: sum(v) * 1e3 for k, v in spent.items()}
+        route = parts["snapshot"] + parts["rank"] + parts["best"]
+        rest = (pre_s * 1e3 - parts["table"] - route
+                - parts["preemptor"])
+        print(f"phase 8 (d) preemption eval split: {pre_s * 1e3:.3f} ms = "
+              f"victim table build {parts['table']:.3f} ms + K3 route "
+              f"{route:.3f} ms (snapshot {parts['snapshot']:.3f}, staged "
+              f"copy and launch {parts['rank']:.3f} — of it the pinned "
+              f"ring's fill and wait {parts['ring'] - parts['library']:.3f}"
+              f" and the library call {parts['library']:.3f} — the one "
+              f"copy back and its sync {parts['best']:.3f}) + Preemptor "
+              f"{parts['preemptor']:.3f} ms + the rest (broker, reconcile, "
+              f"compile, the placement dispatch, plan apply) {rest:.3f} ms")
+        if cuda:
+            _k3_server_routes(torch, kpre, s, pj)
         return {"k2_launches_d": k2, "k3_launches_d": k3}
     finally:
         s.broker.nack, s.planner.apply = real_nack, real_apply

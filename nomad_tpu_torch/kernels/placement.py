@@ -1089,6 +1089,11 @@ _ARG_OFFSETS = {name: getattr(_PlaceArgs, name).offset
 SYSTEM_FIELDS = ("ask", "n_dyn", "key_idx", "lut", "extra_mask",
                  "delta_idx", "delta_res", "res_ports", "pclr_idx",
                  "pclr_port", "pset_idx", "pset_port")
+#: the program fields the preemption ranking reads (csrc/preempt.cu with
+#: its place_core.cuh row helpers), staged and pointed at the same way
+PREEMPT_FIELDS = ("ask", "key_idx", "lut", "extra_mask", "distinct_hosts",
+                  "jc_idx", "jc_val", "delta_idx", "delta_res",
+                  "dp_key_idx", "dp_allowed", "dp_counts0", "dp_active")
 #: 8-byte words of those pointers and of the cluster's in a block
 _SYSTEM_WORDS = np.array([_ARG_OFFSETS[f] // 8 for f in SYSTEM_FIELDS])
 _CLUSTER_WORDS = np.array([_ARG_OFFSETS[f] // 8
@@ -1102,9 +1107,8 @@ _DIM_FIELDS = ("lut", "aff_lut", "penalty_idx", "extra_mask", "jc_idx",
                "delta_res", "pclr_port", "pset_port")
 #: each read field's kernel type, as a tensor and on the host
 _SYSTEM_TYPES = tuple(PARAM_TYPES[f] for f in SYSTEM_FIELDS)
-_SYSTEM_NP = tuple(np.dtype({torch.float32: np.float32,
-                             torch.int32: np.int32,
-                             torch.bool: np.bool_}[t]) for t in _SYSTEM_TYPES)
+_NP_OF = {torch.float32: np.dtype(np.float32), torch.int32: np.dtype(np.int32),
+          torch.bool: np.dtype(np.bool_)}
 _PAD = bytes(16)
 _ARG_WORDS = ctypes.sizeof(_PlaceArgs) // 8
 #: the int members a launch fills: `_program_dims`' keys in its order,
@@ -1141,14 +1145,15 @@ def _shape(v) -> tuple:
     return tuple(v.shape) if isinstance(v, torch.Tensor) else np.shape(v)
 
 
-def program_bytes(p):
-    """The fields of program `p` that the masks kernel reads
-    (`SYSTEM_FIELDS`; numpy, as `compile_tg` returns them, or tensors,
-    brought to the host) as one byte string for the staged copy: each in
-    its kernel type at a 16-byte boundary. Returns (the bytes as uint8,
-    each field's offset)."""
+def program_bytes(p, fields=SYSTEM_FIELDS):
+    """The fields of program `p` that a row kernel reads (`fields`: the
+    masks kernel's `SYSTEM_FIELDS` or the ranking's `PREEMPT_FIELDS`;
+    numpy, as `compile_tg` returns them, or tensors, brought to the host)
+    as one byte string for the staged copy: each in its kernel type at a
+    16-byte boundary. Returns (the bytes as uint8, each field's offset)."""
     chunks, offs, at = [], [], 0
-    for name, dt in zip(SYSTEM_FIELDS, _SYSTEM_NP):
+    for name in fields:
+        dt = _NP_OF[PARAM_TYPES[name]]
         v = getattr(p, name)
         a = np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
         b = (a if a.dtype == dt else a.astype(dt)).tobytes()

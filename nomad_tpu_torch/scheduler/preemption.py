@@ -20,11 +20,11 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..convert import (candidates_from_numpy, params_from_numpy,
-                       tensor_from_numpy)
+from ..convert import tensor_from_numpy
 from ..device import DeviceLike, resolve_device
 from ..kernels.placement import ClusterArrays
-from ..kernels.preemption import INF_PRIO, preempt_rank
+from ..kernels.preemption import (CompactCandidates, preempt_best,
+                                  preempt_rank_compact)
 from ..structs import Allocation, NetworkResource
 from ..structs.funcs import (  # noqa: F401 — re-exported parity anchors
     PREEMPTION_SCORE_ORIGIN,
@@ -32,7 +32,6 @@ from ..structs.funcs import (  # noqa: F401 — re-exported parity anchors
     preemption_score,
 )
 from ..structs.resources import ComparableResources
-from ..tensor.cluster import R_TOTAL
 from ..utils import bucket
 from .util import proposed_allocs
 
@@ -394,10 +393,12 @@ def _eligible_victims(job, allocs: List[Allocation]) -> List[Allocation]:
 
 
 def candidate_table(state, cluster, job, plan
-                    ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
-    """Per-node eligible-victim table on the host: (prio f32[N, A],
-    usage f32[N, A, R]) with A the bucketed largest victim count, pads at
-    INF_PRIO; None when no node has an eligible victim."""
+                    ) -> Optional[CompactCandidates]:
+    """Per-node eligible-victim table on the host, in compact form: each
+    row's eligible victims in its slots 0, 1, … (prio f32, usage f32[R]),
+    A the bucketed largest victim count; `dense_candidates` gives the
+    reference's [N, A] table with its pads at INF_PRIO. None when no node
+    has an eligible victim."""
     per_row: Dict[int, List[Allocation]] = {}
     a_max = 0
     for node_id, row in cluster.row_of.items():
@@ -410,25 +411,39 @@ def candidate_table(state, cluster, job, plan
 
     n = cluster.n_cap
     a_cap = bucket(a_max)
-    prio = np.full((n, a_cap), INF_PRIO, dtype=np.float32)
-    usage = np.zeros((n, a_cap, R_TOTAL), dtype=np.float32)
-    for row, cands in per_row.items():
-        for i, a in enumerate(cands[:a_cap]):
-            prio[row, i] = _alloc_priority(a)
-            usage[row, i] = cluster.usage_row(a)
-    return prio, usage
+    counts = np.zeros(n, dtype=np.int32)
+    prio, usage = [], []
+    for row in sorted(per_row):
+        cands = per_row[row][:a_cap]
+        counts[row] = len(cands)
+        prio += [_alloc_priority(a) for a in cands]
+        usage += [cluster.usage_row(a) for a in cands]
+    offsets = np.zeros(n + 1, dtype=np.int32)
+    np.cumsum(counts, out=offsets[1:])
+    slot = (np.arange(offsets[-1], dtype=np.int32)
+            - np.repeat(offsets[:-1], counts))
+    return CompactCandidates(offsets, slot, np.array(prio, np.float32),
+                             np.array(usage, np.float32), a_cap)
+
+
+def ranked_snapshot(cluster) -> ClusterArrays:
+    """The four host arrays K3 reads — capacity, used, node_ok and attrs —
+    of a fresh `cluster.snapshot()`, the state the reference ranks
+    against (its port bitmap and dyn_free None: K3 never reads them). Not
+    the cached device view: that is refreshed on its own schedule, not
+    this snapshot."""
+    snap = cluster.snapshot()
+    return ClusterArrays(capacity=snap.capacity, used=snap.used,
+                         node_ok=snap.node_ok, attrs=snap.attrs,
+                         ports_used=None, dyn_free=None)
 
 
 def ranked_cluster(cluster, device: DeviceLike = None) -> ClusterArrays:
-    """The cluster tensors K3 reads — capacity, used, node_ok and attrs —
-    uploaded from a fresh `cluster.snapshot()`, the state the reference
-    ranks against. The reference uploads all six tensors of that snapshot;
-    the port leaves the u32[N, 2048] port bitmap (128 MiB at 16384 rows)
-    and dyn_free on the host, since K3 never reads them. Not the cached
-    device view: that is refreshed on its own schedule, not this
-    snapshot."""
+    """`ranked_snapshot` uploaded to `device` as the four tensors K3 reads,
+    each in its kernel type (the route the retry took before its ranking
+    read host arrays: a copy a tensor)."""
     dev = resolve_device(device)
-    snap = cluster.snapshot()
+    snap = ranked_snapshot(cluster)
     attrs = np.asarray(snap.attrs)
     return ClusterArrays(
         capacity=tensor_from_numpy(snap.capacity, dev, np.float32),
@@ -448,7 +463,10 @@ def find_preemption_placement(state, cluster, job, tg, params, plan,
     """Full preemption pass for one failed placement: rank every node on
     `device` (K3, `kernels/preemption.py`), then refine the winner's
     victim set with the faithful greedy Preemptor. Returns (node_id,
-    victims, score) or None.
+    victims, score) or None. The ranking reads host arrays — the snapshot,
+    `compile_tg`'s numpy program and the compact victim table — which on a
+    card go in one staged copy with one launch; its best row, prefix and
+    score come back in one copy.
 
     Replaces the reference's evict-enabled BinPackIterator retry
     (`rank.go:228-448` + `generic_sched.go:720-738` selectNextOption).
@@ -463,12 +481,8 @@ def find_preemption_placement(state, cluster, job, tg, params, plan,
     if table is None:
         return None
 
-    dev = resolve_device(device)
-    result = preempt_rank(ranked_cluster(cluster, dev),
-                          params_from_numpy(params, dev),
-                          candidates_from_numpy(*table, dev))
-    # the outputs reach the host before anything reads them
-    best_row = int(result.best_row)
+    best_row, _k, best_score = preempt_best(preempt_rank_compact(
+        ranked_snapshot(cluster), params, table, device=device))
     if best_row < 0:
         return None
     node_id = cluster.node_of_row[best_row]
@@ -489,7 +503,7 @@ def find_preemption_placement(state, cluster, job, tg, params, plan,
     victims = preemptor.preempt_for_task_group(ask)
     if not victims:
         return None
-    return node_id, victims, float(result.best_score)
+    return node_id, victims, best_score
 
 
 def preempt_on_node(state, job, tg, node_id: str, plan) -> List[Allocation]:

@@ -669,7 +669,8 @@ def test_preempt_kernel_matches_plain(cuda_device):
     res.cpu, res.memory_mb = 15800, 32000
     stack = TorchStack(state.cluster, device="cpu")
     params, _m = stack.compile_tg(job, job.task_groups[0], 1)
-    prio, usage = candidate_table(state, state.cluster, job, Plan())
+    prio, usage = kpre.dense_candidates(candidate_table(state, state.cluster,
+                                                        job, Plan()))
     arrays = ranked_cluster(state.cluster, cuda_device)
     n, a = prio.shape
     gen = np.random.default_rng(8)
@@ -698,6 +699,144 @@ def test_preempt_kernel_matches_plain(cuda_device):
                                        atol=ATOL, msg=f)
         assert int(got.best_row) >= 0 and int(got.best_k) >= 1
     assert kpre.launch_count() == before + 2
+
+
+def _k3_tables(state, cuda_device):
+    """The K3 card cases: (label, cluster tensors, numpy program, dense
+    prio, dense usage). Phase 8 (b)'s two tables (the retry's own from a
+    priority-100 ask of a whole large node, and all-equal priorities with
+    pads), pads between slots with half the rows holding no victim, A = 1,
+    identical rows of all-equal priorities (bitwise ties: the lowest row
+    wins), and on a small cluster A = 2048 (one row a block, past the
+    default 48 KB) and A = 8192 (a row past shared memory: off chip)."""
+    import numpy as np
+
+    from nomad_tpu_torch.kernels import preemption as kpre
+    from nomad_tpu_torch.scheduler.preemption import (candidate_table,
+                                                      ranked_cluster)
+    from nomad_tpu_torch.structs import Plan
+
+    job = synth_service_job(random.Random(7), count=1)
+    job.priority = 100
+    res = job.task_groups[0].tasks[0].resources
+    res.cpu, res.memory_mb = 15800, 32000
+    params, _m = TorchStack(state.cluster, device="cpu").compile_tg(
+        job, job.task_groups[0], 1)
+    prio, usage = kpre.dense_candidates(candidate_table(
+        state, state.cluster, job, Plan()))
+    arrays = ranked_cluster(state.cluster, cuda_device)
+    n, a = prio.shape
+    r = usage.shape[2]
+    gen = np.random.default_rng(8)
+    equal = np.where(prio < kpre.INF_PRIO, 50.0, kpre.INF_PRIO).astype(
+        np.float32)
+    equal[gen.random(prio.shape) < 0.1] = kpre.INF_PRIO
+    mixed = gen.choice([10.0, 20.0, 30.0, 50.0], size=(n, a)).astype(
+        np.float32)
+    mixed[gen.random((n, a)) < 0.25] = kpre.INF_PRIO
+    mixed[gen.random(n) < 0.5] = kpre.INF_PRIO
+    mixed_u = np.zeros((n, a, r), np.float32)
+    mixed_u[:, :, 0] = gen.integers(0, 4000, size=(n, a))
+    mixed_u[:, :, 1] = gen.integers(0, 8000, size=(n, a))
+    tie_prio = np.full_like(prio, 50.0)
+    tie_prio[:, a // 2:] = kpre.INF_PRIO
+    tie_usage = np.broadcast_to(gen.integers(0, 900, size=(1, a, r)).astype(
+        np.float32), usage.shape).copy()
+    big = int(arrays.capacity[:, 0].argmax())   # a large node's row
+    ties = arrays._replace(**{f: getattr(arrays, f)[big:big + 1].expand_as(
+        getattr(arrays, f)).contiguous() for f in ("used", "capacity")})
+    cases = [("retry table", arrays, params, prio, usage),
+             ("equal priorities + pads", arrays, params, equal, usage),
+             ("pads between slots, empty rows", arrays, params, mixed,
+              mixed_u),
+             ("A = 1", arrays, params, mixed[:, :1].copy(),
+              mixed_u[:, :1].copy()),
+             ("bitwise ties", ties, params, tie_prio, tie_usage)]
+    small, _nodes = build_synthetic_state(100, 1000, seed=9)
+    s_params, _m = TorchStack(small.cluster, device="cpu").compile_tg(
+        job, job.task_groups[0], 1)
+    s_arrays = ranked_cluster(small.cluster, cuda_device)
+    # cpu and memory full: a row fits once its victims release the ask,
+    # about a quarter of the way along the row
+    s_arrays = s_arrays._replace(used=torch.cat(
+        [s_arrays.capacity[:, :2], s_arrays.used[:, 2:]], 1))
+    sn = s_arrays.capacity.shape[0]
+    for wide in (2048, 8192):
+        pr = gen.choice([10.0, 20.0, 50.0], size=(sn, wide)).astype(
+            np.float32)
+        pr[gen.random((sn, wide)) < 0.5] = kpre.INF_PRIO
+        us = np.zeros((sn, wide, r), np.float32)
+        for d, ask in enumerate((res.cpu, res.memory_mb)):
+            us[:, :, d] = gen.integers(0, 2 * ask // (wide // 8),
+                                       size=(sn, wide))
+        cases.append((f"A = {wide}", s_arrays, s_params, pr, us))
+    return cases
+
+
+@pytest.mark.cuda
+def test_preempt_one_launch_equals_old_route_and_plain(cuda_device):
+    """K3's one-launch route — from dense tensors, from a compact table of
+    tensors and from the retry's host arrays (snapshot, numpy program,
+    compact table) — equals the old two-launch route bit for bit and the
+    plain version (indices, order and feasible exactly, scores within
+    1e-6), one kernel launch and one library call a call; a second call
+    on the same inputs, which takes a fresh ticket, gives the same."""
+    import numpy as np
+
+    from nomad_tpu_torch.convert import candidates_from_numpy
+    from nomad_tpu_torch.kernels import preemption as kpre
+
+    state, _nodes = build_synthetic_state(2000, 20000, seed=4)
+    routes_seen = set()
+    for label, cl, params, prio, usage in _k3_tables(state, cuda_device):
+        n, a = prio.shape
+        p = params_from_numpy(params, cuda_device)
+        cand = candidates_from_numpy(prio, usage, cuda_device)
+        compact = kpre.compact_candidates(prio, usage)
+        compact_t = kpre.CompactCandidates(
+            *(torch.from_numpy(np.asarray(t)).to(cuda_device)
+              for t in compact[:4]), compact.slots)
+        host = kpre.ClusterArrays(*(None if t is None else t.cpu().numpy()
+                                    for t in cl))
+        lay = kpre.preempt_layout(n, a, cl.capacity.shape[1], 132)
+        routes_seen.add((lay["on_chip"], lay["rows"] == 1))
+        kpre.reset_launch_count()
+        got = {
+            "dense": kpre.preempt_rank_cuda(cl, p, cand),
+            "again": kpre.preempt_rank_cuda(cl, p, cand),
+            "compact": kpre.preempt_rank_cuda(cl, p, compact_t),
+            "host": kpre.preempt_rank_compact(host, params, compact,
+                                              device=cuda_device),
+        }
+        assert (kpre.launch_count(), kpre.host_calls(),
+                kpre.two_pass_launch_count()) == (4, 4, 0), label
+        old = kpre.preempt_rank_two_pass_cuda(cl, p, cand)
+        assert kpre.two_pass_launch_count() == 2, label
+        want = kpre.preempt_rank_plain(cl, p, cand)
+        torch.cuda.synchronize()
+        for route, g in got.items():
+            for f in kpre.PreemptionResult._fields:
+                x, y = getattr(g, f).cpu(), getattr(old, f).cpu()
+                assert x.dtype == y.dtype and torch.equal(x, y), (
+                    label, route, f)
+            for f in ("best_row", "best_k", "order", "feasible"):
+                assert torch.equal(getattr(g, f).cpu(), getattr(
+                    want, f).cpu().to(getattr(g, f).dtype)), (label, f)
+            for f in ("scores", "best_score"):
+                torch.testing.assert_close(getattr(g, f).cpu(),
+                                           getattr(want, f).cpu(), rtol=0,
+                                           atol=ATOL, msg=(label, f))
+        row, k, score = kpre.preempt_best(got["host"])
+        assert (row, k, score) == (int(old.best_row), int(old.best_k),
+                                   float(old.best_score)), label
+        if label == "bitwise ties":
+            feas = want.feasible.nonzero()
+            assert feas.numel() > 1 and row == int(feas[0])
+        if label in ("retry table", "bitwise ties", "A = 2048",
+                     "A = 8192"):
+            assert row >= 0 and k >= 1, label
+    # on chip at 8 and at 1 row a block, and off chip
+    assert routes_seen == {(1, False), (1, True), (0, False)}
 
 
 def _batch_problem(cuda_device, n_prog=6, count=4):

@@ -21,6 +21,7 @@ mesh in `finally` (the active mesh is process-global).
 import random
 import time
 
+import numpy as np
 import pytest
 
 from nomad_tpu.structs.codec import to_wire
@@ -107,14 +108,14 @@ def _run_counted(mesh, system, monkeypatch):
 
         monkeypatch.setattr(ks, name, counted)
     ranked = []
-    real_ranked = tpre.ranked_cluster
+    real_ranked = tpre.ranked_snapshot
 
-    def recording(cluster, device=None):
-        out = real_ranked(cluster, device)
-        ranked.append(out)
+    def recording(cluster):
+        out = real_ranked(cluster)
+        ranked.append((out, cluster.n_cap))
         return out
 
-    monkeypatch.setattr(tpre, "ranked_cluster", recording)
+    monkeypatch.setattr(tpre, "ranked_snapshot", recording)
     nodes, jobs, sys_job = _feed()
     led0 = default_ledger().snapshot()
     s = Server(ServerConfig(num_schedulers=1, heartbeat_ttl=3600.0,
@@ -208,11 +209,12 @@ def test_server_sharded_equals_single_device():
     calls = meshed[6]
     assert all(calls.values()), calls
     assert base[6] == {"packed": 0, "single": 0, "system": 0}
-    # the preemption retry ranked an unsharded snapshot on the server's
-    # device
+    # the preemption retry ranked an unsharded snapshot: the host arrays
+    # of every row of the cluster, not the sharded view
     assert meshed[7] and all(isinstance(r, ClusterArrays)
-                             and r.used.device.type == "cpu"
-                             for r in meshed[7])
+                             and isinstance(r.used, np.ndarray)
+                             and r.used.shape[0] == n_cap
+                             for r, n_cap in meshed[7])
 
 
 def test_table_path_and_speculation_stay_off_under_a_mesh():
