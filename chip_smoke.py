@@ -200,7 +200,26 @@ non-zero without printing a result:
    rows equal to K2; and B12 over 64 shards of 256 rows of the phase-3
    view (one launch) equal to K2 on the whole view and to the shards
    route, both timed. ((c), the dry run's server half, runs in 9 (c).)
-11. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
+11. Persistence and consensus, on phase 6's path, at N_NODES nodes and
+   PHASE11_ALLOCS allocs (cut from N_ALLOCS: every restore and
+   fingerprint walks each alloc with its job on the host). (a) The
+   durable server: the state ingested into a StateStore and written by
+   `Wal.write_snapshot`, restored by `Server(ServerConfig(data_dir=...,
+   fsync=True, eval_batch=16))` on the card to the source's
+   `state_fingerprint`; a burst of 64 evals of the mix, journaled (WAL
+   appends, bytes, plan apply's share); 16 evals written with no
+   scheduler running; a restart to the fingerprint before shutdown, the
+   16 requeued and placed, then 16 more, the view rebuilt by one cold
+   upload and K7 deltas. (b) Three `ClusterServer`s on the card in one
+   process, each restored from one Raft snapshot of the state taken by
+   the port's Raft; 64 evals submitted through a follower and placed by
+   the leader; three equal state and event fingerprints; the leader
+   stopped hard, a new one elected, 16 evals placed by it; two equal
+   fingerprints. Every window asserts phase 6's launch contract (K4 one
+   launch a chain dispatch, K5 at most two a wave, K8 == inserts, K7 ==
+   delta refreshes). Prints walls, evals/s, WAL and Raft numbers with
+   the card's name and power limit.
+12. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
 """
 from __future__ import annotations
 
@@ -943,23 +962,24 @@ def _snap(torch, x):
     return x
 
 
-def _ingest(s, srng):
+def _ingest(s, srng, n_allocs=None):
     """`bench.py`'s ingest into a Server's state: N_NODES synthetic nodes,
-    N_ALLOCS running allocs of filler jobs, and 64 running services
-    holding a reserved and a dynamic port. Returns (nodes, filler jobs,
-    the port holders)."""
+    N_ALLOCS (or `n_allocs`) running allocs of filler jobs, and 64 running
+    services holding a reserved and a dynamic port. Returns (nodes, filler
+    jobs, the port holders)."""
     from nomad_tpu_torch.synth import (synth_alloc, synth_node,
                                        synth_service_job)
 
+    n_allocs = N_ALLOCS if n_allocs is None else n_allocs
     nodes = []
     for i in range(N_NODES):
         node = synth_node(srng, i)
         nodes.append(node)
         s.state.upsert_node(node)
-    filler = [synth_service_job(srng) for _ in range(max(N_ALLOCS // 200, 1))]
+    filler = [synth_service_job(srng) for _ in range(max(n_allocs // 200, 1))]
     for j in filler:
         s.state.upsert_job(j)
-    for i in range(N_ALLOCS):
+    for i in range(n_allocs):
         s.state.upsert_alloc(synth_alloc(
             srng, nodes[srng.randrange(N_NODES)], filler[i % len(filler)]))
     holders = []
@@ -1010,10 +1030,10 @@ def _phase6_server(torch, kp, kr, rng, device=None, then=None):
     if device is None and s.device.type != "cuda":
         raise AssertionError(f"Server default device is {s.device}")
     try:
-        # started before the ingest: `start()` arms one TTL timer thread
-        # per node already in the state (heartbeat.py), 10,000 threads
-        # here; nodes upserted afterwards, as bench.py upserts them, arm
-        # none (their TTL of an hour would never fire in this run anyway)
+        # started before the ingest: `start()` arms a TTL timer for each
+        # node already in the state (heartbeat.py); nodes upserted
+        # afterwards, as bench.py upserts them, arm none (their TTL of an
+        # hour would never fire in this run anyway)
         s.start()
         nodes, filler, holders = _ingest(s, srng)
         cl = s.state.cluster
@@ -1226,7 +1246,7 @@ def _server_burst(s, feed, run, gc_pauses, burst):
     """One burst of 64 evals through a started Server: checks every
     placement and prints throughput, latency, dispatch, per-phase,
     view/speculation/transfer and garbage-collection numbers of the
-    burst."""
+    burst. Returns the burst's evals/s and per-eval phase sums (ms)."""
     from nomad_tpu_torch.lib.metrics import default_registry
     from nomad_tpu_torch.lib.transfer import default_ledger
 
@@ -1306,6 +1326,8 @@ def _server_burst(s, feed, run, gc_pauses, burst):
     print(f"{tag} view counters {view}")
     print(f"{tag} spec counters {spec}")
     print(f"{tag} transfer bytes by site {moved}")
+    return {"evals_per_s": len(jobs) / span, "phases": phases,
+            "evals": len(evs)}
 
 
 def _cold_equal(torch, arrays, cl, what: str) -> None:
@@ -4130,6 +4152,564 @@ def _phase10_limits(torch, kp, ks, device=None):
           f"({time.perf_counter() - t0:.1f} s)")
 
 
+# ---- phase 11: persistence and consensus (the durable server, a region) ----
+
+#: allocs of phase 11's states at N_NODES nodes: cut from N_ALLOCS, since
+#: each restore and each `state_fingerprint` walks every alloc with its
+#: embedded job on the host (the phase prints each wall)
+PHASE11_ALLOCS = 10_000
+#: evals registered with no scheduler running before the restart (a)
+PARKED_EVALS = 16
+#: evals the region's new leader schedules after the failover (b)
+FAILOVER_EVALS = 16
+#: the region's Raft election timeout range (s): hashicorp/raft's
+#: defaults (1 s, randomized up to 2 s) at Nomad's `raft_multiplier` 5.
+#: The three servers share one interpreter here: in a burst a sleeping
+#: thread waited up to 2.7 s past its wake-up on the card's host (the
+#: phase prints it), past the port's own 0.15-0.3 s and hashicorp's
+#: 1-2 s, and the region flapped
+REGION_ELECTION_TIMEOUT = (5.0, 10.0)
+
+
+def _scratch_dir(prefix: str) -> str:
+    """A fresh directory under the checkout's `build/` (ignored by git)."""
+    import os
+    import tempfile
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    return tempfile.mkdtemp(prefix=prefix, dir=root)
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+class _LaunchWindow:
+    """The launch counts of one stretch of a server's path: every count
+    set to 0 at the start, read at the end. On the card the phase-6
+    contract holds in the window: one K4 launch a chain dispatch, at most
+    two a K5 wave, all on the lane route, K8 launches == program-table
+    inserts, K7 launches == view refreshes that applied a row delta."""
+
+    def __init__(self, kp, kr):
+        from nomad_tpu_torch.lib.metrics import default_registry
+        from nomad_tpu_torch.lib.transfer import default_ledger
+
+        self.kp, self.kr = kp, kr
+        self._registry, self._ledger = default_registry, default_ledger
+        kp.reset_launch_count()
+        kp.reset_chain_launch_counts()
+        kr.reset_launch_count()
+        kr.reset_delta_launch_counts()
+        self._inserts0 = self._inserts()
+        self._view0 = default_registry().counters(prefix="view.")
+
+    def _inserts(self) -> int:
+        # the ledger site books 4 arrays an insert
+        return self._ledger().snapshot().get(
+            "select_batch.table_insert", {}).get("count", 0)
+
+    def close(self, what: str, on_card: bool) -> dict:
+        kp, kr = self.kp, self.kr
+        view = self._registry().counters(prefix="view.")
+        views = {k: view.get(k, 0) - self._view0.get(k, 0)
+                 for k in ("full_uploads", "delta_uploads")}
+        out = {"chain": kp.chain_launch_count(),
+               "wave": kp.wave_launch_count(),
+               "insert": kr.launch_count(),
+               "k7": kr.delta_launch_counts(),
+               "inserts": (self._inserts() - self._inserts0) // 4,
+               "kernels": kp.chain_kernel_launches(),
+               "routes": kp.chain_route_counts(), **views}
+        if on_card:
+            kernels, routes = out["kernels"], out["routes"]
+            if (routes["lanes"] != 0 or kernels["chain"] != out["chain"]
+                    or kernels["wave"] > 2 * out["wave"]):
+                raise AssertionError(
+                    f"{what}: chain/wave dispatches {out['chain']}/"
+                    f"{out['wave']} took {kernels} kernel launches, routes "
+                    f"{routes}: not one a chain and at most two a wave on "
+                    "the lane route")
+            if (out["insert"] != out["inserts"]
+                    or out["k7"] != out["delta_uploads"]):
+                raise AssertionError(
+                    f"{what}: {out['insert']} K8 launches for "
+                    f"{out['inserts']} inserts, {out['k7']} K7 launches for "
+                    f"{out['delta_uploads']} refreshes with a delta")
+        print(f"{what}: K4 {out['chain']} chain dispatches in "
+              f"{out['kernels']['chain']} kernel launches, K5 {out['wave']} "
+              f"waves in {out['kernels']['wave']}, K8 {out['insert']} "
+              f"launches for {out['inserts']} inserts, K7 {out['k7']} "
+              f"launches for {out['delta_uploads']} delta refreshes; "
+              f"{out['full_uploads']} cold view uploads")
+        return out
+
+
+def _sum_launches(windows) -> dict:
+    """Dispatches and launches over windows; `*_kernels` are K4's and
+    K5's kernel launches."""
+    out = {k: sum(w[k] for w in windows)
+           for k in ("chain", "wave", "insert", "k7")}
+    for k in ("chain", "wave"):
+        out[f"{k}_kernels"] = sum(w["kernels"][k] for w in windows)
+    return out
+
+
+def _share(phases: dict, name: str) -> float:
+    total = sum(phases.values())
+    return phases.get(name, 0.0) / total if total else 0.0
+
+
+def _wait_evals(s, evs, timeout=600.0):
+    done = []
+    for ev in evs:
+        got = s.wait_for_eval(ev.id, statuses=(
+            "complete", "failed", "blocked", "cancelled"), timeout=timeout)
+        if got is None or got.status != "complete":
+            raise AssertionError(f"eval {ev.id}: {got}")
+        done.append(got)
+    return done
+
+
+def _placed(s, jobs, dh, what: str) -> int:
+    placed = 0
+    for j, want_dh in zip(jobs, dh):
+        allocs = s.state.allocs_by_job("default", j.id)
+        placed += len(allocs)
+        if len(allocs) != 10:
+            raise AssertionError(f"{what}: job {j.id}: {len(allocs)}/10 "
+                                 "placed")
+        if want_dh and len({a.node_id for a in allocs}) != 10:
+            raise AssertionError(f"{what}: job {j.id}: distinct_hosts "
+                                 "violated")
+    return placed
+
+
+def _phase11_durable(torch, kp, kr, device=None, card=""):
+    """(a) The durable server: a state of N_NODES nodes and PHASE11_ALLOCS
+    allocs, ingested into a plain StateStore and written by the port's
+    `Wal.write_snapshot`, restored by `Server(ServerConfig(data_dir=...,
+    fsync=True, eval_batch=16))` on the card to the source's fingerprint;
+    a burst of 64 evals of phase 6's mix, journaled; PARKED_EVALS evals
+    registered with no scheduler running; a restart to the same
+    fingerprint, the parked evals requeued and placed, the view rebuilt
+    with one cold upload and K7 deltas after it."""
+    import shutil
+    import types
+
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.server.fsm import snapshot_state, state_fingerprint
+    from nomad_tpu_torch.server.state import StateStore
+    from nomad_tpu_torch.server.wal import Wal
+    from nomad_tpu_torch.structs import Evaluation
+
+    t_phase = time.perf_counter()
+    on_card = device is None or torch.device(device).type == "cuda"
+    srng = random.Random(SEED + 11)
+    d = _scratch_dir("durable-")
+    out = {"windows": []}
+    try:
+        src = types.SimpleNamespace(state=StateStore())
+        _, t_ingest = _timed(lambda: _ingest(src, srng, PHASE11_ALLOCS))
+        tree, t_tree = _timed(lambda: snapshot_state(src.state))
+        wal = Wal(d, fsync=True)
+        _, t_write = _timed(lambda: wal.write_snapshot(tree))
+        snap_bytes = wal.status()["snapshot_bytes"]
+        wal.close()
+        fp_src, t_fp = _timed(lambda: state_fingerprint(src.state))
+        del src, tree
+        print(f"phase 11 (a) durable: {N_NODES} nodes, {PHASE11_ALLOCS + 64} "
+              f"allocs (cut from {N_ALLOCS}) ingested into a StateStore in "
+              f"{t_ingest:.1f} s; snapshot tree {t_tree:.1f} s, written by "
+              f"Wal.write_snapshot (fsync) in {t_write:.2f} s, "
+              f"{snap_bytes / 2**20:.1f} MiB; source fingerprint "
+              f"{t_fp:.1f} s")
+
+        def config():
+            return ServerConfig(num_schedulers=1, heartbeat_ttl=3600.0,
+                                gc_interval=3600.0, eval_batch=16,
+                                data_dir=d, fsync=True)
+
+        s, t_restore = _timed(lambda: Server(config(), device=device))
+        if device is None and s.device.type != "cuda":
+            raise AssertionError(f"durable Server default device is "
+                                 f"{s.device}")
+        fp, t_fp = _timed(lambda: state_fingerprint(s.state))
+        if fp != fp_src:
+            raise AssertionError("phase 11 (a): the restored state's "
+                                 "fingerprint differs from the source's")
+        _, t_start = _timed(s.start)
+        print(f"phase 11 (a) restore: Server(data_dir, fsync) from "
+              f"snapshot.mp in {t_restore:.1f} s (wall), fingerprint == "
+              f"source's ({t_fp:.1f} s); start {t_start:.1f} s")
+        try:
+            def feed(n):
+                return _mix(srng, n)
+
+            def run(jobs):
+                evs = [s.job_register(j) for j in jobs]
+                return evs, _wait_evals(s, evs)
+
+            wal0 = s.state.wal.status()
+            win = _LaunchWindow(kp, kr)
+            burst = _server_burst(s, feed, run, [], "11 (a)")
+            out["windows"].append(win.close("phase 11 (a) burst", on_card))
+            st = s.state.wal.status()
+            hist = s.metrics.snapshot()["histograms"]
+            fsync_ms = hist.get("wal.fsync_ms", {})
+            out["evals_per_s"] = burst["evals_per_s"]
+            out["plan_apply_share"] = _share(burst["phases"], "plan_apply")
+            print(f"phase 11 (a) burst: {burst['evals_per_s']:.2f} evals/s; "
+                  f"WAL {st['appends'] - wal0['appends']} appends, "
+                  f"{st['log_bytes'] - wal0['log_bytes']} bytes "
+                  f"(fsync mean {fsync_ms.get('mean', 0.0):.3f} ms), "
+                  f"{st['snapshots']} rotations; plan apply "
+                  f"{out['plan_apply_share']:.3f} of the per-eval phase "
+                  f"time; {card}")
+
+            parked, parked_dh = _mix(srng, PARKED_EVALS)
+            evs = []
+            for j in parked:
+                s.state.upsert_job(j)
+                ev = Evaluation(namespace="default", priority=j.priority,
+                                type="service", job_id=j.id,
+                                status="pending",
+                                triggered_by="job-register")
+                s.state.upsert_eval(ev)
+                evs.append(ev)
+            fp_before, t_fp = _timed(lambda: state_fingerprint(s.state))
+        finally:
+            s.shutdown()
+
+        s, t_restore = _timed(lambda: Server(config(), device=device))
+        try:
+            fp, t_fp2 = _timed(lambda: state_fingerprint(s.state))
+            if fp != fp_before:
+                raise AssertionError("phase 11 (a): the restarted state's "
+                                     "fingerprint differs from the one "
+                                     "before shutdown")
+            pending = sum(s.state.eval_by_id(e.id).status == "pending"
+                          for e in evs)
+            if pending != len(evs):
+                raise AssertionError(f"{pending}/{len(evs)} parked evals "
+                                     "pending after the restart")
+            win = _LaunchWindow(kp, kr)
+            _, t_start = _timed(s.start)
+            _, t_requeue = _timed(lambda: _wait_evals(s, evs))
+            placed = _placed(s, parked, parked_dh, "phase 11 (a) requeued")
+            more, more_dh = _mix(srng, PARKED_EVALS)
+            _, t_more = _timed(lambda: _wait_evals(
+                s, [s.job_register(j) for j in more]))
+            placed += _placed(s, more, more_dh, "phase 11 (a) after restart")
+            w = win.close("phase 11 (a) restart", on_card)
+            out["windows"].append(w)
+            if w["full_uploads"] != 1 or (on_card and w["k7"] == 0):
+                raise AssertionError(
+                    f"phase 11 (a): the view after the restart took "
+                    f"{w['full_uploads']} cold uploads and {w['k7']} K7 "
+                    "launches (want one cold upload, then deltas)")
+            print(f"phase 11 (a) restart: restore {t_restore:.1f} s (wall), "
+                  f"fingerprint == before shutdown ({t_fp:.1f} s, "
+                  f"{t_fp2:.1f} s); start {t_start:.1f} s; {len(evs)} parked "
+                  f"evals requeued and complete in {t_requeue:.2f} s, "
+                  f"{len(more)} more in {t_more:.2f} s, {placed} allocs "
+                  f"placed; {w['full_uploads']} cold upload then "
+                  f"{w['delta_uploads']} delta refreshes")
+        finally:
+            s.shutdown()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if on_card:
+        total = _sum_launches(out["windows"])
+        for k, n in total.items():
+            if n == 0:
+                raise AssertionError(f"phase 11 (a): the {k} kernel never "
+                                     f"launched: {total}")
+    print(f"phase 11 (a) took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+class _NoRpc:
+    """A single-voter RaftNode only registers its handlers."""
+
+    def register(self, name, fn):
+        pass
+
+
+def _seed_raft_snapshot(state, root: str, ids) -> int:
+    """Each server's Raft `data_dir` gets the same FSM snapshot of
+    `state`, taken by the port's Raft: a single-voter node whose FSM is
+    the store wins its election, commits one entry (the scheduler
+    configuration) and `force_snapshot`s; the file is copied into each
+    directory."""
+    import os
+    import shutil
+
+    from nomad_tpu_torch.raft import RaftNode
+    from nomad_tpu_torch.scheduler.util import SchedulerConfiguration
+    from nomad_tpu_torch.server.fsm import FSM, snapshot_state
+    from nomad_tpu_torch.structs.codec import to_wire
+
+    seed_dir = os.path.join(root, "seed")
+    node = RaftNode("seed", {"seed": ("127.0.0.1", 0)}, _NoRpc(), None,
+                    apply_fn=FSM(state).apply, data_dir=seed_dir,
+                    snapshot_fn=lambda: snapshot_state(state))
+    node.start()
+    try:
+        deadline = time.time() + 30.0
+        while not node.is_leader():
+            if time.time() > deadline:
+                raise AssertionError("the seed Raft node never led")
+            time.sleep(0.01)
+        node.apply({"op": "set_scheduler_config",
+                    "args": [to_wire(SchedulerConfiguration())]})
+        index = node.force_snapshot()
+    finally:
+        node.shutdown()
+    for i in ids:
+        os.makedirs(os.path.join(root, i))
+        shutil.copyfile(os.path.join(seed_dir, "raft_snap.mp"),
+                        os.path.join(root, i, "raft_snap.mp"))
+    return index
+
+
+def _crash(agent) -> None:
+    """A server stopped hard: no LEFT broadcast, its threads gone."""
+    agent.raft.shutdown()
+    agent.rpc.shutdown()
+    agent.membership.stop()
+    agent.autopilot.stop()
+    agent.server.shutdown()
+    agent.pool.close()
+
+
+def _leader(agents, timeout=60.0):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        for a in agents:
+            if a.is_leader() and a.server._running:
+                return a
+        time.sleep(0.02)
+    raise AssertionError("no leader with its subsystems running")
+
+
+class _WakeProbe:
+    """The longest a sleeping Python thread waited past its 20 ms wake-up
+    (the GIL and the host's other threads), over a window."""
+
+    def __init__(self):
+        self.max_gap = 0.0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        last = time.monotonic()
+        while not self._stop.wait(0.02):
+            now = time.monotonic()
+            self.max_gap = max(self.max_gap, now - last - 0.02)
+            last = now
+
+    def close(self) -> float:
+        self._stop.set()
+        self._thread.join()
+        return self.max_gap
+
+
+def _leaderships(agent) -> str:
+    c = agent.raft.metrics.counters()
+    return (f"{c.get('raft.elections', 0)} elections, "
+            f"{c.get('raft.leadership_gained', 0)} gained, "
+            f"{c.get('raft.leadership_lost', 0)} lost")
+
+
+def _region_prints(agents, what: str):
+    """Once every server has applied the leader's last index and the
+    index holds still, the servers' state and event fingerprints; equal,
+    or the phase fails."""
+    from nomad_tpu_torch.server.event_broker import events_fingerprint
+    from nomad_tpu_torch.server.fsm import state_fingerprint
+
+    for _ in range(5):
+        deadline = time.time() + 60.0
+        while True:
+            idx = {a.state.index.value for a in agents}
+            applied = {a.raft.last_applied for a in agents}
+            if len(idx) == 1 and len(applied) == 1:
+                time.sleep(0.2)
+                if ({a.state.index.value for a in agents} == idx
+                        and {a.raft.last_applied for a in agents}
+                        == applied):
+                    break
+            if time.time() > deadline:
+                raise AssertionError(f"{what}: the servers never caught up "
+                                     f"(indexes {idx}, applied {applied})")
+            time.sleep(0.05)
+        t0 = time.perf_counter()
+        prints = [(state_fingerprint(a.state),
+                   events_fingerprint(a.state.event_broker.buffered()))
+                  for a in agents]
+        if {a.state.index.value for a in agents} == idx:
+            break       # nothing was written while they were taken
+    else:
+        raise AssertionError(f"{what}: the region never held still")
+    if len(set(prints)) != 1:
+        raise AssertionError(f"{what}: the servers' fingerprints differ: "
+                             f"{prints}")
+    print(f"{what}: {len(agents)} servers at index {idx.pop()}, state and "
+          f"event fingerprints equal ({time.perf_counter() - t0:.1f} s)")
+
+
+def _phase11_region(torch, kp, kr, device=None, card=""):
+    """(b) A three-server region on one device in one process: each
+    server's Raft `data_dir` holds one snapshot of N_NODES nodes and
+    PHASE11_ALLOCS allocs (`_seed_raft_snapshot`); 64 evals of phase 6's
+    mix submitted through a follower, placed by the leader on the card;
+    three equal state and event fingerprints; the leader stopped hard, a
+    new one elected, FAILOVER_EVALS evals placed by it on the card; the
+    two survivors' fingerprints equal."""
+    import os
+    import shutil
+    import types
+
+    from nomad_tpu_torch.server.cluster import (ClusterServer,
+                                                ClusterServerConfig)
+    from nomad_tpu_torch.server.state import StateStore
+
+    t_phase = time.perf_counter()
+    on_card = device is None or torch.device(device).type == "cuda"
+    srng = random.Random(SEED + 12)
+    root = _scratch_dir("region-")
+    ids = ("s0", "s1", "s2")
+    out = {"windows": []}
+    agents, crashed = [], []
+    try:
+        src = types.SimpleNamespace(state=StateStore())
+        _, t_ingest = _timed(lambda: _ingest(src, srng, PHASE11_ALLOCS))
+        index, t_seed = _timed(lambda: _seed_raft_snapshot(src.state, root,
+                                                           ids))
+        del src
+        print(f"phase 11 (b) region: {N_NODES} nodes, {PHASE11_ALLOCS + 64} "
+              f"allocs (cut from {N_ALLOCS}) in {t_ingest:.1f} s; one Raft "
+              f"snapshot at index {index} in each of {len(ids)} data dirs "
+              f"in {t_seed:.1f} s")
+        peers = {}
+        t0 = time.perf_counter()
+        for i in ids:
+            a = ClusterServer(ClusterServerConfig(
+                node_id=i, num_schedulers=1, heartbeat_ttl=3600.0,
+                gc_interval=3600.0, data_dir=os.path.join(root, i),
+                fsync=True), device=device)
+            if device is None and a.server.device.type != "cuda":
+                raise AssertionError(f"ClusterServer default device is "
+                                     f"{a.server.device}")
+            peers[i] = a.addr
+            agents.append(a)
+        t_restore = time.perf_counter() - t0
+        for a in agents:
+            a.peers.clear()
+            a.peers.update(peers)
+            a.raft.peers = dict(peers)
+            a.raft.election_timeout = REGION_ELECTION_TIMEOUT
+            a.raft._timeout = a.raft._rand_timeout()
+        for a in agents:
+            if len(a.state.nodes()) != N_NODES:
+                raise AssertionError(f"{a.config.node_id} restored "
+                                     f"{len(a.state.nodes())} nodes")
+            a.start()
+        leader, t_elect = _timed(lambda: _leader(agents))
+        follower = next(a for a in agents if a is not leader)
+        print(f"phase 11 (b) region: {len(ids)} servers restored from the "
+              f"snapshot in {t_restore:.1f} s (wall, in turn); leader "
+              f"{leader.config.node_id} elected with its subsystems up in "
+              f"{t_elect:.1f} s (eval_batch "
+              f"{leader.server.config.eval_batch}); jobs submitted through "
+              f"{follower.config.node_id}")
+        s = leader.server
+
+        def feed(n):
+            return _mix(srng, n)
+
+        def run(jobs):
+            evs = [follower.call("job_register", j) for j in jobs]
+            return evs, _wait_evals(s, evs)
+
+        commit0 = leader.raft.metrics.snapshot()["histograms"].get(
+            "raft.commit_ms", {}).get("count", 0)
+        lost0 = leader.raft.metrics.counters().get("raft.leadership_lost", 0)
+        win = _LaunchWindow(kp, kr)
+        probe = _WakeProbe()
+        try:
+            burst = _server_burst(s, feed, run, [], "11 (b)")
+        finally:
+            append = leader.raft.metrics.snapshot()["histograms"].get(
+                "raft.append_ms", {})
+            print(f"phase 11 (b) burst: longest thread wake-up delay "
+                  f"{probe.close() * 1e3:.1f} ms; leader's AppendEntries "
+                  f"RPCs mean {append.get('mean', 0.0):.2f} ms, p99 "
+                  f"{append.get('p99', 0.0):.2f} ms; " + ", ".join(
+                      f"{a.config.node_id} {_leaderships(a)}"
+                      for a in agents))
+        out["windows"].append(win.close("phase 11 (b) burst", on_card))
+        if leader.raft.metrics.counters().get("raft.leadership_lost",
+                                              0) != lost0:
+            raise AssertionError("phase 11 (b): leadership moved during "
+                                 "the burst: " + ", ".join(
+                                     _leaderships(a) for a in agents))
+        commit = leader.raft.metrics.snapshot()["histograms"].get(
+            "raft.commit_ms", {})
+        out["evals_per_s"] = burst["evals_per_s"]
+        out["plan_apply_share"] = _share(burst["phases"], "plan_apply")
+        print(f"phase 11 (b) burst: {burst['evals_per_s']:.2f} evals/s "
+              f"through a follower; {commit.get('count', 0) - commit0} Raft "
+              f"commits (mean {commit.get('mean', 0.0):.3f} ms over the "
+              f"run); plan apply {out['plan_apply_share']:.3f} of the "
+              f"per-eval phase time; {card}")
+        _region_prints(agents, "phase 11 (b) after the burst")
+
+        leader = _leader(agents)    # the one leading now, stopped hard
+        crashed.append(leader)
+        _crash(leader)
+        survivors = [a for a in agents if a is not leader]
+        new, t_elect = _timed(lambda: _leader(survivors))
+        jobs, dh = _mix(srng, FAILOVER_EVALS)
+        win = _LaunchWindow(kp, kr)
+        _, t_evals = _timed(lambda: _wait_evals(
+            new.server, [new.call("job_register", j) for j in jobs]))
+        placed = _placed(new.server, jobs, dh, "phase 11 (b) new leader")
+        w = win.close("phase 11 (b) new leader", on_card)
+        out["windows"].append(w)
+        if on_card and w["chain"] + w["wave"] == 0:
+            raise AssertionError("phase 11 (b): the new leader placed "
+                                 "without a chain or wave launch")
+        out["failover_evals_per_s"] = len(jobs) / t_evals
+        print(f"phase 11 (b) failover: {leader.config.node_id} stopped "
+              f"hard; {new.config.node_id} leads with its subsystems up in "
+              f"{t_elect:.1f} s; {len(jobs)} evals, {placed} allocs placed "
+              f"on {new.server.device} in {t_evals:.2f} s "
+              f"({out['failover_evals_per_s']:.2f} evals/s)")
+        _region_prints(survivors, "phase 11 (b) after the failover")
+        print("phase 11 (b) leadership: " + ", ".join(
+            f"{a.config.node_id} {_leaderships(a)}" for a in agents)
+            + f"; election timeout {REGION_ELECTION_TIMEOUT} s")
+    finally:
+        for a in agents:
+            if a not in crashed:
+                a.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    if on_card:
+        total = _sum_launches(out["windows"])
+        for k in ("chain", "insert", "k7"):
+            if total[k] == 0:
+                raise AssertionError(f"phase 11 (b): the {k} kernel never "
+                                     f"launched: {total}")
+    print(f"phase 11 (b) took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4465,6 +5045,18 @@ def main() -> int:
         params_from_numpy(p_sys, "cuda"), p_sys, card=smi[0])
     print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
+    # ---- 11. persistence and consensus: the durable server, a region ----
+    t0 = time.perf_counter()
+    durable = _phase11_durable(torch, kp, kr, card=smi[0])
+    region = _phase11_region(torch, kp, kr, card=smi[0])
+    p11 = _sum_launches(durable["windows"] + region["windows"])
+    print(f"phase 11: durable server {durable['evals_per_s']:.2f} evals/s "
+          f"(plan apply share {durable['plan_apply_share']:.3f}), region "
+          f"{region['evals_per_s']:.2f} evals/s through a follower (plan "
+          f"apply share {region['plan_apply_share']:.3f}; new leader "
+          f"{region['failover_evals_per_s']:.2f}); launches {p11}; "
+          f"{smi[0]}; took {time.perf_counter() - t0:.1f} s")
+
     print(json.dumps({"kernels": [{
         "name": "place_task_group",
         "route": "cuda",
@@ -4496,6 +5088,8 @@ def main() -> int:
         "launches": server["kernels"]["chain"],
         "max_abs_err": max(k5["err"]["chain"], server["err"]["chain"]),
         **k5["chain"],
+        "phase11_calls": p11["chain"],
+        "phase11_launches": p11["chain_kernels"],
     }, {
         "name": "place_table_wave",
         "route": "cuda",
@@ -4505,6 +5099,8 @@ def main() -> int:
         "launches": server["kernels"]["wave"],
         "max_abs_err": max(k5["err"]["wave"], server["err"]["wave"]),
         **k5["wave"],
+        "phase11_calls": p11["wave"],
+        "phase11_launches": p11["wave_kernels"],
     }, {
         "name": "program_table_insert",
         "route": "cuda",
@@ -4513,6 +5109,7 @@ def main() -> int:
         "launches": server["launches"]["insert"],
         "max_abs_err": k5["err"]["insert"],
         **k5["insert"],
+        "phase11_launches": p11["insert"],
     }, {
         "name": "view_row_delta",
         "route": "cuda",
@@ -4521,6 +5118,7 @@ def main() -> int:
         "launches": server["launches"]["k7"],
         "max_abs_err": slice_["k7_err"],
         **slice_["k7"],
+        "phase11_launches": p11["k7"],
     }, {
         "name": "system_feasibility",
         "route": "cuda",

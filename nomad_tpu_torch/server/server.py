@@ -9,9 +9,9 @@ same `apply_*` seams.
 
 The port's Server places on `device` (`Server(config, device=None)`:
 None means the card, and a missing card raises; `device="cpu"` runs the
-plain versions). Methods whose lazy imports reach modules not ported yet
-(`acl`, `wal`, `lib/tlsutil`, raft; ROADMAP A8) stay, and raise when
-called.
+plain versions). With `config.data_dir` it is durable: it restores from
+`snapshot.mp` plus the `wal.log` tail (`server/wal.py`) and journals
+every write. `server/cluster.py` runs it as the leader of a Raft region.
 
 Endpoint behaviors implemented as methods (HTTP layer calls these):
 - Job.Register/Deregister (`nomad/job_endpoint.go:79,772`)

@@ -37,11 +37,14 @@ def _build_registry() -> None:
                         f"duplicate struct name {obj.__name__} in registry"
                     )
                 _REGISTRY[obj.__name__] = obj
-    # Wire-visible dataclasses living outside the structs package (the
-    # port has no ACL tables yet, so only the scheduler configuration)
+    # Wire-visible dataclasses living outside the structs package
+    from ..acl.policy import HostVolumeRule, NamespaceRule, Policy
+    from ..acl.tokens import ACLPolicy, ACLToken
     from ..scheduler.util import SchedulerConfiguration
 
-    _REGISTRY[SchedulerConfiguration.__name__] = SchedulerConfiguration
+    for cls in (SchedulerConfiguration, ACLPolicy, ACLToken, Policy,
+                NamespaceRule, HostVolumeRule):
+        _REGISTRY[cls.__name__] = cls
 
 
 def registry() -> Dict[str, Type]:

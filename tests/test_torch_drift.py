@@ -38,13 +38,19 @@ REWRITTEN = {
     "scheduler/stack.py": "TorchStack: per-device view cache, K7, leases; "
                           "a ShardedCluster under a mesh, K7 per shard",
     "server/broker.py": "comments naming the reference's issues",
+    "server/cluster.py": "device=, resolved before any socket opens and "
+                         "passed to every Server it builds",
+    "server/heartbeat.py": "one deadline heap and one thread for every "
+                           "node's TTL, not a timer thread a node",
     "server/plan_apply.py": "comments naming the reference's issues",
     "server/program_table.py": "torch tables, the row-scatter insert",
     "server/select_batch.py": "CUDA-event outputs, leased fallbacks",
     "server/server.py": "device=; a mesh must lead on the server's device",
+    "server/wal.py": "a comment naming the reference's issues",
     "server/worker.py": "schedulers take the server's device",
     "structs/alloc.py": "comments naming the reference's issues",
-    "structs/codec.py": "registry of the port's own classes",
+    "structs/codec.py": "registry of the port's own classes, ACL ones "
+                        "included, by package-relative imports",
     "structs/evaluation.py": "comments naming the reference's issues",
     "structs/funcs.py": "a comment pointing at the port's kernel module",
     "structs/network.py": "only the pure-Python first-fit",

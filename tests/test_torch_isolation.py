@@ -6,8 +6,10 @@
   processes one eval on 16 nodes with device="cpu", a port `Server`
   schedules a batch of evals through the coordinator there, a Harness
   runs a system eval and a service eval whose placement takes the
-  preemption retry, and `entry.dryrun_multichip` runs its sharded step on
-  four CPU shards.
+  preemption retry, `entry.dryrun_multichip` runs its sharded step on
+  four CPU shards, a port `Server` with a `data_dir` places an eval,
+  restarts and keeps it, and a single-voter `ClusterServer` places an
+  eval through its Raft log.
 - Every entry point defaults to the card and raises without one.
 """
 import ast
@@ -220,7 +222,80 @@ def test_port_dryrun_multichip_without_jax():
     assert proc.stdout.strip().endswith("ok")
 
 
-def _entry_points():
+_NO_JAX_DURABLE = r"""
+import sys, time
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+from nomad_tpu_torch import mock
+from nomad_tpu_torch.server import Server, ServerConfig
+from nomad_tpu_torch.server.cluster import ClusterServer, ClusterServerConfig
+from nomad_tpu_torch.server.fsm import state_fingerprint
+
+data_dir = sys.argv[1]
+
+
+def durable():
+    s = Server(ServerConfig(num_schedulers=1, heartbeat_ttl=3600.0,
+                            gc_interval=3600.0, data_dir=data_dir,
+                            fsync=True), device="cpu")
+    s.start()
+    return s
+
+
+s = durable()
+try:
+    for _ in range(3):
+        s.node_register(mock.node())
+    job = mock.job()
+    job.task_groups[0].count = 3
+    done = s.wait_for_eval(s.job_register(job).id, timeout=60)
+    assert done is not None and done.status == "complete", done
+    fp = state_fingerprint(s.state)
+finally:
+    s.shutdown()
+s = durable()
+try:
+    assert state_fingerprint(s.state) == fp
+    assert len(s.state.allocs_by_job("default", job.id)) == 3
+finally:
+    s.shutdown()
+
+c = ClusterServer(ClusterServerConfig(node_id="solo", num_schedulers=1,
+                                      heartbeat_ttl=3600.0,
+                                      gc_interval=3600.0), device="cpu")
+c.start()
+try:
+    deadline = time.time() + 60
+    while not (c.is_leader() and c.server._running):
+        assert time.time() < deadline, "no leader"
+        time.sleep(0.02)
+    for _ in range(2):
+        c.call("node_register", mock.node())
+    job = mock.job()
+    job.task_groups[0].count = 2
+    done = c.server.wait_for_eval(c.call("job_register", job).id, timeout=60)
+    assert done is not None and done.status == "complete", done
+    assert len(c.state.allocs_by_job("default", job.id)) == 2
+    assert c.raft.commit_index > 0
+finally:
+    c.shutdown()
+assert not any(m.split(".")[0] in ("jax", "nomad_tpu")
+               for m, mod in sys.modules.items() if mod is not None), \
+    sorted(m for m in sys.modules if m.startswith(("jax", "nomad_tpu.")))
+print("ok")
+"""
+
+
+def test_port_durable_server_and_region_without_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX_DURABLE,
+                           str(tmp_path / "data")], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
+def _entry_points(tmp):
     from nomad_tpu_torch.convert import cluster_from_numpy, params_from_numpy
     from nomad_tpu_torch.entry import entry
     from nomad_tpu_torch.parallel import make_mesh
@@ -229,7 +304,9 @@ def _entry_points():
     from nomad_tpu_torch.scheduler.preemption import ranked_cluster
     from nomad_tpu_torch.scheduler.stack import TorchStack
     from nomad_tpu_torch.scheduler.system import SystemScheduler
-    from nomad_tpu_torch.server import Server
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.server.cluster import (ClusterServer,
+                                                ClusterServerConfig)
     from nomad_tpu_torch.server.program_table import DeviceProgramTable
     from nomad_tpu_torch.tensor.cluster import ClusterTensors
 
@@ -249,6 +326,8 @@ def _entry_points():
         "cluster_from_numpy": lambda: cluster_from_numpy(view),
         "params_from_numpy": lambda: params_from_numpy({}),
         "Server": lambda: Server(),
+        "DurableServer": lambda: Server(ServerConfig(data_dir=str(tmp))),
+        "ClusterServer": lambda: ClusterServer(ClusterServerConfig()),
         "DeviceProgramTable": lambda: DeviceProgramTable(),
         "entry": lambda: entry(),
         "make_mesh": lambda: make_mesh(),
@@ -259,13 +338,16 @@ def _entry_points():
                                   "SystemScheduler", "ranked_cluster",
                                   "TorchStack", "cluster_from_numpy",
                                   "params_from_numpy", "Server",
+                                  "DurableServer", "ClusterServer",
                                   "DeviceProgramTable", "entry",
                                   "make_mesh"])
 def test_entry_points_default_to_cuda_and_raise_without_it(
-        name, monkeypatch):
+        name, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        _entry_points()[name]()
+        _entry_points(tmp_path / "data")[name]()
+    # refused before anything is written or bound
+    assert not (tmp_path / "data").exists()
 
 
 def test_explicit_cpu_is_honoured():
