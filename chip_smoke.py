@@ -237,10 +237,28 @@ non-zero without printing a result:
    down and no child they started is left alive. Prints every part's
    wall, registration to ready and the window's counts with the card's
    name and power limit.
-13. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
+13. The agent, its HTTP API and the CLI: (a) an in-process port `Agent`
+   on the card (its default device) with a data_dir and a node meta that
+   no synthetic node has, over N_NODES nodes and PHASE11_ALLOCS + 64
+   allocs ingested before it starts, driven only by `python -m
+   nomad_tpu_torch -address ...` children: `job run` of CLIENT_COUNT mock
+   tasks to running on the agent's node (a chain dispatch, K4), `job
+   plan` of a second job (K1 through the port's Harness), `job status`,
+   `alloc status`, `eval placement` (it names the agent's node),
+   `operator hbm`, `operator metrics -format prometheus`, `job stop`; in
+   one launch window (phase 6's contract, at least one K4 launch, one K8
+   insert and one K1 program), every chain or wave launch equal to its
+   plain version on the inputs it read; the threads before the agent and
+   after its shutdown. (b) `python -m nomad_tpu_torch agent -dev` as a
+   child at its default device: start to HTTP ready, one `job run` to a
+   running alloc on its node, then SIGINT: exit 0, no child of it left.
+   Prints each CLI child's wall and `job run` to running with the card's
+   name and power limit.
+14. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
 """
 from __future__ import annotations
 
+import collections
 import copy
 import gc
 import json
@@ -5140,6 +5158,335 @@ def _phase12_clients(torch, kp, kr, device=None, card=""):
     return out
 
 
+#: phase 13: the agent's node meta, which no synthetic node has
+AGENT_META = {"phase13": "card-host"}
+#: (a): `job run -detach` children started at once, and at most this
+#: many such bursts until one fed the batched path (a chain dispatch):
+#: an idle agent schedules a lone eval by itself, as one program
+AGENT_BURST, AGENT_BURSTS = 8, 3
+#: (a): the job run of CLIENT_COUNT mock tasks, and the job planned
+AGENT_JOB_HCL = """
+job "%(id)s" {
+  datacenters = ["dc1"]
+  %(constraint)s
+  group "web" {
+    count = %(count)d
+    task "web" {
+      driver = "mock_driver"
+      config { run_for = 3600 }
+      resources {
+        cpu    = 100
+        memory = 64
+      }
+    }
+  }
+}
+"""
+
+
+class _Recorded:
+    """Every chain and wave launch in a stretch, with the inputs it read
+    and the outputs it wrote (device copies taken at the launch), to hold
+    against the plain versions afterwards, as phase 6 does."""
+
+    NAMES = ("place_table_chain", "place_table_wave", "place_packed_chain")
+
+    def __init__(self, torch, kp):
+        self.torch, self.kp, self.records = torch, kp, []
+        self.real = {n: getattr(kp, n) for n in self.NAMES}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            setattr(self.kp, name, self._recorder(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.kp, name, fn)
+
+    def _recorder(self, name):
+        fn, torch = self.real[name], self.torch
+
+        def rec(*args, **kw):
+            snap = _snap(torch, args)
+            res = fn(*args, **kw)
+            self.records.append((name, snap, kw, _snap(torch, res)))
+            return res
+        return rec
+
+    def check(self, what: str) -> float:
+        err = 0.0
+        for i, (name, args, kw, res) in enumerate(self.records):
+            want = getattr(self.kp, name + "_plain")(*args, **kw)
+            if name == "place_packed_chain":
+                want, res = (want, ()), (res, ())
+            err = max(err, _compare_flat(want, res, f"{what} launch {i} "
+                                         f"({name})", kw.get("explain",
+                                                             False)))
+        return err
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _http_json(addr: str, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(addr + path, timeout=10) as r:
+        return json.loads(r.read())
+
+
+def _children_of(pid: int) -> list:
+    out = []
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    if int(f.read().rsplit(")", 1)[1].split()[1]) == pid:
+                        out.append(int(d))
+            except (OSError, IndexError, ValueError):
+                pass
+    return out
+
+
+def _phase13_agent(torch, kp, kr, device=None, card=""):
+    """The agent, its HTTP API and the CLI on the card. (a) An in-process
+    `Agent(AgentConfig(http_port=0, data_dir=..., node_meta=AGENT_META),
+    device=device)` over N_NODES synthetic nodes and PHASE11_ALLOCS + 64
+    allocs ingested before it starts, driven only by `python -m
+    nomad_tpu_torch -address ...` children: `job run` of CLIENT_COUNT mock
+    tasks on the agent's own node (a chain dispatch, K4), `job plan` of a
+    second job (K1 through the port's Harness), `job status`, `alloc
+    status`, `eval placement`, `operator hbm`, `operator metrics -format
+    prometheus`, `job stop`; phase 6's launch contract over the window,
+    each chain or wave launch equal to its plain version on the inputs it
+    read. (b) `python -m nomad_tpu_torch agent -dev` as a child at its
+    default device (`-device cpu` when `device` is the CPU): start to
+    HTTP ready, one `job run` to a running alloc, then SIGINT: exit 0
+    and no child of it left."""
+    import shutil
+    import signal
+
+    from nomad_tpu_torch.agent import Agent, AgentConfig
+
+    t_phase = time.perf_counter()
+    on_card = device is None or torch.device(device).type == "cuda"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = _scratch_dir("agent-")
+    srng = random.Random(SEED + 13)
+    env = dict(os.environ)
+    env.pop("NOMAD_ADDR", None)
+    walls, out = {}, {}
+
+    def spec(name, count, on_agent=True):
+        # on the in-process agent's own node only
+        constraint = ('constraint {\n    attribute = "${meta.phase13}"\n'
+                      '    value     = "card-host"\n  }' if on_agent else "")
+        path = os.path.join(root, f"{name}.nomad")
+        with open(path, "w") as f:
+            f.write(AGENT_JOB_HCL % {"id": name, "count": count,
+                                     "constraint": constraint})
+        return path
+
+    def argv_of(addr, argv):
+        return [sys.executable, "-m", "nomad_tpu_torch", "-address", addr,
+                *argv]
+
+    def cli(addr, *argv, what=""):
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv_of(addr, argv), cwd=repo, env=env,
+                              capture_output=True, text=True, timeout=120)
+        wall = time.perf_counter() - t0
+        walls[what or argv[0] + " " + argv[1]] = wall
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 13: {' '.join(argv)} exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        return proc.stdout
+
+    def burst(addr, k):
+        """AGENT_BURST `job run -detach` children at once; the slowest
+        child's wall."""
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            argv_of(addr, ["job", "run", "-detach",
+                           spec(f"p13-burst{k}-{i}", 1)]), cwd=repo,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for i in range(AGENT_BURST)]
+        for p in procs:
+            _, err = p.communicate(timeout=120)
+            if p.returncode != 0:
+                raise AssertionError(f"phase 13: a burst's job run exited "
+                                     f"{p.returncode}: {err[-2000:]}")
+        return time.perf_counter() - t0
+
+    # ---- (a) an in-process agent on the card, driven by CLI children
+    threads0 = threading.active_count()
+    agent = Agent(AgentConfig(
+        http_port=0, data_dir=os.path.join(root, "data"),
+        node_meta=dict(AGENT_META), node_name="card-host-agent",
+        heartbeat_ttl=3600.0), device=device)
+    if device is None and agent.server.device.type != "cuda":
+        raise AssertionError(f"Agent default device is "
+                             f"{agent.server.device}")
+    try:
+        _, t_ingest = _timed(lambda: _ingest(agent.server, srng,
+                                             PHASE11_ALLOCS))
+        print(f"phase 13 agent: {N_NODES} nodes, {PHASE11_ALLOCS + 64} "
+              f"allocs ingested in {t_ingest:.1f} s before it starts")
+        agent.start()
+        s = agent.server
+        addr = f"http://{agent.http_addr[0]}:{agent.http_addr[1]}"
+        _until(lambda: getattr(s.state.node_by_id(agent.client.node.id),
+                               "status", "") == "ready", 60.0,
+               "phase 13 (a): the agent's node ready")
+        win = _LaunchWindow(kp, kr)
+        with _Recorded(torch, kp) as rec:
+            t0 = time.perf_counter()
+            run = cli(addr, "job", "run", spec("p13-web", CLIENT_COUNT))
+            if "Evaluation status: complete" not in run:
+                raise AssertionError(f"phase 13 (a): job run said {run!r}")
+
+            def allocs():
+                return s.state.allocs_by_job("default", "p13-web")
+
+            _until(lambda: len(allocs()) == CLIENT_COUNT and all(
+                a.client_status == "running" for a in allocs()), 120.0,
+                "phase 13 (a): allocs running")
+            out["run_to_running_s"] = time.perf_counter() - t0
+            if {a.node_id for a in allocs()} != {agent.client.node.id}:
+                raise AssertionError("phase 13 (a): an alloc left the "
+                                     "agent's node")
+            plan = cli(addr, "job", "plan", spec("p13-plan", 2))
+            if "Placements: 2" not in plan:
+                raise AssertionError(f"phase 13 (a): job plan said {plan!r}")
+            status = cli(addr, "job", "status", "p13-web")
+            if status.count(" running") < CLIENT_COUNT:
+                raise AssertionError(f"phase 13 (a): job status {status!r}")
+            a0 = allocs()[0]
+            if "running" not in cli(addr, "alloc", "status", a0.id[:8]):
+                raise AssertionError("phase 13 (a): alloc status")
+            (ev,) = [e for e in s.state.evals_by_job("default", "p13-web")]
+            placed = cli(addr, "eval", "placement", ev.id)
+            if "card-host-agent" not in placed:
+                raise AssertionError(f"phase 13 (a): eval placement does "
+                                     f"not name the agent's node: {placed!r}")
+            hbm = cli(addr, "operator", "hbm")
+            if "stack.view" not in hbm:
+                raise AssertionError(f"phase 13 (a): operator hbm {hbm!r}")
+            prom = cli(addr, "operator", "metrics", "-format", "prometheus",
+                       what="operator metrics")
+            if "nomad_transfer_bytes_total" not in prom:
+                raise AssertionError("phase 13 (a): no transfer series in "
+                                     "the exposition")
+            # many users at once: evals that queue together drain as one
+            # batch, placed by one chain dispatch
+            for k in range(AGENT_BURSTS):
+                walls[f"burst {k} of {AGENT_BURST} job run -detach"] = \
+                    burst(addr, k)
+                jobs = [f"p13-burst{k}-{i}" for i in range(AGENT_BURST)]
+                _until(lambda: all(
+                    any(a.client_status == "running" for a in
+                        s.state.allocs_by_job("default", j)) for j in jobs),
+                    120.0, "phase 13 (a): the burst's allocs running")
+                if any(r[0] != "place_task_group" for r in rec.records):
+                    break
+            out["bursts"] = k + 1
+            cli(addr, "job", "stop", "p13-web")
+            _until(lambda: all(a.client_status in ("complete", "failed",
+                                                   "lost")
+                               for a in allocs()), 120.0,
+                   "phase 13 (a): allocs stopped")
+        out["k1"] = kp.launch_count()
+        out["window"] = w = win.close("phase 13 agent", on_card)
+        if on_card and (w["chain"] < 1 or w["inserts"] < 1
+                        or out["k1"] < 1):
+            raise AssertionError(f"phase 13 (a): K4 {w['chain']}, K8 "
+                                 f"inserts {w['inserts']}, K1 {out['k1']}: "
+                                 "a kernel of the path never launched")
+        out["err"] = rec.check("phase 13 agent")
+        print(f"phase 13 (a) agent on {s.device}: CLI children "
+              + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in walls.items())
+              + f"; job run to {CLIENT_COUNT} allocs running "
+              f"{out['run_to_running_s'] * 1e3:.1f} ms; K1 {out['k1']} "
+              f"programs (job plan and lone evals); {out['bursts']} "
+              f"bursts to a chain dispatch; {len(rec.records)} chain/wave "
+              f"launches equal to plain (max abs err {out['err']}); {card}")
+    finally:
+        agent.shutdown()
+    # the client's long polls and the tasks' threads end on their own
+    # after the shutdown: wait a little for them, then count
+    deadline = time.perf_counter() + 10.0
+    while (threading.active_count() > threads0 + 2
+           and time.perf_counter() < deadline):
+        time.sleep(0.1)
+    left = collections.Counter(t.name.split("-")[0].split(" ")[0]
+                               for t in threading.enumerate())
+    print(f"phase 13 (a): threads {threads0} before the agent, "
+          f"{threading.active_count()} after its shutdown "
+          f"({dict(left.most_common(4))})")
+    out["walls"] = dict(walls)
+
+    # ---- (b) `agent -dev` as a child at its default device
+    port = _free_port()
+    addr = f"http://127.0.0.1:{port}"
+    argv = [sys.executable, "-m", "nomad_tpu_torch", "agent", "-dev",
+            "-http-port", str(port), "-data-dir", os.path.join(root, "dev")]
+    if not on_card:
+        argv += ["-device", "cpu"]
+    log = open(os.path.join(root, "dev-agent.log"), "w")
+    t0 = time.perf_counter()
+    child = subprocess.Popen(argv, cwd=repo, env=env, stdout=log,
+                             stderr=subprocess.STDOUT)
+    kids = []
+    try:
+        def ready():
+            if child.poll() is not None:
+                raise AssertionError(f"phase 13 (b): the agent exited "
+                                     f"{child.returncode}")
+            try:
+                return _http_json(addr, "/v1/agent/self")["server"]
+            except OSError:
+                return False
+        out["dev_ready_s"] = _until(ready, 120.0, "phase 13 (b): HTTP ready")
+        t1 = time.perf_counter()
+        cli(addr, "job", "run", spec("p13-dev", 1, on_agent=False),
+            what="dev job run")
+        _until(lambda: any(
+            a["client_status"] == "running" for a in _http_json(
+                addr, "/v1/job/p13-dev/allocations")["data"]),
+            120.0, "phase 13 (b): alloc running")
+        out["dev_run_to_running_s"] = time.perf_counter() - t1
+        kids = _children_of(child.pid)
+    finally:
+        child.send_signal(signal.SIGINT)
+        try:
+            rc = child.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            rc = child.wait()
+        log.close()
+    with open(os.path.join(root, "dev-agent.log")) as f:
+        dev_log = f.read()
+    if rc != 0 or "==> shutting down" not in dev_log:
+        raise AssertionError(f"phase 13 (b): the agent exited {rc}: "
+                             f"{dev_log[-2000:]}")
+    left = [k for k in kids if _pid_alive(k)]
+    if left:
+        raise AssertionError(f"phase 13 (b): children left {left}")
+    print(f"phase 13 (b) agent -dev child: start to HTTP ready "
+          f"{out['dev_ready_s'] * 1e3:.1f} ms, job run to running "
+          f"{out['dev_run_to_running_s'] * 1e3:.1f} ms, SIGINT: exit 0, "
+          f"{len(kids)} children seen, none left; {card}")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5490,6 +5837,10 @@ def main() -> int:
     # ---- 12. the client and its plugins on the card's host ----
     p12 = _phase12_clients(torch, kp, kr, card=smi[0])["window"]
 
+    # ---- 13. the agent, its HTTP API and the CLI ----
+    agent13 = _phase13_agent(torch, kp, kr, card=smi[0])
+    p13 = agent13["window"]
+
     print(json.dumps({"kernels": [{
         "name": "place_task_group",
         "route": "cuda",
@@ -5506,6 +5857,7 @@ def main() -> int:
         "explain_off_ms": k1_off["lane"]["events"],
         "clusters": k1["lane"]["route"][1],
         "kernel_launches_per_program": k1["lane"]["launches"],
+        "phase13_launches": agent13["k1"],
         "peak_mib": k1["lane"]["peak"],
         "placement_cu_ms": k1["placement.cu"]["events"],
         "placement_cu_span_ms": k1["placement.cu"]["span"],
@@ -5525,6 +5877,8 @@ def main() -> int:
         "phase11_launches": p11["chain_kernels"],
         "phase12_calls": p12["chain"],
         "phase12_launches": p12["kernels"]["chain"],
+        "phase13_calls": p13["chain"],
+        "phase13_launches": p13["kernels"]["chain"],
     }, {
         "name": "place_table_wave",
         "route": "cuda",
@@ -5538,6 +5892,8 @@ def main() -> int:
         "phase11_launches": p11["wave_kernels"],
         "phase12_calls": p12["wave"],
         "phase12_launches": p12["kernels"]["wave"],
+        "phase13_calls": p13["wave"],
+        "phase13_launches": p13["kernels"]["wave"],
     }, {
         "name": "program_table_insert",
         "route": "cuda",
@@ -5548,6 +5904,7 @@ def main() -> int:
         **k5["insert"],
         "phase11_launches": p11["insert"],
         "phase12_launches": p12["insert"],
+        "phase13_launches": p13["insert"],
     }, {
         "name": "view_row_delta",
         "route": "cuda",
@@ -5558,6 +5915,7 @@ def main() -> int:
         **slice_["k7"],
         "phase11_launches": p11["k7"],
         "phase12_launches": p12["k7"],
+        "phase13_launches": p13["k7"],
     }, {
         "name": "system_feasibility",
         "route": "cuda",

@@ -29,6 +29,7 @@ from __future__ import annotations
 import itertools
 import os
 import threading
+import time
 import weakref
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -964,15 +965,16 @@ class TorchStack:
                 # K7: every part of the delta in one packed buffer, one
                 # staged copy and one launch (under a mesh one buffer a
                 # device and one launch a shard copy with changes). The
-                # flush's host time (pack, copy, launch) books at
-                # stack.delta_flush, with no bytes or count; the parts
-                # book the bytes and counts of the arrays they ship at
-                # their own sites, with no time.
-                with led.timed("stack.delta_flush", 0, count=0):
-                    apply_view_delta((used, node_ok, dyn_free, ports_used),
-                                     delta, shard_rows)
-                for site, nb, count in sites:
-                    led.record(site, nb, 0.0, count)
+                # parts book the bytes and counts of the arrays they
+                # ship at their own sites; the flush's host time (pack,
+                # copy, launch) books at the first of them, so every
+                # site stays in the reference's vocabulary.
+                t0 = time.perf_counter()
+                apply_view_delta((used, node_ok, dyn_free, ports_used),
+                                 delta, shard_rows)
+                flush_s = time.perf_counter() - t0
+                for i, (site, nb, count) in enumerate(sites):
+                    led.record(site, nb, flush_s if i == 0 else 0.0, count)
                 # one event per refresh that applied any row delta (hot
                 # and/or ports) — pure port flips must not read as "no
                 # delta activity"

@@ -3,9 +3,9 @@
 
 Twins of the reference's cloud and CNI fingerprint cases
 (`tests/test_fingerprint_cloud.py`) and of `TestDeviceFingerprint` and
-`TestDeviceManager` (`tests/test_devices.py`; the node endpoint's HTTP
-read waits for the agent's port, the heartbeat's stats are read from the
-server), run on the port. Then what replaces the TPU probe: the
+`TestDeviceManager` (`tests/test_devices.py`; the heartbeat's stats are
+read from the server, then through the port's HTTP API on the node
+endpoint), run on the port. Then what replaces the TPU probe: the
 `nvidia-smi` GPU fingerprint, bounded as the reference's probe is, on
 canned, wedged, failing and missing probes; `GpuDevicePlugin`'s health
 and reservation. Across the packages: the fingerprinters both share give
@@ -401,6 +401,9 @@ class TestDeviceManager:
 
     def test_heartbeat_carries_stats_to_the_server(self, tmp_path,
                                                    monkeypatch):
+        import urllib.request
+
+        from nomad_tpu_torch.agent.http import HTTPApi
         from nomad_tpu_torch.client import Client, ClientConfig, InProcConn
         from nomad_tpu_torch.server import Server, ServerConfig
 
@@ -413,6 +416,15 @@ class TestDeviceManager:
                         ClientConfig(data_dir=str(tmp_path / "c"),
                                      heartbeat_interval=0.2))
         client.device_manager.stats_interval = 0.1
+
+        class _A:  # minimal agent shim for the HTTP layer
+            pass
+
+        shim = _A()
+        shim.server = server
+        shim.client = client
+        api = HTTPApi(shim)
+        api.start()
         client.start()
         try:
             deadline = time.time() + 10.0
@@ -422,9 +434,17 @@ class TestDeviceManager:
                 time.sleep(0.05)
             assert ds, "no device stats arrived on the heartbeat"
             assert "acme/fpga/x1" in ds["stats"]
+            # surfaced live on the node endpoint
+            host, port = api.addr
+            with urllib.request.urlopen(
+                    f"http://{host}:{port}/v1/node/{client.node.id}",
+                    timeout=10) as r:
+                tree = json.loads(r.read())
+            assert "acme/fpga/x1" in tree["device_stats"]["stats"]
         finally:
             client.shutdown()
             server.shutdown()
+            api.shutdown()
 
     def test_taskenv_device_visibility(self):
         from nomad_tpu_torch.client.taskenv import build_env

@@ -14,13 +14,25 @@
   eval through its Raft log, and a port `Client` runs a `raw_exec` and an
   `exec` task to completion through executor children that are the
   port's.
-- Every entry point defaults to the card and raises without one.
+- Importing the port's agent, its CLI and `python -m nomad_tpu_torch`
+  loads neither torch nor JAX nor a reference module, so a CLI call stays
+  a fast child process; with JAX and the reference package made
+  unimportable, `python -m nomad_tpu_torch agent -dev -device cpu` takes
+  an HCL job from `job run` to a running alloc through
+  `python -m nomad_tpu_torch` children, then exits 0 on SIGINT with no
+  child left.
+- Every entry point defaults to the card and raises without one, the
+  agent and `agent -dev` included.
 """
 import ast
 import os
 import re
+import signal
+import socket
 import subprocess
 import sys
+import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -427,6 +439,174 @@ def test_port_client_runs_tasks_without_jax(tmp_path):
     assert proc.stdout.strip().endswith("ok")
 
 
+_LIGHT_IMPORT = r"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+what = sys.argv[1]
+if what == "__main__":
+    sys.argv = ["nomad_tpu_torch", "version"]
+    try:
+        runpy.run_module("nomad_tpu_torch", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+elif what == "decode":
+    # what a CLI call does with an answer: structs through the codec
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs.codec import from_wire, to_wire
+    for obj in (mock.job(), mock.alloc(), mock.node(), mock.eval_()):
+        assert from_wire(to_wire(obj)) == obj
+else:
+    __import__(what)
+heavy = sorted(m for m, mod in sys.modules.items() if mod is not None
+               and m.split(".")[0] in ("torch", "jax", "jaxlib",
+                                       "nomad_tpu"))
+assert not heavy, heavy
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("module", ["nomad_tpu_torch.agent",
+                                    "nomad_tpu_torch.cli", "__main__",
+                                    "decode"])
+def test_agent_and_cli_import_neither_torch_nor_jax(module):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _LIGHT_IMPORT, module],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=60)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
+#: a sitecustomize that makes JAX and the reference package unimportable
+#: in every process started with it on PYTHONPATH
+_NO_REFERENCE_SITE = """
+import sys
+for _m in ("jax", "jaxlib", "nomad_tpu"):
+    sys.modules[_m] = None
+"""
+
+_AGENT_JOB = """
+job "iso" {
+  datacenters = ["dc1"]
+  group "web" {
+    count = 2
+    task "t" {
+      driver = "mock_driver"
+      config { run_for = 600 }
+      resources {
+        cpu    = 100
+        memory = 64
+      }
+    }
+  }
+}
+"""
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _children(pid):
+    out = []
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            stat = (d / "stat").read_text()
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+            out.append(int(d.name))
+    return out
+
+
+def test_agent_dev_on_cpu_runs_a_job_through_cli_children(tmp_path):
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_NO_REFERENCE_SITE)
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(site), str(REPO)]))
+    env.pop("NOMAD_ADDR", None)
+    spec = tmp_path / "iso.nomad"
+    spec.write_text(_AGENT_JOB)
+    port = _free_port()
+    addr = f"http://127.0.0.1:{port}"
+    agent = subprocess.Popen(
+        [sys.executable, "-m", "nomad_tpu_torch", "agent", "-dev",
+         "-device", "cpu", "-http-port", str(port),
+         "-data-dir", str(tmp_path / "data")],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+    def cli(*argv):
+        return subprocess.run(
+            [sys.executable, "-m", "nomad_tpu_torch", "-address", addr,
+             *argv], cwd=REPO, env=env, capture_output=True, text=True,
+            timeout=60)
+
+    try:
+        deadline = time.time() + 60
+        while True:
+            assert agent.poll() is None, agent.communicate()[1][-4000:]
+            try:
+                with urllib.request.urlopen(f"{addr}/v1/agent/self",
+                                            timeout=2) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                pass
+            assert time.time() < deadline, "agent HTTP never ready"
+            time.sleep(0.1)
+        run = cli("job", "run", str(spec))
+        assert run.returncode == 0, run.stderr
+        assert "Evaluation status: complete" in run.stdout, run.stdout
+        deadline = time.time() + 60
+        while True:
+            status = cli("job", "status", "iso")
+            assert status.returncode == 0, status.stderr
+            rows = [ln.split() for ln in status.stdout.splitlines()
+                    if ln.split()[-2:-1] == ["run"]]
+            if len(rows) == 2 and all(r[-1] == "running" for r in rows):
+                break
+            assert time.time() < deadline, status.stdout
+            time.sleep(0.2)
+        alloc = cli("alloc", "status", rows[0][0])
+        assert alloc.returncode == 0 and "running" in alloc.stdout, \
+            alloc.stdout + alloc.stderr
+        kids = _children(agent.pid)
+    finally:
+        agent.send_signal(signal.SIGINT)
+        try:
+            out, err = agent.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            agent.kill()
+            out, err = agent.communicate()
+    assert agent.returncode == 0, err[-4000:]
+    assert "==> shutting down" in out, out
+    left = [k for k in kids if Path(f"/proc/{k}").exists()]
+    assert not left, left
+
+
+def test_agent_dev_without_a_card_raises(tmp_path):
+    """`agent -dev` at its default device, where torch sees no card:
+    RuntimeError before anything is bound or written."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-m", "nomad_tpu_torch", "agent", "-dev",
+         "-http-port", str(_free_port()),
+         "-data-dir", str(tmp_path / "data")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=60)
+    assert proc.returncode != 0
+    assert "RuntimeError" in proc.stderr and "CUDA" in proc.stderr, \
+        proc.stderr[-4000:]
+    assert "agent started" not in proc.stdout
+    assert not (tmp_path / "data").exists()
+
+
 def _entry_points(tmp):
     from nomad_tpu_torch.convert import cluster_from_numpy, params_from_numpy
     from nomad_tpu_torch.entry import entry
@@ -447,7 +627,11 @@ def _entry_points(tmp):
                 attrs=cl.attrs.astype(np.int16), ports_used=cl.ports_used,
                 dyn_free=cl.dyn_free)
     state = InMemState()
+    from nomad_tpu_torch.agent import Agent, AgentConfig
+
     return {
+        "Agent": lambda: Agent(),
+        "AgentDev": lambda: Agent(AgentConfig(data_dir=str(tmp))),
         "Harness": lambda: Harness(),
         "GenericScheduler": lambda: GenericScheduler(state, None,
                                                      state.cluster),
@@ -472,7 +656,7 @@ def _entry_points(tmp):
                                   "params_from_numpy", "Server",
                                   "DurableServer", "ClusterServer",
                                   "DeviceProgramTable", "entry",
-                                  "make_mesh"])
+                                  "make_mesh", "Agent", "AgentDev"])
 def test_entry_points_default_to_cuda_and_raise_without_it(
         name, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
