@@ -253,8 +253,16 @@ non-zero without printing a result:
    child at its default device: start to HTTP ready, one `job run` to a
    running alloc on its node, then SIGINT: exit 0, no child of it left.
    Prints each CLI child's wall and `job run` to running with the card's
-   name and power limit.
-14. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
+   name and power limit. After the bursts (so lane and chain dispatches
+   have run on the card) the agent's Prometheus exposition is scraped
+   once more: every `site` value must be in the reference's
+   `ALLOWED_SITES` and every label in `ALLOWED_LABELS`, and the lane
+   dispatches' argument tables must have booked at the programs' site
+   (`select_batch.pack_buffers`); the sites seen are printed.
+14. The lint engine: `python -m nomad_tpu_torch.analysis --fail-on-new
+   --stats` as a child must exit 0 with "findings by rule: clean"
+   against `lint_baseline_torch.json`; prints its wall and CPU time.
+15. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
 """
 from __future__ import annotations
 
@@ -5254,6 +5262,37 @@ def _children_of(pid: int) -> list:
     return out
 
 
+def _exposition_sites(text: str, on_card: bool) -> list:
+    """The `site` label values of a Prometheus exposition, sorted; raises
+    unless every one is in the reference's `ALLOWED_SITES` and every
+    label name in `ALLOWED_LABELS`, and (on the card, where lane
+    dispatches book their argument tables there) unless the programs'
+    upload site is among them."""
+    from nomad_tpu_torch.analysis.vocab import ALLOWED_LABELS, ALLOWED_SITES
+
+    labels, sites = set(), set()
+    for line in text.splitlines():
+        series = line.split(" ")[0]
+        if line.startswith("#") or "{" not in series:
+            continue
+        for pair in series.split("{", 1)[1].rsplit("}", 1)[0].split(","):
+            k, _, v = pair.partition("=")
+            if k:
+                labels.add(k)
+            if k == "site":
+                sites.add(v.strip('"'))
+    if not labels <= ALLOWED_LABELS:
+        raise AssertionError(f"labels outside ALLOWED_LABELS: "
+                             f"{sorted(labels - ALLOWED_LABELS)}")
+    if not sites <= ALLOWED_SITES:
+        raise AssertionError(f"sites outside ALLOWED_SITES: "
+                             f"{sorted(sites - ALLOWED_SITES)}")
+    if on_card and "select_batch.pack_buffers" not in sites:
+        raise AssertionError(f"no lane dispatch booked its argument table: "
+                             f"sites {sorted(sites)}")
+    return sorted(sites)
+
+
 def _phase13_agent(torch, kp, kr, device=None, card=""):
     """The agent, its HTTP API and the CLI on the card. (a) An in-process
     `Agent(AgentConfig(http_port=0, data_dir=..., node_meta=AGENT_META),
@@ -5396,6 +5435,12 @@ def _phase13_agent(torch, kp, kr, device=None, card=""):
                 if any(r[0] != "place_task_group" for r in rec.records):
                     break
             out["bursts"] = k + 1
+            # the exposition once more, now that lane and chain
+            # dispatches ran on the card: every `site` value and every
+            # label name in the reference's vocabulary
+            prom = cli(addr, "operator", "metrics", "-format", "prometheus",
+                       what="operator metrics after the bursts")
+            out["sites"] = _exposition_sites(prom, on_card)
             cli(addr, "job", "stop", "p13-web")
             _until(lambda: all(a.client_status in ("complete", "failed",
                                                    "lost")
@@ -5409,6 +5454,8 @@ def _phase13_agent(torch, kp, kr, device=None, card=""):
                                  f"inserts {w['inserts']}, K1 {out['k1']}: "
                                  "a kernel of the path never launched")
         out["err"] = rec.check("phase 13 agent")
+        print(f"phase 13 (a): exposition after the bursts: sites "
+              f"{', '.join(out['sites'])}, all in ALLOWED_SITES; {card}")
         print(f"phase 13 (a) agent on {s.device}: CLI children "
               + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in walls.items())
               + f"; job run to {CLIENT_COUNT} allocs running "
@@ -5485,6 +5532,33 @@ def _phase13_agent(torch, kp, kr, device=None, card=""):
     shutil.rmtree(root, ignore_errors=True)
     print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def _phase14_lint(card=""):
+    """`python -m nomad_tpu_torch.analysis --fail-on-new --stats` as a
+    child: exit 0 and a clean tree against `lint_baseline_torch.json`;
+    prints its wall and CPU seconds."""
+    import resource
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable, "-m", "nomad_tpu_torch.analysis",
+            "--fail-on-new", "--stats"]
+    ru0 = resource.getrusage(resource.RUSAGE_CHILDREN)
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=repo, capture_output=True, text=True,
+                          timeout=300)
+    wall = time.perf_counter() - t0
+    ru1 = resource.getrusage(resource.RUSAGE_CHILDREN)
+    cpu = (ru1.ru_utime - ru0.ru_utime) + (ru1.ru_stime - ru0.ru_stime)
+    if proc.returncode != 0 or "findings by rule: clean" not in proc.stdout:
+        raise AssertionError(f"phase 14: the lint exited {proc.returncode}: "
+                             f"{proc.stdout[-3000:]}{proc.stderr[-2000:]}")
+    stats = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith(("files analyzed", "findings by rule",
+                               "waivers:"))]
+    print(f"phase 14: python -m nomad_tpu_torch.analysis --fail-on-new "
+          f"--stats: exit 0, {'; '.join(stats)}; wall {wall:.3f} s, CPU "
+          f"{cpu:.3f} s; {card}")
 
 
 def main() -> int:
@@ -5840,6 +5914,9 @@ def main() -> int:
     # ---- 13. the agent, its HTTP API and the CLI ----
     agent13 = _phase13_agent(torch, kp, kr, card=smi[0])
     p13 = agent13["window"]
+
+    # ---- 14. the lint engine over the port ----
+    _phase14_lint(card=smi[0])
 
     print(json.dumps({"kernels": [{
         "name": "place_task_group",

@@ -463,7 +463,7 @@ def _explain_step(st: dict, ev: dict, k: int) -> tuple:
          torch.where(ev["inc_aff"], st["aff_score"], 0.0),
          torch.where(ev["inc_spread"], ev["spread_score"], 0.0)),
         dim=1)
-    tk_parts = parts[tk_idx] * (tk_score > NEG_INF / 2)[:, None]
+    tk_parts = parts[tk_idx] * (tk_score > NEG_INF / 2)[:, None]  # nomadlint: ok NLD04 `parts` stacks one step's five score parts of every row (dim=1), not lane carries; the product zeroes the rows at the floor
     dyn_ok, res_ok = ev["dyn_ok"], ev["res_ok"]
     return (dh_fail.sum(), dp_fail.sum(), ff_hit.sum(dim=0),
             (cand_m & ~any_over & ~dyn_ok).sum(),
@@ -1605,7 +1605,7 @@ class _PinnedRing:
             k = self._next
             self._next = (k + 1) % self.SLOTS
             if self._done[k] is not None:
-                self._done[k].synchronize()
+                self._done[k].synchronize()  # nomadlint: ok NLJ05 the slot's pinned bytes may still be in flight: refilling them before the copy has run would corrupt it
             host = self._host[k]
             if host is None or host.numel() < total:
                 host = self._host[k] = torch.empty(
@@ -1730,7 +1730,10 @@ def _lane_args(cluster: ClusterArrays, shapes: dict, ptrs_of, lanes: int,
     if used_l is not None:
         args["new_used"] = _rows_ptrs(used_l, lane_of)
     raw = args.view(np.uint8)
-    with default_ledger().timed("kernels.place_args", raw.nbytes):
+    # the argument table completes the programs' upload (it says where
+    # their fields and outputs are), so it books at the programs' site:
+    # the reference's vocabulary has no site of its own for it
+    with default_ledger().timed("select_batch.pack_buffers", raw.nbytes):
         dev_args = to_device_async(raw, dev)
     return dims, args, dev_args, prog, lane, used_l
 

@@ -90,7 +90,8 @@ class Packed:
                                       and self.buf.device.type == "cpu"):
             return self
         return Packed(self.host, self.raw,
-                      self.host.to(dev, non_blocking=True), self.at)
+                      self.host.to(dev, non_blocking=True),  # nomadlint: ok NLD01 the one staged copy of a K7/K8 buffer, booked by its callers: program_table.py at select_batch.table_insert, stack.py at the stack.* part sites
+                      self.at)
 
 
 def _pack(names: Sequence[str], subs, pinned: bool) -> Packed:
@@ -273,7 +274,7 @@ def table_insert_cuda(tables, packed: Packed):
                          "f32[T, Lf] and u8[T, Lu] tables on one card, "
                          "of the packed rows' widths")
     lib = _LAUNCHER.lib()
-    packed = packed.to(dev)
+    packed = packed.to(dev)  # nomadlint: ok NLD01 Packed.to: the staged copy, booked by program_table.py at select_batch.table_insert (none when the caller staged it)
     out = tuple(torch.empty(x.shape, dtype=x.dtype, device=dev)
                 for x in tables)
     at = packed.at[0]
@@ -424,7 +425,7 @@ def view_delta_cuda(bufs, packed: Packed, sub: int = 0, shard: bool = False):
     if used.shape[1] != h["r"] or ports.shape[1] != h["w"]:
         raise ValueError("the packed delta was built for other widths")
     lib = _LAUNCHER.lib()
-    packed = packed.to(dev)
+    packed = packed.to(dev)  # nomadlint: ok NLD01 Packed.to: the staged copy, booked by stack.py at the stack.* part sites (none when apply_view_delta staged it)
     at = packed.at[sub]
     err = lib.nomad_view_delta(
         packed.host.data_ptr() + at, packed.buf.data_ptr() + at, n,
@@ -457,7 +458,8 @@ def apply_view_delta(bufs, delta: ViewDelta, shard_rows=None):
     such a shard (B13). Returns `bufs`."""
     if shard_rows is None:
         dev = bufs[0].device
-        view_delta(bufs, pack_view_delta([delta], [bufs], dev).to(dev))
+        staged = pack_view_delta([delta], [bufs], dev).to(dev)  # nomadlint: ok NLD01 Packed.to: the staged copy, booked by stack.py at the stack.* part sites
+        view_delta(bufs, staged)
         return bufs
     keys = list(bufs[0])
     parts = delta.split(shard_rows, len({key[1] for key in keys}))
@@ -469,7 +471,8 @@ def apply_view_delta(bufs, delta: ViewDelta, shard_rows=None):
         copies = [tuple(b[key] for b in bufs) for key in group]
         dev = copies[0][0].device
         packed = pack_view_delta([parts[key[1]] for key in group], copies,
-                                 dev).to(dev)
+                                 dev)
+        packed = packed.to(dev)  # nomadlint: ok NLD01 Packed.to: the staged copy of one device's shard deltas, booked by stack.py at the stack.* part sites
         for i, copy in enumerate(copies):
             view_delta(copy, packed, i, True)
     return bufs

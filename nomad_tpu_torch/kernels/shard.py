@@ -100,6 +100,20 @@ from .placement import (
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
 
+
+def _to(t: torch.Tensor, dev) -> torch.Tensor:
+    """`t` on `dev`: every move the sharded routes make between the
+    grid's devices (a program slice to its shard, a shard's result or
+    carry to the grid's first device) goes through here."""
+    return t.to(dev)  # nomadlint: ok NLD01 device to device on a card mesh, no copy on one card or on CPU shards; the server's programs are already on the lead card, uploaded at a booked site (host programs from entry's step or a test upload here unbooked)
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """`t` on the host: the plain versions' gather of the shards' step
+    results."""
+    return t.cpu()  # nomadlint: ok NLD01 plain version: on the server's path it runs on CPU shards (a CUDA view takes the kernel routes), where this moves nothing; on a card mesh it runs only as the kernels' reference
+
+
 #: TGParams fields that hold node rows (−1 pads): rebased to each shard
 ROW_FIELDS = ("delta_idx", "cand_idx", "penalty_idx", "jc_idx", "jtc_idx",
               "pclr_idx", "pset_idx")
@@ -117,8 +131,8 @@ class ShardedCluster(NamedTuple):
         """The whole view on one device (the first of the grid's by
         default), gathered from the first batch row's shards."""
         dev = self.devices[0][0] if device is None else torch.device(device)
-        return ClusterArrays(*(
-            torch.cat([t.to(dev) for t in ts]) for ts in zip(*self.shards[0])))
+        return ClusterArrays(*(torch.cat([_to(t, dev) for t in ts])
+                               for ts in zip(*self.shards[0])))
 
 
 def rebase(p: TGParams, row0: int, rows: int, n: int) -> TGParams:
@@ -160,7 +174,7 @@ def _split(sc: ShardedCluster, batch) -> Tuple[TGParams, int, int]:
 
 
 def _row_programs(batch: TGParams, i: int, bp: int, dev) -> TGParams:
-    return TGParams(*(t[i * bp:(i + 1) * bp].to(dev) for t in batch))
+    return TGParams(*(_to(t[i * bp:(i + 1) * bp], dev) for t in batch))
 
 
 def _check_grid(sc: ShardedCluster, kind: str) -> None:
@@ -178,10 +192,10 @@ def _merge_topk(parts, row0, k: int):
     (local idx, score, score parts), each in top-K order): a stable
     descending sort of the concatenation, in shard order, keeps the lowest
     global row first among equal scores."""
-    idx = torch.cat([i.long().cpu() + r0 for (i, _s, _p), r0 in
+    idx = torch.cat([_host(i.long()) + r0 for (i, _s, _p), r0 in
                      zip(parts, row0)])
-    score = torch.cat([sc.cpu() for _i, sc, _p in parts])
-    pp = torch.cat([p.cpu() for _i, _s, p in parts])
+    score = torch.cat([_host(sc) for _i, sc, _p in parts])
+    pp = torch.cat([_host(p) for _i, _s, p in parts])
     order = torch.sort(score, descending=True, stable=True).indices[:k]
     return idx[order].to(torch.int32), score[order], pp[order]
 
@@ -211,10 +225,10 @@ def _place_program_plain(shards, ps, row0, ns, max_allocs, explain=False,
                      for st, ev in zip(sts, evs)]
             tk = _merge_topk([x[5:] for x in steps], row0, topk)
             ex_steps.append(tuple(
-                sum(x[q].cpu() for x in steps) for q in range(5)) + tk)
+                sum(_host(x[q]) for x in steps) for q in range(5)) + tk)
         # (c) the combine: the max score, the first shard (lowest global
         # row) among equal ones; the preferred row from its owner
-        vals = torch.stack([ev["masked"][k].cpu() for ev, k in
+        vals = torch.stack([_host(ev["masked"][k]) for ev, k in
                             zip(evs, local)])
         jb = int(torch.argmax(vals))
         pref = int(p0.preferred_idx[i])
@@ -224,7 +238,7 @@ def _place_program_plain(shards, ps, row0, ns, max_allocs, explain=False,
         loc = pref - row0[pj] if pref_ok else local[jb]
         found = bool(evs[j]["ok"][loc]) and i < int(p0.n_place)
         sels.append(row0[j] + loc if found else -1)
-        scores.append(evs[j]["final"][loc].cpu() if found
+        scores.append(_host(evs[j]["final"][loc]) if found
                       else torch.zeros((), dtype=torch.float32))
         fits.append(sum(int((st["feas"] & ev["fits"]).sum())
                         for st, ev in zip(sts, evs)))
@@ -232,12 +246,12 @@ def _place_program_plain(shards, ps, row0, ns, max_allocs, explain=False,
         stok, dtok = sts[j]["stok"][loc], sts[j]["dtok"][loc]
         for k, (p, st) in enumerate(zip(ps, sts)):
             dev = st["used"].device
-            _take_plain(st, p, loc if k == j else -1, found, stok.to(dev),
-                        dtok.to(dev))
+            _take_plain(st, p, loc if k == j else -1, found, _to(stok, dev),
+                        _to(dtok, dev))
     nfeas = sum(int(st["nodes_feasible"]) for st in sts)
     ex = None
     if explain:
-        ex_static = {f: sum(st["ex_static"][f].cpu() for st in sts)
+        ex_static = {f: sum(_host(st["ex_static"][f]) for st in sts)
                      for f in sts[0]["ex_static"]}
         ex = _explain_of(ex_static, ex_steps)
     return (sels, scores, nfeas, fits, final0, [st["used"] for st in sts],
@@ -266,15 +280,15 @@ def sharded_place_plain(sc: ShardedCluster, batch, max_allocs: int,
                 sel_idx=torch.tensor(sels, dtype=torch.int32),
                 sel_score=torch.stack(scores) if scores
                 else torch.zeros(0, dtype=torch.float32),
-                new_used=torch.cat([u.to(out) for u in used]),
+                new_used=torch.cat([_to(u, out) for u in used]),
                 nodes_feasible=torch.tensor(nfeas, dtype=torch.int32),
                 nodes_fit=torch.tensor(fits, dtype=torch.int32),
-                final_scores0=(torch.cat([f.to(out) for f in final0])
+                final_scores0=(torch.cat([_to(f, out) for f in final0])
                                if final0 is not None
                                else torch.zeros(0, dtype=torch.float32))))
             for j in range(nm):
                 carries[i][j].append(used[j])
-    result = PlacementResult(*(torch.stack([getattr(r, f).to(out)
+    result = PlacementResult(*(torch.stack([_to(getattr(r, f), out)
                                             for r in rows])
                                for f in PlacementResult._fields[:6]))
     folded = None
@@ -284,7 +298,7 @@ def sharded_place_plain(sc: ShardedCluster, batch, max_allocs: int,
             acc = torch.zeros_like(sc.shards[0][j].used)
             for i in range(bm):
                 used = sc.shards[i][j].used
-                acc = acc.to(used.device)
+                acc = _to(acc, used.device)
                 for nu in carries[i][j]:
                     acc = acc + (nu - used)
             folded.append(used + acc)
@@ -292,14 +306,14 @@ def sharded_place_plain(sc: ShardedCluster, batch, max_allocs: int,
 
 
 def _on(p: TGParams, dev) -> TGParams:
-    return TGParams(*(t.to(dev) for t in p))
+    return TGParams(*(_to(t, dev) for t in p))
 
 
 def _shard_dyn(dyn, n_dyn, sel, row0: int, rows: int):
     """A shard's dyn_free carry after a program that placed on global
     rows `sel`: dyn − placed · n_dyn, as `_chain_with_carry` does."""
     local = torch.as_tensor(sel, dtype=torch.long) - row0
-    local = local[(local >= 0) & (local < rows)].to(dyn.device)
+    local = _to(local[(local >= 0) & (local < rows)], dyn.device)
     placed = torch.zeros(rows, dtype=torch.float32, device=dyn.device)
     placed = placed.index_add_(0, local, torch.ones_like(local,
                                                          dtype=torch.float32))
@@ -334,19 +348,19 @@ def sharded_chain_plain(sc: ShardedCluster, batch, max_allocs: int,
             sel_idx=torch.tensor(sels, dtype=torch.int32),
             sel_score=(torch.stack(scores) if scores
                        else torch.zeros(0, dtype=torch.float32)),
-            new_used=torch.cat([u.to(out) for u in used]),
+            new_used=torch.cat([_to(u, out) for u in used]),
             nodes_feasible=torch.tensor(nfeas, dtype=torch.int32),
             nodes_fit=torch.tensor(fits, dtype=torch.int32),
-            final_scores0=(torch.cat([f.to(out) for f in final0])
+            final_scores0=(torch.cat([_to(f, out) for f in final0])
                            if final0 is not None
                            else torch.zeros(0, dtype=torch.float32)),
             explain=ex))
     ex = None
     if explain:
-        ex = PlacementExplain(*(torch.stack([leaf.to(out) for leaf in col])
+        ex = PlacementExplain(*(torch.stack([_to(leaf, out) for leaf in col])
                                 for col in zip(*(r.explain
                                                  for r in results))))
-    result = PlacementResult(*(torch.stack([getattr(r, f).to(out)
+    result = PlacementResult(*(torch.stack([_to(getattr(r, f), out)
                                             for r in results])
                                for f in PlacementResult._fields[:6]),
                              explain=ex)
@@ -580,18 +594,18 @@ class _Cell:
                                                 explain)
         i32 = torch.int32
         rows = 1 if chain else bp
-        self.rec = torch.empty((rows, self.rec_words), dtype=i32,
+        self.rec = torch.empty((rows, self.rec_words), dtype=i32,  # nomadlint: ok NLD03 a cell's scratch lives for one steps dispatch (the cells are dropped when it returns), like the kernels' other per-launch scratch
                                device=self.dev)
-        self.win = torch.zeros((rows, self.win_words), dtype=i32,
+        self.win = torch.zeros((rows, self.win_words), dtype=i32,  # nomadlint: ok NLD03 a cell's scratch lives for one steps dispatch (the cells are dropped when it returns), like the kernels' other per-launch scratch
                                device=self.dev)
-        self.counts = torch.empty(
+        self.counts = torch.empty(  # nomadlint: ok NLD03 a cell's scratch lives for one steps dispatch (the cells are dropped when it returns), like the kernels' other per-launch scratch
             (rows, max(d["s"] * d["sv"] + d["p"] * d["dv"], 1)),
             dtype=torch.float32, device=self.dev)
         self.dyn = self.taken = None
         if chain:
             self.used[0].copy_(shard.used)
             self.dyn = shard.dyn_free.clone()
-            self.taken = torch.empty(max(max_allocs, 1), dtype=i32,
+            self.taken = torch.empty(max(max_allocs, 1), dtype=i32,  # nomadlint: ok NLD03 a cell's scratch lives for one steps dispatch (the cells are dropped when it returns), like the kernels' other per-launch scratch
                                      device=self.dev)
 
     def static(self, carry: bool) -> None:
@@ -730,7 +744,8 @@ def _place_cluster(sc: ShardedCluster, batch, bp: int, max_allocs: int,
         packed, parts = None, []
     else:
         packed = pack_params(TGParams(*(
-            t.cpu() if isinstance(t, torch.Tensor) else t for t in batch)))
+            t.cpu()  # nomadlint: ok NLD01 programs on another device than the card are packed on the host first; the server's are on the card already and skip this
+            if isinstance(t, torch.Tensor) else t for t in batch)))
         parts = list(packed[:3])
     res = _step_outputs(b, n, r, m, out)
     buf, addr, upload = _staged([np.empty(b * s, _ARGS_DTYPE)] + parts, out)
@@ -870,14 +885,14 @@ def _place_steps(sc: ShardedCluster, batch: TGParams, bp: int, ns: int,
 
     out = sc.devices[0][0]
     result = PlacementResult(
-        sel_idx=torch.cat([ld["sel_idx"].to(out) for ld in leads]),
-        sel_score=torch.cat([ld["sel_score"].to(out) for ld in leads]),
-        new_used=torch.cat([torch.cat([c.used.to(out) for c in row], dim=1)
+        sel_idx=torch.cat([_to(ld["sel_idx"], out) for ld in leads]),
+        sel_score=torch.cat([_to(ld["sel_score"], out) for ld in leads]),
+        new_used=torch.cat([torch.cat([_to(c.used, out) for c in row], dim=1)
                             for row in cells]),
-        nodes_feasible=torch.cat([ld["nodes_feasible"].to(out)
+        nodes_feasible=torch.cat([_to(ld["nodes_feasible"], out)
                                   for ld in leads]),
-        nodes_fit=torch.cat([ld["nodes_fit"].to(out) for ld in leads]),
-        final_scores0=torch.cat([torch.cat([c.prog["final0"].to(out)
+        nodes_fit=torch.cat([_to(ld["nodes_fit"], out) for ld in leads]),
+        final_scores0=torch.cat([torch.cat([_to(c.prog["final0"], out)
                                             for c in row], dim=1)
                                  for row in cells]))
     folded = None
@@ -889,7 +904,7 @@ def _place_steps(sc: ShardedCluster, batch: TGParams, bp: int, ns: int,
             new = None
             for i in range(bm):
                 c, used = cells[i][j], sc.shards[i][j].used
-                acc = acc.to(c.dev)
+                acc = _to(acc, c.dev)
                 new = (torch.empty_like(used) if i == bm - 1 else None)
                 _SHARD.call("nomad_shard_fold", c.dev, c.used.data_ptr(),
                             used.data_ptr(), acc.data_ptr(),
@@ -1019,11 +1034,11 @@ def _chain_steps(sc: ShardedCluster, batch, max_allocs: int,
         for c in cells:
             c.step(m, apply=True, k=k)
         if snapshots:
-            snaps.append(torch.cat([c.used[0].to(out) for c in cells]))
+            snaps.append(torch.cat([_to(c.used[0], out) for c in cells]))
     _SHARD.last_route = "steps"
     return _chain_result(
         res, lead.dims["c"], torch.stack(snaps) if snapshots else None,
-        torch.cat([c.prog["final0"].to(out) for c in cells], dim=1),
+        torch.cat([_to(c.prog["final0"], out) for c in cells], dim=1),
         [(c.used[0], c.dyn) for c in cells], explain)
 
 
@@ -1069,6 +1084,7 @@ def _chain_cluster(sc: ShardedCluster, batch, max_allocs: int,
     when the library refuses either launch (more than MAX_CLUSTER shards,
     arguments that disagree, no cluster that fits) or a launch fails."""
     from ..convert import to_device_async
+    from ..lib.transfer import default_ledger
 
     _check_grid(sc, "cuda")
     if max_allocs < 1:
@@ -1094,7 +1110,9 @@ def _chain_cluster(sc: ShardedCluster, batch, max_allocs: int,
     for j, sh in enumerate(shards[1:], 1):
         for name, t in sh._asdict().items():
             args[name][j * bp:(j + 1) * bp] = t.data_ptr()
-    dev_args = to_device_async(args.view(np.uint8), out)
+    # the patched table goes up again, at the site _lane_args books it
+    with default_ledger().timed("select_batch.pack_buffers", args.nbytes):
+        dev_args = to_device_async(args.view(np.uint8), out)
     torch.cat([sh.used for sh in shards], out=used.view(n, -1))
     dyn = torch.cat([sh.dyn_free for sh in shards])
     r = shards[0].capacity.shape[1]
@@ -1221,8 +1239,8 @@ def _system_over(sc: ShardedCluster, p, fn) -> torch.Tensor:
     feas, fit = [], []
     for sh, d, r0 in zip(shards, devs, sc.row0):
         f, g = fn(sh, rebase(_on(p, d), r0, ns, sc.n))
-        feas.append(f.to(devs[0]))
-        fit.append(g.to(devs[0]))
+        feas.append(_to(f, devs[0]))
+        fit.append(_to(g, devs[0]))
     return torch.stack((torch.cat(feas), torch.cat(fit)))
 
 

@@ -283,7 +283,8 @@ def _step(cluster: ShardedCluster, batch: TGParams, max_allocs: int):
         for j, shard in enumerate(row):
             dev = shard.used.device
             if (dev, j) not in copies:
-                copies[(dev, j)] = shard._replace(used=folded[j].to(dev))
+                copies[(dev, j)] = shard._replace(
+                    used=folded[j].to(dev))  # nomadlint: ok NLD01 the folded used of node shard j to each device that holds a copy of it: device to device (no copy on one card or on CPU shards)
     shards = tuple(tuple(copies[(shard.used.device, j)]
                          for j, shard in enumerate(row))
                    for row in cluster.shards)

@@ -1801,13 +1801,17 @@ class TorchStack:
                 result = place_task_group(arrays,
                                           _to_device(params, self.device),
                                           m, explain=want_ex)
-                sel = result.sel_idx.cpu().numpy()
-                scores = result.sel_score.cpu().numpy()
+                # the solo fetch below is deliberately unledgered, like
+                # the upload side (_to_device): the batched coordinator
+                # path is the accounted one; this fallback serves
+                # coordinator-less callers (oracle parity, unit tests)
+                sel = result.sel_idx.cpu().numpy()  # nomadlint: ok NLD01 solo fallback, outside ledger/guard by design (_to_device)
+                scores = result.sel_score.cpu().numpy()  # nomadlint: ok NLD01 solo fallback, outside ledger/guard by design (_to_device)
                 n_feas = int(result.nodes_feasible)
-                n_fit = result.nodes_fit.cpu().numpy()
+                n_fit = result.nodes_fit.cpu().numpy()  # nomadlint: ok NLD01 solo fallback, outside ledger/guard by design (_to_device)
                 if result.explain is not None:
                     ex_np = PlacementExplain(
-                        *(x.cpu().numpy() for x in result.explain))
+                        *(x.cpu().numpy() for x in result.explain))  # nomadlint: ok NLD01 solo fallback, outside ledger/guard by design (_to_device)
             finally:
                 release_view(self.cluster, token)
         snap_rows = self.cluster.node_of_row

@@ -200,8 +200,9 @@ class _BatchOut:
 
     On a card, construction records a CUDA event on the current stream
     (the stream the launch went to — construct right after the launch,
-    on the launching thread); `resolve` waits on that event before the
-    copy. On the CPU the outputs are already computed."""
+    on the launching thread); `resolve` orders its copy after that event
+    on its own stream, and the copy is the one wait of the host. On the
+    CPU the outputs are already computed."""
 
     __slots__ = ("_dev", "_np", "_lock", "_on_first", "_event")
 
@@ -226,8 +227,11 @@ class _BatchOut:
         with self._lock:
             if self._np is None:
                 if self._event is not None:
-                    self._event.synchronize()
-                self._np = tuple(x.cpu().numpy() for x in self._dev)
+                    torch.cuda.current_stream(
+                        self._dev[0].device).wait_event(self._event)
+                self._np = tuple(
+                    x.cpu().numpy()  # nomadlint: ok NLD01 the dispatch's one fetch: the first resolver's copy, booked at select_batch.fetch by its on_first_resolve callback (_kernel_done)
+                    for x in self._dev)
                 # dropping the device refs frees the outputs; the
                 # residency bookings release with them
                 self._dev = None

@@ -262,6 +262,43 @@ def test_wave_kernel_matches_plain(explain, cuda_device):
 
 
 @pytest.mark.cuda
+def test_lane_dispatches_book_only_vocabulary_sites(cuda_device):
+    """The lane route's argument table books at a site of the reference's
+    vocabulary, the programs' `select_batch.pack_buffers`, and never one
+    of its own: a chain and a wave dispatch (K4, K5) book one table each
+    there, and with a lone program (K1, whose argument block goes up
+    unbooked like the rest of the solo path) they leave only
+    `ALLOWED_SITES` in the transfer ledger."""
+    from nomad_tpu_torch.analysis.vocab import ALLOWED_SITES
+    from nomad_tpu_torch.lib.transfer import default_ledger
+
+    arrays, prep, tables, dyn = _table_dispatch(cuda_device, n_prog=5)
+    led = default_ledger()
+    before = led.snapshot().get("select_batch.pack_buffers",
+                                {"bytes": 0, "count": 0})
+    chains = kp.chain_route_counts()
+    kp.place_table_chain(arrays, *tables, prep.rows, *dyn, prep.sspec,
+                         prep.dspec, prep.m)
+    kp.place_table_wave(arrays, *tables, prep.rows.reshape(3, 2),
+                        *[d.reshape(3, 2, -1) for d in dyn], prep.sspec,
+                        prep.dspec, prep.m)
+    assert kp.chain_route_counts() != chains
+    state, _nodes = build_synthetic_state(300, 3000, seed=5)
+    stack = TorchStack(state.cluster, device=cuda_device)
+    job = synth_service_job(random.Random(6), count=4)
+    params, m = stack.compile_tg(job, job.task_groups[0], 4, None)
+    (params,), _ = pad_params([params])
+    kp.place_task_group(stack.device_arrays(),
+                        params_from_numpy(params, cuda_device), m)
+    torch.cuda.synchronize()
+    snap = led.snapshot()
+    assert set(snap) <= ALLOWED_SITES, set(snap) - ALLOWED_SITES
+    after = snap["select_batch.pack_buffers"]
+    assert after["count"] >= before["count"] + 2
+    assert after["bytes"] > before["bytes"]
+
+
+@pytest.mark.cuda
 def test_packed_and_stacked_chains_match_plain(cuda_device):
     from nomad_tpu_torch.convert import params_from_numpy, tensor_from_numpy
     from nomad_tpu_torch.parallel.pad import stack_params

@@ -46,8 +46,20 @@ REWRITTEN = {
                            "tunnel variable to drop",
     "plugins/isolation.py": "the port's own cgroup parent",
     "server/deployments.py": "its logger name is the port's",
-    "analysis/__init__.py": "only the name sets, no lint engine",
-    "analysis/vocab.py": "the four name sets the copies import",
+    "analysis/__init__.py": "the lazy package of the port's lint engine: "
+                            "TORCH_RULES in place of JAX_RULES",
+    "analysis/__main__.py": "prog `python -m nomad_tpu_torch.analysis`; "
+                            "the port's default root and "
+                            "lint_baseline_torch.json; --explain reads "
+                            "tests/torch_lint_fixtures",
+    "analysis/core.py": "paths anchored at nomad_tpu_torch; the port's "
+                        "root and lint_baseline_torch.json; torch_rules "
+                        "in place of jax_rules, no jit registry pass",
+    "analysis/device_rules.py": "NLD01, NLD03 and NLD04 read torch "
+                                "transfers, allocations and lane stacks "
+                                "over the port's scopes; NLD02 left out "
+                                "(torch has no donation)",
+    "analysis/thread_rules.py": "the scope prefixes name the port",
     "kernels/__init__.py": "the port's kernel package",
     "kernels/placement.py": "PyTorch plain versions and CUDA wrappers; "
                             "sharded views route to kernels/shard.py",
@@ -96,6 +108,7 @@ REWRITTEN = {
 #: port modules whose counterpart lies elsewhere in the repository
 ELSEWHERE = {
     "entry.py": "__graft_entry__.py",
+    "analysis/torch_rules.py": "nomad_tpu/analysis/jax_rules.py",
 }
 
 
@@ -146,13 +159,21 @@ def test_agent_http_api_and_cli_have_counterparts(rel):
     assert (PORT / rel).is_file(), f"nomad_tpu/{rel} has no port"
 
 
+@pytest.mark.parametrize("rel", _reference_modules("analysis"))
+def test_lint_engine_has_counterparts(rel):
+    elsewhere = {v: k for k, v in ELSEWHERE.items()}
+    port = PORT / elsewhere.get(f"nomad_tpu/{rel}", rel)
+    assert port.is_file(), f"nomad_tpu/{rel} has no port"
+
+
 def test_only_the_modules_left_out_on_purpose_are_missing():
-    """After the agent and the CLI, the reference's modules without a
-    port are the lint engine of `analysis/`, `lib/roofline.py`, `native/`
-    and `utils/` (the port's `utils.py` stands for it)."""
+    """After the lint engine, the reference's modules without a port at
+    the same path are `analysis/jax_rules.py` (its counterpart is
+    `analysis/torch_rules.py`), `lib/roofline.py`, `native/` and
+    `utils/` (the port's `utils.py` stands for it)."""
     missing = {str(p.relative_to(REF)) for p in REF.rglob("*.py")
                if not (PORT / p.relative_to(REF)).is_file()}
     left_out = {m for m in missing
-                if m.startswith(("analysis/", "native/", "utils/"))
-                or m == "lib/roofline.py"}
+                if m.startswith(("native/", "utils/"))
+                or m in ("analysis/jax_rules.py", "lib/roofline.py")}
     assert missing == left_out, sorted(missing - left_out)

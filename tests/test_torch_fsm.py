@@ -81,6 +81,40 @@ def test_snapshot_restores_across_packages(log, src, dst):
         == mods[src][0].state_fingerprint(state)
 
 
+def test_apply_path_mints_no_id(log, monkeypatch):
+    """nomadlint's NLR02 reads `utils.fast_uuid` (os.urandom) as on the
+    apply path, because `structs.evaluation.new_id` calls it. Replaying
+    a log of every FSM op with fast_uuid raising shows that the apply
+    never mints an id: replicated values carry theirs. Every binding of
+    the function raises, and so does its generator, which a dataclass
+    default factory bound at import also reaches."""
+    import sys
+
+    from nomad_tpu_torch import utils
+
+    want = fingerprints("port", replay("port", log))
+
+    def minted(*_a, **_k):
+        raise AssertionError("the apply path minted an id")
+
+    class _Rng:
+        getrandbits = staticmethod(minted)
+
+    bound = [m for name, m in list(sys.modules.items())
+             if name.startswith("nomad_tpu_torch") and m is not None
+             and getattr(m, "fast_uuid", None) is utils.fast_uuid]
+    assert len(bound) > 3
+    for m in bound:
+        monkeypatch.setattr(m, "fast_uuid", minted)
+    monkeypatch.setattr(utils, "_uuid_rng", _Rng())
+    from nomad_tpu_torch.structs import Deployment, Evaluation
+
+    for make in (Evaluation, Deployment):  # the patch bites where an id
+        with pytest.raises(AssertionError, match="minted"):  # is minted
+            make()
+    assert fingerprints("port", replay("port", log)) == want
+
+
 def test_a_raising_entry_is_skipped_alike(log):
     bad = {"op": "upsert_acl_token",
            "args": [{"__t": "ACLToken", "accessor_id": "x",

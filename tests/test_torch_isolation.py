@@ -14,10 +14,11 @@
   eval through its Raft log, and a port `Client` runs a `raw_exec` and an
   `exec` task to completion through executor children that are the
   port's.
-- Importing the port's agent, its CLI and `python -m nomad_tpu_torch`
-  loads neither torch nor JAX nor a reference module, so a CLI call stays
-  a fast child process; with JAX and the reference package made
-  unimportable, `python -m nomad_tpu_torch agent -dev -device cpu` takes
+- Importing the port's agent, its CLI, `python -m nomad_tpu_torch` and
+  its lint engine (`nomad_tpu_torch.analysis`) loads neither torch nor
+  JAX nor a reference module, so a CLI call stays a fast child process;
+  with JAX and the reference package made unimportable,
+  `python -m nomad_tpu_torch agent -dev -device cpu` takes
   an HCL job from `job run` to a running alloc through
   `python -m nomad_tpu_torch` children, then exits 0 on SIGINT with no
   child left.
@@ -468,7 +469,8 @@ print("ok")
 
 @pytest.mark.parametrize("module", ["nomad_tpu_torch.agent",
                                     "nomad_tpu_torch.cli", "__main__",
-                                    "decode"])
+                                    "decode",
+                                    "nomad_tpu_torch.analysis.__main__"])
 def test_agent_and_cli_import_neither_torch_nor_jax(module):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", _LIGHT_IMPORT, module],
