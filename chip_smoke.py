@@ -40,8 +40,8 @@ non-zero without printing a result:
    outputs and carries bitwise each other and 0.0 from plain, explain off
    and on; both timed in turns with the lane route at C = 1 (back-to-back
    CUDA events and the device span, kernel launches a dispatch — one a
-   chain, two a wave — and peak memory), the bound by the lane route's
-   operations count beside chain.cu's. The fused insert (K8) of 8
+   chain, two a wave — and peak memory), and the function's bound. The
+   fused insert (K8) of 8
    random rows into the table's three class tables (T = 512) bitwise
    against its plain version on the same staged buffer. Times each kernel,
    its plain version and (for the insert) `torch.index_copy`, with each
@@ -262,11 +262,30 @@ non-zero without printing a result:
 14. The lint engine: `python -m nomad_tpu_torch.analysis --fail-on-new
    --stats` as a child must exit 0 with "findings by rule: clean"
    against `lint_baseline_torch.json`; prints its wall and CPU time.
-15. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
+15. The host core and the roofline: (a) the g++ build of
+   `nomad_tpu_torch/native/core.cpp` (made in phase 2, beside the
+   kernels; its seconds and whether it was cached) and `first_fit_ports`
+   against its plain version at fills of 0, 50, 99 and 100 % of the
+   dynamic port range; (b) on a synthetic state of its own (N_NODES
+   nodes, N_ALLOCS allocs) the compiled select (`native.compiled_select`,
+   host arrays only) against `TorchStack.select` on the card (K1) for the
+   seven job variants of the reference's compiled-select test, count 10:
+   the same node and scores within 1e-4 where both place, neither placing
+   where one does not; its sampled mode (a seeded order) places validly
+   with a mean score no higher than the exact mode's; (c) the compiled
+   select's evals/s at N_NODES nodes, count 10, exact and sampled, over
+   HOST_EVALS evals of `bench.py`'s mix, with the host CPU's model, the
+   card's name and power limit; (d) `roofline.summarize` of every kernel
+   timed above, one line each. Every bound this script prints is
+   `nomad_tpu_torch.lib.roofline`'s count of the reference function
+   (`kernel_cost`), one count a function whatever route ran, against the
+   peaks `device_peaks` gives for the card (an unknown card raises).
+16. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
 """
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import copy
 import gc
 import json
@@ -289,10 +308,10 @@ CHURN_ROUNDS = 4
 SPEC_ROUNDS = 3
 SPEC_COUNT = 10
 TOL = 1e-6
-#: published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and fp32
-#: operations/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+#: (fp32 FLOP/s, HBM bytes/s) of the card in use, read by main() from
+#: `nomad_tpu_torch.lib.roofline.device_peaks` (an unknown card raises);
+#: a CPU rehearsal of a phase sets them itself
+PEAKS = None
 
 
 def _compare(want, got, what: str) -> float:
@@ -387,56 +406,15 @@ def _wall_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def _bound(cluster, p, m: int):
-    """Least time the card could take for one program, and what bounds
-    it: each input the function needs read once, each output written
-    once, over HBM bandwidth; against the fp32 operations it does."""
-    return _bound_of([_bound_parts(cluster, p, m)], cluster)
+def _roof(cost):
+    """Least time the card could take for one call of static `cost`
+    (`roofline.kernel_cost`: each input read once, each output written
+    once, the function's operations), and what bounds it."""
+    from nomad_tpu_torch.lib import roofline
 
-
-def _bound_of(parts, cluster, extra_out: int = 0):
-    """Combine per-program (view bytes, program bytes, output bytes,
-    operations): the view is read once however many programs read it;
-    `extra_out` adds outputs written once per dispatch (a carry)."""
-    view = max(v for v, _p, _o, _ops in parts)
-    bytes_ = view + sum(p + o for _v, p, o, _ops in parts) + extra_out
-    return _bound_ms(bytes_, sum(x[3] for x in parts))
-
-
-def _bound_ms(bytes_: float, ops: float):
-    """Least time for `bytes_` moved once and `ops` fp32 operations on
-    the card, and which of the two bounds it."""
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def _bound_parts(cluster, p, m: int, own_carry: bool = True):
-    """One program's share: (view bytes, program bytes, output bytes,
-    operations). `own_carry` counts new_used and final_scores0 as its
-    outputs (K1); a chain program writes only its per-step outputs."""
-    n, r = cluster.capacity.shape
-    c, a = p.key_idx.shape[0], p.aff_key_idx.shape[0]
-    s, q = p.spread_key_idx.shape[0], p.dp_key_idx.shape[0]
-    words = len({int(x) >> 5 for x in p.res_ports.tolist() if x >= 0})
-    attr_b = cluster.attrs.element_size()
-    view_in = (n * r * 4 * 2             # capacity, used
-               + n * (1 + 4)             # node_ok, dyn_free
-               + n * (c + a + s + q) * attr_b   # referenced attr columns
-               + n * words * 4)          # referenced port words
-    prog_in = ((n if p.extra_mask.shape[0] == n else 0)
-               + sum(t.numel() * t.element_size() for t in p))
-    bytes_out = m * 12 + 4                   # per step, nodes_feasible
-    if own_carry:
-        bytes_out += n * r * 4 + n * 4       # new_used, final0
-    ops_row_step = 2 * r + 40 + 12 * s + 4 * q + p.penalty_idx.shape[1]
-    ops = (n * m * ops_row_step
-           + n * (c + a + s + q + p.delta_idx.shape[0] * r
-                  + p.jc_idx.shape[0] + p.jtc_idx.shape[0]
-                  + p.cand_idx.shape[0]
-                  + p.res_ports.shape[0] * (p.pclr_idx.shape[0]
-                                            + p.pset_idx.shape[0])))
-    return view_in, prog_in, bytes_out, ops
+    if PEAKS is None:
+        raise RuntimeError("no peaks of the card: main() reads them")
+    return roofline.bound_ms(cost, PEAKS)
 
 
 def _compare_flat(want, got, what: str, explain: bool) -> float:
@@ -493,63 +471,12 @@ def _table_transport(torch, progs, dev):
     return prep, (ti, tf, tu), dyn
 
 
-def _active_steps(p, sel) -> int:
-    """Steps the lane route runs of one program with selections `sel`
-    (this run's): a step past n_place after a step that placed nothing,
-    with the previous step's penalty rows, is idle (csrc/lanes.cu
-    `idle_step`) and does no row work."""
-    pen = p.penalty_idx.tolist()
-    n_place = int(p.n_place)
-    return sum(1 for s in range(len(sel))
-               if not (s > 0 and s >= n_place and int(sel[s - 1]) < 0
-                       and pen[s] == pen[s - 1]))
-
-
-def _lane_ops(cluster, p, m: int, explain: bool, steps: int) -> int:
-    """Operations of one program on the chain and wave lane route
-    (csrc/lanes.cu), `steps` of its m steps run: K6's on-chip count
-    (`_onchip_ops`: a row's terms once a program, ≈ 9 operations a row
-    step after), the new carry of the rows the program touched, and with
-    explain the static filter counts a row, the filter tests and the
-    top-K insertion a row step, and per step the top-K merges and the K
-    rows' parts recomputed."""
-    n, r = cluster.capacity.shape
-    c, d = p.key_idx.shape[0], p.delta_idx.shape[0]
-    ops = _onchip_ops(cluster, p, steps) + (d + m) * (r * (m + 2) + m + 2)
-    if explain:
-        k = min(5, n)
-        row = 2 * r + 40 + c + p.aff_key_idx.shape[0]
-        ops += (n * (c + p.cand_idx.shape[0] + 3) + n * steps * (6 + 2 * k)
-                + steps * k * (row + d * r + 16 * 8 + 5))
-    return ops
-
-
-def _chain_bound(kp, arrays, prep, tables, dyn, sel, n_lanes=1,
-                 explain=True):
-    """Bound of one chain or wave dispatch whose selections were `sel`
-    ([programs, m], this run's): the view read once, every program's
-    static and dynamic fields, per-step outputs, and the final carry
-    written once, against the operations of the lane route (`_lane_ops`,
-    the steps this run's data makes it run). Returns (bound ms, what
-    bounds it, and the same by chain.cu's count — every term of every row
-    at every step)."""
-    n, r = arrays.capacity.shape
-    batch = kp._assemble_table_batch(*tables, kp.host_rows(prep.rows)
-                                     .reshape(-1), *(d.reshape(
-                                         -1, d.shape[-1]) for d in dyn),
-                                     prep.sspec, prep.dspec)
-    parts = [_bound_parts(arrays, kp._program(batch, b), prep.m,
-                          own_carry=False)
-             for b in range(batch.n_place.shape[0])]
-    carry = n * r * 4 + n * 4 + (4 if n_lanes > 1 else 0)
-    sel = sel.reshape(len(parts), -1).cpu()
-    lane = []
-    for b, (v, pr, o, _ops) in enumerate(parts):
-        p = kp._program(batch, b)
-        lane.append((v, pr, o, _lane_ops(arrays, p, prep.m, explain,
-                                         _active_steps(p, sel[b]))))
-    return (*_bound_of(lane, arrays, extra_out=carry),
-            *_bound_of(parts, arrays, extra_out=carry))
+def _table_programs(kp, prep, tables, dyn):
+    """The programs a table chain or wave reads, as one batch."""
+    return kp._assemble_table_batch(*tables, kp.host_rows(prep.rows)
+                                    .reshape(-1), *(d.reshape(
+                                        -1, d.shape[-1]) for d in dyn),
+                                    prep.sspec, prep.dspec)
 
 
 #: dispatches a timing of phase 5's chain and wave routes takes a turn
@@ -644,17 +571,6 @@ def _k1_routes(torch, kp, arrays, p, m, explain, card=""):
     return res["lane"], out
 
 
-def _k1_bound(kp, arrays, p, m, sel, explain):
-    """Bound of one K1 program on the lane route: the view read once, the
-    program's fields, its outputs with new_used and final_scores0, against
-    the lane route's operations (`_lane_ops`, the steps this run's data
-    runs). Returns (ms, what bounds it)."""
-    cpu = kp.TGParams(*(t.cpu() for t in p))
-    v, pr, o, _ops = _bound_parts(arrays, cpu, m)
-    ops = _lane_ops(arrays, cpu, m, explain, _active_steps(cpu, sel.cpu()))
-    return _bound_of([(v, pr, o, ops)], arrays)
-
-
 def _leaves(x) -> list:
     """The tensors of nested tuples (outputs and carries), in order."""
     if isinstance(x, (tuple, list)):
@@ -727,14 +643,14 @@ def _lane_routes(torch, kp, what, run, explain, bound, kind):
               f"): events {r['events']:.4f} ms, span {r['span']:.4f} ms, "
               f"{r['launches']} kernel launches a dispatch, peak "
               f"{r['peak']:.2f} MiB")
-    print(f"{what}: bound {bound['ms']:.6f} ms ({bound['by']}; chain.cu's "
-          f"count {bound['old_ms']:.6f} ms, {bound['old_by']}); lane route "
-          f"bitwise chain.cu's at C={picked} and C=1")
+    print(f"{what}: bound {bound['ms']:.6f} ms ({bound['by']}); lane "
+          f"route bitwise chain.cu's at C={picked} and C=1")
     return outs["picked"], out
 
 
 def _phase5_kernels(torch, kp, kr, cases, nodes, rng):
     """K4, K5 and K8 against their plain versions at full width, timed."""
+    from nomad_tpu_torch.lib import roofline
     from nomad_tpu_torch.synth import synth_service_job
 
     out = {"err": {"chain": 0.0, "wave": 0.0, "insert": 0.0}}
@@ -763,9 +679,12 @@ def _phase5_kernels(torch, kp, kr, cases, nodes, rng):
         shapes = {name: tuple(shape) for name, _c, _o, shape in
                   tuple(prep.sspec) + tuple(prep.dspec)}
         dims = kp._program_dims(shapes, prep.m, explain, n)
-        ms, by, old_ms, old_by = _chain_bound(kp, arrays, prep, tables, dyn,
-                                              sel, lanes, explain)
-        return dict(ms=ms, by=by, old_ms=old_ms, old_by=old_by,
+        cost = roofline.kernel_cost(
+            "place_table_wave" if lanes > 1 else "place_table_chain",
+            cluster=arrays, programs=_table_programs(kp, prep, tables, dyn),
+            m=prep.m, sel=sel, explain=explain, lanes=lanes)
+        ms, by = _roof(cost)
+        return dict(ms=ms, by=by, cost=cost,
                     route_args=(n, lanes, dims, r, sms))
 
     def chain_case(what, prep, tables, dyn):
@@ -799,6 +718,7 @@ def _phase5_kernels(torch, kp, kr, cases, nodes, rng):
     out["chain"] = dict(ms=on["picked"]["events"], plain_ms=k4["plain"],
                         bound_ms=on["bound"]["ms"],
                         bound_by=on["bound"]["by"], library_ms=None,
+                        cost=on["bound"]["cost"],
                         span_ms=on["picked"]["span"],
                         explain_off_ms=off["picked"]["events"],
                         c1_ms=on["c1"]["events"],
@@ -868,7 +788,8 @@ def _phase5_kernels(torch, kp, kr, cases, nodes, rng):
     on, off = k5[True], k5[False]
     out["wave"] = dict(ms=on["picked"]["events"], plain_ms=w_plain,
                        bound_ms=on["bound"]["ms"], bound_by=on["bound"]["by"],
-                       library_ms=None, span_ms=on["picked"]["span"],
+                       library_ms=None, cost=on["bound"]["cost"],
+                       span_ms=on["picked"]["span"],
                        explain_off_ms=off["picked"]["events"],
                        c1_ms=on["c1"]["events"],
                        chain_cu_ms=on["chain.cu"]["events"],
@@ -923,6 +844,7 @@ def _k8_timing(torch, kr, tables, rng):
     import numpy as np
 
     from nomad_tpu_torch.convert import to_device_async
+    from nomad_tpu_torch.lib import roofline
 
     dev = tables[0].device
     t = tables[0].shape[0]
@@ -972,9 +894,10 @@ def _k8_timing(torch, kr, tables, rng):
     alloc_ms = _wall_ms(lambda: [torch.empty(x.shape, dtype=x.dtype,
                                              device=dev) for x in tables], 200)
     pack_ms = _wall_ms(lambda: kr.pack_insert(idx, *rows, dev), 200)
-    nbytes = (2 * t * (4 * li + 4 * lf + lu)
-              + k * (4 + 4 * li + 4 * lf + lu))
-    res["bound_ms"], res["bound_by"] = _bound_ms(nbytes, 0)
+    res["cost"] = roofline.kernel_cost("table_insert", table_rows=t, rows=k,
+                                       widths=(li, lf, lu))
+    nbytes = int(res["cost"]["bytes_accessed"])
+    res["bound_ms"], res["bound_by"] = _roof(res["cost"])
     print(f"insert (K = {k} rows into the i32/f32/u8 tables of T = {t} rows, "
           f"row bytes {[4 * li, 4 * lf, lu]}): call: kernel "
           f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, index_copy "
@@ -1567,6 +1490,7 @@ def _k7_timing(torch, kr, cl, out) -> None:
     import numpy as np
 
     from nomad_tpu_torch.convert import tensor_from_numpy, to_device_async
+    from nomad_tpu_torch.lib import roofline
     from nomad_tpu_torch.scheduler.stack import TorchStack
 
     v = TorchStack(cl).device_arrays()
@@ -1631,9 +1555,11 @@ def _k7_timing(torch, kr, cl, out) -> None:
     res["route_ms"] = _time_ms(lambda: kr.apply_view_delta(bufs, delta), 200)
     res["library_route_ms"] = _time_ms(torch_route, 200)
     pack_ms = _wall_ms(lambda: kr.pack_view_delta([delta], [bufs], dev), 200)
-    nbytes = (64 * (4 + 4 * r + 1 + 4) + 64 * (4 * r + 1 + 4)
-              + 8 * (4 + 4 * w) + 8 * 4 * w + 64 * 12 + 64 * 4)
-    res["bound_ms"], res["bound_by"] = _bound_ms(nbytes, 0)
+    res["cost"] = roofline.kernel_cost("view_delta", hot_rows=64, r=r,
+                                       port_rows=8, port_words=64,
+                                       words_per_row=w)
+    nbytes = int(res["cost"]["bytes_accessed"])
+    res["bound_ms"], res["bound_by"] = _roof(res["cost"])
     out["k7"] = res
     ports_np = np.ascontiguousarray(cl.ports_used)
     hot = (cl.used, cl.node_ok, cl.dyn_free)
@@ -1831,63 +1757,6 @@ def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _k2_bound(arrays, p):
-    """K2 reads capacity, used, node_ok, dyn_free, the referenced
-    attribute columns and port words and the program's fields, and
-    writes two bool[N]."""
-    n, r = arrays.capacity.shape
-    c, d = p.key_idx.shape[0], p.delta_idx.shape[0]
-    pp, pc, ps = (p.res_ports.shape[0], p.pclr_idx.shape[0],
-                  p.pset_idx.shape[0])
-    words = len({int(x) >> 5 for x in p.res_ports.tolist() if x >= 0})
-    bytes_ = (n * r * 4 * 2 + n * (1 + 4) + n * c * arrays.attrs.element_size()
-              + n * words * 4 + 2 * n
-              + _nbytes(p.ask, p.key_idx, p.lut, p.extra_mask, p.delta_idx,
-                        p.delta_res, p.res_ports, p.n_dyn, p.pclr_idx,
-                        p.pclr_port, p.pset_idx, p.pset_port))
-    ops = n * (c + 2 * r + d * (r + 1) + pp * (pc + ps + 2) + 2 * (pc + ps))
-    return _bound_ms(bytes_, ops)
-
-
-def _k3_walk(torch, kpre, arrays, p, cand, order):
-    """Candidate slots K3's prefix walk must read on this data: up to the
-    first fitting prefix, or up to the first ineligible slot where none
-    fits (summed over rows)."""
-    prio_s = torch.gather(cand.prio, 1, order.long())
-    elig = torch.cumprod((prio_s < kpre.INF_PRIO).int(), dim=1).bool()
-    r = arrays.capacity.shape[1]
-    usage_s = torch.gather(cand.usage, 1,
-                           order.long()[:, :, None].expand(-1, -1, r))
-    util = (arrays.used[:, None, :] - torch.cumsum(usage_s, dim=1)) \
-        + p.ask[None, None, :]
-    fits = torch.all(util <= arrays.capacity[:, None, :], dim=2) & elig
-    first = torch.argmax(fits.int(), dim=1) + 1
-    walked = torch.where(fits.any(dim=1), first, elig.sum(dim=1))
-    return int(walked.sum())
-
-
-def _k3_bound(torch, kpre, arrays, p, cand, order, entries=None):
-    """K3 reads every row's priorities (the rank sort), the usage rows its
-    walk reaches, capacity, used, node_ok, the referenced attribute
-    columns; writes order, feasible, scores and the three scalars. Its
-    operations: A² rank compares a row, R per walked slot. On the dense
-    table the priorities are N·A words; on the compact table of `entries`
-    real victims they are the row offsets and each entry's slot and
-    priority (the absent slots are pads the kernel writes itself)."""
-    n, a = cand.prio.shape
-    r = arrays.capacity.shape[1]
-    walked = _k3_walk(torch, kpre, arrays, p, cand, order)
-    cols = p.key_idx.shape[0] + p.dp_key_idx.shape[0]
-    table = n * a * 4 if entries is None else 4 * (n + 1) + 8 * entries
-    bytes_ = (table + walked * r * 4 + n * r * 4 * 2 + n
-              + n * cols * arrays.attrs.element_size()
-              + n * a * 4 + n + n * 4 + 12
-              + _nbytes(p.ask, p.key_idx, p.lut, p.extra_mask, p.jc_idx,
-                        p.jc_val, p.dp_key_idx, p.dp_counts0))
-    ops = n * a * a * 2 + walked * (r * 3 + 1) + n * (cols + 20)
-    return _bound_ms(bytes_, ops), walked
-
-
 def _fill_empty_nodes(state, nodes, rng) -> int:
     """One priority-50 filler alloc on every node that runs none, so an
     ask larger than any node's free room needs an eviction everywhere (a
@@ -1981,6 +1850,7 @@ def _k2_against_plain(torch, kp, state, nodes, rng, out, device):
     route the system scheduler took before it (`params_from_numpy`'s copy
     a field, the old pass, a copy a mask)."""
     from nomad_tpu_torch.convert import params_from_numpy
+    from nomad_tpu_torch.lib import roofline
     from nomad_tpu_torch.scheduler import stack as stack_mod
 
     cl = state.cluster
@@ -2037,7 +1907,9 @@ def _k2_against_plain(torch, kp, state, nodes, rng, out, device):
                          for k, q in (("tensors", p), ("numpy", params))}
                 plain_ms = _time_ms(
                     lambda: kp.system_feasibility_plain(arrays, p), 50)
-                bound_ms, bound_by = _k2_bound(arrays, p)
+                cost = roofline.kernel_cost("system_feasibility",
+                                            cluster=arrays, program=p)
+                bound_ms, bound_by = _roof(cost)
                 line += (f"; kernel {ev['new']:.4f} ms a call (old pass "
                          f"{ev['old']:.4f}; back-to-back CUDA events, 200 "
                          f"calls in turns new, old, old, new), route from "
@@ -2054,7 +1926,8 @@ def _k2_against_plain(torch, kp, state, nodes, rng, out, device):
                 if label == "system job":
                     out["k2"] = dict(ms=ev["new"], plain_ms=plain_ms,
                                      bound_ms=bound_ms, bound_by=bound_by,
-                                     library_ms=None, old_pass_ms=ev["old"],
+                                     library_ms=None, cost=cost,
+                                     old_pass_ms=ev["old"],
                                      host_route_ms=host["new"],
                                      old_host_route_ms=host["old"],
                                      setup_ms=setup["tensors"],
@@ -2136,6 +2009,7 @@ def _k3_against_plain(torch, kpre, state, rng, out, device):
                                          params_from_numpy)
     from nomad_tpu_torch.device import resolve_device
     from nomad_tpu_torch.kernels import placement as kp
+    from nomad_tpu_torch.lib import roofline
     from nomad_tpu_torch.scheduler.preemption import (candidate_table,
                                                       ranked_cluster,
                                                       ranked_snapshot)
@@ -2250,11 +2124,14 @@ def _k3_against_plain(torch, kpre, state, rng, out, device):
                         + _nbytes(*(t for t in arrays if t is not None)))
             plain_ms = _time_ms(
                 lambda: kpre.preempt_rank_plain(arrays, p, cand), 20)
-            (bound_ms, bound_by), walked = _k3_bound(
-                torch, kpre, arrays, p, cand, got.order)
-            (cbound_ms, cbound_by), _w = _k3_bound(
-                torch, kpre, arrays, p, cand, got.order,
-                entries=int(compact.offsets[-1]))
+            cost = roofline.kernel_cost("preempt_rank", cluster=arrays,
+                                        program=p, candidates=cand,
+                                        order=got.order)
+            walked = cost["slots_walked"]
+            bound_ms, bound_by = _roof(cost)
+            cbound_ms, cbound_by = _roof(roofline.kernel_cost(
+                "preempt_rank", cluster=arrays, program=p, candidates=cand,
+                order=got.order, entries=int(compact.offsets[-1])))
             line += (f"; kernel {ev['new']:.4f} ms a call from dense "
                      f"tensors (old route {ev['old']:.4f}; back-to-back "
                      f"CUDA events, 200 calls in turns new, old, old, new), "
@@ -2277,7 +2154,7 @@ def _k3_against_plain(torch, kpre, state, rng, out, device):
             if label == "filler allocs":
                 out["k3"] = dict(
                     ms=ev["new"], plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, library_ms=None,
+                    bound_by=bound_by, library_ms=None, cost=cost,
                     old_route_ms=ev["old"], compact_ms=compact_ms,
                     launch_ms=launch_ms,
                     compact_bound_ms=cbound_ms, host_route_ms=host["new"],
@@ -2716,57 +2593,6 @@ def _once_ms(torch, fn, on_card: bool):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def _batch_bound(torch, kp, arrays, batch, m, packed=False):
-    """Bound of one K6 (or K9) dispatch: the view read once, every
-    program's fields, and each program's outputs — its new_used and
-    final_scores0 among them, or with `packed` (`place_packed_batch`,
-    which returns only sel_idx and sel_score) those two alone."""
-    cpu = kp.TGParams(*(t.cpu() for t in batch))
-    parts = [_bound_parts(arrays, kp._program(cpu, b), m)
-             for b in range(cpu.n_place.shape[0])]
-    if packed:
-        parts = [(v, p, m * 8, ops) for v, p, _o, ops in parts]
-    return _bound_of(parts, arrays)
-
-
-def _onchip_ops(cluster, p, m: int) -> int:
-    """Operations of one program on K6's on-chip route (csrc/batch.cu),
-    which computes a row's score terms once and then only what a step
-    changes: every row's entry from the view once (the fit over R, the
-    score prefix, the constraint, affinity, token and port lookups); the
-    rows the program's lists name recomputed from all their terms, with
-    the repeat check; per row and step the spread table lookups and
-    adds, the distinct_property mask lookups and tests, the bit test,
-    the prefix add, the divide and the argmax compare; per step the
-    spread and distinct_property tables, and the placed row and the
-    penalty rows recomputed."""
-    n, r = cluster.capacity.shape
-    c, a = p.key_idx.shape[0], p.aff_key_idx.shape[0]
-    s, q = p.spread_key_idx.shape[0], p.dp_key_idx.shape[0]
-    sv, dv = p.spread_desired.shape[-1], p.dp_counts0.shape[-1]
-    j, j2, d = p.jc_idx.shape[0], p.jtc_idx.shape[0], p.delta_idx.shape[0]
-    pc, ps = p.pclr_idx.shape[0], p.pset_idx.shape[0]
-    pn = p.penalty_idx.shape[1]
-    row = 2 * r + 40 + c + a + s + q + p.res_ports.shape[0]
-    recompute = row + d * r + j + j2 + pc + ps
-    lists = d + j + j2 + pc + ps + p.cand_idx.shape[0]
-    return (n * row + lists * (recompute + lists)
-            + n * m * (2 * s + 2 * q + 5)
-            + m * (s * sv * 14 + q * dv * 3 + (1 + pn) * (recompute + m * r)))
-
-
-def _onchip_bound(torch, kp, arrays, batch, m):
-    """Bound of one packed K6 dispatch on the on-chip route: the bytes of
-    `_batch_bound(packed=True)`, the operations of `_onchip_ops`."""
-    cpu = kp.TGParams(*(t.cpu() for t in batch))
-    parts = []
-    for b in range(cpu.n_place.shape[0]):
-        p = kp._program(cpu, b)
-        v, pr, _o, _ops = _bound_parts(arrays, p, m)
-        parts.append((v, pr, m * 8, _onchip_ops(arrays, p, m)))
-    return _bound_of(parts, arrays)
-
-
 def _k6_samples(torch, kp, fn, reps: int):
     """`reps` K6 packed dispatches of `fn`, one at a time: each one's host
     clock (the card synced before and after) and device span (a CUDA
@@ -2865,6 +2691,7 @@ def _phase9_batch(torch, kp, state, rng, device=None):
     routes timed in turns with their bounds and peaks. `device="cpu"`
     rehearses the control flow (every side plain, nothing timed)."""
     from nomad_tpu_torch.convert import params_from_numpy, tensor_from_numpy
+    from nomad_tpu_torch.lib import roofline
     from nomad_tpu_torch.parallel.pad import stack_params
     from nomad_tpu_torch.scheduler.stack import TorchStack
 
@@ -2929,10 +2756,9 @@ def _phase9_batch(torch, kp, state, rng, device=None):
                 torch, lambda: kp.place_task_group_batch_plain(arrays, pb, m),
                 on_card)
             out["err"] = max(out["err"], _compare(want, got, f"K6 B={b}"))
-            bound_ms, bound_by = _onchip_bound(torch, kp, arrays, pb, m)
-            pooled_bound = _batch_bound(torch, kp, arrays, pb, m,
-                                        packed=True)
-            full_bound = _batch_bound(torch, kp, arrays, pb, m)
+            cost = roofline.kernel_cost("place_packed_batch", cluster=arrays,
+                                        programs=pb, m=m)
+            bound_ms, bound_by = _roof(cost)
             del want, got
         del full
     if on_card:
@@ -2941,7 +2767,8 @@ def _phase9_batch(torch, kp, state, rng, device=None):
         # it the device span and, on the same inputs, the pooled route
         out["k6"] = dict(ms=rs["onchip"]["events"], plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=None, span_ms=rs["onchip"]["span"],
+                         library_ms=None, cost=cost,
+                         span_ms=rs["onchip"]["span"],
                          pooled_ms=rs["pooled"]["events"])
         for b, rs in routes.items():
             print(f"K6 packed routes B={b} M={m}: on-chip and pooled sel_idx "
@@ -2957,9 +2784,8 @@ def _phase9_batch(torch, kp, state, rng, device=None):
                          if r.get("config") else "")
                       for route, r in rs.items()))
     print(f"K6==plain B={K6_BATCH} M={m}: the full-carry route equals "
-          f"plain; bound on-chip route {bound_ms:.6f} ms ({bound_by}), "
-          f"pooled route {pooled_bound[0]:.6f} ms ({pooled_bound[1]}), "
-          f"full-carry {full_bound[0]:.6f} ms ({full_bound[1]}); plain "
+          f"plain; bound {bound_ms:.6f} ms ({bound_by}; "
+          f"place_packed_batch's count, whichever route); plain "
           f"{plain_ms:.1f} ms")
     print(f"phase 9 (a) took {time.perf_counter() - t0:.1f} s")
     return stack, arrays, out
@@ -3012,6 +2838,7 @@ def _phase9_oversized(torch, kp, arrays, small, device=None):
     and the bound at that shape. Returns (pooled dispatches, max error,
     the kernels line's numbers or None)."""
     from nomad_tpu_torch.convert import params_from_numpy, tensor_from_numpy
+    from nomad_tpu_torch.lib import roofline
 
     dev = torch.device(device or "cuda")
     on_card = dev.type == "cuda"
@@ -3051,11 +2878,14 @@ def _phase9_oversized(torch, kp, arrays, small, device=None):
                              "from the on-chip route on the unpadded view")
     nums = None
     if on_card:
-        bound_ms, bound_by = _batch_bound(
-            torch, kp, view, params_from_numpy(batch, "cpu"), m, packed=True)
+        cost = roofline.kernel_cost("place_packed_batch", cluster=view,
+                                    programs=params_from_numpy(batch, "cpu"),
+                                    m=m)
+        bound_ms, bound_by = _roof(cost)
         nums = dict(ms=_time_ms(lambda: kp.place_packed_batch(
             view, *bufs, spec, m), K6_REPS), plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            cost=cost)
     print(f"K6 oversized view N={OVERSIZED_N} B={OVERSIZED_B} M={m}: "
           f"place_packed_batch took the pooled route ({launches} dispatch), "
           f"== plain (max_abs_err {err}), bitwise the on-chip route on the "
@@ -3159,23 +2989,6 @@ def _k9_against(torch, ks, mesh, sc, batched, m, want6, what, on_card):
 K9_REPS = 5
 
 
-def _k9_bound(kp, arrays, batch, m, sel):
-    """Bound of one K9 dispatch on the cluster route: the bytes of
-    `_batch_bound` (the view once, every program's fields and outputs,
-    new_used [B, N, R] among them), against the lane route's operations a
-    program (`_lane_ops`, the steps this run's data runs) and the fold's
-    two a carry element."""
-    cpu = kp.TGParams(*(t.cpu() for t in batch))
-    n, r = arrays.capacity.shape
-    parts = []
-    for b in range(cpu.n_place.shape[0]):
-        p = kp._program(cpu, b)
-        v, pr, o, _ops = _bound_parts(arrays, p, m)
-        parts.append((v, pr, o, _lane_ops(arrays, p, m, False, _active_steps(
-            p, sel[b].cpu())) + 2 * n * r))
-    return _bound_of(parts, arrays)
-
-
 def _k9_routes(torch, kp, ks, sc, batched, m, what, card=""):
     """K9 with the fold on both CUDA routes of one sharded view: the
     cluster route (by shape) and the steps route (`route="steps"`),
@@ -3238,6 +3051,7 @@ def _phase9_shard(torch, kp, arrays, small, device=None, card=""):
     from nomad_tpu_torch import entry
     from nomad_tpu_torch.convert import params_from_numpy
     from nomad_tpu_torch.kernels import shard as ks
+    from nomad_tpu_torch.lib import roofline
     from nomad_tpu_torch.parallel import make_mesh, shard_cluster
 
     on_card = device is None or torch.device(device).type == "cuda"
@@ -3272,8 +3086,11 @@ def _phase9_shard(torch, kp, arrays, small, device=None, card=""):
                                       params_from_numpy(batched,
                                                         arrays.used.device),
                                       m)
-    old_bound, old_by = _batch_bound(
-        torch, kp, arrays, params_from_numpy(batched, "cpu"), m)
+    # K9's selections equal K6's on the whole view (held below)
+    cost = roofline.kernel_cost("scheduler_step", cluster=arrays,
+                                programs=params_from_numpy(batched, "cpu"),
+                                m=m, sel=want6.sel_idx)
+    bound_ms, bound_by = _roof(cost)
     for shape in K9_SHAPES:
         mesh = make_mesh(4, batch=shape[0], devices=devs)
         sc = shard_cluster(arrays, mesh)
@@ -3282,22 +3099,19 @@ def _phase9_shard(torch, kp, arrays, small, device=None, card=""):
             f"phase-3 cluster {shape}", on_card))
         _w, plain_ms = _once_ms(torch, lambda: ks.sharded_place_plain(
             sc, batched, m, fold=True), on_card)
-        nums = dict(ms=None, plain_ms=plain_ms, bound_ms=old_bound,
-                    bound_by=old_by, library_ms=None)
+        nums = dict(ms=None, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=None, cost=cost)
         if on_card and count == 1:
-            got, rs = _k9_routes(torch, kp, ks, sc, batched, m,
-                                 f"B={SMALL_BATCH} {shape}", card)
-            bound_ms, bound_by = _k9_bound(kp, arrays, params_from_numpy(
-                batched, "cpu"), m, got[0].sel_idx)
+            _got, rs = _k9_routes(torch, kp, ks, sc, batched, m,
+                                  f"B={SMALL_BATCH} {shape}", card)
             c, st = rs["cluster"], rs["steps"]
             nums.update(
-                ms=c["host"], bound_ms=bound_ms, bound_by=bound_by,
-                span_ms=c["span"], host_calls=c["calls"],
+                ms=c["host"], span_ms=c["span"], host_calls=c["calls"],
                 kernel_launches=c["launches"], peak_mib=c["peak"],
                 steps_ms=st["host"], steps_span_ms=st["span"],
                 steps_host_calls=st["calls"],
                 steps_kernel_launches=st["launches"],
-                steps_peak_mib=st["peak"], steps_bound_ms=old_bound)
+                steps_peak_mib=st["peak"])
         elif on_card:
             nums["ms"] = _host_ms(torch, lambda: ks.sharded_place(
                 sc, batched, m, fold=True), K9_REPS)
@@ -3308,8 +3122,7 @@ def _phase9_shard(torch, kp, arrays, small, device=None, card=""):
               + (f"{ms:.4f} ms a dispatch, {ms / m:.4f} ms a step"
                  if ms is not None else "not timed")
               + f"; plain {plain_ms:.1f} ms; bound {nums['bound_ms']:.6f} ms "
-              f"({nums['bound_by']}; the steps route's count "
-              f"{old_bound:.6f} ms, {old_by}); shards on {sorted(set(devs))}")
+              f"({nums['bound_by']}); shards on {sorted(set(devs))}")
     print(f"phase 9 (c) took {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -3469,20 +3282,18 @@ def _phase10_routes(torch, kp, ks, arrays, chain, single, sysp, device=None,
     pass a shard, rebased), plain and K2 bit for bit, from tensors and
     from numpy; the two are timed in turns with their launches, host
     calls and torch operations a call."""
+    from nomad_tpu_torch.lib import roofline
     from nomad_tpu_torch.parallel import shard_cluster
 
     on_card = device is None or torch.device(device).type == "cuda"
     bufs, spec, m, stacked = chain
     p1, m1 = single
     out = {"err": dict.fromkeys(("chain", "single", "system"), 0.0)}
-    cpu_batch = kp.TGParams(*(t.cpu() for t in stacked))
-    bounds = {
-        "chain": _bound_of([_bound_parts(arrays, kp._program(cpu_batch, b),
-                                         m, own_carry=False)
-                            for b in range(cpu_batch.n_place.shape[0])],
-                           arrays),
-        "single": _bound(arrays, p1, m1),
-        "system": _k2_bound(arrays, sysp)}
+    # one count a function, whichever route or view: B10 is K4's, B11
+    # K1's, B12 K2's, from the whole view's shapes and the selections
+    # (equal to the unsharded kernel's, held below)
+    costs = {"system": roofline.kernel_cost("system_feasibility",
+                                            cluster=arrays, program=sysp)}
     batch = kp._unpack_params(*bufs, spec)
     batch1 = kp.TGParams(*(t.unsqueeze(0) for t in p1))
     unsharded = {"chain": "K4", "single": "K1", "system": "K2"}
@@ -3501,6 +3312,10 @@ def _phase10_routes(torch, kp, ks, arrays, chain, single, sysp, device=None,
                 sc, batch, m, explain)[0], explain)
             k4 = kp.place_packed_chain(arrays, *bufs, spec, m,
                                        explain=explain)
+            if explain and "chain" not in costs:
+                costs["chain"] = roofline.kernel_cost(
+                    "place_packed_chain", cluster=arrays, programs=stacked,
+                    m=m, sel=k4[0], explain=True)
             for want, what in ((plain, "plain"), (k4, "K4")):
                 out["err"]["chain"] = max(out["err"]["chain"], _compare_flat(
                     (want, ()), (got, ()), f"B10 {shape} vs {what}",
@@ -3508,8 +3323,11 @@ def _phase10_routes(torch, kp, ks, arrays, chain, single, sysp, device=None,
         got = kp.place_task_group(sc, p1, m1, explain=True)
         calls["single"] = ks.host_calls()
         plain = ks.sharded_task_group_plain(sc, p1, m1, True)
-        for want, what in ((plain, "plain"),
-                           (kp.place_task_group(arrays, p1, m1, True), "K1")):
+        k1 = kp.place_task_group(arrays, p1, m1, True)
+        costs.setdefault("single", roofline.kernel_cost(
+            "place_task_group", cluster=arrays, program=p1, m=m1,
+            sel=k1.sel_idx, explain=True))
+        for want, what in ((plain, "plain"), (k1, "K1")):
             out["err"]["single"] = max(out["err"]["single"], _compare(
                 want, got, f"B11 {shape} vs {what}"))
         if on_card and layout == "cluster":
@@ -3571,11 +3389,12 @@ def _phase10_routes(torch, kp, ks, arrays, chain, single, sysp, device=None,
         for route, (kernel, plain_fn) in fns.items():
             ms = _host_ms(torch, kernel, ROUTE_REPS) if on_card else None
             _w, plain_ms = _once_ms(torch, plain_fn, on_card)
-            bound_ms, bound_by = bounds[route]
+            bound_ms, bound_by = _roof(costs[route])
             times = (_route_times(torch, ks, route, two[route], on_card)
                      if route in two and layout == "cluster" else {})
             entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=None)
+                         bound_by=bound_by, library_ms=None,
+                         cost=costs[route])
             b12 = (_b12_routes(torch, ks, kp, sc, sysp)
                    if route == "system" and on_card else None)
             if b12:
@@ -3671,6 +3490,7 @@ def _phase10_view(torch, kr, cl, nodes, rng, device=None):
     import numpy as np
 
     from nomad_tpu_torch.kernels.placement import ClusterArrays
+    from nomad_tpu_torch.lib import roofline
     from nomad_tpu_torch.parallel import set_active_mesh
     from nomad_tpu_torch.parallel.mesh import copy_fields, shard_copies
     from nomad_tpu_torch.scheduler import stack as stack_mod
@@ -3772,13 +3592,13 @@ def _phase10_view(torch, kr, cl, nodes, rng, device=None):
             kr.apply_view_delta(k7_bufs(plain), delta, rows)
         plain_ms = (time.perf_counter() - t0) / 20 * 1e3
         n_copies = len(shard_copies(sc))
-        # a hot row reads its index, used, node_ok and dyn_free values and
-        # writes the last three, once in each copy of its shard
-        row_in = 4 + cl.used.shape[1] * 4 + 1 + 4
-        bound_ms, bound_by = _bound_ms(
-            64 * (n_copies // len(sc.row0)) * (2 * row_in - 4), 0)
+        # K7's count: 64 hot rows, once in each copy of its shard
+        cost = roofline.kernel_cost(
+            "view_delta", hot_rows=64 * (n_copies // len(sc.row0)),
+            r=cl.used.shape[1])
+        bound_ms, bound_by = _roof(cost)
         out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, library_ms=None)
+                   bound_by=bound_by, library_ms=None, cost=cost)
         print(f"phase 10 (a) B13 (2, 2): 2 churn rounds refreshed with K7 per "
               f"shard ({len(calls)} flushes, {launches} K7 launches for "
               f"{copies_changed} shard copies with changes, parts {parts}); "
@@ -5561,6 +5381,196 @@ def _phase14_lint(card=""):
           f"{cpu:.3f} s; {card}")
 
 
+# ---- phase 15: the host core and the roofline ----
+
+#: phase 15: allocs a select places (b), evals a mode of the throughput (c)
+SELECT_COUNT = 10
+HOST_EVALS = 256
+#: the seven job variants of the reference's compiled-select test
+SELECT_VARIANTS = (
+    dict(), dict(with_affinity=True), dict(with_spread=True),
+    dict(distinct_hosts=True),
+    dict(with_affinity=True, with_spread=True, distinct_hosts=True),
+    dict(distinct_property=True), "even_spread")
+#: first_fit_ports against its plain version: shares of the dynamic
+#: range in use, and counts asked
+PORT_FILLS = (0.0, 0.5, 0.99, 1.0)
+PORT_COUNTS = (1, 8, 64)
+
+
+def _cpu_model() -> str:
+    """The host CPU as /proc/cpuinfo gives it: its `model name` (which a
+    virtual machine may report as "unknown"), vendor, family, model and
+    clock, and the logical CPUs."""
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _sep, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    return (f"model name {fields.get('model name', 'absent')} "
+            f"({fields.get('vendor_id', '?')}, family "
+            f"{fields.get('cpu family', '?')}, model "
+            f"{fields.get('model', '?')}, {fields.get('cpu MHz', '?')} MHz), "
+            f"{os.cpu_count()} logical CPUs")
+
+
+def _select_job(rng, variant, count):
+    from nomad_tpu_torch.structs import Spread
+    from nomad_tpu_torch.synth import synth_service_job
+
+    if variant == "even_spread":
+        job = synth_service_job(rng, count=count)
+        job.spreads.append(Spread(attribute="${node.datacenter}",
+                                  weight=100))
+        return job
+    return synth_service_job(rng, count=count, **variant)
+
+
+def _phase15_host_core(torch, kp, kernels, device=None, card=""):
+    """15. The host core and the roofline: (a) the native core's build
+    (seconds, cached) and first_fit_ports against its plain version at
+    PORT_FILLS of the dynamic range; (b) on a synthetic state of N_NODES
+    nodes, the compiled select (exact) against `TorchStack.select` on the
+    card (K1) for the seven job variants: the same node and scores within
+    1e-4 where both place, neither placing where one does not; the
+    sampled mode placing validly with a mean score no higher than the
+    exact mode's; (c) the compiled select's evals/s, exact and sampled,
+    beside the host CPU; (d) `roofline.summarize` of every timed kernel
+    of `kernels`. Returns the numbers of (b) and (c)."""
+    import numpy as np
+
+    from nomad_tpu_torch import native
+    from nomad_tpu_torch.lib import roofline
+    from nomad_tpu_torch.scheduler.stack import TorchStack
+    from nomad_tpu_torch.structs.network import (MAX_DYNAMIC_PORT,
+                                                 MIN_DYNAMIC_PORT)
+    from nomad_tpu_torch.synth import build_synthetic_state
+
+    t0 = time.perf_counter()
+    dev = torch.device(device or "cuda")
+    on_card = dev.type == "cuda"
+    cpu = _cpu_model()
+
+    # (a) the build, and first-fit against its plain version
+    native.available()
+    info = dict(native.BUILD_INFO)
+    lo, hi = MIN_DYNAMIC_PORT, MAX_DYNAMIC_PORT
+    nrng = np.random.default_rng(SEED + 15)
+    mismatches = checks = 0
+    for fill in PORT_FILLS:
+        used = np.zeros(65536, dtype=bool)
+        used[lo + nrng.choice(hi - lo, int(round((hi - lo) * fill)),
+                              replace=False)] = True
+        reserved = [lo, lo + 7, hi - 1]
+        for count in PORT_COUNTS:
+            checks += 1
+            got = native.first_fit_ports(used, lo, hi, reserved, count)
+            if got != native._first_fit_py(used, lo, hi, reserved, count):
+                mismatches += 1
+    print(f"phase 15 (a) host core {os.path.basename(native.library_path())}"
+          f": g++ {info['seconds']:.2f} s, cached {info['cached']}; "
+          f"first_fit_ports == plain at fills "
+          f"{', '.join(f'{100 * f:g}' for f in PORT_FILLS)} % of [{lo}, "
+          f"{hi}), counts {PORT_COUNTS}: {mismatches} mismatches in "
+          f"{checks}")
+    if mismatches:
+        raise AssertionError(f"first_fit_ports: {mismatches} mismatches")
+
+    # (b) the compiled select against K1 on the card
+    state, _nodes = build_synthetic_state(N_NODES, N_ALLOCS, seed=SEED + 15)
+    cl = state.cluster
+    rng = random.Random(SEED + 15)
+    stack = TorchStack(cl, device=dev)
+    order = np.random.default_rng(SEED).permutation(cl.n_cap).astype(
+        np.int32)
+    out = {"mismatches": 0, "compared": 0, "unplaced": 0, "err": 0.0}
+    for variant in SELECT_VARIANTS:
+        job = _select_job(rng, variant, SELECT_COUNT)
+        state.upsert_job(job)
+        tg = job.task_groups[0]
+        k1 = stack.select(job, tg, SELECT_COUNT)
+        route = kp.last_single_route() if on_card else None
+        sel, score = native.compiled_select(stack, job, tg, SELECT_COUNT)
+        for step in range(SELECT_COUNT):
+            k_node = k1.node_ids[step]
+            c_node = cl.node_of_row[sel[step]] if sel[step] >= 0 else None
+            if k_node is None or c_node is None:
+                out["unplaced"] += 1
+                out["mismatches"] += not (k_node is None and c_node is None)
+                continue
+            d = abs(k1.scores[step] - float(score[step]))
+            out["err"] = max(out["err"], d)
+            out["compared"] += 1
+            out["mismatches"] += not (k_node == c_node and d < 1e-4)
+        s_sel, s_score = native.compiled_select(stack, job, tg, SELECT_COUNT,
+                                                order=order)
+        rows = s_sel[s_sel >= 0]
+        distinct = isinstance(variant, dict) and variant.get("distinct_hosts")
+        valid = (bool(cl.node_ok[rows].all())
+                 and (not distinct or len(rows) == len(set(rows.tolist())))
+                 and len(rows) == int((sel >= 0).sum()))
+        placed = sel >= 0
+        mean_e = float(score[placed].mean()) if placed.any() else 0.0
+        mean_s = float(s_score[s_sel >= 0].mean()) if len(rows) else 0.0
+        print(f"phase 15 (b) {str(variant):60s} K1 (route {route}) and the "
+              f"compiled select placed {int(placed.sum())}/{SELECT_COUNT}; "
+              f"sampled placed {len(rows)}, mean score {mean_s:.6f} against "
+              f"exact {mean_e:.6f}")
+        if not valid or mean_s > mean_e + 1e-6:
+            raise AssertionError(f"{variant}: the sampled select placed "
+                                 f"{s_sel.tolist()} (mean {mean_s} against "
+                                 f"exact {mean_e})")
+    print(f"phase 15 (b) compiled select (exact) against TorchStack.select "
+          f"on {dev} (K1) at {N_NODES} nodes, {len(SELECT_VARIANTS)} "
+          f"variants of count {SELECT_COUNT}: {out['mismatches']} "
+          f"mismatches, {out['compared']} placements compared (max score "
+          f"difference {out['err']:.3g}), {out['unplaced']} unplaced in both")
+    if out["mismatches"]:
+        raise AssertionError(f"compiled select against K1: "
+                             f"{out['mismatches']} mismatches")
+
+    # (c) the compiled select's throughput, exact and sampled
+    jobs = _bench_jobs(state, random.Random(SEED + 16), HOST_EVALS,
+                       SELECT_COUNT)
+    orng = np.random.default_rng(SEED)
+    for mode in ("exact", "sampled"):
+        fresh = TorchStack(cl, device=dev)   # programs compiled in the loop
+        placed = 0
+        score_sum = 0.0
+        t1 = time.perf_counter()
+        for job in jobs:
+            kw = ({} if mode == "exact" else
+                  {"order": orng.permutation(cl.n_cap).astype(np.int32)})
+            sel, score = native.compiled_select(
+                fresh, job, job.task_groups[0], SELECT_COUNT, **kw)
+            placed += int((sel >= 0).sum())
+            score_sum += float(score[sel >= 0].sum())
+        dt = time.perf_counter() - t1
+        out[mode] = dict(evals_per_s=len(jobs) / dt, placed=placed,
+                         mean_score=score_sum / max(placed, 1))
+        print(f"phase 15 (c) compiled select {mode} at {N_NODES} nodes, "
+              f"count {SELECT_COUNT}: {len(jobs)} evals of bench's mix in "
+              f"{dt:.3f} s = {len(jobs) / dt:.1f} evals/s, placed "
+              f"{placed}/{len(jobs) * SELECT_COUNT}, mean score "
+              f"{score_sum / max(placed, 1):.6f}; host CPU {cpu}; {card}")
+
+    # (d) the roofline of every kernel timed
+    for k in kernels:
+        if k.get("ms") is None or "cost" not in k:
+            continue
+        s = roofline.summarize(k["name"], k["cost"], k["ms"] / 1e3, dev)
+        print(f"phase 15 (d) roofline {k['name']}: {s['bound']}-bound "
+              f"(bound {k['bound_ms']:.7f} ms by {k['bound_by']}, "
+              f"{s['flops_per_dispatch']:.0f} operations, "
+              f"{s['bytes_per_dispatch']:.0f} bytes) against "
+              f"{k['ms']:.4f} ms: pct_of_peak_hbm_bw "
+              f"{s.get('pct_of_peak_hbm_bw')}, pct_of_peak_flops "
+              f"{s.get('pct_of_peak_flops')}, headroom_x "
+              f"{s.get('headroom_x')}; {card}")
+    print(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5569,13 +5579,14 @@ def main() -> int:
               "this script needs an NVIDIA card", file=sys.stderr)
         return 1
 
-    from nomad_tpu_torch import mock
+    from nomad_tpu_torch import mock, native
     from nomad_tpu_torch.convert import params_from_numpy, tensor_from_numpy
     from nomad_tpu_torch.kernels import _build
     from nomad_tpu_torch.kernels import placement as kp
     from nomad_tpu_torch.kernels import preemption as kpre
     from nomad_tpu_torch.kernels import rows as kr
     from nomad_tpu_torch.kernels import shard as ks
+    from nomad_tpu_torch.lib import roofline
     from nomad_tpu_torch.parallel.pad import pad_params, stack_params
     from nomad_tpu_torch.scheduler import stack as stack_mod
     from nomad_tpu_torch.scheduler.harness import Harness
@@ -5595,12 +5606,26 @@ def main() -> int:
     print(f"device: {kind} (count {count}), torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
     print(smi[0])
+    global PEAKS
+    peak_flops, peak_bw, _kind = roofline.device_peaks(torch.device("cuda", 0))
+    if peak_flops is None:
+        raise RuntimeError(f"{kind}: no published peaks in "
+                           "nomad_tpu_torch/lib/roofline.py DEVICE_PEAKS; "
+                           "every bound would be against another card's")
+    PEAKS = (peak_flops, peak_bw)
+    print(f"roofline peaks of {kind}: {peak_flops:.4g} fp32 FLOP/s, "
+          f"{peak_bw:.4g} HBM bytes/s (datasheet)")
 
     # ---- 2. build ----
     t0 = time.perf_counter()
     sources = ("placement", "chain", "lanes", "batch", "rows", "system",
                "preempt", "shard")
-    _build.build_all(sources)
+    # the host core (g++) builds beside the kernels: later phases assign
+    # dynamic ports through it
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host_core = pool.submit(native.available)
+        _build.build_all(sources)
+        host_core.result()
     kp.build_kernel()
     kp.build_chain_kernel()
     kp.build_lanes_kernel()
@@ -5738,13 +5763,14 @@ def main() -> int:
     kernel_ms = k1["lane"]["events"]
     plain_ms = _time_ms(lambda: kp.place_task_group_plain(arrays, p, m, True),
                         5)
-    bound_ms, bound_by = _k1_bound(kp, arrays, p, m, k1_res.sel_idx, True)
-    old_bound, old_by = _bound(arrays, p, m)
+    k1_cost = roofline.kernel_cost("place_task_group", cluster=arrays,
+                                   program=p, m=m, sel=k1_res.sel_idx,
+                                   explain=True)
+    bound_ms, bound_by = _roof(k1_cost)
     print(f"timing (N={arrays.capacity.shape[0]}, M={m}, explain on; "
           f"{smi[0]}): lane route {kernel_ms:.4f} ms, placement.cu "
           f"{k1['placement.cu']['events']:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.6f} ms ({bound_by}; placement.cu's count "
-          f"{old_bound:.6f} ms, {old_by}); explain off: lane route "
+          f"bound {bound_ms:.6f} ms ({bound_by}); explain off: lane route "
           f"{k1_off['lane']['events']:.4f} ms, placement.cu "
           f"{k1_off['placement.cu']['events']:.4f} ms")
 
@@ -5918,7 +5944,7 @@ def main() -> int:
     # ---- 14. the lint engine over the port ----
     _phase14_lint(card=smi[0])
 
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "place_task_group",
         "route": "cuda",
         "source": "nomad_tpu_torch/kernels/csrc/lanes.cu",
@@ -5940,7 +5966,7 @@ def main() -> int:
         "placement_cu_span_ms": k1["placement.cu"]["span"],
         "placement_cu_explain_off_ms": k1_off["placement.cu"]["events"],
         "placement_cu_peak_mib": k1["placement.cu"]["peak"],
-        "placement_cu_bound_ms": old_bound,
+        "cost": k1_cost,
     }, {
         "name": "place_table_chain",
         "route": "cuda",
@@ -6076,7 +6102,12 @@ def main() -> int:
         "launches": counts10["view"],
         "max_abs_err": view_err,
         **view13,
-    }]}))
+    }]
+
+    # ---- 15. the host core and the roofline ----
+    _phase15_host_core(torch, kp, kernels, card=smi[0])
+
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
     return 0

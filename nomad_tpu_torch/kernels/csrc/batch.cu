@@ -12,7 +12,7 @@
 // What bounds it: operations. A program computes each row's score terms
 // once (≈ 64 operations a row at bench's dims), then each of its M·N row
 // steps is a few table lookups, an add, a divide and a compare (≈ 9):
-// ≈ 17 a row step in all, B·M·N row steps (chip_smoke.py `_onchip_ops`);
+// ≈ 17 a row step in all, B·M·N row steps (lib/roofline.py `_onchip_ops`);
 // at B = 4096, M = 8, N = 16384 about 0.14 ms at the card's fp32 rate,
 // against ≈ 0.02 ms for the bytes it must move (the view once, the
 // programs, the outputs).

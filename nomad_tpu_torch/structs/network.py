@@ -235,12 +235,14 @@ class NetworkIndex:
         """First `count` free ports in the dynamic range (reference
         getDynamicPortsPrecise, network.go:487 — but first-fit instead of the
         reference's random sample over the free set; deterministic by design).
-        Pure-Python first-fit, bit-identical to the reference package's
-        native core."""
+        Runs in the C++ core when built (native/core.cpp
+        nomad_first_fit_ports); the Python fallback is bit-identical."""
         if count == 0:
             return [], ""
-        ports = _first_fit_ports(used, MIN_DYNAMIC_PORT, MAX_DYNAMIC_PORT,
-                                 reserved, count)
+        from ..native import first_fit_ports
+
+        ports = first_fit_ports(used, MIN_DYNAMIC_PORT, MAX_DYNAMIC_PORT,
+                                reserved, count)
         if not ports:
             return [], "dynamic port selection failed"
         return ports, ""
@@ -266,17 +268,3 @@ class NetworkIndex:
                 out.append(port)
                 break
         return out, ""
-
-
-def _first_fit_ports(used, min_port: int, max_port: int, reserved,
-                     count: int) -> List[int]:
-    """First `count` free ports in [min_port, max_port) excluding
-    `reserved`; [] when exhausted. `used` is bool[65536]."""
-    mask = used[min_port:max_port].copy()
-    for r in reserved:
-        if min_port <= r < max_port:
-            mask[r - min_port] = True
-    free = np.flatnonzero(~mask)
-    if len(free) < count:
-        return []
-    return [int(p) + min_port for p in free[:count]]

@@ -39,6 +39,14 @@ REWRITTEN = {
     "client/fingerprint.py": "gpu_fingerprint (a bounded nvidia-smi "
                              "reading) in place of the JAX TPU probe",
     "lib/metrics.py": "its logger name is the port's",
+    "lib/roofline.py": "the H100's datasheet peaks keyed by the CUDA "
+                       "device name; kernel_cost counts the port's "
+                       "kernels by the function they compute (torch has "
+                       "no cost model); time_compiled syncs the card",
+    "native/__init__.py": "builds its own copy of core.cpp into build/ "
+                          "under a hash of source and flags, renamed into "
+                          "place; no fallback: a failed build raises; "
+                          "compiled_select reads a TorchStack",
     "plugins/device_host.py": "builtin plugins gpu and env; usage names "
                               "the port",
     "plugins/driver_host.py": "usage names the port",
@@ -98,7 +106,6 @@ REWRITTEN = {
                         "included, by package-relative imports",
     "structs/evaluation.py": "comments naming the reference's issues",
     "structs/funcs.py": "a comment pointing at the port's kernel module",
-    "structs/network.py": "only the pure-Python first-fit",
     "structs/plan.py": "comments naming the reference's issues",
     "synth.py": "a comment naming the reference's issues",
     "tensor/cluster.py": "a comment naming the reference's issues",
@@ -167,13 +174,19 @@ def test_lint_engine_has_counterparts(rel):
 
 
 def test_only_the_modules_left_out_on_purpose_are_missing():
-    """After the lint engine, the reference's modules without a port at
-    the same path are `analysis/jax_rules.py` (its counterpart is
-    `analysis/torch_rules.py`), `lib/roofline.py`, `native/` and
-    `utils/` (the port's `utils.py` stands for it)."""
+    """After the host core and the roofline, the reference's modules
+    without a port at the same path are `analysis/jax_rules.py` (its
+    counterpart is `analysis/torch_rules.py`) and `utils/` (the port's
+    `utils.py` stands for it)."""
     missing = {str(p.relative_to(REF)) for p in REF.rglob("*.py")
                if not (PORT / p.relative_to(REF)).is_file()}
     left_out = {m for m in missing
-                if m.startswith(("native/", "utils/"))
-                or m in ("analysis/jax_rules.py", "lib/roofline.py")}
+                if m.startswith("utils/") or m == "analysis/jax_rules.py"}
     assert missing == left_out, sorted(missing - left_out)
+
+
+def test_the_host_core_source_is_a_copy():
+    """The port builds its own copy of the C++ host core, byte for byte
+    the reference's `native/core.cpp`."""
+    assert (PORT / "native" / "core.cpp").read_bytes() == \
+        (REPO / "native" / "core.cpp").read_bytes()

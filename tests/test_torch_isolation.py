@@ -14,9 +14,11 @@
   eval through its Raft log, and a port `Client` runs a `raw_exec` and an
   `exec` task to completion through executor children that are the
   port's.
-- Importing the port's agent, its CLI, `python -m nomad_tpu_torch` and
-  its lint engine (`nomad_tpu_torch.analysis`) loads neither torch nor
-  JAX nor a reference module, so a CLI call stays a fast child process;
+- Importing the port's agent, its CLI, `python -m nomad_tpu_torch`, its
+  lint engine (`nomad_tpu_torch.analysis`), its host core
+  (`nomad_tpu_torch.native`, also assigning a dynamic port through it)
+  and its roofline (`nomad_tpu_torch.lib.roofline`) loads neither torch
+  nor JAX nor a reference module, so a CLI call stays a fast child process;
   with JAX and the reference package made unimportable,
   `python -m nomad_tpu_torch agent -dev -device cpu` takes
   an HCL job from `job run` to a running alloc through
@@ -451,6 +453,16 @@ if what == "__main__":
         runpy.run_module("nomad_tpu_torch", run_name="__main__")
     except SystemExit as e:
         assert e.code == 0, e.code
+elif what == "ports":
+    # port assignment through the host core (built with g++ at first use)
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs.network import NetworkIndex
+    from nomad_tpu_torch.structs.resources import NetworkResource, Port
+    idx = NetworkIndex()
+    idx.set_node(mock.node())
+    offer, err = idx.assign_network(NetworkResource(
+        mbits=10, dynamic_ports=[Port(label="http")]))
+    assert err == "" and 20000 <= offer.dynamic_ports[0].value < 32000
 elif what == "decode":
     # what a CLI call does with an answer: structs through the codec
     from nomad_tpu_torch import mock
@@ -470,7 +482,9 @@ print("ok")
 @pytest.mark.parametrize("module", ["nomad_tpu_torch.agent",
                                     "nomad_tpu_torch.cli", "__main__",
                                     "decode",
-                                    "nomad_tpu_torch.analysis.__main__"])
+                                    "nomad_tpu_torch.analysis.__main__",
+                                    "nomad_tpu_torch.native", "ports",
+                                    "nomad_tpu_torch.lib.roofline"])
 def test_agent_and_cli_import_neither_torch_nor_jax(module):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", _LIGHT_IMPORT, module],
