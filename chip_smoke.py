@@ -280,7 +280,34 @@ non-zero without printing a result:
    `nomad_tpu_torch.lib.roofline`'s count of the reference function
    (`kernel_cost`), one count a function whatever route ran, against the
    peaks `device_peaks` gives for the card (an unknown card raises).
-16. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
+16. The operator's lifecycle on the card: one port `Server` at its
+   default device over N_NODES synthetic nodes and PHASE11_ALLOCS + 64
+   allocs (cut from N_ALLOCS for phase 11's reason: every settle walks
+   the allocs on the host) and PHASE16_NODES nodes of class
+   PHASE16_CLASS that the phase's jobs are constrained to. Each step is
+   one launch window (phase 6's contract) and a hard gate: (a) a service
+   job of count PHASE16_COUNT and PHASE16_NEIGHBOURS jobs of count
+   PHASE16_NEIGHBOUR settled running, then PHASE16_DRAIN of the first
+   job's nodes drained with a deadline: every alloc on them replaced, no
+   replacement on a draining node, every job back to its count running,
+   the nodes drain-complete and ineligible; (b) the first job updated
+   with an `update` stanza (canary 1, max_parallel 2): the canary placed,
+   marked healthy through `Server.update_alloc_health`, promoted, the
+   rollout successful and its version stable; then a bad version with
+   `auto_revert`, its canary marked unhealthy: the deployment fails and
+   the job reverts to the stable version's spec; (c) a periodic batch
+   job force-launched, its child placed, run to completion, then a
+   forced core GC reaps every terminal eval whose allocs are terminal
+   (the child's among them) and those allocs, and nothing live; (d) the
+   opt-out on the card: one burst of phase 6's mix (64 evals, queued at once)
+   through two fresh servers on equal states, with `NOMAD_TPU_EXPLAIN`
+   unset and `=0`: every placement's node and score bitwise equal, the
+   kernel's attribution (`_attributed`) on every placement with explain
+   on and on none opted out. Each
+   step prints its wall and its K1, K4, K5, K7 and K8 launches with the
+   card's name and power limit; every step launched a placement kernel,
+   and the phase K1, K4, K7 and K8.
+17. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
 """
 from __future__ import annotations
 
@@ -4616,14 +4643,17 @@ def _alive(pids: dict) -> dict:
             for k, v in pids.items() if any(p and _pid_alive(p) for p in v)}
 
 
-def _until(cond, timeout: float, what: str) -> float:
-    """Seconds until `cond()` holds; AssertionError after `timeout`."""
+def _until(cond, timeout: float, what: str):
+    """The first true value of `cond()`; AssertionError after
+    `timeout`."""
     t0 = time.perf_counter()
-    while not cond():
+    while True:
+        v = cond()
+        if v:
+            return v
         if time.perf_counter() - t0 > timeout:
             raise AssertionError(f"{what}: not within {timeout} s")
         time.sleep(0.005)
-    return time.perf_counter() - t0
 
 
 def _client_job(mock, kind: str, driver: str, config: dict, count=1,
@@ -4760,10 +4790,10 @@ def _phase12_clients(torch, kp, kr, device=None, card=""):
             clients.append(c)
             t1 = time.perf_counter()
             c.start()
-            reg.append(time.perf_counter() - t1 + _until(
-                lambda c=c: getattr(s.state.node_by_id(c.node.id),
-                                    "status", "") == "ready", 30.0,
-                f"client {i} registration"))
+            _until(lambda c=c: getattr(s.state.node_by_id(c.node.id),
+                                       "status", "") == "ready", 30.0,
+                   f"client {i} registration")
+            reg.append(time.perf_counter() - t1)
         node = s.state.node_by_id(clients[-1].node.id)
         groups = [g for g in node.node_resources.devices
                   if (g.vendor, g.type) == ("nvidia", "gpu")]
@@ -5319,7 +5349,9 @@ def _phase13_agent(torch, kp, kr, device=None, card=""):
                 return _http_json(addr, "/v1/agent/self")["server"]
             except OSError:
                 return False
-        out["dev_ready_s"] = _until(ready, 120.0, "phase 13 (b): HTTP ready")
+        t1 = time.perf_counter()
+        _until(ready, 120.0, "phase 13 (b): HTTP ready")
+        out["dev_ready_s"] = time.perf_counter() - t1
         t1 = time.perf_counter()
         cli(addr, "job", "run", spec("p13-dev", 1, on_agent=False),
             what="dev job run")
@@ -5569,6 +5601,409 @@ def _phase15_host_core(torch, kp, kernels, device=None, card=""):
               f"{s.get('headroom_x')}; {card}")
     print(f"phase 15 took {time.perf_counter() - t0:.1f} s")
     return out
+
+
+#: phase 16: the nodes the operator's jobs are constrained to, the job's
+#: count, the nodes drained, the evals of the opt-out burst
+PHASE16_NODES = 16
+PHASE16_CLASS = "phase16"
+PHASE16_COUNT = 64
+PHASE16_DRAIN = 8
+#: jobs that share the drained nodes with the phase's job, and their count
+PHASE16_NEIGHBOURS = 3
+PHASE16_NEIGHBOUR = 8
+PHASE16_EVALS = 64
+
+
+def _phase16_job(mock, Constraint, count, kind="service"):
+    """A job of `count` small tasks (100 MHz, 64 MiB, no ports) held to
+    the phase's nodes."""
+    job = mock.batch_job() if kind == "batch" else mock.job()
+    tg = job.task_groups[0]
+    tg.count = count
+    tg.networks = []
+    for t in tg.tasks:
+        t.resources.cpu, t.resources.memory_mb = 100, 64
+        t.resources.networks = []
+    job.constraints.append(Constraint("${node.class}", PHASE16_CLASS, "="))
+    return job
+
+
+def _phase16_ack(s, job_id):
+    """The client side of a settle: stops acknowledged as complete, new
+    allocs reported running. Returns the job's live allocs."""
+    live = []
+    for a in s.state.allocs_by_job("default", job_id):
+        status = None
+        if a.desired_status != "run" and a.client_status in ("pending",
+                                                             "running"):
+            status = "complete"
+        elif a.desired_status == "run" and a.client_status == "pending":
+            status = "running"
+        if status is not None:
+            upd = copy.copy(a)
+            upd.client_status = status
+            s.state.update_alloc_from_client(upd)
+        if a.desired_status == "run" and not a.terminal_status():
+            live.append(a)
+    return live
+
+
+def _phase16_deploy(s, job_id, dep, what, timeout=60.0):
+    """Drive deployment `dep` to success as healthy clients would: every
+    new alloc reported running and healthy, the canaries promoted once
+    healthy. Returns the deployment's end state."""
+    promoted = False
+
+    def step():
+        nonlocal promoted
+        _phase16_ack(s, job_id)
+        for a in s.state.allocs_by_job("default", job_id):
+            if (a.deployment_id == dep and not a.terminal_status()
+                    and (a.deployment_status is None
+                         or a.deployment_status.healthy is None)):
+                s.update_alloc_health(a.id, True)
+        d = s.state.deployment_by_id(dep)
+        if (not promoted and d.requires_promotion()
+                and all(len(ds.placed_canaries) >= ds.desired_canaries
+                        for ds in d.task_groups.values())):
+            healthy = {a.id for a in s.state.allocs_by_job("default",
+                                                           job_id)
+                       if a.deployment_status is not None
+                       and a.deployment_status.is_healthy()}
+            if all(set(ds.placed_canaries) <= healthy
+                   for ds in d.task_groups.values()):
+                s.deployment_promote(dep)
+                promoted = True
+        return not d.active()
+
+    _until(step, timeout, f"phase 16 {what}: deployment {dep} to end")
+    return s.state.deployment_by_id(dep), promoted
+
+
+def _attributed(metrics) -> bool:
+    """Whether a placed alloc's AllocMetric carries the kernel's
+    attribution: a top-K of nodes, score parts beside the normalized
+    score, or filter and exhaustion counts. With explain off a placement
+    records its own node's normalized score and nothing else."""
+    return bool(len(metrics.score_meta) > 1
+                or any(set(sm.scores) - {"normalized-score"}
+                       for sm in metrics.score_meta)
+                or metrics.constraint_filtered
+                or metrics.dimension_exhausted)
+
+
+def _phase16_burst(torch, kp, kr, device, card, explain_off):
+    """(d): one burst of phase 6's mix, queued before the server starts,
+    through a fresh server on the phase's state; the placements by (job
+    position, alloc index) as (node name, score), and how many of them
+    carry the kernel's attribution."""
+    from nomad_tpu_torch.server import Server, ServerConfig
+
+    what = "(d) opted out" if explain_off else "(d) explain on"
+    saved = os.environ.pop("NOMAD_TPU_EXPLAIN", None)
+    if explain_off:
+        os.environ["NOMAD_TPU_EXPLAIN"] = "0"
+    s = Server(ServerConfig(num_schedulers=1, heartbeat_ttl=3600.0,
+                            gc_interval=3600.0, eval_batch=16),
+               device=device)
+    try:
+        _ingest(s, random.Random(SEED + 161), PHASE11_ALLOCS)
+        jobs, dh = _mix(random.Random(SEED + 162), PHASE16_EVALS)
+        win = _LaunchWindow(kp, kr)
+        t0 = time.perf_counter()
+        evs = [s.job_register(j) for j in jobs]
+        s.start()
+        _wait_evals(s, evs)
+        wall = time.perf_counter() - t0
+        _placed(s, jobs, dh, f"phase 16 {what}")
+        names = {nid: nd.name for nid, nd in s.state._nodes.items()}
+        placements, attributed = {}, 0
+        for ji, j in enumerate(jobs):
+            for a in s.state.allocs_by_job("default", j.id):
+                attributed += _attributed(a.metrics)
+                score = next(sm.scores["normalized-score"]
+                             for sm in a.metrics.score_meta
+                             if sm.node_id == a.node_id)
+                placements[(ji, a.name.rsplit("[", 1)[1])] = (
+                    names[a.node_id], score)
+        out = win.close(f"phase 16 {what}", device is None
+                        or torch.device(device).type == "cuda")
+        out.update(k1=kp.launch_count(),
+                   k1_kernels=kp.single_kernel_launches(), wall_s=wall)
+    finally:
+        s.shutdown()
+        os.environ.pop("NOMAD_TPU_EXPLAIN", None)
+        if saved is not None:
+            os.environ["NOMAD_TPU_EXPLAIN"] = saved
+    print(f"phase 16 {what}: {len(evs)} evals, {len(placements)} allocs in "
+          f"{wall:.2f} s ({len(evs) / wall:.2f} evals/s), {attributed} with "
+          f"the kernel's attribution; K1 {out['k1']} programs, K4 "
+          f"{out['chain']}, K5 {out['wave']}, K7 {out['k7']}, K8 "
+          f"{out['insert']}; {card}")
+    return placements, attributed, out
+
+
+def _phase16_operator(torch, kp, kr, device=None, card=""):
+    """The operator's lifecycle paths on the card (the docstring's
+    phase 16): drain, deployment with canary and auto-revert, periodic
+    launch and core GC, and the explain opt-out. Returns the steps'
+    launch windows."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.server.core_sched import TERMINAL_EVAL
+    from nomad_tpu_torch.structs import Constraint
+    from nomad_tpu_torch.structs.deployment import (
+        DEPLOYMENT_STATUS_FAILED, DEPLOYMENT_STATUS_SUCCESSFUL)
+    from nomad_tpu_torch.structs.job import (MigrateStrategy,
+                                             PeriodicConfig, UpdateStrategy)
+    from nomad_tpu_torch.structs.node import DrainStrategy
+
+    t_phase = time.perf_counter()
+    on_card = device is None or torch.device(device).type == "cuda"
+    steps = {}
+
+    def close(win, step, t0):
+        out = win.close(f"phase 16 ({step})", on_card)
+        out.update(k1=kp.launch_count(),
+                   k1_kernels=kp.single_kernel_launches(),
+                   wall_s=time.perf_counter() - t0)
+        steps[step] = out
+        print(f"phase 16 ({step}): {out['wall_s']:.2f} s; K1 {out['k1']} "
+              f"programs in {out['k1_kernels']} kernel launches, K4 "
+              f"{out['chain']}, K5 {out['wave']}, K7 {out['k7']}, K8 "
+              f"{out['insert']}; {card}")
+        if on_card and out["k1"] + out["chain"] + out["wave"] == 0:
+            raise AssertionError(f"phase 16 ({step}): no placement kernel "
+                                 "launched")
+
+    s = Server(ServerConfig(num_schedulers=1, heartbeat_ttl=60.0,
+                            gc_interval=3600.0, eval_batch=16),
+               device=device)
+    if device is None and s.device.type != "cuda":
+        raise AssertionError(f"Server default device is {s.device}")
+    try:
+        s.start()
+        _, t_ingest = _timed(lambda: _ingest(s, random.Random(SEED + 16),
+                                             PHASE11_ALLOCS))
+        ops = []
+        for i in range(PHASE16_NODES):
+            n = mock.node(name=f"{PHASE16_CLASS}-{i}",
+                          node_class=PHASE16_CLASS)
+            n.compute_class()
+            s.node_register(n)
+            ops.append(n.id)
+        print(f"phase 16 server: {N_NODES} nodes, {PHASE11_ALLOCS + 64} "
+              f"allocs ingested in {t_ingest:.1f} s, {PHASE16_NODES} "
+              f"{PHASE16_CLASS} nodes registered")
+
+        # ---- (a) drain
+        win, t0 = _LaunchWindow(kp, kr), time.perf_counter()
+        job = _phase16_job(mock, Constraint, PHASE16_COUNT)
+        jobs = [job] + [_phase16_job(mock, Constraint, PHASE16_NEIGHBOUR)
+                        for _ in range(PHASE16_NEIGHBOURS)]
+        want = {j.id: j.task_groups[0].count for j in jobs}
+        for j in jobs:
+            j.task_groups[0].migrate_strategy = MigrateStrategy(
+                max_parallel=want[j.id])
+        _wait_evals(s, [s.job_register(j) for j in jobs], timeout=120.0)
+
+        def lives():
+            return {j.id: _phase16_ack(s, j.id) for j in jobs}
+
+        _until(lambda: all(
+            len(v) == want[k] and all(a.client_status == "running"
+                                      for a in v)
+            for k, v in lives().items()), 60.0, "phase 16 (a): jobs running")
+        by_node = collections.Counter(
+            a.node_id for a in _phase16_ack(s, job.id))
+        drained = [nid for nid, _n in by_node.most_common(PHASE16_DRAIN)]
+        before = {a.id for v in lives().values() for a in v}
+        moved = {a.id for v in lives().values() for a in v
+                 if a.node_id in drained}
+        for nid in drained:
+            s.node_update_drain(nid, DrainStrategy(deadline_s=30.0))
+
+        def drained_clean():
+            return all(len(v) == want[k]
+                       and all(a.client_status == "running"
+                               and a.node_id not in drained for a in v)
+                       for k, v in lives().items())
+
+        _until(drained_clean, 60.0, "phase 16 (a): allocs off the drain")
+        _until(lambda: all(s.state.node_by_id(nid).drain is None
+                           for nid in drained), 30.0,
+               "phase 16 (a): drains complete")
+        for nid in drained:
+            node = s.state.node_by_id(nid)
+            if node.scheduling_eligibility != "ineligible":
+                raise AssertionError(f"phase 16 (a): node {nid} is "
+                                     f"{node.scheduling_eligibility}")
+        for aid in moved:
+            if not s.state.alloc_by_id(aid).terminal_status():
+                raise AssertionError(f"phase 16 (a): alloc {aid} on a "
+                                     "drained node still live")
+        live = {a.id for v in lives().values() for a in v}
+        if (len(live - before) != len(moved)
+                or live & before != before - moved):
+            raise AssertionError(f"phase 16 (a): {len(live - before)} "
+                                 f"replacements for {len(moved)} allocs, "
+                                 f"{len(live & before)} of "
+                                 f"{len(before - moved)} others kept")
+        close(win, "a", t0)
+        print(f"phase 16 (a): {len(moved)} allocs of {len(jobs)} jobs on "
+              f"{len(drained)} drained nodes replaced on "
+              f"{len(set(ops) - set(drained))} others; {len(live)} running")
+
+        # ---- (b) deployment: canary, promotion, auto-revert
+        win, t0 = _LaunchWindow(kp, kr), time.perf_counter()
+        v1 = copy.deepcopy(s.state.job_by_id("default", job.id))
+        tg = v1.task_groups[0]
+        tg.update = UpdateStrategy(max_parallel=2, canary=1,
+                                   min_healthy_time_s=0.0)
+        v1.update = tg.update
+        tg.tasks[0].env = {"v": "1"}
+        s.job_register(v1)
+        d1 = _until(lambda: s.state.latest_deployment_by_job(
+            "default", job.id), 30.0, "phase 16 (b): v1 deployment")
+        d1, promoted = _phase16_deploy(s, job.id, d1.id, "(b) v1")
+        stable = s.state.latest_stable_job("default", job.id)
+        if (d1.status != DEPLOYMENT_STATUS_SUCCESSFUL or not promoted
+                or stable is None or stable.version != d1.job_version):
+            raise AssertionError(f"phase 16 (b): v1 deployment {d1.status}"
+                                 f" promoted {promoted}, stable "
+                                 f"{stable and stable.version}")
+        live = _phase16_ack(s, job.id)
+        if (len(live) != PHASE16_COUNT
+                or any(a.job_version != d1.job_version for a in live)):
+            raise AssertionError(f"phase 16 (b): {len(live)} live allocs "
+                                 "after the rollout, not all of "
+                                 f"version {d1.job_version}")
+        v2 = copy.deepcopy(s.state.job_by_id("default", job.id))
+        tg = v2.task_groups[0]
+        tg.update = UpdateStrategy(max_parallel=2, canary=1,
+                                   min_healthy_time_s=0.0, auto_revert=True)
+        v2.update = tg.update
+        tg.tasks[0].env = {"v": "2"}
+        s.job_register(v2)
+        d2 = _until(lambda: (lambda d: d if d is not None
+                                   and d.id != d1.id else None)(
+            s.state.latest_deployment_by_job("default", job.id)), 30.0,
+            "phase 16 (b): v2 deployment")
+        canary = _until(lambda: [
+            a for a in s.state.allocs_by_job("default", job.id)
+            if a.deployment_id == d2.id and not a.terminal_status()], 30.0,
+            "phase 16 (b): v2 canary")
+        for a in canary:
+            s.update_alloc_health(a.id, False)
+        _until(lambda: s.state.deployment_by_id(d2.id).status
+               == DEPLOYMENT_STATUS_FAILED, 30.0,
+               "phase 16 (b): v2 deployment failed")
+        reverted = _until(lambda: (lambda j: j if j.version
+                                         > d2.job_version else None)(
+            s.state.job_by_id("default", job.id)), 30.0,
+            "phase 16 (b): auto-revert")
+        if reverted.spec_changed(stable):
+            raise AssertionError("phase 16 (b): the revert is not the "
+                                 "stable version's spec")
+        d3 = s.state.latest_deployment_by_job("default", job.id)
+        if d3 is not None and d3.id not in (d1.id, d2.id) and d3.active():
+            d3, _p = _phase16_deploy(s, job.id, d3.id, "(b) revert")
+            if d3.status != DEPLOYMENT_STATUS_SUCCESSFUL:
+                raise AssertionError(f"phase 16 (b): revert deployment "
+                                     f"{d3.status}")
+        _until(lambda: len(_phase16_ack(s, job.id)) == PHASE16_COUNT
+               and not any(a.job_version == d2.job_version
+                           for a in _phase16_ack(s, job.id)), 30.0,
+               "phase 16 (b): the bad version's allocs gone")
+        close(win, "b", t0)
+        print(f"phase 16 (b): v{d1.job_version} rolled out (canary "
+              f"promoted, stable), v{d2.job_version} failed and reverted "
+              f"to v{stable.version}'s spec as v{reverted.version}")
+
+        # ---- (c) periodic launch and core GC
+        win, t0 = _LaunchWindow(kp, kr), time.perf_counter()
+        pj = _phase16_job(mock, Constraint, 4, kind="batch")
+        pj.periodic = PeriodicConfig(spec="0 0 1 1 *")
+        if s.job_register(pj) is not None:
+            raise AssertionError("phase 16 (c): a periodic job made an "
+                                 "eval at register")
+        ev = s.periodic.force(pj.namespace, pj.id)
+        done = s.wait_for_eval(ev.id, timeout=60.0)
+        child = s.state.job_by_id(pj.namespace, ev.job_id)
+        kids = s.state.allocs_by_job("default", ev.job_id)
+        if (done is None or done.status != "complete" or child is None
+                or child.parent_id != pj.id or len(kids) != 4):
+            raise AssertionError(f"phase 16 (c): child {ev.job_id}: eval "
+                                 f"{done and done.status}, {len(kids)} of "
+                                 "4 placed")
+        for a in kids:
+            upd = copy.copy(a)
+            upd.client_status = "complete"
+            s.state.update_alloc_from_client(upd)
+        _phase16_ack(s, job.id)
+        reap_evals, reap_allocs = set(), set()
+        for e in s.state.evals():
+            if e.status not in TERMINAL_EVAL:
+                continue
+            mine = [a for a in s.state.allocs_by_job(e.namespace, e.job_id)
+                    if a.eval_id == e.id]
+            if all(a.terminal_status() for a in mine):
+                reap_evals.add(e.id)
+                reap_allocs.update(a.id for a in mine)
+        live = {a.id for a in s.state._allocs.values()
+                if not a.terminal_status()}
+        _, t_gc = _timed(lambda: s.run_gc("force-gc"))
+        left = ([e for e in reap_evals if s.state.eval_by_id(e)]
+                + [a for a in reap_allocs if s.state.alloc_by_id(a)])
+        gone = [a for a in live if s.state.alloc_by_id(a) is None]
+        if (left or gone or ev.id not in reap_evals
+                or not {a.id for a in kids} <= reap_allocs):
+            raise AssertionError(f"phase 16 (c): GC left {len(left)} of "
+                                 f"{len(reap_evals)} evals and "
+                                 f"{len(reap_allocs)} allocs, took "
+                                 f"{len(gone)} live allocs")
+        close(win, "c", t0)
+        print(f"phase 16 (c): child {ev.job_id} placed 4 and completed; "
+              f"force GC reaped {len(reap_evals)} evals and "
+              f"{len(reap_allocs)} allocs in {t_gc * 1e3:.1f} ms, "
+              f"{len(live)} live allocs kept")
+    finally:
+        s.shutdown()
+
+    # ---- (d) the opt-out on the card
+    t0 = time.perf_counter()
+    on, on_attr, steps["d_on"] = _phase16_burst(torch, kp, kr, device,
+                                                card, False)
+    off, off_attr, steps["d_off"] = _phase16_burst(torch, kp, kr, device,
+                                                   card, True)
+    if set(on) != set(off):
+        raise AssertionError("phase 16 (d): different allocs placed")
+    # the opt-out took effect: attribution on every placement with
+    # explain on, on none with NOMAD_TPU_EXPLAIN=0
+    if on_attr != len(on) or off_attr:
+        raise AssertionError(f"phase 16 (d): attribution on {on_attr} of "
+                             f"{len(on)} placements with explain on, on "
+                             f"{off_attr} of {len(off)} opted out")
+    diffs = [k for k in on if on[k] != off[k]]
+    if diffs:
+        raise AssertionError(f"phase 16 (d): {len(diffs)} placements differ"
+                             f" with the opt-out: {diffs[:4]}")
+    print(f"phase 16 (d): {len(on)} placements, nodes and scores bitwise "
+          f"equal with NOMAD_TPU_EXPLAIN unset and =0, the kernel's "
+          f"attribution on all of them unset and on none at =0; "
+          f"{time.perf_counter() - t0:.2f} s; {card}")
+
+    total = {k: sum(w[k] for w in steps.values())
+             for k in ("k1", "chain", "wave", "insert", "k7")}
+    for k in ("chain", "wave"):
+        total[f"{k}_kernels"] = sum(w["kernels"][k] for w in steps.values())
+    missing = [k for k in ("k1", "chain", "insert", "k7") if not total[k]]
+    if on_card and missing:
+        raise AssertionError(f"phase 16: no {missing} launches: {total}")
+    print(f"phase 16: launches {total}; took "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    return {"steps": steps, "total": total}
 
 
 def main() -> int:
@@ -6106,6 +6541,15 @@ def main() -> int:
 
     # ---- 15. the host core and the roofline ----
     _phase15_host_core(torch, kp, kernels, card=smi[0])
+
+    # ---- 16. the operator's lifecycle on the card ----
+    p16 = _phase16_operator(torch, kp, kr, card=smi[0])["total"]
+    kernels[0]["phase16_launches"] = p16["k1"]
+    for entry, key in ((kernels[1], "chain"), (kernels[2], "wave")):
+        entry["phase16_calls"] = p16[key]
+        entry["phase16_launches"] = p16[f"{key}_kernels"]
+    kernels[3]["phase16_launches"] = p16["insert"]
+    kernels[4]["phase16_launches"] = p16["k7"]
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,7 @@ bind to the port's own modules) or named in `REWRITTEN` with what differs;
 a module whose counterpart lies elsewhere is named in `ELSEWHERE`.
 A copy edited by accident, or a rewrite left off the list, fails here.
 """
+import re
 from pathlib import Path
 
 import pytest
@@ -89,7 +90,9 @@ REWRITTEN = {
     "scheduler/preemption.py": "the retry on torch tensors: four uploads",
     "scheduler/system.py": "device=, TorchStack, K2 under a view lease",
     "scheduler/stack.py": "TorchStack: per-device view cache, K7, leases; "
-                          "a ShardedCluster under a mesh, K7 per shard",
+                          "a ShardedCluster under a mesh, K7 per shard; "
+                          "explain=None defers to NOMAD_TPU_EXPLAIN "
+                          "(explain_enabled) as in the reference",
     "server/broker.py": "comments naming the reference's issues",
     "server/cluster.py": "device=, resolved before any socket opens and "
                          "passed to every Server it builds",
@@ -190,3 +193,36 @@ def test_the_host_core_source_is_a_copy():
     the reference's `native/core.cpp`."""
     assert (PORT / "native" / "core.cpp").read_bytes() == \
         (REPO / "native" / "core.cpp").read_bytes()
+
+
+#: `NOMAD_TPU_*` settings the reference reads and the port does not, each
+#: with its reason
+SETTINGS_DROPPED = {
+    "NOMAD_TPU_NO_NATIVE": "the port's host core has no fallback: a "
+                           "failed g++ build raises (native/__init__.py)",
+    "NOMAD_TPU_SKIP_TPU_FINGERPRINT": "the TPU probe is gone; the GPU "
+                                      "probe's switch is "
+                                      "NOMAD_TPU_SKIP_GPU_FINGERPRINT",
+    "NOMAD_TPU_TRANSFER_GUARD": "PyTorch has no transfer guard: the "
+                                "port's guard_scope counts and forbids "
+                                "nothing, at any level (lib/transfer.py)",
+}
+
+_SETTING = re.compile(rb"NOMAD_TPU_[A-Z0-9_]*[A-Z0-9]")
+
+
+def _settings(root):
+    found = set()
+    for p in root.rglob("*.py"):
+        found.update(m.decode() for m in _SETTING.findall(p.read_bytes()))
+    return found
+
+
+def test_the_port_reads_every_setting_the_reference_reads():
+    """Every `NOMAD_TPU_*` name the reference reads is read by the port
+    too, under the same name, but the ones dropped on purpose; and each
+    of those is really gone from the port."""
+    ref, port = _settings(REF), _settings(PORT)
+    assert ref - port == set(SETTINGS_DROPPED), sorted(ref - port)
+    assert not set(SETTINGS_DROPPED) & port
+    assert "NOMAD_TPU_EXPLAIN" in port

@@ -10,6 +10,7 @@ row order and versions then come out the same in both packages.
 from __future__ import annotations
 
 import random
+import types
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 from unittest import mock as umock
@@ -24,6 +25,7 @@ from nomad_tpu.structs import (Affinity, Constraint, NetworkResource, Port,
 from nomad_tpu.structs.codec import to_wire
 from nomad_tpu.tensor.cluster import ClusterTensors
 
+from nomad_tpu_torch import mock as torch_mock
 from nomad_tpu_torch.scheduler.stack import PlanContext as TorchPlanContext
 from nomad_tpu_torch.structs.codec import from_wire
 from nomad_tpu_torch.tensor.cluster import (
@@ -80,15 +82,31 @@ class TorchCase:
     plan: Optional[TorchPlanContext] = field(default=None)
 
 
-def port_case(case: Case) -> TorchCase:
-    """Replay the case's cluster and carry its job and plan over the wire
-    into the port's objects."""
+def replay(cluster: RecordingCluster) -> TorchClusterTensors:
+    """The port's ClusterTensors fed the recorded cluster's mutations, in
+    order."""
     cl = TorchClusterTensors()
-    for op, *args in case.cluster.log:
+    for op, *args in cluster.log:
         if op in ("upsert_node", "upsert_alloc"):
             getattr(cl, op)(from_wire(args[0]))
         else:
             getattr(cl, op)(*args)
+    return cl
+
+
+def on_port(builder):
+    """A `test_kernel_parity` builder (`make_cluster`, `seed_allocs`) with
+    its globals bound to the port's mocks and ClusterTensors."""
+    g = dict(builder.__globals__, mock=torch_mock,
+             ClusterTensors=TorchClusterTensors)
+    return types.FunctionType(builder.__code__, g, builder.__name__,
+                              builder.__defaults__)
+
+
+def port_case(case: Case) -> TorchCase:
+    """Replay the case's cluster and carry its job and plan over the wire
+    into the port's objects."""
+    cl = replay(case.cluster)
     plan = None
     if case.plan is not None:
         p = case.plan
