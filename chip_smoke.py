@@ -307,7 +307,30 @@ non-zero without printing a result:
    step prints its wall and its K1, K4, K5, K7 and K8 launches with the
    card's name and power limit; every step launched a placement kernel,
    and the phase K1, K4, K7 and K8.
-17. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
+17. Residency and traces on the card: with a fresh process-wide
+   residency ledger and the allocator's live bytes read first, one port
+   `Server` at its default device (eval_batch 16) over N_NODES nodes and
+   PHASE11_ALLOCS + 64 allocs (cut from N_ALLOCS for phase 11's reason;
+   the planner holds per-alloc residency at 0, so the cut changes no
+   device byte) takes PHASE17_BURSTS bursts of phase 6's mix (64 evals
+   of count 10) in one launch window (phase 6's contract). (a) The
+   ledger's live bytes must cover at least PHASE17_COVERAGE of the
+   allocator's growth (`hbm.reconcile`, the reference's acceptance), the
+   eight sites of PHASE17_SITES must be booked and every site must be in
+   `ALLOWED_SITES`; prints each site's live and peak bytes, the growth
+   and the coverage. (c) Every eval's trace complete and ordered, the
+   fused ones with pack and kernel spans; every dispatch committed and
+   ended on the timeline; the broker's depths back to 0 and
+   `plan_apply.partial_rate` 0; prints the timeline's overlap, wasted
+   and bubble ms and the K4, K5, K7 and K8 launches. (b) From (a)'s
+   ledger, once the view is refreshed, `plan_capacity(PHASE17_NODES,
+   ...)` projects n_cap 32768; a synthetic cluster of PHASE17_NODES nodes
+   and PHASE17_ALLOCS allocs uploaded through `TorchStack` on the card
+   with a fresh ledger books within PHASE17_PLAN_TOL of the prediction
+   (the allocator's growth printed beside it); `plan_capacity(100000,
+   1000000)` reads its limit from the card ("memory_stats") and fits.
+   Prints the phase's wall with the card's name and power limit.
+18. Prints the kernels line, then `{"ok": true, "device": {...}}` last.
 """
 from __future__ import annotations
 
@@ -6006,6 +6029,225 @@ def _phase16_operator(torch, kp, kr, device=None, card=""):
     return {"steps": steps, "total": total}
 
 
+#: phase 17: the bursts of phase 6's mix, the coverage the ledger must
+#: reach of the allocator's growth, the cluster the planner predicts
+#: (twice the phase's node count; few allocs: per-alloc residency is 0),
+#: the prediction's tolerance, the sites one fused round books
+PHASE17_BURSTS = 2
+PHASE17_COVERAGE = 0.90
+PHASE17_NODES = 20_000
+PHASE17_ALLOCS = 2_000
+PHASE17_PLAN_TOL = 0.15
+PHASE17_SITES = ("stack.view_static", "stack.view_hot", "stack.view_ports",
+                 "program_table.i32", "program_table.f32", "program_table.u8",
+                 "select_batch.batch_out", "select_batch.carry")
+#: the phases every eval's trace carries exactly once, in this order at its
+#: ends (tests/test_telemetry.py TestE2ETrace)
+EVAL_PHASES = ("queue_wait", "claim", "snapshot", "schedule", "plan_apply",
+               "ack")
+
+
+def _fresh_ledger(hbm):
+    """Swap the process-global residency ledger for a fresh one (as the
+    reference's tests do); returns (fresh, the one to put back)."""
+    from nomad_tpu_torch.lib.metrics import MetricsRegistry
+
+    saved = hbm._default_hbm
+    hbm._default_hbm = hbm.HbmLedger(registry=MetricsRegistry())
+    return hbm._default_hbm, saved
+
+
+def _allocated(torch, on_card: bool):
+    """The caching allocator's live bytes on the card, after a collection
+    (None off the card)."""
+    gc.collect()
+    if not on_card:
+        return None
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _trace_ok(trace, what: str) -> bool:
+    """One eval's trace complete and ordered: every phase of EVAL_PHASES
+    once, queue_wait first and ack last, starts non-decreasing, plan apply
+    inside schedule; a fused eval's pack inside its schedule. Returns
+    whether the eval rode a fused dispatch (it carries a kernel span)."""
+    if trace is None:
+        raise AssertionError(f"{what}: no trace")
+    spans = trace["spans"]
+    phases = [sp["phase"] for sp in spans]
+    for want in EVAL_PHASES:
+        if phases.count(want) != 1:
+            raise AssertionError(f"{what}: {want} {phases.count(want)} "
+                                 f"times in {phases}")
+    if phases[0] != "queue_wait" or phases[-1] != "ack":
+        raise AssertionError(f"{what}: phases out of order {phases}")
+    starts = [sp["start_s"] for sp in spans]
+    if starts != sorted(starts):
+        raise AssertionError(f"{what}: span starts out of order {starts}")
+    by = {sp["phase"]: sp for sp in spans}
+    sched, pa = by["schedule"], by["plan_apply"]
+    if (pa["start_s"] < sched["start_s"]
+            or pa["start_s"] + pa["duration_ms"] / 1e3
+            > sched["start_s"] + sched["duration_ms"] / 1e3 + 1e-6):
+        raise AssertionError(f"{what}: plan_apply outside schedule")
+    fused = "kernel" in by
+    if fused and ("pack" not in by
+                  or by["pack"]["start_s"] < sched["start_s"]):
+        raise AssertionError(f"{what}: a kernel span without its pack "
+                             f"inside schedule: {phases}")
+    return fused
+
+
+def _phase17_residency(torch, kp, kr, device=None, card=""):
+    """Residency and traces on the card (the docstring's phase 17): the
+    ledger against the allocator, the planner against an upload of twice
+    the nodes, the eval traces, timeline and instruments of two bursts.
+    Returns the bursts' launch window and the phase's numbers."""
+    from nomad_tpu_torch.analysis.vocab import ALLOWED_SITES
+    from nomad_tpu_torch.lib import hbm
+    from nomad_tpu_torch.scheduler.stack import TorchStack
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.synth import build_synthetic_state
+    from nomad_tpu_torch.tensor.cluster import _bucket
+
+    t_phase = time.perf_counter()
+    on_card = device is None or torch.device(device).type == "cuda"
+    out = {}
+    led, saved = _fresh_ledger(hbm)
+    try:
+        # ---- (a) the ledger against the allocator's growth ----
+        in_use0 = _allocated(torch, on_card)
+        s = Server(ServerConfig(num_schedulers=1, heartbeat_ttl=3600.0,
+                                gc_interval=3600.0, eval_batch=16),
+                   device=device)
+        try:
+            _ingest(s, random.Random(SEED + 171), PHASE11_ALLOCS)
+            s.start()
+            rng = random.Random(SEED + 172)
+            win = _LaunchWindow(kp, kr)
+            seq0 = s.timeline.last_index()
+            evs, t0 = [], time.perf_counter()
+            for burst in range(PHASE17_BURSTS):
+                jobs, dh = _mix(rng, 64)
+                burst_evs = [s.job_register(j) for j in jobs]
+                _wait_evals(s, burst_evs)
+                _placed(s, jobs, dh, f"phase 17 burst {burst}")
+                evs += burst_evs
+            wall = time.perf_counter() - t0
+            window = win.close("phase 17 (a) bursts", on_card)
+            if on_card:
+                torch.cuda.synchronize()
+            rec = hbm.reconcile(led)
+            snap = led.snapshot()
+            sites = set(snap)
+            growth = (None if in_use0 is None
+                      else rec["device_bytes_in_use"] - in_use0)
+            live = rec["ledger_live_bytes"]
+            coverage = live / growth if growth else None
+            for site, row in sorted(snap.items()):
+                print(f"phase 17 (a) site {site}: live {row['live_bytes']} "
+                      f"B, peak {row['peak_bytes']} B, {row['buffers']} "
+                      f"buffers, rows {row['rows']}")
+            print(f"phase 17 (a): {len(evs)} evals in {wall:.2f} s "
+                  f"({len(evs) / wall:.2f} evals/s); the ledger's live "
+                  f"bytes {live}, the allocator's growth {growth} "
+                  f"(in use {rec['device_bytes_in_use']}), coverage "
+                  + (f"{100.0 * coverage:.2f} %" if coverage is not None
+                     else "not measured (no card)") + f"; {card}")
+            missing = set(PHASE17_SITES) - sites
+            if missing:
+                raise AssertionError(f"phase 17 (a): sites not booked "
+                                     f"{sorted(missing)}")
+            if not sites <= ALLOWED_SITES:
+                raise AssertionError(f"phase 17 (a): sites outside the "
+                                     f"vocabulary {sites - ALLOWED_SITES}")
+            if on_card and (coverage is None
+                            or coverage < PHASE17_COVERAGE):
+                raise AssertionError(
+                    f"phase 17 (a): the ledger covers {live} B of "
+                    f"{growth} B the allocator grew by, under "
+                    f"{PHASE17_COVERAGE:.0%}")
+
+            # ---- (c) traces, the timeline and the instruments ----
+            fused = sum(_trace_ok(s.tracer.get(ev.id), f"eval {ev.id}")
+                        for ev in evs)
+            if not fused:
+                raise AssertionError("phase 17 (c): no eval carried a "
+                                     "kernel span")
+            _i, recs = s.timeline.records_after(seq0)
+            open_ = [r["seq"] for r in recs if r["kernel_ms"] is None]
+            if not recs or open_:
+                raise AssertionError(f"phase 17 (c): {len(recs)} dispatches,"
+                                     f" not ended on the timeline {open_}")
+            summ = s.timeline.summary()
+            qs = s.broker.queue_stats()
+            depths = {k: qs[k] for k in ("ready_total", "unacked",
+                                         "pending_jobs", "delayed")}
+            partial = s.metrics.snapshot()["gauges"].get(
+                "plan_apply.partial_rate")
+            if any(depths.values()) or partial != 0:
+                raise AssertionError(f"phase 17 (c): broker depths {depths},"
+                                     f" plan_apply.partial_rate {partial}")
+            print(f"phase 17 (c): {len(evs)} traces complete and ordered, "
+                  f"{fused} with pack and kernel spans; {len(recs)} "
+                  f"dispatches committed and ended; timeline overlap "
+                  f"{summ['overlap_ms_total']} ms ({summ['overlap_pct']} %), "
+                  f"wasted {summ['spec']['wasted_kernel_ms']} ms, bubble "
+                  f"{summ['bubble_ms_total']} ms, speculation {summ['spec']};"
+                  f" broker depths {depths}, plan_apply.partial_rate "
+                  f"{partial}; K4 {window['chain']} "
+                  f"({window['kernels']['chain']} launches), K5 "
+                  f"{window['wave']} ({window['kernels']['wave']}), K7 "
+                  f"{window['k7']}, K8 {window['insert']}; {card}")
+
+            # ---- (b) the planner against an upload of twice the nodes ----
+            TorchStack(s.state.cluster, device=s.device).device_arrays()
+            gc.collect()
+            plan = hbm.plan_capacity(PHASE17_NODES, PHASE17_ALLOCS, led)
+            big = hbm.plan_capacity(100_000, 1_000_000, led)
+        finally:
+            s.shutdown()
+        if plan["projected_n_cap"] != _bucket(PHASE17_NODES):
+            raise AssertionError(f"phase 17 (b): {plan}")
+        state, _nodes = build_synthetic_state(PHASE17_NODES, PHASE17_ALLOCS,
+                                              seed=SEED + 173)
+        led_b, _ = _fresh_ledger(hbm)
+        in_use1 = _allocated(torch, on_card)
+        view = TorchStack(state.cluster, device=device).device_arrays()
+        in_use2 = _allocated(torch, on_card)
+        measured = led_b.totals()[0]
+        predicted = plan["projected_bytes"]
+        err = abs(predicted - measured) / measured
+        grew = None if in_use1 is None else in_use2 - in_use1
+        print(f"phase 17 (b): plan for {PHASE17_NODES} nodes: n_cap "
+              f"{plan['projected_n_cap']}, {plan['per_node_bytes']} B a node "
+              f"row, predicted {predicted} B; uploaded {measured} B "
+              f"booked ({100.0 * err:.2f} % off), the allocator grew by "
+              f"{grew} B; plan for 100000 nodes / 1000000 allocs: "
+              f"{big['projected_bytes']} B of {big['device_limit_bytes']} "
+              f"({big['limit_source']}), fits {big['fits']}, shards "
+              f"{big['shards_needed']}; {card}")
+        if err > PHASE17_PLAN_TOL:
+            raise AssertionError(f"phase 17 (b): predicted {predicted} B, "
+                                 f"measured {measured} B")
+        if on_card and (big["limit_source"] != "memory_stats"
+                        or not big["fits"]):
+            raise AssertionError(f"phase 17 (b): {big}")
+        del view
+        out.update(window=window, coverage=coverage, growth=growth,
+                   live=live, predicted=predicted, measured=measured,
+                   plan_err=err, grew=grew, evals_per_s=len(evs) / wall,
+                   overlap_ms=summ["overlap_ms_total"],
+                   wasted_ms=summ["spec"]["wasted_kernel_ms"],
+                   bubble_ms=summ["bubble_ms_total"])
+    finally:
+        hbm._default_hbm = saved
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 17 took {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6550,6 +6792,14 @@ def main() -> int:
         entry["phase16_launches"] = p16[f"{key}_kernels"]
     kernels[3]["phase16_launches"] = p16["insert"]
     kernels[4]["phase16_launches"] = p16["k7"]
+
+    # ---- 17. residency and traces on the card ----
+    p17 = _phase17_residency(torch, kp, kr, card=smi[0])["window"]
+    for entry, key in ((kernels[1], "chain"), (kernels[2], "wave")):
+        entry["phase17_calls"] = p17[key]
+        entry["phase17_launches"] = p17["kernels"][key]
+    kernels[3]["phase17_launches"] = p17["insert"]
+    kernels[4]["phase17_launches"] = p17["k7"]
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -70,10 +70,13 @@ from .metrics import MetricsRegistry, prometheus_line
 #: reported stuck; 0 disables the check
 LEASE_WATERMARK_ENV = "NOMAD_TPU_HBM_LEASE_WATERMARK_S"
 
-#: fallback device capacity for the planner when the backend exposes no
-#: memory_stats (CPU dev loops): gigabytes, env-overridable
+#: fallback device capacity for the planner when no card is visible (CPU
+#: dev loops): NOMAD_TPU_HBM_GB gigabytes when set, else DEFAULT_HBM_BYTES
 HBM_GB_ENV = "NOMAD_TPU_HBM_GB"
-_DEFAULT_HBM_GB = 16.0
+#: the card the port runs on: `torch.cuda.get_device_properties(0)
+#: .total_memory` of an "NVIDIA H100 80GB HBM3, 700.00 W" (nvidia-smi's
+#: name and power limit)
+DEFAULT_HBM_BYTES = 85_017_493_504
 
 #: transient sites: in-flight dispatch state (lazy outputs, held
 #: carries) whose LIVE bytes oscillate around zero — the planner
@@ -134,9 +137,10 @@ class HbmLedger:
 
     Bookings are keyed by object identity: `track` registers a
     finalizer so a buffer's bytes leave the ledger exactly when the
-    array object is garbage-collected (which on every JAX backend is
-    when its device buffer is released). The ledger holds NO strong
-    references — tracking a buffer never extends its life.
+    tensor object is garbage-collected (which is when its storage goes
+    back to the caching allocator, unless a view still holds it). The
+    ledger holds NO strong references — tracking a buffer never extends
+    its life.
     """
 
     def __init__(self, registry: Optional[MetricsRegistry] = None) -> None:
@@ -178,15 +182,12 @@ class HbmLedger:
 
     @staticmethod
     def _shard_bookings(arr) -> List[Tuple[str, int]]:
-        """[(shard_label, nbytes)] for one tensor: its card's index, or
-        "cpu" for a host tensor (the port places no tensor on several
-        cards yet)."""
-        dev = getattr(arr, "device", None)
-        if dev is None or getattr(dev, "type", "cpu") == "cpu":
-            label = "cpu"
-        else:
-            label = str(dev.index if dev.index is not None else 0)
-        return [(label, int(arr.nbytes))]
+        """[(shard_label, nbytes)] for one tensor: its card's index, else
+        "0", the reference's label for an array it cannot place (the port
+        places no tensor on several cards yet)."""
+        index = getattr(getattr(arr, "device", None), "index", None)
+        return [(str(index if isinstance(index, int) else 0),
+                 int(arr.nbytes))]
 
     # -- booking --
 
@@ -507,8 +508,9 @@ def reconcile(ledger: Optional[HbmLedger] = None) -> Dict[str, object]:
 
 
 def device_limit_bytes() -> Tuple[int, str]:
-    """(per-device HBM capacity, source): allocator bytes_limit when the
-    backend reports one, else NOMAD_TPU_HBM_GB, else 16 GiB (v5e)."""
+    """(per-device HBM capacity, source): the card's total memory when
+    one is visible, else NOMAD_TPU_HBM_GB, else an H100 80GB HBM3's
+    (DEFAULT_HBM_BYTES)."""
     for d in device_memory_stats():
         if d["bytes_limit"]:
             return int(d["bytes_limit"]), "memory_stats"
@@ -518,7 +520,7 @@ def device_limit_bytes() -> Tuple[int, str]:
             return int(gb * (1 << 30)), "env"
     except ValueError:
         pass
-    return int(_DEFAULT_HBM_GB * (1 << 30)), "default"
+    return DEFAULT_HBM_BYTES, "default"
 
 
 def plan_capacity(nodes: int, allocs: int,

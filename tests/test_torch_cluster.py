@@ -76,6 +76,45 @@ def leader_of(agents):
     return None
 
 
+class TestClusterSnapshotCompaction:
+    """The Raft log compacts through the port's FSM and the state
+    survives intact (the reference's `slow` mark kept)."""
+
+    @pytest.mark.slow
+    def test_log_compacts_and_state_survives(self):
+        configs = [ClusterServerConfig(node_id=f"s{i}", num_schedulers=1,
+                                       heartbeat_ttl=60.0,
+                                       gc_interval=3600.0,
+                                       snapshot_threshold=40)
+                   for i in range(3)]
+        agents, peers = [], {}
+        for cfg in configs:
+            a = ClusterServer(cfg, device="cpu")
+            peers[cfg.node_id] = a.addr
+            agents.append(a)
+        for a in agents:
+            a.peers.clear()
+            a.peers.update(peers)
+            a.raft.peers = dict(peers)
+        for a in agents:
+            a.start()
+        try:
+            assert _wait(lambda: leader_of(agents) is not None)
+            leader = leader_of(agents)
+            nodes = [mock.node() for _ in range(60)]
+            for n in nodes:
+                leader.server.node_register(n)
+            assert _wait(lambda: leader.raft.log.base_index > 0), \
+                leader.raft.log.last_index()
+            for a in agents:
+                assert _wait(lambda a=a: len(a.state.nodes()) >= 60), \
+                    (a.config.node_id, len(a.state.nodes()))
+            # rows written before the snapshot keep their indexes
+            assert leader.state.node_by_id(nodes[0].id).create_index > 0
+        finally:
+            _shutdown(agents)
+
+
 class TestCluster:
     def test_leader_elected_and_subsystems_enabled(self, cluster):
         assert _wait(lambda: leader_of(cluster) is not None)

@@ -4,6 +4,15 @@
 `operator debug` bundle), run on the port: every agent, server and
 harness is the port's with `device="cpu"`, its HTTP port ephemeral and
 its data under `tmp_path`; the reference's `slow` marks are kept.
+
+And the instruments: `TestBrokerQueueStats` and `TestPlanApplyInstruments`
+run the same evals and plans (the reference's mocks, carried into the
+port over the wire) through both packages' broker, plan queue and
+applier and compare the depths, gauges, stats and flight events; the
+CLI's robustness cases run both packages' CLIs on the same arguments;
+the unwritable bundle and the follower's own debug report run on the
+port's dev agent and region. (`TestHeartbeatExpiry`'s twin is in
+`tests/test_torch_heartbeat.py`.)
 """
 import json
 import tarfile
@@ -32,6 +41,164 @@ class _StubRpc:
 
     def register(self, name, fn):
         pass
+
+
+# ---- instrument units, both packages on the same objects ----
+
+
+def _pkgs():
+    """(name, package root, flight module, metrics module, to-package)."""
+    import nomad_tpu
+    from nomad_tpu.lib import flight as ref_flight
+    from nomad_tpu.lib import metrics as ref_metrics
+    from nomad_tpu.structs.codec import to_wire
+
+    import nomad_tpu_torch
+    from nomad_tpu_torch.lib import flight as port_flight
+    from nomad_tpu_torch.lib import metrics as port_metrics
+    from nomad_tpu_torch.structs.codec import from_wire
+
+    return (("ref", nomad_tpu, ref_flight, ref_metrics, lambda o: o),
+            ("port", nomad_tpu_torch, port_flight, port_metrics,
+             lambda o: from_wire(to_wire(o))))
+
+
+def _broker(pkg, metrics, **kw):
+    import importlib
+
+    broker = importlib.import_module(f"{pkg.__name__}.server.broker")
+    b = broker.EvalBroker(metrics=metrics.MetricsRegistry(), **kw)
+    b.set_enabled(True)
+    return b
+
+
+class TestBrokerQueueStats:
+    def test_depths_and_ages_per_scheduler(self):
+        from nomad_tpu import mock as ref_mock
+
+        evals = [ref_mock.eval_(type="service"),
+                 ref_mock.eval_(type="service"),
+                 ref_mock.eval_(type="batch")]
+        got = {}
+        for name, pkg, _fl, metrics, conv in _pkgs():
+            b = _broker(pkg, metrics)
+            for ev in evals:
+                b.enqueue(conv(ev))
+            time.sleep(0.05)
+            qs = b.queue_stats()
+            assert qs["oldest_eval_age_s"] >= 0.05, name
+            assert set(qs["oldest_by_queue"]) == {"batch", "service"}
+            g = b.metrics.snapshot()["gauges"]
+            assert g["broker.oldest_eval_age_s"] >= 0.05, name
+            steps = [{k: v for k, v in qs.items()
+                      if k not in ("oldest_eval_age_s", "oldest_by_queue")},
+                     {k: v for k, v in g.items() if "age" not in k}]
+            ev, tok = b.dequeue(["service"], timeout=1.0)
+            steps.append(b.queue_stats()["unacked"])
+            steps.append(b.queue_stats()["ready_total"])
+            b.ack(ev.id, tok)
+            steps.append(b.queue_stats()["unacked"])
+            ev2, tok2 = b.dequeue(["service"], timeout=1.0)
+            b.ack(ev2.id, tok2)
+            b.queue_stats()
+            # a drained queue's gauge is zeroed, not left stale
+            steps.append(b.metrics.snapshot()["gauges"][
+                "broker.ready.service"])
+            b.shutdown()
+            got[name] = steps
+        assert got["port"] == got["ref"]
+        qs, gauges, unacked, ready, acked, drained = got["port"]
+        assert qs["ready"] == {"batch": 1, "service": 2}
+        assert qs["ready_total"] == 3 and qs["unacked"] == 0
+        assert gauges["broker.ready_depth"] == 3
+        assert gauges["broker.ready.service"] == 2
+        assert (unacked, ready, acked, drained) == (1, 2, 0, 0)
+
+    def test_delivery_limit_flight_event(self):
+        from nomad_tpu import mock as ref_mock
+
+        ev = ref_mock.eval_(type="service")
+        got = {}
+        for name, pkg, flight, metrics, conv in _pkgs():
+            b = _broker(pkg, metrics, nack_timeout=0, delivery_limit=1)
+            idx0 = flight.default_flight().last_index()
+            b.enqueue(conv(ev))
+            out, tok = b.dequeue(["service"], timeout=1.0)
+            b.nack(out.id, tok)
+            _, evs = flight.default_flight().records_after(
+                idx0, types=["broker.eval_failed"])
+            mine = [(e["type"], e["key"], e["severity"]) for e in evs
+                    if e["key"] == ev.id]
+            got[name] = (b.stats["failed"], mine)
+            b.shutdown()
+        assert got["port"] == got["ref"]
+        assert got["port"][0] == 1 and got["port"][1]
+
+
+class TestPlanApplyInstruments:
+    def test_partial_plan_rate_gauge_and_flight(self):
+        import importlib
+
+        from nomad_tpu import mock as ref_mock
+        from nomad_tpu.structs import Plan as RefPlan
+
+        node = ref_mock.node()
+        bad = ref_mock.alloc(node_id="no-such-node")
+        got = {}
+        for name, pkg, flight, metrics, conv in _pkgs():
+            pa = importlib.import_module(f"{pkg.__name__}.server.plan_apply")
+            st = importlib.import_module(f"{pkg.__name__}.server.state")
+            reg = metrics.MetricsRegistry()
+            state = st.StateStore()
+            state.upsert_node(conv(node))
+            q = pa.PlanQueue(metrics=reg)
+            q.set_enabled(True)
+            applier = pa.PlanApplier(state, q, metrics=reg)
+            idx0 = flight.default_flight().last_index()
+            # a placement on a node that is not in the state fails its
+            # verification: a partial commit
+            plan = conv(RefPlan(eval_id="ev-partial",
+                                node_allocation={"no-such-node": [bad]}))
+            res = applier.apply(plan)
+            assert res.refresh_index > 0, name
+            snap = reg.snapshot()
+            _, evs = flight.default_flight().records_after(
+                idx0, types=["plan.partial"])
+            partial = [e["detail"]["n_rejected"] for e in evs
+                       if e["key"] == "ev-partial"]
+            applier.apply(conv(RefPlan(eval_id="ev-ok",
+                                       node_update={node.id: []})))
+            got[name] = (snap["gauges"]["plan_apply.partial_rate"],
+                         snap["histograms"]["plan_apply.apply_ms"]["count"],
+                         partial,
+                         reg.snapshot()["gauges"]["plan_apply.partial_rate"])
+        assert got["port"] == got["ref"] == (1.0, 1, [1], 0.5)
+
+    def test_queue_depth_gauge(self):
+        import importlib
+
+        got = {}
+        for name, pkg, _fl, metrics, _conv in _pkgs():
+            pa = importlib.import_module(f"{pkg.__name__}.server.plan_apply")
+            structs = importlib.import_module(f"{pkg.__name__}.structs")
+            reg = metrics.MetricsRegistry()
+            q = pa.PlanQueue(metrics=reg)
+            q.set_enabled(True)
+
+            def depth():
+                return reg.snapshot()["gauges"]["plan_apply.queue_depth"]
+
+            q.enqueue(structs.Plan(eval_id="a"))
+            q.enqueue(structs.Plan(eval_id="b"))
+            steps = [depth()]
+            assert q.dequeue(timeout=1.0) is not None
+            steps.append(depth())   # popped but uncommitted: in flight
+            q.task_done()
+            steps.append(depth())
+            q.shutdown()
+            steps.append(depth())
+            got[name] = steps
+        assert got["port"] == got["ref"] == [2, 2, 1, 0]
 
 
 # ---- replica determinism: apply is a pure function ----
@@ -166,6 +333,21 @@ def cluster3():
         a.shutdown()
 
 
+def _cli(main, *argv):
+    """(rc, stdout, stderr) of one CLI call in this process."""
+    import io
+    import sys as _sys
+
+    out, err = io.StringIO(), io.StringIO()
+    old = _sys.stdout, _sys.stderr
+    _sys.stdout, _sys.stderr = out, err
+    try:
+        rc = main(list(argv))
+    finally:
+        _sys.stdout, _sys.stderr = old
+    return rc, out.getvalue(), err.getvalue()
+
+
 class TestOperatorDebugCluster:
     def test_bundle_captures_all_servers_and_failover(self, cluster3,
                                                       tmp_path):
@@ -278,4 +460,51 @@ class TestOperatorDebugCluster:
         assert "leadership.gained" in ftypes
         assert "leadership.lost" in ftypes
 
+    def test_cli_robustness_exit_one(self, tmp_path):
+        """`operator debug` / `operator flight` against an unreachable
+        agent or with malformed arguments: exit 1 with a one-line error,
+        never a traceback — the same lines from both packages' CLIs."""
+        from nomad_tpu.cli import main as ref_main
 
+        from nomad_tpu_torch.cli import main as port_main
+
+        for argv in (("operator", "flight"),
+                     ("operator", "debug", "-output",
+                      str(tmp_path / "b.tar.gz")),
+                     ("operator", "flight", "-wait", "-1"),
+                     ("operator", "flight", "-index", "-5")):
+            got = {name: _cli(main, "-address", "127.0.0.1:1", *argv)
+                   for name, main in (("ref", ref_main),
+                                      ("port", port_main))}
+            rc, out, err = got["port"]
+            assert rc == 1, argv
+            assert err.startswith("Error:"), (argv, err)
+            assert "Traceback" not in err, argv
+            assert got["port"] == got["ref"], argv
+
+    def test_cli_debug_unwritable_output_exit_one(self, dev_agent,
+                                                  tmp_path):
+        from nomad_tpu_torch.cli import main as cli_main
+
+        a, api = dev_agent
+        addr = f"{a.http_addr[0]}:{a.http_addr[1]}"
+        rc, _out, err = _cli(cli_main, "-address", addr, "operator",
+                             "debug", "-output",
+                             str(tmp_path / "no-such-dir" / "b.tar.gz"))
+        assert rc == 1
+        assert err.startswith("Error:")
+        assert "Traceback" not in err
+
+    def test_follower_debug_endpoint_reports_itself(self, cluster3):
+        agents, apis = cluster3
+        assert _wait(lambda: _leader_of(agents) is not None)
+        leader = _leader_of(agents)
+        fidx = next(i for i, a in enumerate(agents) if a is not leader)
+        api = NomadClient(apis[fidx].addr[0], apis[fidx].addr[1])
+        dbg = api.operator_debug()
+        assert dbg["server"]["node_id"] == agents[fidx].config.node_id
+        assert dbg["server"]["leader"] is False
+        assert dbg["raft"]["status"]["state"] in ("follower", "candidate")
+        assert dbg["wal"]["mode"] == "raft-journal"
+        missing = [s for s in DEBUG_SECTIONS if s not in dbg]
+        assert not missing, missing

@@ -6,7 +6,10 @@ bitwise each other), the row kernels (K7, K8), K2 (from numpy and
 from tensors, bitwise its old pass), K3, the node-sharded step (K9; its
 cluster route bitwise its steps route), and the sharded routes (B10-B13)
 on shards of the card — B10/B11's cluster route held bitwise against
-its steps route, B12's cards route against its shards route.
+its steps route, B12's cards route against its shards route. And the
+residency ledger against the card's allocator (the reference's
+`TestReconciliation` and `TestPlannerAgainstMeasurement`, which arm
+only where an allocator reports its numbers).
 
 Marked `cuda`: it skips without an NVIDIA card (a CUDA kernel has no CPU
 mode). It imports nothing of JAX, so it also runs where JAX is absent:
@@ -1723,3 +1726,162 @@ def test_sharded_view_refresh_matches_a_cold_upload(cuda_device):
         for f in kp.ClusterArrays._fields:
             assert torch.equal(getattr(shard, f).cpu(),
                                getattr(want, f).cpu()), (key, f)
+
+
+# ---- residency: the ledger against the card's allocator --------------------
+
+
+def _fresh_hbm(monkeypatch):
+    """A fresh process-wide residency ledger for the test."""
+    from nomad_tpu_torch.lib import hbm
+    from nomad_tpu_torch.lib.metrics import MetricsRegistry
+
+    led = hbm.HbmLedger(registry=MetricsRegistry())
+    monkeypatch.setattr(hbm, "_default_hbm", led)
+    return led
+
+
+def _mini_cluster(n_nodes=12):
+    """tests/test_program_table.py `_mini_cluster` on the port."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.tensor import ClusterTensors
+
+    cl = ClusterTensors()
+    for i in range(n_nodes):
+        n = mock.node()
+        n.id = f"node-{i}"
+        n.node_resources.cpu = 4000
+        n.node_resources.memory_mb = 8192
+        cl.upsert_node(n)
+    return cl
+
+
+def _mixed_job(rng, i):
+    """tests/test_program_table.py `_job` on the port."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import Constraint, Spread, SpreadTarget
+
+    j = mock.job()
+    j.task_groups[0].tasks[0].resources.cpu = rng.choice((100, 250, 400))
+    j.task_groups[0].tasks[0].resources.memory_mb = rng.choice((64, 128))
+    j.task_groups[0].networks = []
+    if i % 2 == 0:
+        j.constraints.append(Constraint("${node.datacenter}", "dc1", "="))
+    if i % 3 == 0:
+        j.spreads.append(Spread(attribute="${node.datacenter}", weight=50,
+                                spread_target=[SpreadTarget(value="dc1",
+                                                            percent=60)]))
+    if i % 5 == 0:
+        j.constraints.append(Constraint(operand="distinct_hosts"))
+    return j
+
+
+def _fused_round(cl, jobs, eval_ids, device):
+    """One coordinator round on the card (tests/test_program_table.py
+    `_run_round`), its placements then committed as the plan applier
+    would (`_commit_round`)."""
+    import threading
+    import uuid
+
+    from nomad_tpu_torch.mock import alloc_resources
+    from nomad_tpu_torch.server.select_batch import SelectCoordinator
+    from nomad_tpu_torch.structs import Allocation
+
+    coord = SelectCoordinator()
+    coord.trace_ids = dict(enumerate(eval_ids))
+    results = {}
+
+    def one(i, job):
+        stack = TorchStack(cl, device=device)
+        stack.coordinator = coord
+        stack.coordinator_order = i
+        try:
+            r = stack.select(job, job.task_groups[0], 1, None)
+            results[i] = (r.node_ids, r.ask, r.carry_token)
+        finally:
+            coord.thread_done()
+
+    threads = []
+    for i, j in enumerate(jobs):
+        coord.add_thread()
+        threads.append(threading.Thread(target=one, args=(i, j),
+                                        daemon=True))
+    for t in threads:
+        t.start()
+    coord.run()
+    for t in threads:
+        t.join(30.0)
+    for i, eid in enumerate(eval_ids):
+        node_ids, ask, token = results[i]
+        v_lo = cl.version
+        for nid in node_ids:
+            if nid is not None:
+                cl.upsert_alloc(Allocation(
+                    id=uuid.uuid4().hex, namespace="default",
+                    job_id=f"job-{eid}", task_group="web", node_id=nid,
+                    allocated_resources=alloc_resources(
+                        cpu=int(ask[0]), memory_mb=int(ask[1]),
+                        disk_mb=int(ask[2])),
+                    desired_status="run", client_status="pending"))
+        cl.mark_plan_window(eid, v_lo, cl.version, clean=True, exact=True,
+                            token=token)
+    return results
+
+
+@pytest.mark.cuda
+def test_ledger_covers_allocator_growth(cuda_device, monkeypatch):
+    """The reference's acceptance, armed on the card: over two fused
+    rounds the ledger's live bytes account for at least 90 % of the
+    caching allocator's growth (`torch.cuda.memory_allocated`)."""
+    import gc
+
+    from nomad_tpu_torch.lib.hbm import device_memory_stats, reconcile
+
+    led = _fresh_hbm(monkeypatch)
+    gc.collect()
+    torch.cuda.synchronize()
+    devs0 = device_memory_stats()
+    assert devs0, "the card reports no allocator numbers"
+    in_use0 = sum(d["bytes_in_use"] for d in devs0)
+    rng = random.Random(3)
+    cl = _mini_cluster()
+    jobs = [_mixed_job(rng, i) for i in range(3)]
+    ids = [f"ev-{i}" for i in range(3)]
+    for _ in range(2):
+        _fused_round(cl, jobs, ids, cuda_device)
+    torch.cuda.synchronize()
+    rec = reconcile(led)
+    assert rec["ledger_live_bytes"] == led.totals()[0] > 0
+    growth = rec["device_bytes_in_use"] - in_use0
+    assert rec["ledger_live_bytes"] >= 0.9 * growth, (rec, growth,
+                                                      led.snapshot())
+
+
+@pytest.mark.cuda
+def test_2x_cluster_prediction_within_15pct(cuda_device, monkeypatch):
+    """Project a 2x cluster from one cluster's measured per-row costs on
+    the card, then upload it there: the ledger within 15 % of the
+    prediction, and the allocator grown by what the ledger booked."""
+    import gc
+
+    from nomad_tpu_torch.lib.hbm import plan_capacity
+
+    led_a = _fresh_hbm(monkeypatch)
+    cl_a = _mini_cluster(48)                  # n_cap 64
+    TorchStack(cl_a, device=cuda_device).device_arrays()
+    plan = plan_capacity(96, 1000, led_a)     # n_cap 128
+    assert plan["measured"] and plan["limit_source"] == "memory_stats"
+    led_b = _fresh_hbm(monkeypatch)
+    gc.collect()
+    torch.cuda.synchronize()
+    in_use0 = torch.cuda.memory_allocated()
+    cl_b = _mini_cluster(96)
+    TorchStack(cl_b, device=cuda_device).device_arrays()
+    torch.cuda.synchronize()
+    grew = torch.cuda.memory_allocated() - in_use0
+    measured = led_b.totals()[0]
+    assert measured > 0
+    assert abs(plan["projected_bytes"] - measured) <= 0.15 * measured, \
+        (plan, measured)
+    assert measured >= 0.9 * grew, (measured, grew)
+    assert cl_a is not None and cl_b is not None

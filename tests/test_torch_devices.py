@@ -221,3 +221,55 @@ class TestMultiGroupNodes:
         got = _run(t, ref_gpu_job(dev_count=1, constraints=[
             RefConstraint("${device.model}", "1080ti", "=")]))
         assert len(got) == 1 and got[0].node_id == n2.id
+
+
+class TestDeviceStatsHeartbeat:
+    """The reference's `test_heartbeat_carries_stats_to_node_endpoint` on
+    the port: a port client with a declared device group heartbeats its
+    stats to a port server (`device="cpu"`), and the node endpoint of the
+    port's HTTP API shows them."""
+
+    def test_heartbeat_carries_stats_to_node_endpoint(self, tmp_path,
+                                                      monkeypatch):
+        import json
+        import time
+        import urllib.request
+
+        from nomad_tpu_torch.agent.http import HTTPApi
+        from nomad_tpu_torch.client import Client, ClientConfig, InProcConn
+        from nomad_tpu_torch.server import Server, ServerConfig
+
+        monkeypatch.setenv("NOMAD_TPU_FAKE_DEVICES", "acme/fpga/x1:2")
+        server = Server(ServerConfig(num_schedulers=1, heartbeat_ttl=60.0,
+                                     gc_interval=3600.0), device="cpu")
+        server.start()
+        client = Client(InProcConn(server),
+                        ClientConfig(data_dir=str(tmp_path / "c"),
+                                     heartbeat_interval=0.2))
+        client.device_manager.stats_interval = 0.1
+
+        class _Agent:   # the HTTP layer's minimal agent
+            pass
+
+        shim = _Agent()
+        shim.server, shim.client = server, client
+        api = HTTPApi(shim)
+        api.start()
+        client.start()
+        try:
+            deadline = time.time() + 10.0
+            ds = None
+            while time.time() < deadline and not ds:
+                ds = server.node_device_stats(client.node.id)
+                time.sleep(0.05)
+            assert ds, "no device stats arrived on the heartbeat"
+            assert "acme/fpga/x1" in ds["stats"]
+            host, port = api.addr
+            with urllib.request.urlopen(
+                    f"http://{host}:{port}/v1/node/{client.node.id}") as r:
+                tree = json.loads(r.read())
+            assert "acme/fpga/x1" in tree["device_stats"]["stats"]
+        finally:
+            client.shutdown()
+            api.shutdown()
+            server.shutdown()

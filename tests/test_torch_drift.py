@@ -73,7 +73,9 @@ REWRITTEN = {
     "kernels/placement.py": "PyTorch plain versions and CUDA wrappers; "
                             "sharded views route to kernels/shard.py",
     "lib/hbm.py": "torch tensors and torch.cuda memory stats; its logger "
-                  "name is the port's",
+                  "name is the port's; with no card visible the planner "
+                  "falls back to an H100 80GB HBM3's total memory "
+                  "(DEFAULT_HBM_BYTES), not a TPU's",
     "lib/trace.py": "comments naming the reference's issues",
     "lib/tracectx.py": "comments naming the reference's issues",
     "lib/transfer.py": "guard_scope counts; torch has no transfer guard",

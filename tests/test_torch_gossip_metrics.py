@@ -99,9 +99,9 @@ class TestGossip:
                 p.close()
 
     def test_cluster_members_endpoint_shows_status(self, tmp_path):
-        from tests.test_cluster import leader_of, make_cluster
+        from tests.test_torch_cluster import leader_of, make_cluster
 
-        agents = make_cluster(3)
+        agents = make_cluster(3, device="cpu")
         try:
             assert _wait(lambda: leader_of(agents) is not None)
             assert _wait(lambda: all(

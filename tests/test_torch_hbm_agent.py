@@ -16,7 +16,6 @@ from nomad_tpu_torch.lib.hbm import (HbmLedger, default_hbm, device_memory_stats
                                plan_capacity, reconcile)
 from nomad_tpu_torch.lib.metrics import MetricsRegistry
 
-import tests.test_program_table as tpt
 from torch_chain_cases import one_torch_thread  # noqa: F401
 
 

@@ -116,6 +116,33 @@ def test_sharded_matches_single_device(problem):
     assert (got.sel_idx >= 0).any()
 
 
+def test_padding_is_inert(problem):
+    """Padded programs select the same nodes as unpadded ones on the
+    port, and the same as the reference's unpadded selection."""
+    from nomad_tpu.kernels.placement import place_task_group as jax_place
+
+    _state, stack, params = problem
+    arrays = stack.device_arrays()
+    view = _port_view(arrays)
+    padded, m = stack_params(params)
+    for i, p in enumerate(params):
+        base = tp.place_task_group(view, params_from_numpy(p, "cpu"),
+                                   p.penalty_idx.shape[0])
+        one = type(padded)(*(np.asarray(x)[i] for x in padded))
+        pad = tp.place_task_group(view, params_from_numpy(one, "cpu"), m)
+        ref = jax_place(arrays, p, p.penalty_idx.shape[0])
+        n = min(4, m)
+        np.testing.assert_array_equal(base.sel_idx.numpy()[:n],
+                                      pad.sel_idx.numpy()[:n])
+        np.testing.assert_allclose(base.sel_score.numpy()[:n],
+                                   pad.sel_score.numpy()[:n], rtol=1e-6)
+        np.testing.assert_array_equal(np.asarray(ref.sel_idx)[:n],
+                                      base.sel_idx.numpy()[:n])
+        np.testing.assert_allclose(base.sel_score.numpy()[:n],
+                                   np.asarray(ref.sel_score)[:n], rtol=0,
+                                   atol=1e-6)
+
+
 def test_scheduler_step_advances_state(problem):
     """The port's step folds placements into the sharded snapshot as the
     reference's does."""

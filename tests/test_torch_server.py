@@ -21,6 +21,13 @@ reference-sequential then holds the batched path to the reference. The
 plans themselves carry the same certification: for the same evals the
 port's `Plan.carry_exact` and `carry_token` (by its dispatch's position)
 equal the reference's.
+
+And the reference's `tests/test_server.py` lifecycle cases, each run on
+both packages' `Server` with the same mock nodes and jobs (deep copies
+into the reference, over the wire into the port): register places the
+allocs, exhausted capacity blocks and then unblocks, deregister stops the
+allocs, a system job runs on new nodes, the broker serializes per job —
+with the same allocs on the same nodes in both.
 """
 import random
 import time
@@ -350,3 +357,163 @@ def test_unported_scheduler_raises(typ):
     assert isinstance(sched, SystemScheduler)
     assert sched.device == torch.device("cpu")
     assert sched.cluster is snap.cluster
+
+
+# ---- tests/test_server.py lifecycle cases, both packages -------------------
+
+
+def _lifecycle(pkg, scenario):
+    """Run `scenario(server, conv)` on a started `pkg` server ("ref" or
+    "port", the port's on the CPU); returns what it returns."""
+    import copy
+
+    if pkg == "ref":
+        from nomad_tpu.server import Server, ServerConfig
+
+        s, conv = Server(ServerConfig(num_schedulers=1,
+                                      heartbeat_ttl=60.0)), copy.deepcopy
+    else:
+        from nomad_tpu_torch.server import Server, ServerConfig
+
+        s, conv = Server(ServerConfig(num_schedulers=1, heartbeat_ttl=60.0),
+                         device="cpu"), _port
+    s.start()
+    try:
+        return scenario(s, conv)
+    finally:
+        s.shutdown()
+
+
+def _on_both(scenario):
+    got = {pkg: _lifecycle(pkg, scenario) for pkg in ("ref", "port")}
+    assert got["port"] == got["ref"]
+    return got["port"]
+
+
+def _register(s, conv, nodes):
+    for n in nodes:
+        s.node_register(conv(n))
+
+
+def _live(s, job_id):
+    return sorted(a.node_id for a in s.state.allocs_by_job("default", job_id)
+                  if not a.terminal_status())
+
+
+def _until(fn, timeout=10.0):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        got = fn()
+        if got:
+            return got
+        time.sleep(0.05)
+    return fn()
+
+
+def test_job_register_places_allocs():
+    from nomad_tpu import mock as ref_mock
+
+    nodes = [ref_mock.node() for _ in range(3)]
+    job = ref_mock.job()
+    job.task_groups[0].count = 4
+
+    def scenario(s, conv):
+        _register(s, conv, nodes)
+        done = s.wait_for_eval(s.job_register(conv(job)).id)
+        assert done is not None and done.status == "complete"
+        allocs = s.state.allocs_by_job("default", job.id)
+        assert all(a.node_id for a in allocs)
+        return sorted(a.node_id for a in allocs)
+
+    assert len(_on_both(scenario)) == 4
+
+
+def test_exhausted_capacity_blocks_then_unblocks():
+    """One small node: the job wants more memory than it has, so one
+    alloc places and a blocked eval waits; a new node unblocks it."""
+    from nomad_tpu import mock as ref_mock
+
+    small, extra = ref_mock.node(), ref_mock.node()
+    job = ref_mock.job()
+    job.task_groups[0].count = 2
+    job.task_groups[0].tasks[0].resources.memory_mb = 6000   # fits once
+
+    def scenario(s, conv):
+        _register(s, conv, [small])
+        done = s.wait_for_eval(s.job_register(conv(job)).id)
+        assert done is not None and done.status == "complete"
+        first = (_live(s, job.id), s.blocked.blocked_count())
+        _register(s, conv, [extra])
+        placed = _until(lambda: len(_live(s, job.id)) == 2
+                        and s.blocked.blocked_count() == 0)
+        return first, placed, _live(s, job.id), s.blocked.blocked_count()
+
+    first, placed, allocs, blocked = _on_both(scenario)
+    assert len(first[0]) == 1 and first[1] == 1
+    assert placed and len(allocs) == 2 and blocked == 0
+
+
+def test_job_deregister_stops_allocs():
+    from nomad_tpu import mock as ref_mock
+
+    nodes = [ref_mock.node() for _ in range(2)]
+    job = ref_mock.job()
+    job.task_groups[0].count = 2
+
+    def scenario(s, conv):
+        _register(s, conv, nodes)
+        assert s.wait_for_eval(s.job_register(conv(job)).id).status \
+            == "complete"
+        placed = sorted(a.node_id for a in s.wait_for_allocs(
+            "default", job.id, 2))
+        ev2 = s.job_deregister("default", job.id)
+        assert s.wait_for_eval(ev2.id).status == "complete"
+        stopped = _until(lambda: not [
+            a for a in s.state.allocs_by_job("default", job.id)
+            if a.desired_status == "run"], timeout=5.0)
+        return placed, stopped
+
+    placed, stopped = _on_both(scenario)
+    assert len(placed) == 2 and stopped
+
+
+def test_system_job_runs_on_new_nodes():
+    from nomad_tpu import mock as ref_mock
+
+    nodes = [ref_mock.node() for _ in range(3)]
+    job = ref_mock.system_job()
+
+    def scenario(s, conv):
+        _register(s, conv, nodes[:2])
+        assert s.wait_for_eval(s.job_register(conv(job)).id).status \
+            == "complete"
+        two = sorted(a.node_id for a in s.wait_for_allocs(
+            "default", job.id, 2))
+        _register(s, conv, nodes[2:])   # the job extends to it
+        three = sorted(a.node_id for a in s.wait_for_allocs(
+            "default", job.id, 3))
+        return two, three
+
+    two, three = _on_both(scenario)
+    assert len(two) == 2
+    assert len(three) == 3 and len(set(three)) == 3
+
+
+def test_broker_serializes_per_job():
+    """Two evals for one job: the second waits until the first acks, and
+    both complete."""
+    from nomad_tpu import mock as ref_mock
+
+    nodes = [ref_mock.node() for _ in range(2)]
+    job = ref_mock.job()
+    job.task_groups[0].count = 1
+
+    def scenario(s, conv):
+        _register(s, conv, nodes)
+        ev1 = s.job_register(conv(job))
+        ev2 = s.job_register(conv(job))
+        d1, d2 = s.wait_for_eval(ev1.id), s.wait_for_eval(ev2.id)
+        assert d1 is not None and d2 is not None
+        return d1.status, d2.status, len(_live(s, job.id))
+
+    assert _on_both(scenario) == ("complete", "complete", 1)

@@ -13,8 +13,10 @@ the ledger's `stack.*` sites: the port's guard counts and forbids
 nothing.
 
 Covered: TestSpecGate, TestSpecChain, TestCertifyMapping,
-TestSpecDispatchParity, TestChainCarryAdoption, TestDeltaLogWrap and
-TestSpecServerE2E of the reference.
+TestSpecDispatchParity, TestChainCarryAdoption, TestDeltaLogWrap,
+TestTimelineSpec (the same dispatch records through both packages'
+`DispatchTimeline`: records and summaries equal) and TestSpecServerE2E
+of the reference.
 """
 import contextlib
 import random
@@ -602,6 +604,97 @@ class TestDeltaLogWrap:
             sm.release_view(cl, 1)
             sm.spec_chain_reset(cl)
         assert details["port"] == details["ref"]
+
+
+# ---- TestTimelineSpec -------------------------------------------------------
+
+
+def _timeline_twin(script):
+    """`script(DispatchTimeline, MetricsRegistry)` through both packages;
+    returns the port's (records, summary), which must equal the
+    reference's."""
+    got = {p.name: script(p.transfer.DispatchTimeline,
+                          p.metrics.MetricsRegistry) for p in BOTH}
+    assert got["port"] == got["ref"]
+    return got["port"]
+
+
+def _commit(tl, pack, kernel_start, programs=1, speculative=False):
+    return tl.commit(programs=programs, batched=True, pack=pack,
+                     view=(pack[1], pack[1] + 0.001),
+                     kernel_start=kernel_start, transfer_bytes=0,
+                     transfer_count=0, speculative=speculative)
+
+
+def _by_seq(tl):
+    return {r["seq"]: {k: v for k, v in r.items()
+                       if k not in ("start_s", "start_unix")}
+            for r in tl.records_after(0)[1]}
+
+
+class TestTimelineSpec:
+    def test_rolled_back_kernel_is_wasted_not_overlap(self):
+        def script(timeline, registry):
+            tl = timeline(registry())
+            s1 = _commit(tl, (0.0, 0.001), 0.002)
+            tl.kernel_end(s1, 0.010)
+            # speculative: host prep hidden under kernel 1
+            s2 = _commit(tl, (0.003, 0.004), 0.005, speculative=True)
+            tl.kernel_end(s2, 0.020)
+            before = _by_seq(tl)[s2]
+            tl.spec_resolve(s2, "rolled_back")
+            after = _by_seq(tl)[s2]
+            # a successor overlapping the wasted kernel: no win either
+            s3 = _commit(tl, (0.006, 0.007), 0.021)
+            tl.kernel_end(s3, 0.025)
+            return before, after, _by_seq(tl)[s3], tl.summary()
+
+        before, after, r3, summ = _timeline_twin(script)
+        assert before["speculative"] and before["overlap_ms"] > 0
+        assert after["spec_outcome"] == "rolled_back"
+        assert after["overlap_ms"] == 0.0   # hiding bought nothing
+        assert r3["overlap_ms"] == 0.0
+        assert summ["spec"] == {"launched": 1, "certified": 0,
+                                "rolled_back": 1,
+                                "wasted_kernel_ms": pytest.approx(15.0)}
+
+    def test_partial_rollback_wastes_only_its_share(self):
+        def script(timeline, registry):
+            tl = timeline(registry())
+            s1 = _commit(tl, (0.0, 0.001), 0.002, programs=4)
+            tl.kernel_end(s1, 0.010)
+            s2 = _commit(tl, (0.003, 0.004), 0.005, programs=4,
+                         speculative=True)
+            tl.kernel_end(s2, 0.025)
+            tl.spec_resolve(s2, "rolled_back", wasted_frac=0.25)
+            return _by_seq(tl)[s2], tl.summary()
+
+        r2, summ = _timeline_twin(script)
+        assert r2["spec_outcome"] == "rolled_back"
+        assert r2["spec_wasted_frac"] == 0.25
+        assert r2["overlap_ms"] > 0   # its certified slices were real
+        assert summ["spec"]["rolled_back"] == 1
+        # a 20 ms kernel, a quarter of it rolled back
+        assert summ["spec"]["wasted_kernel_ms"] == pytest.approx(5.0)
+        assert summ["overlap_ms_total"] > 0
+
+    def test_certified_spec_counts_as_real_overlap(self):
+        def script(timeline, registry):
+            tl = timeline(registry())
+            s1 = _commit(tl, (0.0, 0.001), 0.002)
+            tl.kernel_end(s1, 0.010)
+            s2 = _commit(tl, (0.003, 0.004), 0.005, speculative=True)
+            tl.spec_resolve(s2, "certified")
+            tl.kernel_end(s2, 0.012)
+            return _by_seq(tl)[s2], tl.summary()
+
+        r2, summ = _timeline_twin(script)
+        assert summ["spec"]["certified"] == 1
+        assert summ["spec"]["wasted_kernel_ms"] == 0
+        assert summ["overlap_ms_total"] > 0
+        # no device idle between kernel 1 landing and the queued
+        # speculative kernel: bubble_ms 0
+        assert r2["bubble_ms"] == 0.0
 
 
 # ---- TestSpecServerE2E ------------------------------------------------------

@@ -1,7 +1,9 @@
 """Twins of the reference's `tests/test_tls.py` `TestHttpsAgent` (the
-agent's HTTPS API), run on the port: every agent, server and harness is
-the port's with `device="cpu"`, its HTTP port ephemeral and its data
-under `tmp_path`; the reference's `slow` marks are kept.
+agent's HTTPS API) and `test_hcl_tls_block` (the agent config's `tls`
+block, read by both packages to the same settings), run on the port:
+every agent, server and harness is the port's with `device="cpu"`, its
+HTTP port ephemeral and its data under `tmp_path`; the reference's
+`slow` marks are kept.
 """
 import time
 
@@ -95,3 +97,26 @@ class TestHttpsAgent:
             a.shutdown()
 
 
+
+
+class TestHclTls:
+    def test_hcl_tls_block(self, pki):
+        from nomad_tpu.agent import AgentConfig as RefConfig
+
+        from nomad_tpu_torch.agent import AgentConfig
+
+        hcl = f'''
+        client {{ enabled = true }}
+        tls {{
+          http = true
+          ca_file = "{pki['ca']}"
+          cert_file = "{pki['srv_cert']}"
+          key_file = "{pki['srv_key']}"
+          verify_https_client = false
+        }}
+        '''
+        cfg = AgentConfig.from_hcl(hcl)
+        assert cfg.tls is not None and cfg.tls.enabled
+        assert cfg.tls.ca_file == pki["ca"]
+        assert cfg.tls.verify_incoming is False
+        assert vars(cfg.tls) == vars(RefConfig.from_hcl(hcl).tls)

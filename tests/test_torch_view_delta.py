@@ -10,6 +10,11 @@ move alike in both. One counter is left out of the comparison:
 `view.upload_bytes`, because the reference pads each delta to 32-row
 chunks by repeating a row and the port ships the rows alone.
 
+The single-dispatch carry's twins cover every case of the reference's
+`TestCarryAdoption`: adoption, rejection on an inexact, uncommitted or
+foreign-token window, a stop delta that never commits, a foreign row
+overlaid, and the chain carry's row classification.
+
 Also the port's own rule for writes in place: a view leased to a caller
 is never written; a refresh under a lease writes into copies
 (`view.copy_slots`), and the new view still equals a cold upload.
@@ -319,6 +324,104 @@ class TestCarryAdoption:
         assert tw.moved["port"]["carry_rejects"] == 1
         assert tw.moved["ref"] == tw.moved["port"]
         tw.refresh("other token")
+
+    def test_adoption_happens_and_skips_upload(self):
+        rng = seeded(2)
+        tw = Twin(mini_nodes())
+        jobs = [mixed_job(rng, i) for i in range(3)]
+        ids = [f"ev-{i}" for i in range(3)]
+        self._round(tw, jobs, ids)
+        tw.reset()
+        self._round(tw, jobs, ids, commit=False)
+        assert tw.moved["port"]["carry_adopts"] == 1
+        assert tw.moved["port"]["carry_rows"] > 0
+        assert tw.moved["ref"] == tw.moved["port"]
+
+    def test_uncommitted_placement_rejects_carry(self):
+        """An eval whose plan never committed would leave phantom usage
+        in the carry: its missing window rejects adoption."""
+        rng = seeded(6)
+        tw = Twin(mini_nodes())
+        jobs = [mixed_job(rng, i) for i in range(2)]
+        ids = ["ev-a", "ev-b"]
+        self._round(tw, jobs, ids, skip_evals={"ev-b"})
+        tw.reset()
+        self._round(tw, jobs, ids, commit=False)
+        assert tw.moved["port"]["carry_adopts"] == 0
+        assert tw.moved["ref"] == tw.moved["port"]
+        tw.refresh("uncommitted placement")
+
+    def test_uncommitted_stop_delta_does_not_leak_into_view(self):
+        """A program whose plan-relative stop delta rode the chain but
+        whose plan never commits leaves no phantom release on the view:
+        stop rows always overlay from the host."""
+        from nomad_tpu.structs import Constraint
+
+        rng = seeded(31)
+        tw = Twin(mini_nodes())
+        victim = REF.alloc("node-5", job_id="victim", cpu=500,
+                           memory_mb=256, disk_mb=50)
+        tw.upsert_alloc(victim)
+        commit_job = mixed_job(rng, 1)
+        commit_job.constraints.append(
+            Constraint("${node.unique.id}", "node-5", "!="))
+        doomed_job = mixed_job(rng, 1)
+        doomed_job.task_groups[0].tasks[0].resources.cpu = 10 ** 6
+        jobs, ids = [commit_job, doomed_job], ["ev-commit", "ev-doomed"]
+        adopts = {}
+        for p in BOTH:
+            cl = tw.cl[p.name]
+            plans = {1: p.stack_mod.PlanContext(
+                stopped_allocs=[p.conv(victim)])}
+            _c, res = p.run_round(cl, jobs, eval_ids=ids, plans=plans)
+            assert res[1][0][0] is None, f"{p}: doomed eval placed"
+            p.commit_round(cl, res, ids, skip_evals={"ev-doomed"})
+            adopts0 = p.counter("carry_adopts")
+            p.run_round(cl, jobs, eval_ids=ids, plans=plans)
+            adopts[p.name] = p.counter("carry_adopts") - adopts0
+            assert p.cold_view(cl)["used"][cl.row_of["node-5"], 0] >= 500
+        assert adopts["port"] == adopts["ref"] == 1, \
+            "adoption did not happen: the phantom-release path is untested"
+        tw.refresh("uncommitted stop delta")
+
+    def test_chain_carry_overlay_classification(self):
+        """Row math of the chain carry decision: certified evidence rides
+        verbatim, tail mutations past proven_version are judged against
+        the head token's windows, stops, phantoms and foreign rows always
+        overlay — the same split in both packages."""
+        got = {}
+        for p in BOTH:
+            cl = p.cluster(mini_nodes())
+            p.make_stack(cl).device_arrays()
+            ent = p.cache_entry(cl)
+            prev = ent["arrays"]
+            carry = {
+                "chain": True, "token": 777, "base_arrays": prev,
+                "evals": {"eh"}, "stop_rows": {4},
+                "used": prev.used, "dyn_free": prev.dyn_free,
+                "predicted": {"eh": {5, 6}},
+                "proven_version": cl.version,
+                "stale": {3}, "adopt_rows": {1, 2},
+            }
+            # the tail: the head's own clean+exact commit on row 5, then
+            # a foreign bump on row 7 that no window covers
+            v_lo = cl.version
+            cl._log_hot(5)
+            cl.version += 1
+            cl.mark_plan_window("eh", v_lo, cl.version, clean=True,
+                                exact=True, token=777)
+            cl._log_hot(7)
+            cl.version += 1
+            overlay = p.make_stack(cl)._chain_carry_overlay
+            got[p.name] = (
+                overlay(cl, ent, carry, prev, None),
+                overlay(cl, ent, dict(carry, predicted=None), prev, None),
+                overlay(cl, ent, dict(carry, token=778), prev, None))
+        assert got["port"] == got["ref"]
+        clean, unresolved, phantom = got["port"]
+        assert clean == ({1, 2, 5}, {3, 4, 7})
+        assert unresolved is None
+        assert phantom[0] == {1, 2} and {5, 6} <= phantom[1]
 
     def test_foreign_mutation_overlays_on_top_of_carry(self):
         rng = seeded(8)
