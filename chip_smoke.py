@@ -4441,6 +4441,24 @@ def _leaderships(agent) -> str:
             f"{c.get('raft.leadership_lost', 0)} lost")
 
 
+def _hold_still(agents, what: str) -> set:
+    """Waits until every server has applied the same last index and the
+    index holds still; returns {that state index}."""
+    deadline = time.time() + 60.0
+    while True:
+        idx = {a.state.index.value for a in agents}
+        applied = {a.raft.last_applied for a in agents}
+        if len(idx) == 1 and len(applied) == 1:
+            time.sleep(0.2)
+            if ({a.state.index.value for a in agents} == idx
+                    and {a.raft.last_applied for a in agents} == applied):
+                return idx
+        if time.time() > deadline:
+            raise AssertionError(f"{what}: the servers never caught up "
+                                 f"(indexes {idx}, applied {applied})")
+        time.sleep(0.05)
+
+
 def _region_prints(agents, what: str):
     """Once every server has applied the leader's last index and the
     index holds still, the servers' state and event fingerprints; equal,
@@ -4449,20 +4467,7 @@ def _region_prints(agents, what: str):
     from nomad_tpu_torch.server.fsm import state_fingerprint
 
     for _ in range(5):
-        deadline = time.time() + 60.0
-        while True:
-            idx = {a.state.index.value for a in agents}
-            applied = {a.raft.last_applied for a in agents}
-            if len(idx) == 1 and len(applied) == 1:
-                time.sleep(0.2)
-                if ({a.state.index.value for a in agents} == idx
-                        and {a.raft.last_applied for a in agents}
-                        == applied):
-                    break
-            if time.time() > deadline:
-                raise AssertionError(f"{what}: the servers never caught up "
-                                     f"(indexes {idx}, applied {applied})")
-            time.sleep(0.05)
+        idx = _hold_still(agents, what)
         t0 = time.perf_counter()
         prints = [(state_fingerprint(a.state),
                    events_fingerprint(a.state.event_broker.buffered()))
@@ -4478,6 +4483,57 @@ def _region_prints(agents, what: str):
           f"event fingerprints equal ({time.perf_counter() - t0:.1f} s)")
 
 
+def _counts_everywhere(agents, jobs, what: str) -> None:
+    """Once the servers hold still, every server holds each job's live
+    allocs at exactly its count (a placement made twice, as a new leader
+    over state it had not yet applied once made one, shows here)."""
+    _hold_still(agents, what)
+    live = {}
+    for a in agents:
+        for j in jobs:
+            want = sum(tg.count for tg in j.task_groups)
+            got = sum(1 for x in a.state.allocs_by_job(j.namespace, j.id)
+                      if not x.terminal_status())
+            if got != want:
+                raise AssertionError(f"{what}: {a.config.node_id} holds "
+                                     f"{got} live allocs of job {j.id}, "
+                                     f"its count is {want}")
+            live[a.config.node_id] = live.get(a.config.node_id, 0) + got
+    print(f"{what}: every server holds each of {len(jobs)} jobs at its "
+          "count (" + ", ".join(f"{k} {v} live allocs"
+                                for k, v in live.items()) + ")")
+
+
+def _flap(agents, leader, timeout=60.0):
+    """A leadership flap with no crash: a follower whose log equals the
+    leader's runs an election (`raft._run_election`, as the region's CPU
+    tests nudge one). If a write lands between the check and the vote,
+    the vote is refused and the stepped-down leader, whose log is the
+    longest, runs one and leads again; then the follower is nudged
+    again. Returns (the follower, now leading; nudges)."""
+    follower = next(a for a in agents if a is not leader)
+    deadline = time.time() + timeout
+    nudges = 0
+    while time.time() < deadline:
+        if not (leader.is_leader() and leader.server._running
+                and follower.raft.log.last_index()
+                == leader.raft.log.last_index()):
+            time.sleep(0.005)
+            continue
+        nudges += 1
+        threading.Thread(target=follower.raft._run_election,
+                         daemon=True).start()
+        won = time.time() + 1.5
+        while time.time() < won and not follower.is_leader():
+            time.sleep(0.005)
+        if follower.is_leader():
+            return follower, nudges
+        if not leader.is_leader():
+            leader.raft._run_election()
+    raise AssertionError(f"no follower led within {timeout:.0f} s "
+                         f"({nudges} nudges)")
+
+
 def _phase11_region(torch, kp, kr, device=None, card=""):
     """(b) A three-server region on one device in one process: each
     server's Raft `data_dir` holds one snapshot of N_NODES nodes and
@@ -4485,7 +4541,9 @@ def _phase11_region(torch, kp, kr, device=None, card=""):
     mix submitted through a follower, placed by the leader on the card;
     three equal state and event fingerprints; the leader stopped hard, a
     new one elected, FAILOVER_EVALS evals placed by it on the card; the
-    two survivors' fingerprints equal."""
+    two survivors' fingerprints equal and every job of the phase at its
+    count on both; then a leadership flap with no crash while
+    FAILOVER_EVALS more jobs register, and the counts again."""
     import os
     import shutil
     import types
@@ -4545,8 +4603,12 @@ def _phase11_region(torch, kp, kr, device=None, card=""):
               f"{follower.config.node_id}")
         s = leader.server
 
+        phase_jobs = []
+
         def feed(n):
-            return _mix(srng, n)
+            jobs, dh = _mix(srng, n)
+            phase_jobs.extend(jobs)
+            return jobs, dh
 
         def run(jobs):
             evs = [follower.call("job_register", j) for j in jobs]
@@ -4607,6 +4669,55 @@ def _phase11_region(torch, kp, kr, device=None, card=""):
               f"on {new.server.device} in {t_evals:.2f} s "
               f"({out['failover_evals_per_s']:.2f} evals/s)")
         _region_prints(survivors, "phase 11 (b) after the failover")
+        phase_jobs.extend(jobs)
+        print(f"phase 11 (b) barrier: {new.config.node_id} committed its "
+              f"leadership barrier in {new.last_barrier_ms:.3f} ms before "
+              "its subsystems started")
+        _counts_everywhere(survivors, phase_jobs,
+                           "phase 11 (b) counts after the failover")
+
+        # a nudged flap, no crash, while FAILOVER_EVALS jobs register
+        via = next(a for a in survivors if a is not new)
+        jobs, _dh = _mix(srng, FAILOVER_EVALS)
+        phase_jobs.extend(jobs)
+        evs, errors = [], []
+        quarter = threading.Event()
+
+        def register():
+            try:
+                for i, j in enumerate(jobs):
+                    evs.append(via.call("job_register", j, timeout=60.0))
+                    if i == len(jobs) // 4:
+                        quarter.set()
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+                quarter.set()
+
+        t0 = time.perf_counter()
+        gains0 = sum(a.raft.metrics.counters().get(
+            "raft.leadership_gained", 0) for a in survivors)
+        th = threading.Thread(target=register, daemon=True)
+        th.start()
+        quarter.wait(120.0)
+        at = len(evs)
+        flapped, nudges = _flap(survivors, new)
+        th.join(120.0)
+        if th.is_alive() or errors:
+            raise AssertionError(f"phase 11 (b) flap: registration "
+                                 f"{'hung' if th.is_alive() else errors}")
+        now = _leader(survivors)
+        _wait_evals(now.server, evs)
+        t_flap = time.perf_counter() - t0
+        gains = sum(a.raft.metrics.counters().get(
+            "raft.leadership_gained", 0) for a in survivors) - gains0
+        print(f"phase 11 (b) flap: {flapped.config.node_id} won a nudged "
+              f"election ({nudges} nudges) after {at} of {len(jobs)} "
+              f"registrations through {via.config.node_id}; "
+              f"{now.config.node_id} leads, its barrier "
+              f"{now.last_barrier_ms:.3f} ms; {gains} leadership gains; "
+              f"{len(evs)} evals complete in {t_flap:.2f} s")
+        _counts_everywhere(survivors, phase_jobs,
+                           "phase 11 (b) counts after the flap")
         print("phase 11 (b) leadership: " + ", ".join(
             f"{a.config.node_id} {_leaderships(a)}" for a in agents)
             + f"; election timeout {REGION_ELECTION_TIMEOUT} s")

@@ -275,6 +275,9 @@ class ClusterServer:
         self._leader_enabled = False
         self._server_used = False
         self._leader_lock = threading.Lock()
+        self._closing = threading.Event()
+        #: wall ms of the last leadership gain's barrier, None before one
+        self.last_barrier_ms: Optional[float] = None
         # serf analog: anti-entropy membership + failure detection over
         # the RPC fabric (nomad/serf.go setupSerf; server.go:1363)
         from .autopilot import Autopilot
@@ -307,6 +310,7 @@ class ClusterServer:
         self.membership.start()
 
     def shutdown(self) -> None:
+        self._closing.set()
         self.membership.leave()
         self.autopilot.stop()
         with self._leader_lock:
@@ -366,22 +370,46 @@ class ClusterServer:
     # ---- leadership (leader.go monitorLeadership) ----
 
     def _on_leadership_change(self, is_leader: bool) -> None:
+        if is_leader:
+            self._establish_leadership()
+            return
         with self._leader_lock:
-            if is_leader and not self._leader_enabled:
+            if self._leader_enabled:
+                self._leader_enabled = False
+                self.autopilot.stop()
+                self.server.shutdown()
+
+    def _establish_leadership(self) -> None:
+        """leader.go leaderLoop: commit a barrier, so the FSM holds every
+        entry that earlier terms committed, before the subsystems start
+        over it (establishLeadership: restored evals, heartbeat timers,
+        the periodic dispatcher). The barrier runs outside _leader_lock,
+        so a shutdown never waits on it."""
+        while (self.raft.is_leader() and not self._closing.is_set()
+               and not self.raft._stop.is_set()):
+            t0 = time.perf_counter()
+            try:
+                self.raft.barrier()
+            except NotLeaderError:
+                return  # lost it; the loss is queued behind this call
+            except TimeoutError:
+                continue  # still leader: barrier again (leaderLoop WAIT)
+            self.last_barrier_ms = (time.perf_counter() - t0) * 1e3
+            with self._leader_lock:
+                if (self._leader_enabled or self._closing.is_set()
+                        or not self.raft.is_leader()):
+                    return
                 if self._server_used:
                     # Subsystem threads/brokers are single-shot; regaining
                     # leadership rebuilds them over the same replicated
                     # state (reference re-runs establishLeadership).
                     self.server = self._new_server(self._srv_cfg,
                                                    self.state)
-                self._leader_enabled = True
                 self._server_used = True
                 self.server.start()
+                self._leader_enabled = True
                 self.autopilot.start()
-            elif not is_leader and self._leader_enabled:
-                self._leader_enabled = False
-                self.autopilot.stop()
-                self.server.shutdown()
+            return
 
     def is_leader(self) -> bool:
         return self.raft.is_leader()
@@ -421,12 +449,17 @@ class ClusterServer:
         while True:
             try:
                 if self.is_leader():
-                    return self._invoke_local(method, wire_args)
-                leader = self.raft.leader()
-                leader_addr = (self.peers_snapshot().get(leader)
-                               if leader is not None
-                               and leader != self.config.node_id
-                               else None)
+                    if self._leader_enabled:
+                        return self._invoke_local(method, wire_args)
+                    # won the term, subsystems not up yet (the barrier):
+                    # no leader to serve this, as while one is unknown
+                    leader_addr = None
+                else:
+                    leader = self.raft.leader()
+                    leader_addr = (self.peers_snapshot().get(leader)
+                                   if leader is not None
+                                   and leader != self.config.node_id
+                                   else None)
                 if leader_addr is not None:
                     res = self.pool.call(
                         leader_addr, f"Server.{method}", *wire_args,

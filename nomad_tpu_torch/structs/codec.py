@@ -16,27 +16,32 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import pkgutil
+import threading
 from typing import Any, Dict, Type
 
 _TYPE_TAG = "__t"
+#: the published registry: empty until one build has finished, then the
+#: whole dict, assigned once (a reader never sees a partial build)
 _REGISTRY: Dict[str, Type] = {}
+_REGISTRY_LOCK = threading.Lock()
 
 
-def _build_registry() -> None:
+def _build_registry() -> Dict[str, Type]:
     from .. import structs as pkg
 
+    reg: Dict[str, Type] = {}
     for info in pkgutil.iter_modules(pkg.__path__):
         mod = importlib.import_module(f"{pkg.__name__}.{info.name}")
         for name in dir(mod):
             obj = getattr(mod, name)
             if (isinstance(obj, type) and dataclasses.is_dataclass(obj)
                     and obj.__module__ == mod.__name__):
-                existing = _REGISTRY.get(obj.__name__)
+                existing = reg.get(obj.__name__)
                 if existing is not None and existing is not obj:
                     raise RuntimeError(
                         f"duplicate struct name {obj.__name__} in registry"
                     )
-                _REGISTRY[obj.__name__] = obj
+                reg[obj.__name__] = obj
     # Wire-visible dataclasses living outside the structs package
     from ..acl.policy import HostVolumeRule, NamespaceRule, Policy
     from ..acl.tokens import ACLPolicy, ACLToken
@@ -44,13 +49,21 @@ def _build_registry() -> None:
 
     for cls in (SchedulerConfiguration, ACLPolicy, ACLToken, Policy,
                 NamespaceRule, HostVolumeRule):
-        _REGISTRY[cls.__name__] = cls
+        reg[cls.__name__] = cls
+    return reg
 
 
 def registry() -> Dict[str, Type]:
-    if not _REGISTRY:
-        _build_registry()
-    return _REGISTRY
+    """The struct classes by name. The first call builds them under a
+    lock and publishes the whole dict; later calls take no lock."""
+    global _REGISTRY
+    reg = _REGISTRY
+    if reg:
+        return reg
+    with _REGISTRY_LOCK:
+        if not _REGISTRY:
+            _REGISTRY = _build_registry()
+        return _REGISTRY
 
 
 def to_wire(obj: Any) -> Any:

@@ -97,7 +97,10 @@ REWRITTEN = {
                           "(explain_enabled) as in the reference",
     "server/broker.py": "comments naming the reference's issues",
     "server/cluster.py": "device=, resolved before any socket opens and "
-                         "passed to every Server it builds",
+                         "passed to every Server it builds; a new "
+                         "leader commits a Raft barrier before its "
+                         "subsystems start and serves no call until "
+                         "they are up",
     "server/heartbeat.py": "one deadline heap and one thread for every "
                            "node's TTL, not a timer thread a node",
     "server/plan_apply.py": "comments naming the reference's issues",
@@ -108,7 +111,8 @@ REWRITTEN = {
     "server/worker.py": "schedulers take the server's device",
     "structs/alloc.py": "comments naming the reference's issues",
     "structs/codec.py": "registry of the port's own classes, ACL ones "
-                        "included, by package-relative imports",
+                        "included, by package-relative imports, built "
+                        "whole under a lock and then published",
     "structs/evaluation.py": "comments naming the reference's issues",
     "structs/funcs.py": "a comment pointing at the port's kernel module",
     "structs/plan.py": "comments naming the reference's issues",

@@ -334,3 +334,62 @@ class TestAgainstReference:
                 n.compute_class()
                 got[pkg] = n.computed_class
             assert got[PORT] == got[REF]
+
+
+class TestCodecRegistryBuild:
+    """The codec's registry is built whole before a reader sees it: a
+    decode made while the first build is midway waits for it, where it
+    once read a partial dict and raised `unknown struct type`."""
+
+    def test_decode_during_a_cold_build_does_not_raise(self, monkeypatch):
+        import threading
+        import types
+
+        from nomad_tpu_torch.structs import NodeResources, codec
+
+        tree = codec.to_wire(NodeResources(cpu=1000, memory_mb=512))
+        saved = codec._REGISTRY
+        real = codec.importlib.import_module
+        held, release = threading.Event(), threading.Event()
+        imports = []
+
+        def import_module(name):
+            if threading.current_thread().name == "codec-build":
+                imports.append(name)
+                if len(imports) == 2:   # the first struct module is in
+                    held.set()
+                    release.wait(10.0)
+            return real(name)
+
+        monkeypatch.setattr(codec, "importlib", types.SimpleNamespace(
+            import_module=import_module))
+        errors, got = [], []
+
+        def run(fn):
+            try:
+                got.append(fn())
+            except Exception as e:  # noqa: BLE001 — asserted below
+                errors.append(e)
+
+        builder = threading.Thread(target=run, args=(codec.registry,),
+                                   name="codec-build", daemon=True)
+        reader = threading.Thread(target=run,
+                                  args=(lambda: codec.from_wire(tree),),
+                                  daemon=True)
+        try:
+            codec._REGISTRY = {}
+            builder.start()
+            assert held.wait(10.0)
+            reader.start()
+            reader.join(0.5)
+            release.set()
+            builder.join(10.0)
+            reader.join(10.0)
+            assert not builder.is_alive() and not reader.is_alive()
+            assert errors == []
+            decoded = [g for g in got if isinstance(g, NodeResources)]
+            assert decoded == [NodeResources(cpu=1000, memory_mb=512)]
+        finally:
+            release.set()
+            builder.join(10.0)
+            codec._REGISTRY = saved
